@@ -4,19 +4,36 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (`nvcc`); builds the port's
-kernels from `nsff_pl_tpu_torch/csrc/`, then:
+kernels from `nsff_pl_tpu_torch/csrc/` (one `nvcc` per source, all at
+once), then:
 
-1. kernel phase: every kernel of the serving path against its plain
-   PyTorch version on the same inputs at full width (D=8, W=256, S=128),
-   with the max abs error per output column against `TOL`; times the
-   kernel, the plain version and the bound at the serving chunk shape;
-2. serving phase (the main path): a `RenderService` at the flagship
+1. kernel phase: every kernel against its plain PyTorch version on the
+   same inputs at full width (D=8, W=256, S=128): the serving evaluator
+   at the serving chunk; the train evaluator's forward and both backward
+   branches on the main evaluation and both warped evaluations, and the
+   compositor's forward and adjoint, at batch 512. Prints each output's
+   error, times the kernel and the plain version with CUDA events and
+   computes the bound (operations or bytes) from the shapes;
+2. serving phase (a main path): a `RenderService` at the flagship
    serving configuration (512x288, 30 frames, encode_t, use_viewdir,
    N_samples 128, bfloat16, chunk 32768) with seeded weights answers three
-   `render_pose` calls and one `POST /render` on 127.0.0.1, with every
-   kernel's launch count read around exactly those requests;
-3. agreement: a small frame rendered on the card equals the plain CPU
-   render of the same weights within `TOL`.
+   `render_pose` calls and one `POST /render` on 127.0.0.1, with the
+   launch counts read around exactly those requests;
+3. training phase (a main path): the flagship training recipe (512x288,
+   30 frames, encode_t, use_viewdir, N_samples 128, batch 512, Adam lr
+   5e-4 cosine over 50 epochs, bfloat16) on a synthetic 30 x 147456 x 16
+   ray table on the card, through `FrameScheduler` and `make_train_step`:
+   one warm-up step, then `TRAIN_STEPS` timed steps with the launch
+   counts read around exactly them; then `TRAIN_STEPS` steps on one
+   repeated batch, whose loss must fall;
+4. agreement: a small frame rendered on the card equals the plain CPU
+   render of the same weights within `TOL`; one training step at batch
+   64 on the card equals the plain CPU step from the same state, batch
+   and draws (loss terms and Adam's first moments).
+
+The training phase ends with a torch.profiler trace of 5 more steps
+(device time by kernel, the device's busy share; the full table goes to
+chip_smoke_out/profile_train_step.txt).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -35,10 +52,32 @@ import urllib.request
 # kernel vs plain version: the same bf16 rounding points, f32 sums in
 # another order (measured ~3e-5 at full width)
 TOL = 5e-4
+# train evaluator, kernel vs plain version: per-sample planes show a bf16
+# rounding flip of an activation whole, so planes are held to PLANE_TOL
+# abs with at most PLANE_SHARE of the samples off by more than 1e-5;
+# gradients to GRAD_MAX of each leaf's largest entry and GRAD_FRO in
+# Frobenius norm (such a flip can turn a ReLU mask of one sample)
+PLANE_TOL, PLANE_SHARE = 2e-3, 0.2
+GRAD_MAX, GRAD_FRO = 0.1, 5e-2
+# compositor kernels vs plain versions: the same f32 formulas, scans and
+# transcendentals in another order
+COMP_TOL = 1e-4
+# card training step vs the plain CPU step: loss terms (the depth loss
+# normalizes by the batch median and MAD, which carries a flip to every
+# ray)
+LOSS_RTOL = 2e-3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 CHUNK = 32768
 W_IMG, H_IMG, N_FRAMES = 512, 288, 30
+BATCH = 512
+TRAIN_STEPS = 10
+# kernel launches per training step: train forward (main + two warps),
+# backward static branch (main), backward transient branch (all three),
+# compositor forward and adjoint
+PER_STEP = {"planar_nerf_train_fwd": 3, "planar_nerf_train_bwd_static": 1,
+            "planar_nerf_train_bwd_transient": 3,
+            "planar_compositor_fwd": 1, "planar_compositor_bwd": 1}
 
 
 def fail(msg: str):
@@ -66,15 +105,30 @@ def scene(np):
     return K, poses
 
 
-def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
+def cuda_ms(torch, fn, iters: int, warmup: int = 1,
+            graph: bool = False) -> float:
+    """Mean device ms of fn over iters calls between CUDA events. With
+    `graph`, the calls are captured once in a CUDA graph and replayed, so
+    a kernel shorter than its host-side launch is timed, not the launch
+    rate."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if graph:
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -110,6 +164,512 @@ def eval_comp_work(params, kw, n: int, S: int, pw):
     return flops, in_bytes + w_bytes + n * kw["n_map"] * 4
 
 
+def _mac(params, name):
+    w = params[name]["w"]
+    return w.shape[0] * w.shape[1]
+
+
+def train_fwd_work(params, static_branch: bool, n_flow_out: int, n: int,
+                   S: int, pw, n_out: int, flow_in: bool):
+    """(flops, bytes) of one train-evaluator forward call: model MACs at the
+    unpadded widths (direction terms once per ray), each input and the
+    weights the call reads once, its planes written once."""
+    per_sample = per_ray = 0
+    names = []
+    if static_branch:
+        names += [f"static_xyz_{i}" for i in range(8)] + [
+            "static_xyz_final", "static_dir", "static_sigma", "static_rgb"]
+        per_sample += sum(_mac(params, k) for k in names if k != "static_dir")
+        w = params["static_dir"]["w"]
+        per_sample += 256 * w.shape[1]
+        per_ray += (w.shape[0] - 256) * w.shape[1]
+    tnames = [f"transient_xyz_{i}" for i in range(8)] + ["transient_xyz_final"]
+    per_sample += sum(_mac(params, k) for k in tnames)
+    per_sample += 256 * (4 + 3 * n_flow_out)
+    names += tnames + ["transient_heads"]
+    flops = 2.0 * (per_sample * n * S + per_ray * n)
+    nbytes = n * (3 + 3 + S + 48) * 4 + (3 * n * S * 4 if flow_in else 0)
+    nbytes += n * 27 * 4 if static_branch else 0
+    nbytes += sum(t.numel() * t.element_size() for k in names
+                  for t in pw[k].values())
+    return flops, nbytes + n_out * n * S * 4
+
+
+def train_bwd_work(params, branch: str, n_flow_out: int, n: int, S: int,
+                   pw, flow_in: bool):
+    """(flops, bytes) of one backward branch: the tower recompute, the
+    weight gradient and the data gradient of every layer at the unpadded
+    widths (the static branch has no input gradient), each input, weight
+    and cotangent plane read once, every gradient written once."""
+    if branch == "static":
+        names = [f"static_xyz_{i}" for i in range(8)] + [
+            "static_xyz_final", "static_sigma", "static_rgb"]
+        per_sample = 3 * sum(_mac(params, k) for k in names)
+        # no data gradient into the encoding: layer 0 and the skip input
+        per_sample -= 2 * 63 * 256
+        w = params["static_dir"]["w"]
+        per_sample += 3 * 256 * w.shape[1]
+        per_ray = 2 * (w.shape[0] - 256) * w.shape[1]
+        names.append("static_dir")
+        n_g, extra_in = 4, n * 27 * 4
+        out = sum(_mac(params, k) + params[k]["b"].numel() for k in names)
+        out_bytes = out * 4 + n * 27 * 4
+    else:
+        names = [f"transient_xyz_{i}" for i in range(8)] + [
+            "transient_xyz_final"]
+        per_sample = 3 * (sum(_mac(params, k) for k in names)
+                          + 256 * (4 + 3 * n_flow_out))
+        per_ray = 0
+        n_g = 4 + 3 * n_flow_out
+        extra_in = n * 48 * 4 + (3 * n * S * 4 if flow_in else 0)
+        out = sum(_mac(params, k) + params[k]["b"].numel() for k in names)
+        out_bytes = (out + 257 * (4 + 3 * n_flow_out)) * 4 + n * 48 * 4 + (
+            3 * n * S * 4 if flow_in else 0)
+        names.append("transient_heads")
+    flops = 2.0 * (per_sample * n * S + per_ray * n)
+    nbytes = n * (3 + 3 + S) * 4 + extra_in + n_g * n * S * 4
+    nbytes += sum(t.numel() * t.element_size() for k in names
+                  for t in pw[k].values())
+    return flops, nbytes + out_bytes
+
+
+# f32 operations per sample of the compositor (softplus, exponentials,
+# products and scan steps; counted from csrc/planar_compositor.cu)
+COMP_OPS = {"fwd": 80, "bwd": 200}
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+
+
+def comp_work(which: str, n: int, S: int):
+    planes = 21 + 5 if which == "fwd" else 21 + 5 + 16
+    maps = 16 * n * 4
+    return COMP_OPS[which] * n * S, planes * n * S * 4 + maps
+
+
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def rel_errs(got, want):
+    """(largest |got - want| over the largest |want|, Frobenius ratio)."""
+    scale = max(float(want.abs().max()), 1e-12)
+    fro = float((got - want).norm()) / max(float(want.norm()), 1e-12)
+    return float((got - want).abs().max()) / scale, fro
+
+
+def train_kernel_phase(torch, np, rk, tck, params, rays, card):
+    """The four training kernels against their plain versions at batch
+    512 on the main variant and both warps; returns their kernel records
+    (launches filled in by the training phase)."""
+    from nsff_pl_tpu_torch.ops.posenc import posenc
+    from nsff_pl_tpu_torch.ops.sampling import stratified_zs
+
+    S, n = 128, BATCH
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    o, d = rays[:n, :3].contiguous(), rays[:n, 3:].contiguous()
+    zs = stratified_zs(n, S, 1.0, torch.rand((n, S), generator=gen,
+                                             device="cuda"),
+                       device="cuda")[0].contiguous()
+    de = posenc(d, 3.0, 4).contiguous()
+    t_emb = params["embedding_t"][torch.randint(
+        0, N_FRAMES, (n,), generator=gen, device="cuda")].contiguous()
+    fine = params["nerf_fine"]
+    main_op = rk.make_planar_nerf_train(S, use_viewdir=True,
+                                        output_flow=("fw", "bw"))
+    pw = main_op.pack(fine)
+    # the weight packing runs once per step, for the three evaluations
+    pack_ms = cuda_ms(torch, lambda: main_op.pack(fine), iters=10)
+    print(f"weight packing (once per training step): {pack_ms:.3f} ms on "
+          f"{card}", flush=True)
+    records, planes = {}, {}
+    src = "nsff_pl_tpu_torch/csrc/planar_nerf_train.cu"
+    for label, static_branch, flow_in, flow in (
+            ("main", True, False, ("fw", "bw")),
+            ("fw warp", False, True, ("bw",)),
+            ("bw warp", False, True, ("fw",))):
+        op = rk.make_planar_nerf_train(S, static_branch=static_branch,
+                                       flow_in=flow_in, use_viewdir=True,
+                                       output_flow=flow)
+        flows = tuple((0.05 * torch.randn((n, S), generator=gen,
+                                          device="cuda")).contiguous()
+                      for _ in range(3)) if flow_in else None
+        args = (pw, o, d, zs, flows, de if static_branch else None, None,
+                t_emb)
+        kw = op.kernel_kw
+        got = rk.planar_nerf_train_fwd_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        want = rk.planar_nerf_train_ref(*args, **kw)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"train forward output not finite ({label})")
+        err = (got - want).abs()
+        worst = err.amax((1, 2)).cpu().numpy()
+        share = float((err > 1e-5).float().mean())
+        print(f"kernel planar_nerf_train_fwd [{label}] n={n} S={S}: max abs "
+              f"err per plane {np.array2string(worst, precision=2)}, share "
+              f"> 1e-5 {share:.3f} (tol {PLANE_TOL}, {PLANE_SHARE})",
+              flush=True)
+        if float(worst.max()) > PLANE_TOL or share > PLANE_SHARE:
+            fail(f"planar_nerf_train forward disagrees ({label})")
+        planes[label] = dict(zip(op.out_keys, got))
+        if label == "main":
+            ms = cuda_ms(torch, lambda: rk.planar_nerf_train_fwd_cuda(
+                *args, **kw), iters=10, graph=True)
+            plain_ms = cuda_ms(torch, lambda: rk.planar_nerf_train_ref(
+                *args, **kw), iters=3)
+            flops, nbytes = train_fwd_work(fine, True, 2, n, S, pw,
+                                           len(op.out_keys), False)
+            bms, bby = bound(flops, nbytes)
+            records["planar_nerf_train_fwd"] = {
+                "name": "planar_nerf_train_fwd", "route": "cuda",
+                "source": src,
+                "replaces": "nsff_pl_tpu/ops/raymarch_kernel.py:64",
+                "launches": None, "max_abs_err": float(worst.max()),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": bby, "library_ms": None}
+            print(f"kernel planar_nerf_train_fwd [main] n={n}: {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
+                  f"({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
+        else:
+            rec = records["planar_nerf_train_fwd"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(worst.max()))
+
+        cot = {k: torch.randn((n, S), generator=gen, device="cuda")
+               for k in op.out_keys}
+        bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                                  "flow_scale", "D", "skips")}
+        for branch in (["static"] if static_branch else []) + ["transient"]:
+            got_b = rk.planar_nerf_train_bwd_cuda(branch, *args, cot, **bkw)
+            torch.cuda.synchronize()
+            want_b = rk.planar_nerf_train_bwd_ref(branch, *args, cot, **bkw)
+            pairs = [(f"{k}.{p}", got_b["dws"][k][p], want_b["dws"][k][p])
+                     for k in want_b["dws"] for p in ("w", "b")]
+            pairs += [(k, got_b[k], want_b[k]) for k in ("ddir", "dt")
+                      if k in want_b]
+            pairs += [(f"dflow{c}", got_b["dflows"][c], want_b["dflows"][c])
+                      for c in range(3) if "dflows" in want_b]
+            errs = {}
+            for name, a, b in pairs:
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"train backward {name} not finite ({label})")
+                errs[name] = rel_errs(a, b)
+            w_max = max(errs, key=lambda k: errs[k][0])
+            w_fro = max(errs, key=lambda k: errs[k][1])
+            print(f"kernel planar_nerf_train_bwd_{branch} [{label}]: "
+                  f"{len(errs)} outputs, worst error/max {errs[w_max][0]:.2e} "
+                  f"({w_max}), worst Frobenius {errs[w_fro][1]:.2e} "
+                  f"({w_fro}) (tol {GRAD_MAX}, {GRAD_FRO})", flush=True)
+            if errs[w_max][0] > GRAD_MAX or errs[w_fro][1] > GRAD_FRO:
+                fail(f"planar_nerf_train backward ({branch}, {label}) "
+                     "disagrees with its plain version")
+            name = f"planar_nerf_train_bwd_{branch}"
+            if label == "main":
+                ms = cuda_ms(torch, lambda: rk.planar_nerf_train_bwd_cuda(
+                    branch, *args, cot, **bkw), iters=5, graph=True)
+                plain_ms = cuda_ms(torch, lambda: rk.planar_nerf_train_bwd_ref(
+                    branch, *args, cot, **bkw), iters=2)
+                flops, nbytes = train_bwd_work(fine, branch, 2, n, S, pw,
+                                               False)
+                bms, bby = bound(flops, nbytes)
+                records[name] = {
+                    "name": name, "route": "cuda", "source": src,
+                    "replaces": "nsff_pl_tpu/ops/raymarch_kernel.py:64",
+                    "launches": None, "max_abs_err": errs[w_max][0],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": bby, "library_ms": None}
+                print(f"kernel {name} [main] n={n}: {ms:.3f} ms, plain "
+                      f"{plain_ms:.3f} ms, bound {bms:.3f} ms "
+                      f"({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
+            else:
+                records[name]["max_abs_err"] = max(
+                    records[name]["max_abs_err"], errs[w_max][0])
+        del got, want
+
+    # compositor on the three evaluations' planes
+    main, w1, w2 = planes["main"], planes["fw warp"], planes["bw warp"]
+    ins = {"zs": zs, "ssig": main["ssig"], "tsig": main["tsig"],
+           "tsig_w1": w1["tsig"], "tsig_w2": w2["tsig"]}
+    for k in ("ns", "nt", "nw1", "nw2"):
+        ins[k] = torch.randn((n, S), generator=gen, device="cuda")
+    for c in "rgb":
+        ins[f"srgb_{c}"] = main[f"srgb_{c}"]
+        ins[f"trgb_{c}"] = main[f"trgb_{c}"]
+        ins[f"trgb_w1_{c}"] = w1[f"trgb_{c}"]
+        ins[f"trgb_w2_{c}"] = w2[f"trgb_{c}"]
+    ins = {k: v.contiguous() for k, v in ins.items()}
+    cot = {k: torch.randn((n, S), generator=gen, device="cuda")
+           for k in tck.OUT_KEYS}
+    gmap = torch.randn((n, tck.N_MAP), generator=gen, device="cuda")
+    w, maps = tck.planar_compositor_fwd_cuda(ins)
+    dg = tck.planar_compositor_bwd_cuda(ins, cot, gmap)
+    torch.cuda.synchronize()
+    rw, rmaps = tck.planar_compositor_fwd_ref(ins)
+    rdg = tck.planar_compositor_bwd_ref(ins, cot, gmap)
+    fwd_err = max(float((w - rw).abs().max()),
+                  float((maps - rmaps).abs().max()))
+    bwd_err = max(rel_errs(dg[i], rdg[i])[0] for i in range(len(dg)))
+    print(f"kernel planar_compositor: forward max abs err {fwd_err:.2e}, "
+          f"adjoint worst error/max {bwd_err:.2e} (tol {COMP_TOL})",
+          flush=True)
+    if fwd_err > COMP_TOL or bwd_err > COMP_TOL:
+        fail("planar_compositor disagrees with its plain version")
+    csrc = "nsff_pl_tpu_torch/csrc/planar_compositor.cu"
+    for which, fn, ref, err in (
+            ("fwd", lambda: tck.planar_compositor_fwd_cuda(ins),
+             lambda: tck.planar_compositor_fwd_ref(ins), fwd_err),
+            ("bwd", lambda: tck.planar_compositor_bwd_cuda(ins, cot, gmap),
+             lambda: tck.planar_compositor_bwd_ref(ins, cot, gmap), bwd_err)):
+        ms = cuda_ms(torch, fn, iters=100, graph=True)
+        plain_ms = cuda_ms(torch, ref, iters=10, graph=True)
+        ops, nbytes = comp_work(which, n, S)
+        bms, bby = bound(ops, nbytes, PEAK_F32_FLOPS)
+        name = f"planar_compositor_{which}"
+        records[name] = {
+            "name": name, "route": "cuda", "source": csrc,
+            "replaces": "nsff_pl_tpu/ops/compositing_planar_kernel.py:110",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": None}
+        print(f"kernel {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bms:.4f} ms ({nbytes / 1e6:.2f} MB) on {card}",
+              flush=True)
+    return records
+
+
+def train_scene(torch, np, K, poses):
+    """The synthetic ray table (N_FRAMES, H*W, 16) on the card, in the JAX
+    package's channel layout (rays 0:6, rgb 6:9, t 9, disparity 10, mask
+    11, flow targets 12:14 and 14:16), and the Ks / Ps of the flow loss."""
+    from nsff_pl_tpu_torch.ops import rays as ray_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    hw = H_IMG * W_IMG
+    dirs, uv = ray_ops.get_ray_directions(H_IMG, W_IMG, K, return_uv=True,
+                                          device="cuda")
+    table = torch.empty((N_FRAMES, hw, 16), device="cuda")
+    for i in range(N_FRAMES):
+        ro, rd = ray_ops.get_rays(dirs, poses[i])
+        shift_near = -min(-1.0, float(poses[i][2, 3]))
+        ro, rd = ray_ops.get_ndc_rays(K, 1.0, shift_near, ro, rd)
+        table[i, :, 0:3] = ro
+        table[i, :, 3:6] = rd
+    table[..., 6:9] = torch.rand((N_FRAMES, hw, 3), generator=gen,
+                                 device="cuda")
+    table[..., 9] = torch.arange(N_FRAMES, device="cuda",
+                                 dtype=torch.float32)[:, None]
+    table[..., 10] = torch.rand((N_FRAMES, hw), generator=gen, device="cuda")
+    table[..., 11] = 1.0
+    for c0 in (12, 14):
+        table[..., c0:c0 + 2] = uv + 2.0 * torch.randn(
+            (N_FRAMES, hw, 2), generator=gen, device="cuda")
+    bottom = np.zeros((N_FRAMES, 1, 4))
+    bottom[..., -1] = 1
+    rt = np.linalg.inv(np.concatenate([poses, bottom], 1))[:, :3]
+    rt[:, 1:] *= -1  # "right up back" -> "right down forward"
+    Ps = (K @ rt)[None].astype(np.float32)
+    Ks = K[None].astype(np.float32)
+    return table, torch.from_numpy(Ks).cuda(), torch.from_numpy(Ps).cuda()
+
+
+def launch_counts(rk, tck):
+    return {"planar_eval_comp": rk.planar_eval_comp_cuda.launches,
+            "planar_nerf_train_fwd": rk.planar_nerf_train_fwd_cuda.launches,
+            "planar_nerf_train_bwd_static":
+                rk.planar_nerf_train_bwd_cuda.launches["static"],
+            "planar_nerf_train_bwd_transient":
+                rk.planar_nerf_train_bwd_cuda.launches["transient"],
+            "planar_compositor_fwd": tck.planar_compositor_fwd_cuda.launches,
+            "planar_compositor_bwd": tck.planar_compositor_bwd_cuda.launches}
+
+
+def reset_counts(rk, tck):
+    rk.planar_eval_comp_cuda.launches = 0
+    rk.planar_nerf_train_fwd_cuda.launches = 0
+    rk.planar_nerf_train_bwd_cuda.launches = {"static": 0, "transient": 0}
+    tck.planar_compositor_fwd_cuda.launches = 0
+    tck.planar_compositor_bwd_cuda.launches = 0
+
+
+def train_setup(torch, cfg, params, device, batch):
+    """Optimizer, state and train step of the flagship recipe on `device`."""
+    import dataclasses
+
+    from nsff_pl_tpu_torch.config import loss_config, render_config
+    from nsff_pl_tpu_torch.training.optim import make_optimizer
+    from nsff_pl_tpu_torch.training.step import TrainState, make_train_step
+
+    spe = N_FRAMES * H_IMG * W_IMG // 1000  # the scene's steps per epoch
+    tx = make_optimizer(cfg, spe)
+    rc = render_config(cfg)
+    if device == "cpu":  # the plain versions: the planar path forced on
+        rc = dataclasses.replace(rc, fused_train="on")
+    step = make_train_step(rc, loss_config(cfg), tx, output_transient=True,
+                           output_transient_flow=tuple(
+                               cfg.output_transient_flow),
+                           steps_per_epoch=spe, batch_size=batch,
+                           device=device)
+    return TrainState(params, tx.init(params), 0), step
+
+
+def training_phase(torch, np, cfg, table, Ks, Ps, rk, tck, card):
+    """The main training path: warm-up, TRAIN_STEPS timed steps with the
+    launch counts read around them, then TRAIN_STEPS steps on one repeated
+    batch. Returns the counts."""
+    from nsff_pl_tpu_torch.config import build_params
+    from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
+    from nsff_pl_tpu_torch.training.optim import param_leaves
+
+    params = build_params(cfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+    state, step = train_setup(torch, cfg, params, "cuda", BATCH)
+    batcher = RayBatcher(table, BATCH, device="cuda")
+    sched = FrameScheduler(N_FRAMES, seed=cfg.seed)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    before = [p.detach().clone() for p in param_leaves(state.params)]
+    args = (batcher.table, batcher.weights, Ks, Ps, gen)
+
+    state, m, _ = step(state, *args, sched.next())  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(rk, tck)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    rows = []
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, m, _ = step(state, *args, sched.next())
+        rows.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    dev_ms = start.elapsed_time(end) / TRAIN_STEPS
+    counts = launch_counts(rk, tck)
+    print(f"training: {TRAIN_STEPS} steps at batch {BATCH}, {dev_ms:.3f} ms "
+          f"per step (CUDA events), {host_ms:.3f} ms (host clock) on {card}",
+          flush=True)
+    print("training: launches over the timed steps "
+          + json.dumps({k: v for k, v in counts.items()}), flush=True)
+    for k, per in PER_STEP.items():
+        if counts[k] != per * TRAIN_STEPS:
+            fail(f"{k} launched {counts[k]} times in {TRAIN_STEPS} steps, "
+                 f"expected {per * TRAIN_STEPS}")
+    for i, row in enumerate(rows):
+        vals = {k: float(v) for k, v in row.items()}
+        print(f"training: step {i + 1} " + json.dumps(vals), flush=True)
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"loss terms not finite at step {i + 1}")
+    if all(bool(torch.equal(a, b)) for a, b in
+           zip(before, param_leaves(state.params))):
+        fail("params did not change")
+
+    # one repeated batch and draws: the loss must fall
+    t = sched.next()
+    idx = torch.randint(0, H_IMG * W_IMG, (BATCH,), generator=gen,
+                        device="cuda")
+    draws = {k: (torch.rand if k == "u" else torch.randn)(
+        (BATCH, cfg.N_samples), generator=gen, device="cuda")
+        for k in ("u", "ns", "nt", "nw1", "nw2")}
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, m, _ = step(state, *args, t, idx=idx, draws=draws)
+        losses.append(float(m["loss"]))
+    print("training: loss on one repeated batch "
+          + json.dumps([round(v, 6) for v in losses]), flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f"loss on a repeated batch did not fall: {losses}")
+    profile_steps(torch, step, state, args, sched, card)
+    return counts
+
+
+OUR_KERNELS = ("train_fwd_kernel", "train_bwd_chain_kernel", "dw_kernel",
+               "dw_reduce_kernel", "db_reduce_kernel", "comp_fwd_kernel",
+               "comp_bwd_kernel")
+
+
+def profile_steps(torch, step, state, args, sched, card, n_steps=5):
+    """torch.profiler over n_steps training steps: device time by kernel
+    (the whole table to chip_smoke_out/profile_train_step.txt), the port's
+    kernels against the rest, and the device's busy share of the wall
+    time."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, _, _ = step(state, *args, sched.next())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0.0) or 0.0
+
+    # device-side events only (kernels, copies): the CPU ops above them
+    # carry their kernels' time too
+    kernels = [e for e in avgs if dev_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = sum(dev_us(e) for e in kernels
+               if any(k in e.key for k in OUR_KERNELS)) / 1e3
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    os.makedirs("chip_smoke_out", exist_ok=True)
+    with open("chip_smoke_out/profile_train_step.txt", "w") as f:
+        f.write(avgs.table(sort_by="self_device_time_total", row_limit=80))
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    print(f"profile: {n_steps} steps, wall {wall_ms / n_steps:.3f} ms per "
+          f"step; device busy {total / n_steps:.3f} ms per step "
+          f"({100 * total / wall_ms:.1f}%), of which the port's kernels "
+          f"{ours / n_steps:.3f} ms; {len(kernels)} kernel names on {card}",
+          flush=True)
+    for e in top:
+        print(f"profile: {dev_us(e) / 1e3 / n_steps:9.3f} ms/step "
+              f"{e.count // n_steps:5d} calls/step  {e.key[:90]}", flush=True)
+
+
+def train_agreement(torch, cfg, table, Ks, Ps):
+    """One step at batch 64 on the card and on the CPU (plain versions)
+    from the same state, batch and draws: loss terms within LOSS_RTOL,
+    Adam's first moments (0.1 * the gradients) within GRAD_MAX/GRAD_FRO."""
+    from nsff_pl_tpu_torch.config import build_params
+    from nsff_pl_tpu_torch.training.checkpoint import to_device
+    from nsff_pl_tpu_torch.training.optim import moments
+
+    n = 64
+    params = build_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    t = 11
+    idx = torch.randint(0, H_IMG * W_IMG, (n,), generator=gen)
+    draws = {k: (torch.rand if k == "u" else torch.randn)(
+        (n, cfg.N_samples), generator=gen) for k in ("u", "ns", "nt", "nw1",
+                                                     "nw2")}
+    frame = table[t:t + 1].cpu()  # the frame of this step (channel 9 holds t)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state, step = train_setup(torch, cfg, to_device(params, dev), dev, n)
+        tab = frame.to(dev)
+        _, m, _ = step(state, tab, torch.ones(tab.shape[:2], device=dev),
+                       Ks.to(dev), Ps.to(dev), None, 0,
+                       idx=idx.to(dev), draws={k: v.to(dev)
+                                               for k, v in draws.items()})
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [v.cpu() for v in moments(state.opt_state)["mu"]])
+    (mc, muc), (mp, mup) = out["cuda"], out["cpu"]
+    loss_err = max(abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp
+                   if abs(mp[k]) > 1e-9)
+    grad_errs = [rel_errs(a, b) for a, b in zip(muc, mup)]
+    g_max = max(e[0] for e in grad_errs)
+    g_fro = max(e[1] for e in grad_errs)
+    print(f"agreement: one training step at batch {n}, card vs plain CPU: "
+          f"loss terms worst relative error {loss_err:.2e} (tol "
+          f"{LOSS_RTOL}); gradients worst error/max {g_max:.2e}, worst "
+          f"Frobenius {g_fro:.2e} (tol {GRAD_MAX}, {GRAD_FRO})", flush=True)
+    if loss_err > LOSS_RTOL or g_max > GRAD_MAX or g_fro > GRAD_FRO:
+        fail("the card training step disagrees with the plain CPU step")
+
+
 def main() -> int:
     import torch
 
@@ -121,6 +681,7 @@ def main() -> int:
     from nsff_pl_tpu_torch.apps.serve import RenderService, make_handler
     from nsff_pl_tpu_torch.config import NSFFConfig, build_params
     from nsff_pl_tpu_torch.models.raymarch import _visibility_planes
+    from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
     from nsff_pl_tpu_torch.ops import cuda_build
     from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
     from nsff_pl_tpu_torch.ops.posenc import posenc
@@ -132,9 +693,13 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
 
+    phase_s = {}
     t0 = time.perf_counter()
-    cuda_build.build(["planar_eval_comp"])
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    cuda_build.build(["planar_eval_comp", "planar_nerf_train",
+                      "planar_compositor"])
+    phase_s["build"] = time.perf_counter() - t0
+    print(f"build: {phase_s['build']:.1f} s", flush=True)
+    t_phase = time.perf_counter()
 
     K, poses = scene(np)
     cfg = NSFFConfig(img_wh=(W_IMG, H_IMG), start_end=(0, N_FRAMES),
@@ -205,7 +770,12 @@ def main() -> int:
                                         float(err.max()))
         del want, got
 
-    # ---------------- serving phase (the main path) ----------------
+    train_records = train_kernel_phase(torch, np, rk, tck, params, rays,
+                                       card)
+    phase_s["kernels"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- serving phase (a main path) ----------------
     from http.server import HTTPServer
 
     server = HTTPServer(("127.0.0.1", 0), make_handler(service))
@@ -217,7 +787,7 @@ def main() -> int:
     frame_s = []
     try:
         torch.cuda.synchronize()
-        rk.planar_eval_comp_cuda.launches = 0
+        reset_counts(rk, tck)
         outs = []
         for t, pose in ((0, None), (17, None), (5, c2w.tolist())):
             t0 = time.perf_counter()
@@ -229,7 +799,8 @@ def main() -> int:
         with urllib.request.urlopen(req, timeout=300) as resp:
             status, png = resp.status, resp.read()
         frame_s.append(time.perf_counter() - t0)
-        launches = rk.planar_eval_comp_cuda.launches
+        serve_counts = launch_counts(rk, tck)
+        launches = serve_counts["planar_eval_comp"]
     finally:
         server.shutdown()
         server.server_close()
@@ -257,7 +828,25 @@ def main() -> int:
           + json.dumps([round(s, 6) for s in frame_s])
           + f" on {card}", flush=True)
 
-    # ---------------- agreement on a small frame ----------------
+    phase_s["serving"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- training phase (a main path) ----------------
+    tcfg = NSFFConfig(img_wh=(W_IMG, H_IMG), start_end=(0, N_FRAMES),
+                      use_viewdir=True, encode_t=True, N_samples=128,
+                      batch_size=BATCH, num_epochs=50, lr=5e-4,
+                      lr_scheduler="cosine", dtype="bfloat16")
+    table, Ks, Ps = train_scene(torch, np, K, poses)
+    print(f"training: ray table {tuple(table.shape)} float32 on the card "
+          f"({table.numel() * 4 / 1e6:.1f} MB)", flush=True)
+    train_counts = training_phase(torch, np, tcfg, table, Ks, Ps, rk, tck,
+                                  card)
+    for name, rec in train_records.items():
+        rec["launches"] = train_counts[name]
+    phase_s["training"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- agreement ----------------
     small_wh = (32, 18)
     small = {}
     for dev in ("cuda", "cpu"):
@@ -272,8 +861,13 @@ def main() -> int:
           f"CPU render max abs err {err:.3e} (tol {TOL})", flush=True)
     if err > TOL:
         fail(f"card render disagrees with the plain CPU render: {err}")
+    train_agreement(torch, tcfg, table, Ks, Ps)
+    phase_s["agreement"] = time.perf_counter() - t_phase
+    print("phase seconds " + json.dumps(
+        {k: round(v, 3) for k, v in phase_s.items()}), flush=True)
 
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [record] + list(train_records.values())}),
+          flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

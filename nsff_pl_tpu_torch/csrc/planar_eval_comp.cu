@@ -10,8 +10,9 @@
 //
 // Bound: operations. A sample costs ~1.2 M bf16 MACs across both towers,
 // against ~1 KB of input per ray, so the tensor cores and not memory bound
-// it. Design: one CTA (8 warps) per ray; the ray's 128 samples are the M
-// dimension of every layer. The (128, 128) posenc tile and two (128, 256)
+// it. Design (the tower blocks are shared with the train kernels,
+// planar_tower.cuh): one CTA (8 warps) per ray; the ray's 128 samples are
+// the M dimension of every layer. The (128, 128) posenc tile and two (128, 256)
 // activation tiles stay in shared memory as bf16 (ping-pong), so no
 // activation touches device memory. Weights (segment-padded (in, out) bf16,
 // ~2.6 MB) stream from L2 straight into wmma fragments: each warp owns two
@@ -26,33 +27,12 @@
 // Plain C interface (loaded with ctypes); launches on the given stream and
 // returns the cudaError_t of the launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include "planar_tower.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace planar;
 
 namespace {
 
-constexpr int S = 128;        // samples per ray (rows of every matmul)
-constexpr int SEG = 128;      // padded posenc segment
-constexpr int WID = 256;      // tower width
-constexpr int DEPTH = 8;
-constexpr int SKIP = 4;
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDX = SEG + 8;  // bf16 row pitch of the posenc tile
-constexpr int LDH = WID + 8;  // bf16 row pitch of the activation tiles
-constexpr int MAXF = 16;
-constexpr int NSLOT = 22;
-constexpr int MT = S / 16;    // 16-row tiles per ray
-
-enum {
-  W_S0 = 0, W_SFIN = 8, W_SDIR = 9, W_SSIG = 10, W_SRGB = 11,
-  W_T0 = 12, W_TFIN = 20, W_THEAD = 21
-};
 // per-sample head outputs kept in shared memory, one (S,) plane each
 enum {
   P_SR = 0, P_SG, P_SB, P_SSIG, P_TSIG, P_TR, P_TG, P_TB,
@@ -76,128 +56,6 @@ constexpr size_t SMEM_STAGE = size_t(NWARPS) * 256 * sizeof(float);
 constexpr size_t SMEM_BYTES = SMEM_X + 2 * SMEM_H + SMEM_STAGE
     + WID * sizeof(float) + size_t(NPLANE) * S * sizeof(float)
     + 2 * S * sizeof(float);
-
-__device__ __forceinline__ float sin_poly(float x) {
-  // range reduction to [-pi, pi], then the degree-9 odd polynomial of
-  // ops/raymarch_kernel.py::_sin_poly (hardware __sinf is wrong at |x|~1e3)
-  float n = rintf(__fmul_rn(x, 0.15915494309189535f));
-  float r = __fsub_rn(x, __fmul_rn(n, 6.283185307179586f));
-  float u = r * r;
-  return r * (0.999979402976f + u * (-0.166624406237f + u * (
-      0.00830899340721f + u * (-0.000192651216281f + u * 2.14793467522e-06f))));
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return log1pf(expf(-fabsf(x))) + fmaxf(x, 0.f);
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// out[r][n] = bf16(epilogue(sum_k A1[r][k] W[k][n] + sum_k A2[r][k] W[K1+k][n]
-//                           + bias[n])), r < S, n < WID. A1/A2 in shared
-// memory, W (K1+K2, WID) row-major bf16 in global memory. Warp w computes
-// the column strips 32w..32w+15 and 32w+16..32w+31 for all rows at once.
-__device__ void tower_layer(const bf16* A1, int lda1, int K1,
-                            const bf16* A2, int lda2, int K2,
-                            const bf16* __restrict__ W,
-                            const float* bias, bool relu,
-                            bf16* out, float* stage) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* st = stage + warp * 256;
-  const int n0 = warp * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    wmma::fill_fragment(acc[0][m], 0.f);
-    wmma::fill_fragment(acc[1][m], 0.f);
-  }
-#pragma unroll 1
-  for (int k = 0; k < K1 + K2; k += 16) {
-    const bf16* A = k < K1 ? A1 + k : A2 + (k - K1);
-    const int lda = k < K1 ? lda1 : lda2;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b0, b1;
-    wmma::load_matrix_sync(b0, W + size_t(k) * WID + n0, WID);
-    wmma::load_matrix_sync(b1, W + size_t(k) * WID + n0 + 16, WID);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
-      wmma::load_matrix_sync(afr, A + m * 16 * lda, lda);
-      wmma::mma_sync(acc[0][m], afr, b0, acc[0][m]);
-      wmma::mma_sync(acc[1][m], afr, b1, acc[1][m]);
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      wmma::store_matrix_sync(st, acc[p][m], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, c = e & 15;
-        float v = st[e] + bias[n0 + p * 16 + c];
-        if (relu) v = fmaxf(v, 0.f);
-        out[(m * 16 + r) * LDH + n0 + p * 16 + c] = __float2bfloat16_rn(v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// NOUT-wide head on the (S, WID) bf16 feature tile: res[c][r] =
-// sum_k h[r][k] W[k][c] + b[c]. Warp per row, lanes split k.
-template <int NOUT>
-__device__ void head(const bf16* h, const bf16* __restrict__ W,
-                     const float* __restrict__ b, float* res0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < S; r += NWARPS) {
-    float acc[NOUT];
-#pragma unroll
-    for (int c = 0; c < NOUT; ++c) acc[c] = 0.f;
-#pragma unroll
-    for (int j = 0; j < WID / 32; ++j) {
-      const int k = lane * (WID / 32) + j;
-      const float hv = __bfloat162float(h[r * LDH + k]);
-#pragma unroll
-      for (int c = 0; c < NOUT; ++c)
-        acc[c] += hv * __bfloat162float(W[k * NOUT + c]);
-    }
-#pragma unroll
-    for (int c = 0; c < NOUT; ++c) {
-      const float v = warp_sum(acc[c]);
-      if (lane == 0) res0[c * S + r] = v + b[c];
-    }
-  }
-}
-
-// runs the 8-layer tower on the input tile xin; returns the buffer holding
-// the last ReLU activation (h0 or h1)
-__device__ bf16* tower(const Args& A, int w0, const bf16* xin, bf16* h0,
-                       bf16* h1, float* stage) {
-  bf16* src = h0;
-  bf16* dst = h0;
-  for (int i = 0; i < DEPTH; ++i) {
-    dst = (i % 2 == 0) ? h0 : h1;
-    if (i == 0)
-      tower_layer(xin, LDX, SEG, nullptr, 0, 0, A.W[w0], A.B[w0], true, dst, stage);
-    else if (i == SKIP)
-      tower_layer(xin, LDX, SEG, src, LDH, WID, A.W[w0 + i], A.B[w0 + i], true,
-                  dst, stage);
-    else
-      tower_layer(src, LDH, WID, nullptr, 0, 0, A.W[w0 + i], A.B[w0 + i], true,
-                  dst, stage);
-    __syncthreads();
-    src = dst;
-  }
-  return dst;
-}
 
 template <bool ENCODE_T, bool FLOW>
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -225,62 +83,34 @@ planar_eval_comp_kernel(const Args A) {
 
   // ---- posenc tile (+ time latent lanes for the transient tower; the
   // static tower's padded weight rows there are zero) ----
+  const float od[6] = {o0, o1, o2, d0, d1, d2};
   for (int e = tid; e < S * SEG; e += NTHREADS) {
     const int s = e / SEG, j = e % SEG;
     float v = 0.f;
     if (j < A.xyz_w) {
-      int c;
-      float f, ph = 0.f;
-      bool id = j < 3;
-      if (id) {
-        c = j; f = 1.f;
-      } else {
-        const int k = (j - 3) / 6, r = (j - 3) % 6;
-        c = r % 3; f = A.freqs[k];
-        if (r >= 3) ph = 1.5707963267948966f;
-      }
-      const float oc = c == 0 ? o0 : (c == 1 ? o1 : o2);
-      const float dc = c == 0 ? d0 : (c == 1 ? d1 : d2);
-      const float xs = __fadd_rn(__fmul_rn(oc, f),
-                                 __fmul_rn(__fmul_rn(dc, f), zsh[s]));
-      v = id ? xs : sin_poly(__fadd_rn(xs, ph));
+      v = posenc_val(A.freqs, od, nullptr, zsh[s], j);
     } else if (ENCODE_T && j < A.xyz_w + A.n_tau) {
       v = A.t[size_t(ray) * A.n_tau + (j - A.xyz_w)];
     }
     xin[s * LDX + j] = __float2bfloat16_rn(v);
   }
   // ---- per-ray viewdir/appearance bias of the static_dir layer ----
-  if (A.use_viewdir) {
-    for (int n = tid; n < WID; n += NTHREADS) {
-      const bf16* Wd = A.W[W_SDIR];
-      float z = 0.f;
-      for (int k = 0; k < A.dir_w; ++k)
-        z += __bfloat162float(__float2bfloat16_rn(A.dir[size_t(ray) * A.dir_w + k]))
-             * __bfloat162float(Wd[(WID + k) * WID + n]);
-      z += A.B[W_SDIR][n];
-      if (A.encode_a) {
-        float za = 0.f;
-        for (int k = 0; k < A.n_a; ++k)
-          za += __bfloat162float(__float2bfloat16_rn(A.a[size_t(ray) * A.n_a + k]))
-                * __bfloat162float(Wd[(WID + SEG + k) * WID + n]);
-        z += za;
-      }
-      ray_b[n] = z;
-    }
-  }
+  if (A.use_viewdir)
+    static_dir_bias(A.W[W_SDIR], A.B[W_SDIR], A.dir + size_t(ray) * A.dir_w,
+                    A.dir_w, A.encode_a ? A.a + size_t(ray) * A.n_a : nullptr,
+                    A.n_a, ray_b);
   __syncthreads();
 
   // ---- static tower + heads ----
-  bf16* h = tower(A, W_S0, xin, h0, h1, stage);
+  bf16* h = tower_fwd(A.W, A.B, W_S0, xin, h0, h1, stage, nullptr, 0);
   bf16* other = (h == h0) ? h1 : h0;
   head<1>(h, A.W[W_SSIG], A.B[W_SSIG], planes + P_SSIG * S);
-  tower_layer(h, LDH, WID, nullptr, 0, 0, A.W[W_SFIN], A.B[W_SFIN], false,
-              other, stage);  // static_xyz_final (linear), bf16-rounded
+  dense_fwd(h, A.W[W_SFIN], A.B[W_SFIN], false, other, nullptr,
+            stage);  // static_xyz_final (linear), bf16-rounded
   __syncthreads();
   bf16* feat = other;
   if (A.use_viewdir) {
-    tower_layer(other, LDH, WID, nullptr, 0, 0, A.W[W_SDIR], ray_b, true, h,
-                stage);
+    dense_fwd(other, A.W[W_SDIR], ray_b, true, h, nullptr, stage);
     __syncthreads();
     feat = h;
   }
@@ -292,10 +122,9 @@ planar_eval_comp_kernel(const Args A) {
   // ---- transient tower + packed heads [sigma, rgb(3), fw(3), bw(3)] ----
   if (ENCODE_T) {
     __syncthreads();
-    h = tower(A, W_T0, xin, h0, h1, stage);
+    h = tower_fwd(A.W, A.B, W_T0, xin, h0, h1, stage, nullptr, 0);
     other = (h == h0) ? h1 : h0;
-    tower_layer(h, LDH, WID, nullptr, 0, 0, A.W[W_TFIN], A.B[W_TFIN], false,
-                other, stage);
+    dense_fwd(h, A.W[W_TFIN], A.B[W_TFIN], false, other, nullptr, stage);
     __syncthreads();
     head<FLOW ? 10 : 4>(other, A.W[W_THEAD], A.B[W_THEAD], planes + P_TSIG * S);
     __syncthreads();

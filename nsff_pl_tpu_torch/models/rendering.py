@@ -1,11 +1,11 @@
 """Render configuration and the test-time dispatch of `render_rays` (port
-of the parts of `nsff_pl_tpu/models/rendering.py` the serving path runs).
+of the parts of `nsff_pl_tpu/models/rendering.py` the planar paths run).
 
-Only the planar test-time path is ported: with `planar_eval_decision`
-engaged, `render_rays` hands the rays to
-`models/raymarch.py::render_test_planar`. The reference-shaped packed
-path (the JAX package's XLA and packed-kernel evaluators) and the
-training forward are not ported yet (ROADMAP.md queue A).
+Only the planar paths are ported: with `planar_eval_decision` engaged,
+`render_rays` hands the rays to `models/raymarch.py::render_test_planar`;
+training renders through `models/raymarch.py::render_train_planar`. The
+reference-shaped packed path (the JAX package's XLA and packed-kernel
+evaluators) is not ported yet (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -19,14 +19,17 @@ Z_FAR = 0.95  # flow is zeroed beyond this NDC depth
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """Static rendering configuration (the fields the test-time render
-    reads; names and defaults as in the JAX package)."""
+    """Static rendering configuration (the fields the planar paths read;
+    names and defaults as in the JAX package)."""
     N_samples: int = 128
     N_importance: int = 0
+    perturb: float = 1.0
+    noise_std: float = 1.0
     use_viewdir: bool = False
     encode_a: bool = False
     encode_t: bool = False
     flow_scale: float = 0.2
+    max_t: int = 29  # N_frames - 1
     N_emb_xyz: int = 10
     S_emb_xyz: float = 9.0
     N_emb_dir: int = 4
@@ -35,6 +38,22 @@ class RenderConfig:
     N_a: int = 48
     img_wh: Tuple[int, int] = (512, 288)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    # train backend: 'auto' = the hand-written kernels on a CUDA device
+    # with bfloat16 compute (the JAX package's Pallas backend on a TPU);
+    # 'pallas' forces them (the plain versions on CPU tensors)
+    train_backend: str = "auto"
+    # the fused three-way compositor of the planar train path: 'auto' and
+    # 'on' use it (its plain version on CPU tensors); 'off' (compositing
+    # outside the kernel) is not ported
+    planar_compositing: str = "auto"
+    # planar train path: 'auto' = whenever the train backend is active and
+    # the configuration is in its envelope; 'on' forces it; 'off' (the
+    # packed-boundary path) is not ported
+    fused_train: str = "auto"
+    # warp-evaluation subsampling / importance selection of the planar
+    # train path; only the exact values (1, 0.0) are ported
+    warp_subsample: int = 1
+    warp_importance: float = 0.0
     # planar test-time path: 'auto' = on a CUDA device with bfloat16
     # compute (the JAX package's "TPU + bfloat16"); 'on' forces it (the
     # plain version on CPU tensors)

@@ -1,5 +1,5 @@
 """Volume-rendering compositing primitives (port of the parts of
-`nsff_pl_tpu/ops/compositing.py` the test-time render uses).
+`nsff_pl_tpu/ops/compositing.py` the planar paths use).
 
 NeRF-W additive two-field compositing: with tau = delta * softplus(sigma),
 alpha = 1 - exp(-tau) and the shared transmittance
@@ -15,8 +15,11 @@ TRANSIENT_FAR_DELTA = 1e-3
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """Sigma activation, log1p(exp(-|x|)) + max(x, 0)."""
-    return torch.log1p(torch.exp(-x.abs())) + x.clamp_min(0.0)
+    """Sigma activation, log1p(exp(-|x|)) + max(x, 0), as
+    `logaddexp(x, 0)`: the same values, and autograd gives sigmoid(x)
+    everywhere, as JAX does (the explicit formula's autograd gives 1, not
+    1/2, at x = 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def deltas_from_zs(zs: torch.Tensor):

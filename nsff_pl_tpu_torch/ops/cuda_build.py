@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles with
 `nvcc` alone (no PyTorch headers, so a build takes seconds) into
-`nsff_pl_tpu_torch/_build/lib<name>_<hash>.so`, keyed by the source's
-content hash. `build()` starts one `nvcc` per source, all at once. A
+`nsff_pl_tpu_torch/_build/lib<name>_<hash>.so`, keyed by the content hash
+of the source and the shared headers (`csrc/*.cuh`). `build()` starts one `nvcc` per source, all at once. A
 build failure raises; nothing falls back to a plain version.
 """
 from __future__ import annotations
@@ -34,8 +34,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

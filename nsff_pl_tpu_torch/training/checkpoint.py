@@ -3,8 +3,10 @@
 `params_from_jax` carries a JAX params pytree (given as numpy arrays,
 e.g. `jax.tree.map(np.asarray, params)`) over to port tensors. Both
 packages keep weights in the (in, out) layout, so nothing is
-transposed. `save`/`load` write and read the port's own parameters with
-`torch.save`; reading the JAX package's orbax checkpoints is not ported.
+transposed. `opt_state_from_jax` / `opt_state_to_numpy` carry Adam's
+count and moments across the same way. `save`/`load` write and read the
+port's own parameters with `torch.save`; reading the JAX package's orbax
+checkpoints is not ported.
 """
 from __future__ import annotations
 
@@ -46,3 +48,59 @@ def to_device(params, device):
     """A copy of the params dict on `device`."""
     dev = resolve_device(device)
     return _map(params, lambda t: t.to(dev))
+
+
+def _adam_state(tree):
+    """(count, mu, nu) of the first node of a (numpy) optax state tree
+    with Adam's `count`, `mu` and `nu` (also `opt_state_to_numpy`'s dict)."""
+    if isinstance(tree, dict) and {"count", "mu", "nu"} <= set(tree):
+        return tree["count"], tree["mu"], tree["nu"]
+    if hasattr(tree, "mu") and hasattr(tree, "nu"):
+        return tree.count, tree.mu, tree.nu
+    for sub in (tree.values() if isinstance(tree, dict) else
+                tree if isinstance(tree, (tuple, list)) else ()):
+        found = _adam_state(sub)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_state_from_jax(np_opt_state, opt: torch.optim.Adam, params):
+    """Load the Adam count and moments of an optax `adam` state (as
+    numpy, e.g. `jax.tree.map(np.asarray, opt_state)`) into the
+    `torch.optim.Adam` that `optim.Adam.init(params)` made."""
+    from nsff_pl_tpu_torch.training.optim import param_leaves
+
+    st = _adam_state(np_opt_state)
+    if st is None:
+        raise ValueError("no Adam state (count, mu, nu) in the given tree")
+    count, mu, nu = st[0], param_leaves(st[1]), param_leaves(st[2])
+    leaves = param_leaves(params)
+    if len(mu) != len(leaves):
+        raise ValueError(f"{len(mu)} moments for {len(leaves)} parameters")
+    for p, m, v in zip(leaves, mu, nu):
+        opt.state[p] = {
+            "step": torch.tensor(float(np.asarray(count))),
+            "exp_avg": torch.as_tensor(np.asarray(m), dtype=p.dtype).to(
+                p.device).reshape(p.shape),
+            "exp_avg_sq": torch.as_tensor(np.asarray(v), dtype=p.dtype).to(
+                p.device).reshape(p.shape)}
+
+
+def opt_state_to_numpy(opt: torch.optim.Adam, params):
+    """Adam's count and moments as {"count", "mu", "nu"}, the moments
+    nested like `params`, as numpy."""
+    from nsff_pl_tpu_torch.training.optim import moments
+
+    m = moments(opt)
+    it_mu, it_nu = iter(m["mu"]), iter(m["nu"])
+
+    def rebuild(tree, it):
+        if isinstance(tree, dict):
+            return {k: rebuild(tree[k], it) for k in sorted(tree)}
+        v = next(it)
+        return (v.detach().cpu().numpy() if v is not None
+                else np.zeros(tuple(tree.shape), np.float32))
+
+    return {"count": m["count"], "mu": rebuild(params, it_mu),
+            "nu": rebuild(params, it_nu)}

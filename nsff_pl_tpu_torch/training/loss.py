@@ -1,0 +1,212 @@
+"""The NSFF loss suite on the planar layout (port of the exact branch of
+`nsff_pl_tpu/training/loss.py::compute_losses_planar`).
+
+Eight terms with epoch schedules: lambda_geo = lambda_geo_init *
+0.1**(epoch // 10) for the depth and flow terms, lambda_reg = 0.1,
+lambda_ent = 1e-3, and a cross-entropy weight ramping 0 -> lambda_ent / 5
+over 10 epochs. Batch-global statistics (median and mean absolute
+deviation of the depth loss, the disocclusion means, top-k) are taken
+over the whole batch. Per-sample vectors arrive as 3-tuples of dense
+(N, S) component planes.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+from nsff_pl_tpu_torch.ops import rays as ray_ops
+
+Z_FAR = 0.95
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    lambda_geo_init: float = 0.04
+    lambda_reg: float = 0.1
+    lambda_ent: float = 1e-3
+    thickness: int = 1
+    topk: float = 1.0
+    max_t: int = 29  # N_frames - 1
+
+
+def median(x: torch.Tensor) -> torch.Tensor:
+    """Median of a 1-D tensor as `jnp.median` takes it: the mean of the
+    two middle values for an even count (`torch.median` returns the lower
+    one), with the gradient split between them."""
+    s = torch.sort(x).values
+    n = s.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def shiftscale_invariant_depthloss(depth, disp):
+    """Median/MAD-normalized depth loss; depth (N,) NDC depth, disp (N,)
+    image-space disparity, statistics over the whole batch."""
+    t_pred = median(depth)
+    s_pred = (depth - t_pred).abs().mean()
+    t_gt = median(-disp)
+    s_gt = (-disp - t_gt).abs().mean()
+    pred_n = (depth - t_pred) / s_pred
+    gt_n = (-disp - t_gt) / s_gt
+    return (pred_n - gt_n) ** 2
+
+
+def _dilate_along_samples(w, thickness: int):
+    """Dilate (N, S) weights with a length-`thickness` ones window along
+    the sample axis, zero padding: front (t-1)//2, rear t//2."""
+    t = max(thickness, 1)
+    if t == 1:
+        return w
+    pad_l = (t - 1) // 2
+    wp = torch.nn.functional.pad(w, (pad_l, t - 1 - pad_l))
+    return sum(wp[:, i:i + w.shape[1]] for i in range(t))
+
+
+def _masked_mean(x, mask, dim=None):
+    """Mean of x over elements where mask, 0 if mask is empty."""
+    if dim is None:
+        return (x * mask).sum() / torch.clamp((mask).sum(), min=1.0)
+    return (x * mask).sum(dim) / torch.clamp(mask.sum(dim), min=1.0)
+
+
+def _flow_uv_terms(ret, masks, xyz_fw, xyz_bw, batch, cfg, lambda_geo,
+                   Ks, Ps):
+    """2D flow-consistency terms: project the composited flowed points
+    with the t+-1 camera matrices and L1 against the flow targets, as
+    masked means over the valid rays."""
+    cam_ids = batch["cam_ids"]
+    ts = batch["ts"]
+    Ks_r = Ks[cam_ids]  # (N, 3, 3)
+    xyz_fw_w = ray_ops.ndc2world(xyz_fw, Ks_r)
+    xyz_bw_w = ray_ops.ndc2world(xyz_bw, Ks_r)
+
+    def project(xyz_w, ts_p):
+        P = Ps[cam_ids, ts_p]  # (N, 3, 4)
+        uvd = (P[:, :, :3] * xyz_w[:, None, :]).sum(-1) + P[:, :, 3]
+        return uvd, uvd[:, :2] / (uvd[:, 2:].abs() + 1e-8)
+
+    uvd_fw, uv_fw = project(xyz_fw_w, torch.clamp(ts + 1, max=cfg.max_t))
+    uvd_bw, uv_bw = project(xyz_bw_w, torch.clamp(ts - 1, min=0))
+    valid_fw = ((uvd_fw[:, 2] > 0) & (ts < cfg.max_t)).float()
+    valid_bw = ((uvd_bw[:, 2] > 0) & (ts > 0)).float()
+    ret["flow_fw_l"] = (lambda_geo / 2) * (uv_fw - batch["uv_fw"]).abs().mean(-1)
+    masks["flow_fw_l"] = valid_fw
+    ret["flow_bw_l"] = (lambda_geo / 2) * (uv_bw - batch["uv_bw"]).abs().mean(-1)
+    masks["flow_bw_l"] = valid_bw
+    return Ks_r
+
+
+def _finalize_terms(ret, masks, weights, cfg):
+    """Optional per-ray priority weights, optional top-k hard mining,
+    then the mean of each term."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, per_ray in ret.items():
+        if weights is not None:
+            per_ray = per_ray * weights
+        mask = masks.get(k)
+        if cfg.topk < 1.0:
+            num_hard = max(int(cfg.topk * per_ray.shape[0]), 1)
+            if mask is not None:
+                per_ray = torch.where(mask > 0, per_ray,
+                                      torch.full_like(per_ray, -torch.inf))
+            vals = torch.topk(per_ray, num_hard).values
+            finite = torch.isfinite(vals)
+            out[k] = _masked_mean(torch.where(finite, vals, 0.0),
+                                  finite.float())
+        elif mask is not None:
+            out[k] = _masked_mean(per_ray, mask)
+        else:
+            out[k] = per_ray.mean()
+    return out
+
+
+def compute_losses_planar(
+    results: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    cfg: LossConfig,
+    *,
+    epoch,
+    Ks: torch.Tensor,
+    Ps: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """All loss terms as scalars (sum them with `total_loss`), for the
+    result dict of `models/raymarch.py::render_train_planar`."""
+    epoch = torch.as_tensor(epoch, dtype=torch.float32)
+    lambda_geo = cfg.lambda_geo_init * 0.1 ** torch.floor(epoch / 10.0)
+    lambda_geo = lambda_geo.to(results["rgb_fine"].device)
+
+    ret: Dict[str, torch.Tensor] = {}
+    masks: Dict[str, torch.Tensor] = {}
+    rgbs = batch["rgbs"]
+    ret["col_l"] = ((results["rgb_fine"] - rgbs) ** 2).mean(-1)
+    ret["disp_l"] = lambda_geo * shiftscale_invariant_depthloss(
+        results["depth_fine"], batch["disps"])
+
+    tw = results["transient_weights"]  # (N, S)
+    ret["entropy_l"] = cfg.lambda_ent * (-tw * torch.log(tw + 1e-8)).sum(-1)
+    cross_entropy_w = cfg.lambda_ent / 5 * torch.clamp(epoch / 10.0, max=1.0)
+    tr_w = _dilate_along_samples(tw.detach(), cfg.thickness)
+    ret["cross_entropy_l"] = cross_entropy_w.to(tw.device) * (
+        tr_w * torch.log(results["static_weights"] + 1e-8)).sum(-1)
+
+    Ks_r = _flow_uv_terms(ret, masks, results["xyz_fw"], results["xyz_bw"],
+                          batch, cfg, lambda_geo, Ks, Ps)
+
+    S = tw.shape[1]
+    # photometric warping loss, normalized by the batch-mean disocclusion
+    pho_l = (results["disocc_fw"] * (results["rgb_fw"] - rgbs) ** 2
+             / results["disocc_fw"].mean())
+    pho_l = pho_l + (results["disocc_bw"] * (results["rgb_bw"] - rgbs) ** 2
+                     / results["disocc_bw"].mean())
+    ret["pho_l"] = pho_l.mean(-1)
+    # cycle consistency: mean over (S, 3) of disoccs * |xyz_fw_bw - xyz|
+    cyc_abs_fw = sum((a - b).abs() for a, b in zip(results["xyzs_fw_bw"],
+                                                   results["xyzs"]))
+    cyc_abs_bw = sum((a - b).abs() for a, b in zip(results["xyzs_bw_fw"],
+                                                   results["xyzs"]))
+    cyc_l = (results["disoccs_fw"] * cyc_abs_fw / results["disoccs_fw"].mean()
+             + results["disoccs_bw"] * cyc_abs_bw
+             / results["disoccs_bw"].mean())
+    ret["cyc_l"] = cyc_l.sum(-1) / (3 * S)
+
+    # the static slice: samples below z_far, as reduction masks
+    n_near = int(S * Z_FAR)
+    col = torch.arange(S, device=tw.device)
+    m_near = (col < n_near).float()[None]
+    m_diff = (col < n_near - 1).float()[None]
+
+    def ndc2world_planes(planes):
+        fx, fy = Ks_r[:, 0:1, 0], Ks_r[:, 1:2, 1]
+        cx, cy = Ks_r[:, 0:1, 2], Ks_r[:, 1:2, 2]
+        x, y, z = planes
+        rz = 2.0 / (z - 1 - 1e-6)
+        return (-rz * x * cx / fx, -rz * y * cy / fy, rz)
+
+    xyzs_w = ndc2world_planes(results["xyzs"])
+    xyzs_fw_w = ndc2world_planes(results["xyzs_fw"])
+    xyzs_bw_w = ndc2world_planes(results["xyzs_bw"])
+
+    ret["reg_temp_sm_l"] = cfg.lambda_reg * sum(
+        ((f + b - 2 * x).abs() * m_near).sum(-1)
+        for f, b, x in zip(xyzs_fw_w, xyzs_bw_w, xyzs_w)) / (3 * n_near)
+    ret["reg_min_l"] = cfg.lambda_reg * sum(
+        (((f - x).abs() + (b - x).abs()) * m_near).sum(-1)
+        for f, b, x in zip(xyzs_fw_w, xyzs_bw_w, xyzs_w)) / (3 * n_near)
+
+    def adiff(p):  # adiff(p)[:, s] = p[:, s+1] - p[:, s]; 0 at s = S-1
+        return torch.cat([p[:, 1:] - p[:, :-1], torch.zeros_like(p[:, :1])],
+                         -1)
+
+    dist = torch.sqrt(sum(adiff(x) ** 2 for x in xyzs_w) + 1e-20)
+    sp_w = torch.exp(-2 * dist) * m_diff
+    ret["reg_sp_sm_l"] = cfg.lambda_reg * sum(
+        (((adiff(f - x)).abs() + (adiff(b - x)).abs()) * sp_w).sum(-1)
+        for f, b, x in zip(xyzs_fw_w, xyzs_bw_w, xyzs_w)) / (3 * (n_near - 1))
+    return _finalize_terms(ret, masks, weights, cfg)
+
+
+def total_loss(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Sum of all terms."""
+    return sum(loss_dict.values())

@@ -1,18 +1,23 @@
-"""Chunked full-image rendering (port of `make_render_fn` and
-`render_full_image` from `nsff_pl_tpu/training/step.py`).
+"""The training step and chunked full-image rendering (port of
+`nsff_pl_tpu/training/step.py`).
 
-PyTorch runs eagerly, so `make_render_fn` returns a plain function under
-`torch.inference_mode()` where the JAX package returned a jitted one.
+`make_train_step` builds one training step: device-side batch gather ->
+planar render with scene-flow warping -> eight-term loss -> backward ->
+Adam update. PyTorch runs eagerly, so the step is a plain function where
+the JAX package returned a jitted one; its `scan_steps > 1` (several
+steps in one dispatch) has no counterpart yet: a CUDA graph of the step
+is later work (ROADMAP.md).
+
+`make_render_fn` returns a plain function under `torch.inference_mode()`.
 `render_full_image` is the host chunk loop; it pads the last chunk to the
 full chunk size by repeating the last ray, as the JAX loop does, so every
-chunk has one shape. The JAX package's `scan_chunks` (the whole loop in
-one dispatch) and its `rng` argument have no counterpart: the test-time
-render makes no random draws, and a CUDA graph of the chunk loop is later
-work (ROADMAP.md).
+chunk has one shape. The JAX package's `scan_chunks` and the render's
+`rng` argument have no counterpart: the test-time render makes no random
+draws, and a CUDA graph of the chunk loop is later work.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -20,15 +25,119 @@ from nsff_pl_tpu_torch import resolve_device
 from nsff_pl_tpu_torch.models.rendering import RenderConfig, render_rays
 
 
+class TrainState(NamedTuple):
+    params: Any  # {'nerf_fine', 'embedding_a'?, 'embedding_t'?}
+    opt_state: Any  # torch.optim.Adam over `optim.param_leaves(params)`
+    step: int
+
+
 def _split_params(params):
     """Model params dict -> (models dict, embeddings dict)."""
     models = {"fine": params["nerf_fine"]}
+    if "nerf_coarse" in params:
+        models["coarse"] = params["nerf_coarse"]
     embeddings = {}
     if "embedding_a" in params:
         embeddings["a"] = params["embedding_a"]
     if "embedding_t" in params:
         embeddings["t"] = params["embedding_t"]
     return models, embeddings
+
+
+def make_train_step(
+    render_cfg: RenderConfig,
+    loss_cfg,
+    tx,
+    *,
+    output_transient: bool,
+    output_transient_flow: Tuple[str, ...],
+    steps_per_epoch: int,
+    batch_size: int,
+    hard_sampling: bool = False,
+    scan_steps: int = 1,
+    device="cuda",
+):
+    """Build the train step on `device`:
+
+        train_step(state, table, weights, Ks, Ps, generator, t, *,
+                   idx=None, batch_u=None, draws=None)
+            -> (state, metrics, aux)
+
+    `table` is the device-resident ray table, `weights` the hard-sampling
+    distribution, `t` the scheduler's frame; random draws come from the
+    device `generator` unless given: `idx` (uniform pixel indices),
+    `batch_u` (hard-sampling uniforms), `draws` (the renderer's, see
+    `render_train_planar`). The params are updated in place and returned
+    in the new state; metrics hold the per-term losses, `loss` and
+    `psnr` (device scalars), aux the rendered rgb, the ray ids and t.
+
+    The planar path is taken as the JAX package decides: when the
+    configuration is in its envelope and `fused_train` is 'on', or 'auto'
+    with the kernel backend active (`train_backend` 'pallas', or 'auto'
+    on a CUDA device with bfloat16 compute). 'on' outside the envelope
+    raises; the packed-boundary path is not ported."""
+    from nsff_pl_tpu_torch.data.pipeline import _sample_batch
+    from nsff_pl_tpu_torch.models.raymarch import (
+        check_train_envelope, planar_unapplicable_reasons,
+        render_train_planar)
+    from nsff_pl_tpu_torch.training.loss import (compute_losses_planar,
+                                                 total_loss)
+
+    dev = resolve_device(device)
+    if scan_steps != 1:
+        raise NotImplementedError(
+            "scan_steps > 1 has no counterpart yet (ROADMAP.md queue A, "
+            "'CUDA graph of the train step')")
+    if render_cfg.fused_train not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused_train {render_cfg.fused_train!r}")
+    tb = render_cfg.train_backend
+    kernels_active = (tb == "pallas"
+                      or (tb == "auto" and dev.type == "cuda"
+                          and render_cfg.compute_dtype == "bfloat16"))
+    reasons = planar_unapplicable_reasons(render_cfg, output_transient,
+                                          output_transient_flow)
+    if reasons and render_cfg.fused_train == "on":
+        raise ValueError(f"fused_train='on' but the planar fused train path "
+                         f"is unavailable ({'; '.join(reasons)})")
+    use_planar = not reasons and (render_cfg.fused_train == "on" or (
+        render_cfg.fused_train == "auto" and kernels_active))
+    if not use_planar:
+        why = "; ".join(reasons) or (
+            f"fused_train={render_cfg.fused_train!r}, train_backend={tb!r}, "
+            f"device {dev.type}, compute_dtype {render_cfg.compute_dtype!r}")
+        raise NotImplementedError(
+            "the packed-boundary train path is not ported yet (ROADMAP.md "
+            f"queue A, items 3 and 14); the planar path does not run: {why}")
+    check_train_envelope(render_cfg)
+
+    def train_step(state: TrainState, table, weights, Ks, Ps, generator, t,
+                   *, idx=None, batch_u=None, draws=None):
+        batch = _sample_batch(table, weights, t, batch_size, hard_sampling,
+                              generator=generator, idx=idx, u=batch_u)
+        epoch = state.step // steps_per_epoch
+        models, embeddings = _split_params(state.params)
+        results = render_train_planar(
+            models["fine"], embeddings, batch["rays"], batch["ts"],
+            render_cfg, generator=generator, draws=draws)
+        loss_d = compute_losses_planar(results, batch, loss_cfg,
+                                       epoch=epoch, Ks=Ks, Ps=Ps)
+        loss = total_loss(loss_d)
+        opt = state.opt_state
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        tx.step(opt, state.step)
+
+        with torch.no_grad():
+            mse = ((results["rgb_fine"] - batch["rgbs"]) ** 2).mean()
+            metrics = {k: v.detach() for k, v in loss_d.items()}
+            metrics["loss"] = loss.detach()
+            metrics["psnr"] = -10.0 * torch.log10(mse)
+        aux = {"rgb_fine": results["rgb_fine"].detach(),
+               "rand_idx": batch["rand_idx"], "t": t}
+        return TrainState(state.params, opt, state.step + 1), metrics, aux
+
+    train_step.device = dev
+    return train_step
 
 
 def make_render_fn(

@@ -46,3 +46,121 @@ def test_cuda_kernel_matches_plain(encode_t, flow, vis_in):
     assert trk.planar_eval_comp_cuda.launches == before + 1
     want = trk.planar_eval_comp_ref(*args, **fn.kernel_kw)
     torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
+
+
+def _train_inputs(n, flow_in, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    o = torch.rand(n, 3, generator=g) * 2 - 1
+    o[:, 2] = -1
+    d = (torch.rand(n, 3, generator=g) - 0.5) * 0.4
+    d[:, 2] = 2
+    zs = torch.sort(torch.rand(n, 128, generator=g), 1).values
+    flows = tuple(0.05 * torch.randn(n, 128, generator=g) for _ in range(3)) \
+        if flow_in else None
+    dirs = torch.rand(n, 27, generator=g) * 2 - 1
+    t = torch.randn(n, 48, generator=g)
+    cuda = lambda x: x.cuda().contiguous()  # noqa: E731
+    return (cuda(o), cuda(d), cuda(zs),
+            tuple(cuda(f) for f in flows) if flow_in else None,
+            cuda(dirs), cuda(t), g)
+
+
+# (static_branch, flow_in, output_flow): main, fw warp, bw warp
+TRAIN_VARIANTS = {"main": (True, False, ("fw", "bw")),
+                  "fw_warp": (False, True, ("bw",)),
+                  "bw_warp": (False, True, ("fw",))}
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(TRAIN_VARIANTS))
+def test_train_kernels_match_plain(variant):
+    """planar_nerf_train forward and both backward branches at S=128, 8x256
+    towers, N_tau=48, an odd ray count. Forward planes: at most 2e-3 abs
+    and at most a fifth of the samples off by more than 1e-5 (a per-sample
+    plane shows a bf16 rounding flip of an activation whole); gradients:
+    every leaf within 0.1 of its largest entry and 5e-2 in Frobenius norm
+    (such a flip can turn a ReLU mask), as in chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.models import nerf as tn
+
+    static_branch, flow_in, output_flow = TRAIN_VARIANTS[variant]
+    params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
+                                 use_viewdir=True, encode_transient=True,
+                                 output_flow=True, device="cuda")
+    n = 37
+    o, d, zs, flows, dirs, t, g = _train_inputs(n, flow_in)
+    fn = trk.make_planar_nerf_train(128, static_branch=static_branch,
+                                    flow_in=flow_in, use_viewdir=True,
+                                    output_flow=output_flow)
+    pw = fn.pack(params)
+    kw = fn.kernel_kw
+    de = dirs if static_branch else None
+    before = trk.planar_nerf_train_fwd_cuda.launches
+    got = trk.planar_nerf_train_fwd(pw, o, d, zs, flows, de, None, t, **kw)
+    torch.cuda.synchronize()
+    assert trk.planar_nerf_train_fwd_cuda.launches == before + 1
+    want = trk.planar_nerf_train_ref(pw, o, d, zs, flows, de, None, t, **kw)
+    err = (got - want).abs()
+    assert float(err.max()) <= 2e-3
+    assert float((err > 1e-5).float().mean()) <= 0.2
+
+    cot = {k: torch.randn(n, 128, generator=g).cuda() for k in fn.out_keys}
+    bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                              "flow_scale", "D", "skips")}
+    for branch in (["static"] if static_branch else []) + ["transient"]:
+        b0 = trk.planar_nerf_train_bwd_cuda.launches[branch]
+        got = trk.planar_nerf_train_bwd(branch, pw, o, d, zs, flows, de,
+                                        None, t, cot, **bkw)
+        torch.cuda.synchronize()
+        assert trk.planar_nerf_train_bwd_cuda.launches[branch] == b0 + 1
+        want = trk.planar_nerf_train_bwd_ref(branch, pw, o, d, zs, flows,
+                                             de, None, t, cot, **bkw)
+        pairs = [(f"{k}.{p}", got["dws"][k][p], want["dws"][k][p])
+                 for k in want["dws"] for p in ("w", "b")]
+        pairs += [(k, got[k], want[k]) for k in ("ddir", "dt") if k in want]
+        if "dflows" in want:
+            pairs += [(f"dflow{c}", got["dflows"][c], want["dflows"][c])
+                      for c in range(3)]
+        for name, a, b in pairs:
+            assert bool(torch.isfinite(a).all()), name
+            assert _rel_err(a, b) <= 0.1, (name, _rel_err(a, b))
+            assert float((a - b).norm()) <= 5e-2 * float(b.norm()) + 1e-12, \
+                name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 512])
+def test_compositor_kernels_match_plain(n):
+    """planar_compositor forward (1e-5 abs) and adjoint (1e-4 of each
+    plane's largest cotangent: the same f32 formulas, scans and
+    transcendentals in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
+
+    g = torch.Generator().manual_seed(n)
+    ins = {"zs": torch.sort(torch.rand(n, 128, generator=g), 1).values}
+    for k in tck.IN_KEYS[1:9]:
+        ins[k] = torch.randn(n, 128, generator=g) * 2
+    for k in tck.IN_KEYS[9:]:
+        ins[k] = torch.rand(n, 128, generator=g)
+    ins = {k: v.cuda() for k, v in ins.items()}
+    cot = {k: torch.randn(n, 128, generator=g).cuda() for k in tck.OUT_KEYS}
+    gmap = torch.randn(n, tck.N_MAP, generator=g).cuda()
+    f0 = tck.planar_compositor_fwd_cuda.launches
+    w, maps = tck.planar_compositor_fwd(ins)
+    d = tck.planar_compositor_bwd(ins, cot, gmap)
+    torch.cuda.synchronize()
+    assert tck.planar_compositor_fwd_cuda.launches == f0 + 1
+    rw, rmaps = tck.planar_compositor_fwd_ref(ins)
+    rd = tck.planar_compositor_bwd_ref(ins, cot, gmap)
+    torch.testing.assert_close(w, rw, atol=1e-5, rtol=0)
+    torch.testing.assert_close(maps, rmaps, atol=1e-5, rtol=0)
+    for i, k in enumerate(tck.GRAD_KEYS):
+        assert _rel_err(d[i], rd[i]) <= 1e-4, k

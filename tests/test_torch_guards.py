@@ -60,10 +60,15 @@ def _entry_points():
     from nsff_pl_tpu_torch.config import NSFFConfig, build_params
     from nsff_pl_tpu_torch.models import nerf
     from nsff_pl_tpu_torch.models.rendering import RenderConfig
+    from nsff_pl_tpu_torch.data.pipeline import RayBatcher
+    from nsff_pl_tpu_torch.models.rendering import RenderConfig as RC
     from nsff_pl_tpu_torch.training import checkpoint
-    from nsff_pl_tpu_torch.training.step import make_render_fn
+    from nsff_pl_tpu_torch.training.optim import make_optimizer
+    from nsff_pl_tpu_torch.training.step import make_render_fn, make_train_step
 
     g = torch.Generator().manual_seed(0)
+    train_cfg = NSFFConfig(encode_t=True, use_viewdir=True, N_importance=4,
+                           batch_size=4, lr_scheduler="cosine")
     return {
         "resolve_device": lambda: resolve_device(),
         "init_nerf_params": lambda: nerf.init_nerf_params(g),
@@ -77,13 +82,23 @@ def _entry_points():
         "RenderService": lambda: RenderService(
             {}, torch.eye(3).numpy(), torch.zeros(1, 3, 4).numpy(),
             (8, 6), NSFFConfig()),
+        "build_params_train": lambda: build_params(train_cfg, g),
+        "make_train_step": lambda: make_train_step(
+            RC(encode_t=True, fused_train="on"), None,
+            make_optimizer(train_cfg, 1), output_transient=True,
+            output_transient_flow=("fw", "bw"), steps_per_epoch=1,
+            batch_size=4),
+        "RayBatcher": lambda: RayBatcher(torch.zeros(2, 4, 16).numpy(), 4),
+        "opt_state_from_jax": lambda: checkpoint.opt_state_from_jax(
+            {}, None, checkpoint.params_from_jax({"w": torch.zeros(1).numpy()})),
     }
 
 
 @pytest.mark.parametrize("name", sorted(
     ["resolve_device", "init_nerf_params", "init_embedding", "build_params",
      "params_from_jax", "load", "to_device", "make_render_fn",
-     "RenderService"]))
+     "RenderService", "build_params_train", "make_train_step", "RayBatcher",
+     "opt_state_from_jax"]))
 def test_entry_points_need_a_gpu_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -91,11 +106,35 @@ def test_entry_points_need_a_gpu_by_default(name, monkeypatch):
 
 
 def test_entry_points_run_on_cpu_when_asked():
+    import numpy as np
+
+    from nsff_pl_tpu_torch.config import NSFFConfig, build_params
+    from nsff_pl_tpu_torch.data.pipeline import RayBatcher
     from nsff_pl_tpu_torch.models import nerf
+    from nsff_pl_tpu_torch.models.rendering import RenderConfig
+    from nsff_pl_tpu_torch.training import checkpoint
+    from nsff_pl_tpu_torch.training.optim import make_optimizer
+    from nsff_pl_tpu_torch.training.step import make_train_step
 
     p = nerf.init_nerf_params(torch.Generator().manual_seed(0), D=2,
                               skips=(), W=8, device="cpu")
     assert p["static_xyz_0"]["w"].device.type == "cpu"
+    cfg = NSFFConfig(encode_t=True, use_viewdir=True, N_importance=4)
+    params = build_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert set(params) == {"nerf_fine", "nerf_coarse", "embedding_t"}
+    assert "transient_flow_fw" not in params["nerf_coarse"]
+    tx = make_optimizer(cfg, 1)
+    step = make_train_step(RenderConfig(encode_t=True, fused_train="on"),
+                           None, tx, output_transient=True,
+                           output_transient_flow=("fw", "bw"),
+                           steps_per_epoch=1, batch_size=4, device="cpu")
+    assert step.device.type == "cpu"
+    b = RayBatcher(np.zeros((2, 4, 16), np.float32), 4, device="cpu")
+    assert b.table.device.type == "cpu"
+    opt = tx.init(params)
+    checkpoint.opt_state_from_jax(
+        {"count": 0, "mu": checkpoint.params_to_numpy(params),
+         "nu": checkpoint.params_to_numpy(params)}, opt, params)
 
 
 def _smoke(cwd, env=None):
