@@ -11,9 +11,13 @@ once), then:
    same inputs at full width (D=8, W=256, S=128): the serving evaluator
    at the serving chunk; the train evaluator's forward and both backward
    branches on the main evaluation and both warped evaluations, and the
-   compositor's forward and adjoint, at batch 512. Prints each output's
-   error, times the kernel and the plain version with CUDA events and
-   computes the bound (operations or bytes) from the shapes;
+   compositor's forward and adjoint, at batch 512; the packed evaluator
+   at the serving chunk (full, static only, transient only), its
+   backward at batch 512 (static; transient with and without the xyz
+   cotangent) and the packed compositor's forward and adjoint at batch
+   512. Prints each output's error, times the kernel and the plain
+   version with CUDA events and computes the bound (operations or bytes)
+   from the shapes;
 2. serving phase (a main path): a `RenderService` at the flagship
    serving configuration (512x288, 30 frames, encode_t, use_viewdir,
    N_samples 128, bfloat16, chunk 32768) with seeded weights answers three
@@ -26,10 +30,20 @@ once), then:
    one warm-up step, then `TRAIN_STEPS` timed steps with the launch
    counts read around exactly them; then `TRAIN_STEPS` steps on one
    repeated batch, whose loss must fall;
-4. agreement: a small frame rendered on the card equals the plain CPU
+4. packed serving phase (a main path): one frame through a
+   `RenderService` with `planar_eval="off"` in bfloat16 (the packed
+   evaluator, once per chunk, compositing outside it), held against the
+   planar frame, and one in float32 (the plain evaluators, no kernel);
+5. packed training phase (a main path): the same recipe with
+   `fused_train="off"` and `fused_compositing=True` (render_rays +
+   compute_losses): warm-up, `TRAIN_STEPS` timed steps with the launch
+   counts read around them, a repeated batch whose loss must fall, and
+   three steps of the static-only model (no `encode_t`);
+6. agreement: a small frame rendered on the card equals the plain CPU
    render of the same weights within `TOL`; one training step at batch
    64 on the card equals the plain CPU step from the same state, batch
-   and draws (loss terms and Adam's first moments).
+   and draws (loss terms and Adam's first moments), on the planar and on
+   the packed path.
 
 The training phase ends with a torch.profiler trace of 5 more steps
 (device time by kernel, the device's busy share; the full table goes to
@@ -66,6 +80,23 @@ COMP_TOL = 1e-4
 # normalizes by the batch median and MAD, which carries a flip to every
 # ray)
 LOSS_RTOL = 2e-3
+# packed evaluator vs plain version: per-sample rows, as PLANE_TOL above;
+# the share counts a row whose largest of 14 columns is off (measured
+# 1.9e-4, 4.9% of the rows at the serving chunk)
+PACKED_TOL, PACKED_SHARE = 1e-3, 0.2
+# per-sample xyz cotangent of the packed backward: a flipped ReLU mask
+# shows whole in that sample's entry (no sum over rows dilutes it), so the
+# largest entry is held to DX_MAX; the Frobenius bound is GRAD_FRO
+DX_MAX = 0.25
+# packed frame vs planar frame of the same weights: the posenc argument
+# is (o + d*z)*f on one path and o*f + (d*f)*z on the other, and the
+# transmittance a product on one and an exponential of a sum on the other
+# (measured 5.0e-6 on the seeded weights)
+FRAME_TOL = 5e-4
+# float32 frame (plain evaluators) vs the bfloat16 frame (kernels): bf16
+# rounding of every activation through nine layers (measured 4.4e-5 on
+# the seeded weights, whose frame is nearly flat)
+F32_TOL = 1e-2
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 CHUNK = 32768
@@ -78,6 +109,16 @@ TRAIN_STEPS = 10
 PER_STEP = {"planar_nerf_train_fwd": 3, "planar_nerf_train_bwd_static": 1,
             "planar_nerf_train_bwd_transient": 3,
             "planar_compositor_fwd": 1, "planar_compositor_bwd": 1}
+# the packed path: three evaluator forwards (main + two warps), backward
+# static branch (main), backward transient branch (all three), the fused
+# compositor on the main evaluation
+PER_STEP_PACKED = {"fused_nerf_eval": 3, "fused_nerf_train_bwd_static": 1,
+                   "fused_nerf_train_bwd_transient": 3,
+                   "fused_compositing_fwd": 1, "fused_compositing_bwd": 1}
+PER_STEP_STATIC = {"fused_nerf_eval": 1, "fused_nerf_train_bwd_static": 1,
+                   "fused_nerf_train_bwd_transient": 0,
+                   "fused_compositing_fwd": 0, "fused_compositing_bwd": 0}
+STATIC_STEPS = 3
 
 
 def fail(msg: str):
@@ -170,10 +211,13 @@ def _mac(params, name):
 
 
 def train_fwd_work(params, static_branch: bool, n_flow_out: int, n: int,
-                   S: int, pw, n_out: int, flow_in: bool):
+                   S: int, pw, n_out: int, flow_in: bool,
+                   encode_t: bool = True, packed: bool = False):
     """(flops, bytes) of one train-evaluator forward call: model MACs at the
     unpadded widths (direction terms once per ray), each input and the
-    weights the call reads once, its planes written once."""
+    weights the call reads once, its planes written once. `packed`: the
+    packed-boundary evaluator, which reads (n, S, 3) points and writes
+    `n_out`-column rows."""
     per_sample = per_ray = 0
     names = []
     if static_branch:
@@ -183,12 +227,18 @@ def train_fwd_work(params, static_branch: bool, n_flow_out: int, n: int,
         w = params["static_dir"]["w"]
         per_sample += 256 * w.shape[1]
         per_ray += (w.shape[0] - 256) * w.shape[1]
-    tnames = [f"transient_xyz_{i}" for i in range(8)] + ["transient_xyz_final"]
-    per_sample += sum(_mac(params, k) for k in tnames)
-    per_sample += 256 * (4 + 3 * n_flow_out)
-    names += tnames + ["transient_heads"]
+    if encode_t:
+        tnames = [f"transient_xyz_{i}" for i in range(8)] + [
+            "transient_xyz_final"]
+        per_sample += sum(_mac(params, k) for k in tnames)
+        per_sample += 256 * (4 + 3 * n_flow_out)
+        names += tnames + ["transient_heads"]
     flops = 2.0 * (per_sample * n * S + per_ray * n)
-    nbytes = n * (3 + 3 + S + 48) * 4 + (3 * n * S * 4 if flow_in else 0)
+    if packed:
+        nbytes = n * S * 3 * 4
+    else:
+        nbytes = n * (3 + 3 + S) * 4 + (3 * n * S * 4 if flow_in else 0)
+    nbytes += n * 48 * 4 if encode_t else 0
     nbytes += n * 27 * 4 if static_branch else 0
     nbytes += sum(t.numel() * t.element_size() for k in names
                   for t in pw[k].values())
@@ -196,17 +246,22 @@ def train_fwd_work(params, static_branch: bool, n_flow_out: int, n: int,
 
 
 def train_bwd_work(params, branch: str, n_flow_out: int, n: int, S: int,
-                   pw, flow_in: bool):
+                   pw, flow_in: bool, packed: bool = False,
+                   need_dxyz: bool = False):
     """(flops, bytes) of one backward branch: the tower recompute, the
     weight gradient and the data gradient of every layer at the unpadded
-    widths (the static branch has no input gradient), each input, weight
-    and cotangent plane read once, every gradient written once."""
+    widths (the static branch has no input gradient unless the packed
+    call asks for the xyz cotangent), each input, weight and cotangent
+    read once, every gradient written once. `packed`: (n, S, 3) points in,
+    16-column cotangent rows in, (n, S, 3) xyz cotangent out with
+    `need_dxyz`."""
     if branch == "static":
         names = [f"static_xyz_{i}" for i in range(8)] + [
             "static_xyz_final", "static_sigma", "static_rgb"]
         per_sample = 3 * sum(_mac(params, k) for k in names)
-        # no data gradient into the encoding: layer 0 and the skip input
-        per_sample -= 2 * 63 * 256
+        if not need_dxyz:
+            # no data gradient into the encoding: layer 0 and the skip input
+            per_sample -= 2 * 63 * 256
         w = params["static_dir"]["w"]
         per_sample += 3 * 256 * w.shape[1]
         per_ray = 2 * (w.shape[0] - 256) * w.shape[1]
@@ -227,7 +282,11 @@ def train_bwd_work(params, branch: str, n_flow_out: int, n: int, S: int,
             3 * n * S * 4 if flow_in else 0)
         names.append("transient_heads")
     flops = 2.0 * (per_sample * n * S + per_ray * n)
-    nbytes = n * (3 + 3 + S) * 4 + extra_in + n_g * n * S * 4
+    if packed:
+        nbytes = n * S * 3 * 4 + extra_in + 16 * n * S * 4
+        out_bytes += 3 * n * S * 4 if need_dxyz else 0
+    else:
+        nbytes = n * (3 + 3 + S) * 4 + extra_in + n_g * n * S * 4
     nbytes += sum(t.numel() * t.element_size() for k in names
                   for t in pw[k].values())
     return flops, nbytes + out_bytes
@@ -245,6 +304,20 @@ def comp_work(which: str, n: int, S: int):
     return COMP_OPS[which] * n * S, planes * n * S * 4 + maps
 
 
+# the packed compositor (counted from csrc/fused_compositing.cu)
+PACKED_COMP_OPS = {"fwd": 50, "bwd": 110}
+
+
+def packed_comp_work(which: str, n: int, S: int):
+    """(operations, bytes): columns 0-7 of the packed (n, S, 16) rows (the
+    compositor needs no other, and they are one 32-byte sector of each
+    64-byte row), zs and two noise planes read once; forward writes seven
+    planes and (n, 4) maps, the adjoint reads their cotangents and writes
+    the whole (n, S, 16) cotangent, columns 8-15 as zeros."""
+    words = 8 + 3 + 7 if which == "fwd" else 8 + 3 + 7 + 16
+    return PACKED_COMP_OPS[which] * n * S, words * n * S * 4 + 4 * n * 4
+
+
 def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -252,10 +325,12 @@ def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
 
 
 def rel_errs(got, want):
-    """(largest |got - want| over the largest |want|, Frobenius ratio)."""
+    """(largest |got - want| over the largest |want|, Frobenius ratio,
+    largest |got - want|)."""
     scale = max(float(want.abs().max()), 1e-12)
     fro = float((got - want).norm()) / max(float(want.norm()), 1e-12)
-    return float((got - want).abs().max()) / scale, fro
+    err = float((got - want).abs().max())
+    return err / scale, fro, err
 
 
 def train_kernel_phase(torch, np, rk, tck, params, rays, card):
@@ -355,6 +430,7 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
                 errs[name] = rel_errs(a, b)
             w_max = max(errs, key=lambda k: errs[k][0])
             w_fro = max(errs, key=lambda k: errs[k][1])
+            abs_err = max(e[2] for e in errs.values())
             print(f"kernel planar_nerf_train_bwd_{branch} [{label}]: "
                   f"{len(errs)} outputs, worst error/max {errs[w_max][0]:.2e} "
                   f"({w_max}), worst Frobenius {errs[w_fro][1]:.2e} "
@@ -374,15 +450,15 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
                 records[name] = {
                     "name": name, "route": "cuda", "source": src,
                     "replaces": "nsff_pl_tpu/ops/raymarch_kernel.py:64",
-                    "launches": None, "max_abs_err": errs[w_max][0],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                    "bound_by": bby, "library_ms": None}
+                    "launches": None, "max_abs_err": abs_err,
+                    "max_rel_err": errs[w_max][0], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+                    "library_ms": None}
                 print(f"kernel {name} [main] n={n}: {ms:.3f} ms, plain "
                       f"{plain_ms:.3f} ms, bound {bms:.3f} ms "
                       f"({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
             else:
-                records[name]["max_abs_err"] = max(
-                    records[name]["max_abs_err"], errs[w_max][0])
+                _fold_errs(records[name], abs_err, errs[w_max][0])
         del got, want
 
     # compositor on the three evaluations' planes
@@ -407,7 +483,9 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
     rdg = tck.planar_compositor_bwd_ref(ins, cot, gmap)
     fwd_err = max(float((w - rw).abs().max()),
                   float((maps - rmaps).abs().max()))
-    bwd_err = max(rel_errs(dg[i], rdg[i])[0] for i in range(len(dg)))
+    bwd_errs = [rel_errs(dg[i], rdg[i]) for i in range(len(dg))]
+    bwd_err = max(e[0] for e in bwd_errs)
+    bwd_abs = max(e[2] for e in bwd_errs)
     print(f"kernel planar_compositor: forward max abs err {fwd_err:.2e}, "
           f"adjoint worst error/max {bwd_err:.2e} (tol {COMP_TOL})",
           flush=True)
@@ -418,7 +496,7 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
             ("fwd", lambda: tck.planar_compositor_fwd_cuda(ins),
              lambda: tck.planar_compositor_fwd_ref(ins), fwd_err),
             ("bwd", lambda: tck.planar_compositor_bwd_cuda(ins, cot, gmap),
-             lambda: tck.planar_compositor_bwd_ref(ins, cot, gmap), bwd_err)):
+             lambda: tck.planar_compositor_bwd_ref(ins, cot, gmap), bwd_abs)):
         ms = cuda_ms(torch, fn, iters=100, graph=True)
         plain_ms = cuda_ms(torch, ref, iters=10, graph=True)
         ops, nbytes = comp_work(which, n, S)
@@ -430,9 +508,231 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
             "library_ms": None}
+        if which == "bwd":
+            records[name]["max_rel_err"] = bwd_err
         print(f"kernel {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bms:.4f} ms ({nbytes / 1e6:.2f} MB) on {card}",
               flush=True)
+    return records
+
+
+def _fold_errs(record, abs_err, rel_err):
+    """Keep a record's worst absolute and relative error over variants."""
+    record["max_abs_err"] = max(record["max_abs_err"], abs_err)
+    record["max_rel_err"] = max(record["max_rel_err"], rel_err)
+
+
+def _record(name, source, replaces, err, ms, plain_ms, flops, nbytes,
+            peak=PEAK_BF16_FLOPS):
+    bms, bby = bound(flops, nbytes, peak)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": None}
+
+
+def packed_kernel_phase(torch, np, params, rays, card):
+    """The packed-boundary kernels against their plain versions: the
+    evaluator at the serving chunk (full, static only, transient only),
+    its backward at batch 512 (static; transient with and without the xyz
+    cotangent) and the compositor at batch 512. Returns their kernel
+    records (launches filled in by the packed phases)."""
+    from nsff_pl_tpu_torch.ops import compositing_kernel as fck
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
+    from nsff_pl_tpu_torch.ops.posenc import posenc
+    from nsff_pl_tpu_torch.ops.sampling import stratified_zs
+
+    S = 128
+    fine = params["nerf_fine"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def inputs(n):
+        o, d = rays[:n, :3], rays[:n, 3:]
+        zs = stratified_zs(n, S, 1.0, torch.rand((n, S), generator=gen,
+                                                 device="cuda"),
+                           device="cuda")[0].contiguous()
+        xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
+        t_emb = params["embedding_t"][torch.randint(
+            0, N_FRAMES, (n,), generator=gen, device="cuda")].contiguous()
+        return xyz, zs, posenc(d, 3.0, 4).contiguous(), t_emb
+
+    records = {}
+    # ---- the evaluator at the serving chunk
+    n = CHUNK
+    xyz, _, de, te = inputs(n)
+    src = "nsff_pl_tpu_torch/csrc/fused_nerf_eval.cu"
+    for label, static_branch, encode_t, flow in (
+            ("full", True, True, ("fw", "bw")),
+            ("static only", True, False, ()),
+            ("transient only", False, True, ("bw",))):
+        fn = mk.make_fused_nerf_eval(S, use_viewdir=True, encode_a=False,
+                                     encode_t=encode_t, output_flow=flow,
+                                     static_branch=static_branch)
+        pw = fn.pack(fine)
+        args = (pw, xyz, de if static_branch else None, None,
+                te if encode_t else None)
+        kw = fn.kernel_kw
+        got = mk.fused_nerf_eval_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        want = mk.fused_nerf_eval_ref(*args, **kw)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"packed evaluator output not finite ({label})")
+        err = (got - want).abs()
+        worst = err.amax((0, 1)).cpu().numpy()
+        share = float((err.amax(-1) > 1e-5).float().mean())
+        del err, want
+        print(f"kernel fused_nerf_eval [{label}] n={n} S={S}: max abs err "
+              f"per column {np.array2string(worst, precision=2)}, rows off "
+              f"by > 1e-5 {share:.4f} (tol {PACKED_TOL}, {PACKED_SHARE})",
+              flush=True)
+        if float(worst.max()) > PACKED_TOL or share > PACKED_SHARE:
+            fail(f"fused_nerf_eval disagrees with its plain version ({label})")
+        zero_cols = ([] if static_branch else [0, 1, 2, 3]) + list(
+            range(8 + 3 * len(flow) if encode_t else 4, 16))
+        if bool(got[..., zero_cols].any()):
+            fail(f"fused_nerf_eval wrote unused columns ({label})")
+        del got
+        ms = cuda_ms(torch, lambda: mk.fused_nerf_eval_cuda(*args, **kw),
+                     iters=3)
+        plain_ms = cuda_ms(torch, lambda: mk.fused_nerf_eval_ref(*args, **kw),
+                           iters=1, warmup=0)
+        flops, nbytes = train_fwd_work(fine, static_branch, len(flow), n, S,
+                                       pw, 16, False, encode_t=encode_t,
+                                       packed=True)
+        if label == "full":
+            records["fused_nerf_eval"] = _record(
+                "fused_nerf_eval", src,
+                "nsff_pl_tpu/ops/mlp_kernel.py:121", float(worst.max()), ms,
+                plain_ms, flops, nbytes)
+        else:
+            rec = records["fused_nerf_eval"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(worst.max()))
+        print(f"kernel fused_nerf_eval [{label}] n={n}: {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound(flops, nbytes)[0]:.3f} ms "
+              f"({flops / 1e12:.2f} TFLOP) on {card}", flush=True)
+    del xyz, de, te
+
+    # ---- the backward at the training batch
+    n = BATCH
+    xyz, zs, de, te = inputs(n)
+    src = "nsff_pl_tpu_torch/csrc/fused_nerf_train.cu"
+    g = torch.randn((n, S, 16), generator=gen, device="cuda")
+    packed_main = None
+    for label, static_branch, flow, branch, need_dxyz in (
+            ("main", True, ("fw", "bw"), "static", False),
+            ("main", True, ("fw", "bw"), "transient", False),
+            ("fw warp", False, ("bw",), "transient", True),
+            ("bw warp", False, ("fw",), "transient", True),
+            ("main + dxyz", True, ("fw", "bw"), "static", True)):
+        op = mtk.make_fused_nerf_train(S, use_viewdir=True, encode_a=False,
+                                       encode_t=True, output_flow=flow,
+                                       static_branch=static_branch,
+                                       need_dxyz=need_dxyz)
+        pw = op.pack(fine)
+        kw = op.kernel_kw
+        if packed_main is None:
+            packed_main = mk.fused_nerf_eval_cuda(pw, xyz, de, None, te, **kw)
+        bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                                  "output_flow", "flow_scale", "D", "skips")}
+        args = (branch, pw, xyz, de if static_branch else None, None, te, g)
+        got = mtk.fused_nerf_train_bwd_cuda(*args, need_dxyz=need_dxyz, **bkw)
+        torch.cuda.synchronize()
+        want = mtk.fused_nerf_train_bwd_ref(*args, need_dxyz=need_dxyz, **bkw)
+        if ("dxyz" in got) != need_dxyz:
+            fail(f"need_dxyz={need_dxyz} but dxyz present: {'dxyz' in got}")
+        pairs = [(f"{k}.{p}", got["dws"][k][p], want["dws"][k][p])
+                 for k in want["dws"] for p in ("w", "b")]
+        pairs += [(k, got[k], want[k]) for k in ("ddir", "dt") if k in want]
+        errs = {}
+        for name, a, b in pairs:
+            if not bool(torch.isfinite(a).all()):
+                fail(f"packed backward {name} not finite ({label})")
+            errs[name] = rel_errs(a, b)
+        w_max = max(errs, key=lambda k: errs[k][0])
+        w_fro = max(errs, key=lambda k: errs[k][1])
+        line = (f"kernel fused_nerf_train_bwd_{branch} [{label}]: "
+                f"{len(errs)} outputs, worst error/max {errs[w_max][0]:.2e} "
+                f"({w_max}), worst Frobenius {errs[w_fro][1]:.2e} ({w_fro}) "
+                f"(tol {GRAD_MAX}, {GRAD_FRO})")
+        bad = errs[w_max][0] > GRAD_MAX or errs[w_fro][1] > GRAD_FRO
+        abs_err, rel_err = max(e[2] for e in errs.values()), errs[w_max][0]
+        if need_dxyz:
+            if not bool(torch.isfinite(got["dxyz"]).all()):
+                fail(f"packed backward dxyz not finite ({label})")
+            dx = rel_errs(got["dxyz"], want["dxyz"])
+            line += (f"; dxyz error/max {dx[0]:.2e}, Frobenius {dx[1]:.2e} "
+                     f"(tol {DX_MAX}, {GRAD_FRO})")
+            bad = bad or dx[0] > DX_MAX or dx[1] > GRAD_FRO
+            abs_err, rel_err = max(abs_err, dx[2]), max(rel_err, dx[0])
+        print(line, flush=True)
+        if bad:
+            fail(f"fused_nerf_train backward ({branch}, {label}) disagrees "
+                 "with its plain version")
+        ms = cuda_ms(torch, lambda: mtk.fused_nerf_train_bwd_cuda(
+            *args, need_dxyz=need_dxyz, **bkw), iters=5, graph=True)
+        flops, nbytes = train_bwd_work(fine, branch, len(flow), n, S, pw,
+                                       False, packed=True,
+                                       need_dxyz=need_dxyz)
+        name = f"fused_nerf_train_bwd_{branch}"
+        if label == "main":
+            plain_ms = cuda_ms(torch, lambda: mtk.fused_nerf_train_bwd_ref(
+                *args, need_dxyz=need_dxyz, **bkw), iters=2)
+            records[name] = _record(
+                name, src, "nsff_pl_tpu/ops/mlp_train_kernel.py:141",
+                abs_err, ms, plain_ms, flops, nbytes)
+            records[name]["max_rel_err"] = rel_err
+            print(f"kernel {name} [main] n={n}: {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bound(flops, nbytes)[0]:.3f} "
+                  f"ms ({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
+        else:
+            _fold_errs(records[name], abs_err, rel_err)
+            print(f"kernel {name} [{label}] n={n}: {ms:.3f} ms, bound "
+                  f"{bound(flops, nbytes)[0]:.3f} ms on {card}", flush=True)
+
+    # ---- the compositor on the main evaluation's packed output
+    ns, nt = (torch.randn((n, S), generator=gen, device="cuda")
+              for _ in range(2))
+    cot = {k: torch.randn((n, S), generator=gen, device="cuda")
+           for k in fck.OUT_KEYS}
+    gmap = torch.randn((n, 4), generator=gen, device="cuda")
+    cargs = (packed_main, zs, ns, nt)
+    planes, maps = fck.fused_compositing_fwd_cuda(*cargs)
+    dp = fck.fused_compositing_bwd_cuda(*cargs, cot, gmap)
+    torch.cuda.synchronize()
+    rplanes, rmaps = fck.fused_compositing_fwd_ref(*cargs)
+    rdp = fck.fused_compositing_bwd_ref(*cargs, cot, gmap)
+    fwd_err = max(float((planes - rplanes).abs().max()),
+                  float((maps - rmaps).abs().max()))
+    bwd_errs = [rel_errs(dp[..., c], rdp[..., c]) for c in range(8)]
+    bwd_err = max(e[0] for e in bwd_errs)
+    bwd_abs = max(e[2] for e in bwd_errs)
+    print(f"kernel fused_compositing: forward max abs err {fwd_err:.2e}, "
+          f"adjoint worst error/max per column {bwd_err:.2e} (tol "
+          f"{COMP_TOL})", flush=True)
+    if not bool(torch.isfinite(dp).all()) or bool(dp[..., 8:].any()):
+        fail("fused_compositing adjoint not finite or columns 8-15 not zero")
+    if fwd_err > COMP_TOL or bwd_err > COMP_TOL:
+        fail("fused_compositing disagrees with its plain version")
+    csrc = "nsff_pl_tpu_torch/csrc/fused_compositing.cu"
+    for which, fn, ref, err in (
+            ("fwd", lambda: fck.fused_compositing_fwd_cuda(*cargs),
+             lambda: fck.fused_compositing_fwd_ref(*cargs), fwd_err),
+            ("bwd", lambda: fck.fused_compositing_bwd_cuda(*cargs, cot, gmap),
+             lambda: fck.fused_compositing_bwd_ref(*cargs, cot, gmap),
+             bwd_abs)):
+        ms = cuda_ms(torch, fn, iters=100, graph=True)
+        plain_ms = cuda_ms(torch, ref, iters=10, graph=True)
+        ops, nbytes = packed_comp_work(which, n, S)
+        name = f"fused_compositing_{which}"
+        records[name] = _record(
+            name, csrc, "nsff_pl_tpu/ops/compositing_kernel.py:100", err, ms,
+            plain_ms, ops, nbytes, PEAK_F32_FLOPS)
+        if which == "bwd":
+            records[name]["max_rel_err"] = bwd_err
+        print(f"kernel {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {records[name]['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.2f} MB) on {card}", flush=True)
     return records
 
 
@@ -471,7 +771,19 @@ def train_scene(torch, np, K, poses):
     return table, torch.from_numpy(Ks).cuda(), torch.from_numpy(Ps).cuda()
 
 
-def launch_counts(rk, tck):
+def _kernel_modules():
+    from nsff_pl_tpu_torch.ops import compositing_kernel as fck
+    from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
+    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
+
+    return rk, tck, mk, mtk, fck
+
+
+def launch_counts():
+    """Every wrapper's launch count, by kernel name."""
+    rk, tck, mk, mtk, fck = _kernel_modules()
     return {"planar_eval_comp": rk.planar_eval_comp_cuda.launches,
             "planar_nerf_train_fwd": rk.planar_nerf_train_fwd_cuda.launches,
             "planar_nerf_train_bwd_static":
@@ -479,19 +791,40 @@ def launch_counts(rk, tck):
             "planar_nerf_train_bwd_transient":
                 rk.planar_nerf_train_bwd_cuda.launches["transient"],
             "planar_compositor_fwd": tck.planar_compositor_fwd_cuda.launches,
-            "planar_compositor_bwd": tck.planar_compositor_bwd_cuda.launches}
+            "planar_compositor_bwd": tck.planar_compositor_bwd_cuda.launches,
+            "fused_nerf_eval": mk.fused_nerf_eval_cuda.launches,
+            "fused_nerf_train_bwd_static":
+                mtk.fused_nerf_train_bwd_cuda.launches["static"],
+            "fused_nerf_train_bwd_transient":
+                mtk.fused_nerf_train_bwd_cuda.launches["transient"],
+            "fused_compositing_fwd": fck.fused_compositing_fwd_cuda.launches,
+            "fused_compositing_bwd": fck.fused_compositing_bwd_cuda.launches}
 
 
-def reset_counts(rk, tck):
+def reset_counts():
+    rk, tck, mk, mtk, fck = _kernel_modules()
     rk.planar_eval_comp_cuda.launches = 0
     rk.planar_nerf_train_fwd_cuda.launches = 0
     rk.planar_nerf_train_bwd_cuda.launches = {"static": 0, "transient": 0}
     tck.planar_compositor_fwd_cuda.launches = 0
     tck.planar_compositor_bwd_cuda.launches = 0
+    mk.fused_nerf_eval_cuda.launches = 0
+    mtk.fused_nerf_train_bwd_cuda.launches = {"static": 0, "transient": 0}
+    fck.fused_compositing_fwd_cuda.launches = 0
+    fck.fused_compositing_bwd_cuda.launches = 0
+
+
+def check_counts(counts, expected, n, what):
+    """Every kernel launched exactly `expected[name] * n` times; kernels
+    `expected` does not name, not at all."""
+    for k, v in counts.items():
+        want = expected.get(k, 0) * n
+        if v != want:
+            fail(f"{what}: {k} launched {v} times, expected {want}")
 
 
 def train_setup(torch, cfg, params, device, batch):
-    """Optimizer, state and train step of the flagship recipe on `device`."""
+    """Optimizer, state and train step of the recipe `cfg` on `device`."""
     import dataclasses
 
     from nsff_pl_tpu_torch.config import loss_config, render_config
@@ -501,9 +834,10 @@ def train_setup(torch, cfg, params, device, batch):
     spe = N_FRAMES * H_IMG * W_IMG // 1000  # the scene's steps per epoch
     tx = make_optimizer(cfg, spe)
     rc = render_config(cfg)
-    if device == "cpu":  # the plain versions: the planar path forced on
-        rc = dataclasses.replace(rc, fused_train="on")
-    step = make_train_step(rc, loss_config(cfg), tx, output_transient=True,
+    if device == "cpu":  # the kernels' plain versions
+        rc = dataclasses.replace(rc, train_backend="pallas")
+    step = make_train_step(rc, loss_config(cfg), tx,
+                           output_transient=cfg.output_transient,
                            output_transient_flow=tuple(
                                cfg.output_transient_flow),
                            steps_per_epoch=spe, batch_size=batch,
@@ -511,10 +845,12 @@ def train_setup(torch, cfg, params, device, batch):
     return TrainState(params, tx.init(params), 0), step
 
 
-def training_phase(torch, np, cfg, table, Ks, Ps, rk, tck, card):
-    """The main training path: warm-up, TRAIN_STEPS timed steps with the
-    launch counts read around them, then TRAIN_STEPS steps on one repeated
-    batch. Returns the counts."""
+def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
+                   planar, steps=TRAIN_STEPS, repeat=True, profile=False):
+    """A main training path: warm-up, `steps` timed steps with the launch
+    counts set to 0 just before and read just after them, then (`repeat`)
+    `steps` steps on one repeated batch, whose loss must fall. Returns the
+    counts and the device ms per step."""
     from nsff_pl_tpu_torch.config import build_params
     from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
     from nsff_pl_tpu_torch.training.optim import param_leaves
@@ -522,6 +858,9 @@ def training_phase(torch, np, cfg, table, Ks, Ps, rk, tck, card):
     params = build_params(cfg, torch.Generator().manual_seed(0),
                           device="cuda")
     state, step = train_setup(torch, cfg, params, "cuda", BATCH)
+    if step.use_planar != planar:
+        fail(f"{label}: planar path taken: {step.use_planar}, expected "
+             f"{planar}")
     batcher = RayBatcher(table, BATCH, device="cuda")
     sched = FrameScheduler(N_FRAMES, seed=cfg.seed)
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
@@ -530,65 +869,63 @@ def training_phase(torch, np, cfg, table, Ks, Ps, rk, tck, card):
 
     state, m, _ = step(state, *args, sched.next())  # warm-up
     torch.cuda.synchronize()
-    reset_counts(rk, tck)
+    reset_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     rows = []
     t0 = time.perf_counter()
     start.record()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, m, _ = step(state, *args, sched.next())
         rows.append(m)
     end.record()
     torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-    dev_ms = start.elapsed_time(end) / TRAIN_STEPS
-    counts = launch_counts(rk, tck)
-    print(f"training: {TRAIN_STEPS} steps at batch {BATCH}, {dev_ms:.3f} ms "
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dev_ms = start.elapsed_time(end) / steps
+    counts = launch_counts()
+    print(f"{label}: {steps} steps at batch {BATCH}, {dev_ms:.3f} ms "
           f"per step (CUDA events), {host_ms:.3f} ms (host clock) on {card}",
           flush=True)
-    print("training: launches over the timed steps "
-          + json.dumps({k: v for k, v in counts.items()}), flush=True)
-    for k, per in PER_STEP.items():
-        if counts[k] != per * TRAIN_STEPS:
-            fail(f"{k} launched {counts[k]} times in {TRAIN_STEPS} steps, "
-                 f"expected {per * TRAIN_STEPS}")
+    print(f"{label}: launches over the timed steps "
+          + json.dumps({k: v for k, v in counts.items() if v}), flush=True)
+    check_counts(counts, per_step, steps, label)
     for i, row in enumerate(rows):
         vals = {k: float(v) for k, v in row.items()}
-        print(f"training: step {i + 1} " + json.dumps(vals), flush=True)
+        print(f"{label}: step {i + 1} " + json.dumps(vals), flush=True)
         if not all(np.isfinite(v) for v in vals.values()):
-            fail(f"loss terms not finite at step {i + 1}")
+            fail(f"{label}: loss terms not finite at step {i + 1}")
     if all(bool(torch.equal(a, b)) for a, b in
            zip(before, param_leaves(state.params))):
-        fail("params did not change")
+        fail(f"{label}: params did not change")
 
-    # one repeated batch and draws: the loss must fall
-    t = sched.next()
-    idx = torch.randint(0, H_IMG * W_IMG, (BATCH,), generator=gen,
-                        device="cuda")
-    draws = {k: (torch.rand if k == "u" else torch.randn)(
-        (BATCH, cfg.N_samples), generator=gen, device="cuda")
-        for k in ("u", "ns", "nt", "nw1", "nw2")}
-    losses = []
-    for _ in range(TRAIN_STEPS):
-        state, m, _ = step(state, *args, t, idx=idx, draws=draws)
-        losses.append(float(m["loss"]))
-    print("training: loss on one repeated batch "
-          + json.dumps([round(v, 6) for v in losses]), flush=True)
-    if not losses[-1] < losses[0]:
-        fail(f"loss on a repeated batch did not fall: {losses}")
-    profile_steps(torch, step, state, args, sched, card)
-    return counts
+    if repeat:  # one repeated batch and draws: the loss must fall
+        t = sched.next()
+        idx = torch.randint(0, H_IMG * W_IMG, (BATCH,), generator=gen,
+                            device="cuda")
+        draws = {k: (torch.rand if k == "u" else torch.randn)(
+            (BATCH, cfg.N_samples), generator=gen, device="cuda")
+            for k in ("u", "ns", "nt", "nw1", "nw2")}
+        losses = []
+        for _ in range(steps):
+            state, m, _ = step(state, *args, t, idx=idx, draws=draws)
+            losses.append(float(m["loss"]))
+        print(f"{label}: loss on one repeated batch "
+              + json.dumps([round(v, 6) for v in losses]), flush=True)
+        if not losses[-1] < losses[0]:
+            fail(f"{label}: loss on a repeated batch did not fall: {losses}")
+    if profile:
+        profile_steps(torch, step, state, args, sched, card, label)
+    return counts, dev_ms
 
 
 OUR_KERNELS = ("train_fwd_kernel", "train_bwd_chain_kernel", "dw_kernel",
                "dw_reduce_kernel", "db_reduce_kernel", "comp_fwd_kernel",
-               "comp_bwd_kernel")
+               "comp_bwd_kernel", "fused_eval_kernel")
 
 
-def profile_steps(torch, step, state, args, sched, card, n_steps=5):
+def profile_steps(torch, step, state, args, sched, card, label, n_steps=5):
     """torch.profiler over n_steps training steps: device time by kernel
-    (the whole table to chip_smoke_out/profile_train_step.txt), the port's
+    (the whole table to chip_smoke_out/profile_<label>_step.txt), the port's
     kernels against the rest, and the device's busy share of the wall
     time."""
     import os
@@ -616,23 +953,25 @@ def profile_steps(torch, step, state, args, sched, card, n_steps=5):
                if any(k in e.key for k in OUR_KERNELS)) / 1e3
     total = sum(dev_us(e) for e in kernels) / 1e3
     os.makedirs("chip_smoke_out", exist_ok=True)
-    with open("chip_smoke_out/profile_train_step.txt", "w") as f:
+    name = label.replace(" ", "_").replace("training", "train")
+    with open(f"chip_smoke_out/profile_{name}_step.txt", "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=80))
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    print(f"profile: {n_steps} steps, wall {wall_ms / n_steps:.3f} ms per "
+    print(f"profile ({label}): {n_steps} steps, wall {wall_ms / n_steps:.3f} ms per "
           f"step; device busy {total / n_steps:.3f} ms per step "
           f"({100 * total / wall_ms:.1f}%), of which the port's kernels "
           f"{ours / n_steps:.3f} ms; {len(kernels)} kernel names on {card}",
           flush=True)
     for e in top:
-        print(f"profile: {dev_us(e) / 1e3 / n_steps:9.3f} ms/step "
+        print(f"profile ({label}): {dev_us(e) / 1e3 / n_steps:9.3f} ms/step "
               f"{e.count // n_steps:5d} calls/step  {e.key[:90]}", flush=True)
 
 
-def train_agreement(torch, cfg, table, Ks, Ps):
-    """One step at batch 64 on the card and on the CPU (plain versions)
-    from the same state, batch and draws: loss terms within LOSS_RTOL,
-    Adam's first moments (0.1 * the gradients) within GRAD_MAX/GRAD_FRO."""
+def train_agreement(torch, cfg, table, Ks, Ps, label):
+    """One step of the recipe `cfg` at batch 64 on the card and on the CPU
+    (plain versions) from the same state, batch and draws: loss terms
+    within LOSS_RTOL, Adam's first moments (0.1 * the gradients) within
+    GRAD_MAX/GRAD_FRO."""
     from nsff_pl_tpu_torch.config import build_params
     from nsff_pl_tpu_torch.training.checkpoint import to_device
     from nsff_pl_tpu_torch.training.optim import moments
@@ -662,12 +1001,59 @@ def train_agreement(torch, cfg, table, Ks, Ps):
     grad_errs = [rel_errs(a, b) for a, b in zip(muc, mup)]
     g_max = max(e[0] for e in grad_errs)
     g_fro = max(e[1] for e in grad_errs)
-    print(f"agreement: one training step at batch {n}, card vs plain CPU: "
+    print(f"agreement: one {label} step at batch {n}, card vs plain CPU: "
           f"loss terms worst relative error {loss_err:.2e} (tol "
           f"{LOSS_RTOL}); gradients worst error/max {g_max:.2e}, worst "
           f"Frobenius {g_fro:.2e} (tol {GRAD_MAX}, {GRAD_FRO})", flush=True)
     if loss_err > LOSS_RTOL or g_max > GRAD_MAX or g_fro > GRAD_FRO:
-        fail("the card training step disagrees with the plain CPU step")
+        fail(f"the card {label} step disagrees with the plain CPU step")
+
+
+def packed_serving_phase(torch, np, cfg, params, K, poses, planar_maps,
+                         card):
+    """The packed serving path: one frame through a `RenderService` with
+    `planar_eval="off"` in bfloat16 (the packed evaluator once per chunk,
+    compositing outside it), held against the planar frame of the same
+    weights, and one in float32 (the plain evaluators, no kernel), held
+    against the bfloat16 frame. Returns the bfloat16 frame's counts."""
+    from nsff_pl_tpu_torch.apps.serve import RenderService
+
+    n_chunks = -(-W_IMG * H_IMG // CHUNK)
+    frames = {}
+    for dtype, expected, other, tol in (
+            ("bfloat16", {"fused_nerf_eval": n_chunks}, planar_maps,
+             FRAME_TOL),
+            ("float32", {}, None, F32_TOL)):
+        svc = RenderService(params, K, poses, (W_IMG, H_IMG),
+                            cfg.replace(planar_eval="off", dtype=dtype),
+                            chunk=CHUNK, device="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rgb, depth = svc.render_pose(0)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        print(f"packed serving [{dtype}]: one {W_IMG}x{H_IMG} frame in "
+              f"{secs:.6f} s, launches "
+              + json.dumps({k: v for k, v in counts.items() if v})
+              + f" on {card}", flush=True)
+        check_counts(counts, expected, 1, f"packed serving [{dtype}]")
+        if rgb.shape != (H_IMG, W_IMG, 3) or depth.shape != (H_IMG, W_IMG) \
+                or not np.isfinite(depth).all():
+            fail(f"packed serving [{dtype}]: bad frame")
+        maps = svc.render_maps(0)  # the float maps, to compare
+        if other is None:
+            other = frames["bfloat16"][1]
+        err = max(float((maps[k].float() - other[k].float()).abs().max())
+                  for k in ("rgb_fine", "depth_fine"))
+        against = "the planar frame" if dtype == "bfloat16" else \
+            "the bfloat16 frame"
+        print(f"packed serving [{dtype}]: rgb and depth against {against} "
+              f"max abs err {err:.3e} (tol {tol})", flush=True)
+        if not err <= tol:
+            fail(f"packed serving [{dtype}] disagrees with {against}")
+        frames[dtype] = (counts, maps)
+    return frames["bfloat16"][0]
 
 
 def main() -> int:
@@ -696,7 +1082,8 @@ def main() -> int:
     phase_s = {}
     t0 = time.perf_counter()
     cuda_build.build(["planar_eval_comp", "planar_nerf_train",
-                      "planar_compositor"])
+                      "planar_compositor", "fused_nerf_eval",
+                      "fused_nerf_train", "fused_compositing"])
     phase_s["build"] = time.perf_counter() - t0
     print(f"build: {phase_s['build']:.1f} s", flush=True)
     t_phase = time.perf_counter()
@@ -772,6 +1159,7 @@ def main() -> int:
 
     train_records = train_kernel_phase(torch, np, rk, tck, params, rays,
                                        card)
+    packed_records = packed_kernel_phase(torch, np, params, rays, card)
     phase_s["kernels"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
@@ -787,7 +1175,7 @@ def main() -> int:
     frame_s = []
     try:
         torch.cuda.synchronize()
-        reset_counts(rk, tck)
+        reset_counts()
         outs = []
         for t, pose in ((0, None), (17, None), (5, c2w.tolist())):
             t0 = time.perf_counter()
@@ -799,7 +1187,7 @@ def main() -> int:
         with urllib.request.urlopen(req, timeout=300) as resp:
             status, png = resp.status, resp.read()
         frame_s.append(time.perf_counter() - t0)
-        serve_counts = launch_counts(rk, tck)
+        serve_counts = launch_counts()
         launches = serve_counts["planar_eval_comp"]
     finally:
         server.shutdown()
@@ -839,11 +1227,36 @@ def main() -> int:
     table, Ks, Ps = train_scene(torch, np, K, poses)
     print(f"training: ray table {tuple(table.shape)} float32 on the card "
           f"({table.numel() * 4 / 1e6:.1f} MB)", flush=True)
-    train_counts = training_phase(torch, np, tcfg, table, Ks, Ps, rk, tck,
-                                  card)
+    train_counts, planar_ms = training_phase(
+        torch, np, tcfg, table, Ks, Ps, card, label="training",
+        per_step=PER_STEP, planar=True, profile=True)
     for name, rec in train_records.items():
         rec["launches"] = train_counts[name]
     phase_s["training"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- packed serving phase (a main path) ----------------
+    packed_serve_counts = packed_serving_phase(torch, np, cfg, params, K,
+                                               poses, maps, card)
+    phase_s["packed serving"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- packed training phase (a main path) ----------------
+    pcfg = tcfg.replace(fused_train="off", fused_compositing=True)
+    packed_counts, packed_ms = training_phase(
+        torch, np, pcfg, table, Ks, Ps, card, label="packed training",
+        per_step=PER_STEP_PACKED, planar=False, profile=True)
+    print(f"packed training: {packed_ms:.3f} ms per step against "
+          f"{planar_ms:.3f} ms on the planar path in this run", flush=True)
+    for name, rec in packed_records.items():
+        # the evaluator also serves: its count is the training steps' plus
+        # the packed frame's
+        rec["launches"] = packed_counts[name] + packed_serve_counts[name]
+    training_phase(torch, np, pcfg.replace(encode_t=False), table, Ks, Ps,
+                   card, label="static-only training",
+                   per_step=PER_STEP_STATIC, planar=False,
+                   steps=STATIC_STEPS, repeat=False)
+    phase_s["packed training"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---------------- agreement ----------------
@@ -861,13 +1274,14 @@ def main() -> int:
           f"CPU render max abs err {err:.3e} (tol {TOL})", flush=True)
     if err > TOL:
         fail(f"card render disagrees with the plain CPU render: {err}")
-    train_agreement(torch, tcfg, table, Ks, Ps)
+    train_agreement(torch, tcfg, table, Ks, Ps, "planar training")
+    train_agreement(torch, pcfg, table, Ks, Ps, "packed training")
     phase_s["agreement"] = time.perf_counter() - t_phase
     print("phase seconds " + json.dumps(
         {k: round(v, 3) for k, v in phase_s.items()}), flush=True)
 
-    print(json.dumps({"kernels": [record] + list(train_records.values())}),
-          flush=True)
+    print(json.dumps({"kernels": [record] + list(train_records.values())
+                      + list(packed_records.values())}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

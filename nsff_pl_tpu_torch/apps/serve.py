@@ -13,9 +13,10 @@ size. From the command line they come from an `.npz` holding `K` and
         --scene_meta scene.npz --img_wh 512 288 --encode_t \
         --use_viewdir --N_samples 128 --port 8765
 
-It renders in bfloat16 on the CUDA kernel path; the JAX server's f32
-default and coarse-to-fine (`--dtype`, `--N_importance`) take paths that
-are not ported yet.
+`--dtype bfloat16` (the default here) renders on the CUDA kernels: the
+planar composited evaluator, or with `--planar_eval off` the packed
+evaluator and compositing outside it. `--dtype float32` renders on the
+plain f32 evaluators. Coarse-to-fine (`--N_importance`) is not ported yet.
 
 Endpoints:
     GET  /health  -> {"status": "ok"}
@@ -56,6 +57,10 @@ def get_opts(argv=None):
     parser.add_argument("--encode_t", default=False, action="store_true")
     parser.add_argument("--N_tau", type=int, default=48)
     parser.add_argument("--flow_scale", type=float, default=0.2)
+    parser.add_argument("--dtype", type=str, default="bfloat16",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--planar_eval", type=str, default="auto",
+                        choices=["auto", "on", "off"])
     parser.add_argument("--chunk", type=int, default=32 * 1024)
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8765)
@@ -194,7 +199,7 @@ def main(args):
         img_wh=(w, h), use_viewdir=args.use_viewdir,
         N_samples=args.N_samples, encode_a=args.encode_a, N_a=args.N_a,
         encode_t=args.encode_t, N_tau=args.N_tau, flow_scale=args.flow_scale,
-        dtype="bfloat16")
+        dtype=args.dtype, planar_eval=args.planar_eval)
     service = RenderService(checkpoint.load(args.ckpt_path, args.device),
                             meta["K"], meta["poses"], (w, h), cfg,
                             chunk=args.chunk, device=args.device)

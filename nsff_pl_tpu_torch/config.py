@@ -50,8 +50,10 @@ class NSFFConfig:
     decay_gamma: float = 0.1
     poly_exp: float = 0.9
     planar_eval: str = "auto"
+    mlp_backend: str = "auto"
     train_backend: str = "auto"
     fused_train: str = "auto"
+    fused_compositing: bool = False
     warp_subsample: int = 1
     warp_importance: float = 0.0
     dtype: str = "float32"  # compute dtype: 'float32' | 'bfloat16'
@@ -94,7 +96,8 @@ def render_config(cfg: NSFFConfig) -> RenderConfig:
         train_backend=cfg.train_backend, fused_train=cfg.fused_train,
         N_tau=cfg.N_tau, N_a=cfg.N_a,
         warp_subsample=cfg.warp_subsample,
-        warp_importance=cfg.warp_importance, planar_eval=cfg.planar_eval)
+        warp_importance=cfg.warp_importance, planar_eval=cfg.planar_eval,
+        mlp_backend=cfg.mlp_backend, fused_compositing=cfg.fused_compositing)
 
 
 def loss_config(cfg: NSFFConfig):

@@ -20,16 +20,14 @@
 // Plain C interface (loaded with ctypes); launches on the given stream and
 // returns the cudaError_t of the launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_ray.cuh"
+
+using namespace warp_ray;
 
 namespace {
 
-constexpr int S = 128;
-constexpr int Q = S / 32;  // samples per lane
 constexpr int NIN = 21, NOUT = 5, NMAP = 16, NGRAD = 16;
 constexpr int RAYS_PER_BLOCK = 4;
-constexpr float STATIC_FAR_DELTA = 100.f, TRANSIENT_FAR_DELTA = 1e-3f;
 
 enum {
   I_ZS = 0, I_SSIG, I_TSIG, I_TSIG1, I_TSIG2, I_NS, I_NT, I_NW1, I_NW2,
@@ -45,73 +43,6 @@ struct Args {
   int n_rays;
 };
 
-__device__ __forceinline__ float softplus(float x) {
-  return log1pf(expf(-fabsf(x))) + fmaxf(x, 0.f);
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-struct Row { float v[Q]; };
-
-__device__ __forceinline__ Row load(const float* p, size_t base) {
-  Row r;
-  if (p == nullptr) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) r.v[q] = 0.f;
-    return r;
-  }
-  const float4 x = *reinterpret_cast<const float4*>(p + base);
-  r.v[0] = x.x; r.v[1] = x.y; r.v[2] = x.z; r.v[3] = x.w;
-  return r;
-}
-
-__device__ __forceinline__ void store(float* p, size_t base, const Row& r) {
-  *reinterpret_cast<float4*>(p + base) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
-}
-
-// exclusive prefix sum along the ray (lane l holds samples 4l..4l+3)
-__device__ __forceinline__ Row excl_cumsum(const Row& x, int lane) {
-  float loc = 0.f;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) loc += x.v[q];
-  float inc = loc;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane >= off) inc += y;
-  }
-  Row r;
-  float c = inc - loc;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) { r.v[q] = c; c += x.v[q]; }
-  return r;
-}
-
-// out[j] = sum_{i > j} x[i] along the ray
-__device__ __forceinline__ Row rev_excl_cumsum(const Row& x, int lane) {
-  float loc = 0.f;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) loc += x.v[q];
-  float inc = loc;  // sum over lanes >= lane
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_down_sync(0xffffffffu, inc, off);
-    if (lane + off < 32) inc += y;
-  }
-  Row r;
-  float c = inc - loc;  // sum over lanes > lane
-#pragma unroll
-  for (int q = Q - 1; q >= 0; --q) { r.v[q] = c; c += x.v[q]; }
-  return r;
-}
 
 // the forward quantities both kernels need
 struct Core {

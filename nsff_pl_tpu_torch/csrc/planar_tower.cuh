@@ -90,6 +90,18 @@ __device__ __forceinline__ float posenc_xs(const float* freqs,
   return xs;
 }
 
+// the same for a given point x (3 floats): x_c f
+__device__ __forceinline__ float posenc_xs_pt(const float* freqs,
+                                              const float* x, int j, bool& id,
+                                              float& ph) {
+  ph = 0.f;
+  id = j < 3;
+  if (id) return x[j];
+  const int k = (j - 3) / 6, r = (j - 3) % 6;
+  if (r >= 3) ph = 1.5707963267948966f;
+  return __fmul_rn(x[r % 3], freqs[k]);
+}
+
 // the encoding value of lane j < xyz_w
 __device__ __forceinline__ float posenc_val(const float* freqs,
                                             const float* od, const float* fl,

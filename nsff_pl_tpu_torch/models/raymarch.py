@@ -12,8 +12,10 @@ calls), composited together by the fused compositor
 (`ops/compositing_planar_kernel.py`). Every per-sample quantity is a
 dense (N, S) plane; sample positions never materialize.
 
-Not ported, each raising `NotImplementedError` naming its ROADMAP.md
-item: the test-time planes route, coarse-to-fine (`N_importance > 0`),
+Not ported on these paths, each raising `NotImplementedError` naming its
+ROADMAP.md item: the test-time planes route (the packed path of
+`models/rendering.py::render_rays` serves per-sample keys with
+`planar_eval='off'`), coarse-to-fine (`N_importance > 0`),
 `warp_subsample=2` and `warp_importance > 0`. Unlike the TPU package
 there is no lane-width limit on `N_samples`.
 """
@@ -113,8 +115,10 @@ def render_test_planar(
                                                        flow):
         raise NotImplementedError(
             "the per-sample planes route of the planar test path is not "
-            "ported yet (ROADMAP.md queue B, make_planar_nerf_train); pass "
-            f"a key filter within {sorted(comp_eval_keys(output_transient, flow))}")
+            "ported yet (ROADMAP.md queue A, 'test-time planes route'); "
+            "planar_eval='off' renders per-sample keys on the packed path, "
+            "or pass a key filter within "
+            f"{sorted(comp_eval_keys(output_transient, flow))}")
 
     dir_src = view_dir if view_dir is not None else d
     dir_emb = (posenc(dir_src, cfg.S_emb_dir, cfg.N_emb_dir)
@@ -189,9 +193,10 @@ def check_train_envelope(cfg: RenderConfig) -> None:
             "(ROADMAP.md queue A, 'warp_importance')")
     if cfg.planar_compositing not in ("auto", "on"):
         raise NotImplementedError(
-            f"planar_compositing={cfg.planar_compositing!r}: compositing "
-            "outside the fused compositor is not ported (ROADMAP.md queue "
-            "B, make_fused_compositing)")
+            f"planar_compositing={cfg.planar_compositing!r}: the planar "
+            "train path composites in its fused compositor only (ROADMAP.md "
+            "queue A, 'planar_compositing off'); fused_train='off' "
+            "composites outside a kernel")
 
 
 DRAW_KEYS = ("u", "ns", "nt", "nw1", "nw2")

@@ -1,9 +1,11 @@
-"""Volume-rendering compositing primitives (port of the parts of
-`nsff_pl_tpu/ops/compositing.py` the planar paths use).
+"""Volume-rendering compositing primitives (port of
+`nsff_pl_tpu/ops/compositing.py`).
 
 NeRF-W additive two-field compositing: with tau = delta * softplus(sigma),
-alpha = 1 - exp(-tau) and the shared transmittance
-T_i = exp(-sum_{j<i} (tau_s + tau_t)_j).
+alpha_s = 1 - exp(-tau_s), alpha_t = 1 - exp(-tau_t),
+alpha = 1 - (1 - alpha_s)(1 - alpha_t), the shared transmittance
+T_i = prod_{j<i} (1 - alpha_j) = exp(-sum_{j<i} (tau_s + tau_t)_j) and the
+weights w_s = alpha_s T, w_t = alpha_t T, w = alpha T.
 """
 from __future__ import annotations
 
@@ -40,3 +42,41 @@ def exclusive_cumsum(v: torch.Tensor) -> torch.Tensor:
 def transmittance_from_taus(taus: torch.Tensor) -> torch.Tensor:
     """T_i = prod_{j<i} exp(-tau_j) = exp(-sum_{j<i} tau_j)."""
     return torch.exp(-exclusive_cumsum(taus))
+
+
+def sigma2alpha(sigma_raw, deltas, noise=None):
+    """Raw sigma -> alpha, with optional pre-activation noise (a tensor of
+    the same shape, or None)."""
+    if noise is not None:
+        sigma_raw = sigma_raw + noise
+    return 1.0 - torch.exp(-deltas * softplus(sigma_raw))
+
+
+def transmittance(alphas: torch.Tensor) -> torch.Tensor:
+    """T_i = prod_{j<i} (1 - alpha_j): the exclusive cumulative product
+    along the sample axis."""
+    shifted = torch.cat([torch.ones_like(alphas[:, :1]),
+                         1.0 - alphas[:, :-1]], -1)
+    return torch.cumprod(shifted, -1)
+
+
+def composite_two_fields(static_alphas, transient_alphas):
+    """NeRF-W additive compositing of two alpha fields: (static_weights,
+    transient_weights, weights, trans)."""
+    alphas = 1.0 - (1.0 - static_alphas) * (1.0 - transient_alphas)
+    trans = transmittance(alphas)
+    return (static_alphas * trans, transient_alphas * trans, alphas * trans,
+            trans)
+
+
+def composite_one_field(alphas):
+    """Single-field weights alpha * T."""
+    return alphas * transmittance(alphas)
+
+
+def weighted_sum(weights, values):
+    """sum_i w_i v_i along the sample axis; weights (N, S), values (N, S)
+    or (N, S, C)."""
+    if values.ndim == weights.ndim + 1:
+        return (weights[..., None] * values).sum(-2)
+    return (weights * values).sum(-1)

@@ -1,0 +1,278 @@
+"""Packed-boundary NeRF evaluator: CUDA kernel + plain PyTorch version.
+
+Port of `nsff_pl_tpu/ops/mlp_kernel.py::make_fused_nerf_eval`. For given
+sample points xyz (N, S, 3) and per-ray conditioning (direction,
+appearance and time embeddings, (N, C) each) it evaluates the positional
+encoding, the static 8x256 tower with its heads and the transient tower
+with the packed transient heads, and returns the reference's packed
+(N, S, 16) f32 layout
+
+    [static_rgb(3), static_sigma, transient_rgb(3), transient_sigma,
+     flow(3), flow(3), 0, 0]
+
+where the flow columns hold the heads of `output_flow` in the order fw,
+bw, unmasked (`flow_scale * tanh`; the renderer masks samples beyond
+z_far). Sigmas are raw (pre-softplus). `static_branch=False` leaves
+columns 0-3 zero; without `encode_t` columns 4-15 are zero.
+
+Rounding points, weight layout and the posenc tables are those of
+`ops/raymarch_kernel.py` (bf16 matmul inputs, f32 accumulation, bf16
+activations, f32 biases; `pack_padded_weights`). The posenc
+pre-activation of lane j is `x_c * f_j`, one f32 product, as the TPU
+kernel's selector matmul gives. The transient heads are always packed
+10 wide ([sigma, rgb, fw, bw]; zero columns where the model has no flow
+head) and `output_flow` picks the columns that are written, so one
+packing serves every evaluation of a step.
+
+`fused_nerf_eval` launches `csrc/fused_nerf_eval.cu` for CUDA tensors and
+runs `fused_nerf_eval_ref` for CPU tensors; nothing else chooses between
+them. The CUDA kernel is built for S = 128 samples per ray (one CTA per
+ray) and raises for another S.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
+from nsff_pl_tpu_torch.ops.raymarch_kernel import (
+    _HEAD_COL, _SLOTS, KERNEL_SAMPLES, MAX_FREQS, SEG, TRAIN_HEADS, WIDTH,
+    _bcast, _bf16, _check, _mm, _posenc_tables, _ptr, _sin_poly, _slot_ptrs,
+    _t_lanes, _tower_ref, branch_weight_names, pack_padded_weights)
+
+N_PACKED = 16  # columns of the packed output
+
+
+def unpack_fused(out: torch.Tensor, *, encode_t: bool,
+                 output_flow: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+    """Split the packed (N, S, 16) output into the renderer's quantities."""
+    res = {"static_rgbs": out[..., 0:3], "static_sigmas_raw": out[..., 3]}
+    if encode_t:
+        res["transient_rgbs"] = out[..., 4:7]
+        res["transient_sigmas_raw"] = out[..., 7]
+        c = 8
+        for f in TRAIN_HEADS:
+            if f in output_flow:
+                res[f"transient_flows_{f}"] = out[..., c:c + 3]
+                c += 3
+    return res
+
+
+def posenc_rows_xyz(xyz: torch.Tensor, freqs):
+    """Posenc pre-activation `xs` and encoding `pe` of given points as
+    (N*S, SEG) f32 rows in the kernels' lane layout: xs_j = x_c * f_j."""
+    chan, freq, is_id, phase, valid = (
+        torch.as_tensor(a, device=xyz.device)
+        for a in _posenc_tables(freqs, SEG))
+    xs = xyz.reshape(-1, 3)[:, chan] * freq
+    pe = torch.where(is_id > 0, xs, _sin_poly(xs + phase)) * valid
+    return xs, pe
+
+
+def fused_nerf_eval_ref(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
+                        static_branch: bool, use_viewdir: bool,
+                        encode_a: bool, encode_t: bool, output_flow,
+                        flow_scale: float, D: int = 8,
+                        skips=(4,)) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: (N, S, 16) f32."""
+    n, S = xyz.shape[0], xyz.shape[1]
+    xyz_w = 3 + 6 * len(freqs)
+    _, pe = posenc_rows_xyz(xyz, freqs)
+    out = xyz.new_zeros((n * S, N_PACKED))
+    if static_branch:
+        h = _tower_ref(pw, "static_xyz", _bf16(pe), D, skips)
+        out[:, 3:4] = _mm(h, pw["static_sigma"]["w"], pw["static_sigma"]["b"])
+        feat0 = _mm(h, pw["static_xyz_final"]["w"], pw["static_xyz_final"]["b"])
+        if use_viewdir:
+            w, b = pw["static_dir"]["w"], pw["static_dir"]["b"]
+            ray_z = _mm(dir_emb, w[WIDTH:WIDTH + dir_emb.shape[1]]) + b
+            if encode_a:
+                ray_z = ray_z + _mm(
+                    a_emb, w[WIDTH + SEG:WIDTH + SEG + a_emb.shape[1]])
+            feat = _bf16(torch.relu(_mm(feat0, w[:WIDTH]) + _bcast(ray_z, S)))
+        else:
+            feat = _bf16(feat0)
+        out[:, 0:3] = torch.sigmoid(_mm(feat, pw["static_rgb"]["w"],
+                                        pw["static_rgb"]["b"]))
+    if encode_t:
+        tx = _bf16(pe + _t_lanes(t_emb, xyz_w, S))
+        h = _tower_ref(pw, "transient_xyz", tx, D, skips)
+        featb = _bf16(_mm(h, pw["transient_xyz_final"]["w"],
+                          pw["transient_xyz_final"]["b"]))
+        th = _mm(featb, pw["transient_heads"]["w"], pw["transient_heads"]["b"])
+        out[:, 4:7] = torch.sigmoid(th[:, 1:4])
+        out[:, 7:8] = th[:, 0:1]
+        c = 8
+        for f in TRAIN_HEADS:
+            if f in output_flow:
+                h0 = _HEAD_COL[f]
+                out[:, c:c + 3] = flow_scale * torch.tanh(th[:, h0:h0 + 3])
+                c += 3
+    return out.reshape(n, S, N_PACKED)
+
+
+def packed_checks(xyz, dir_emb, a_emb, t_emb, *, freqs, use_viewdir,
+                  encode_a, encode_t):
+    """Argument checks shared by the packed kernels' wrappers; returns
+    (n, dir_w, n_a, n_tau)."""
+    dev, f32 = xyz.device, torch.float32
+    if xyz.ndim != 3 or xyz.shape[2] != 3:
+        raise ValueError(f"xyz: shape {tuple(xyz.shape)} is not (N, S, 3)")
+    n, S = xyz.shape[0], xyz.shape[1]
+    if S != KERNEL_SAMPLES:
+        raise NotImplementedError(
+            f"the CUDA kernels are built for S={KERNEL_SAMPLES} samples per "
+            f"ray, got {S} (other sample counts: ROADMAP.md queue A, "
+            "coarse-to-fine)")
+    n_tau = t_emb.shape[-1] if encode_t and t_emb is not None else 0
+    if len(freqs) > MAX_FREQS or 3 + 6 * len(freqs) + n_tau > SEG:
+        raise ValueError("posenc + time latent must fit one 128-lane segment")
+    _check(xyz, "xyz", (n, S, 3), f32, dev)
+    dir_w = n_a = 0
+    if use_viewdir:
+        dir_w = dir_emb.shape[-1] if dir_emb is not None else 0
+        _check(dir_emb, "dir_emb", (n, dir_w), f32, dev)
+        if encode_a:
+            n_a = a_emb.shape[-1] if a_emb is not None else 0
+            _check(a_emb, "a_emb", (n, n_a), f32, dev)
+        if dir_w > SEG or n_a > SEG:
+            raise ValueError("dir/appearance embedding wider than a segment")
+    if encode_t:
+        _check(t_emb, "t_emb", (n, n_tau), f32, dev)
+    return n, dir_w, n_a, n_tau
+
+
+def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
+                         static_branch: bool, use_viewdir: bool,
+                         encode_a: bool, encode_t: bool, output_flow,
+                         flow_scale: float, D: int = 8,
+                         skips=(4,)) -> torch.Tensor:
+    """Launch `csrc/fused_nerf_eval.cu` (one CTA per ray) on the current
+    stream; adds one to `fused_nerf_eval_cuda.launches`."""
+    from nsff_pl_tpu_torch.ops import cuda_build
+
+    if D != 8 or tuple(skips) != (4,):
+        raise NotImplementedError("the CUDA kernels are built for D=8, skips=(4,)")
+    if not (static_branch or encode_t):
+        raise ValueError("neither branch is evaluated")
+    use_viewdir = use_viewdir and static_branch
+    encode_a = encode_a and use_viewdir
+    n, dir_w, n_a, n_tau = packed_checks(
+        xyz, dir_emb, a_emb, t_emb, freqs=freqs, use_viewdir=use_viewdir,
+        encode_a=encode_a, encode_t=encode_t)
+    out = torch.empty((n, xyz.shape[1], N_PACKED), dtype=torch.float32,
+                      device=xyz.device)
+    if n == 0:
+        return out
+    static_names, transient_names = branch_weight_names(
+        D=D, skips=skips, use_viewdir=use_viewdir,
+        static_branch=static_branch, encode_t=encode_t)
+    wp, bp = _slot_ptrs(pw, static_names + transient_names, xyz.device,
+                        len(TRAIN_HEADS) * 3 + 4, encode_a)
+    fn = cuda_build.load("fused_nerf_eval").nsff_fused_eval
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = ([P] * 4 + [ctypes.POINTER(P)] * 2 + [P] + [I] * 4
+                   + [ctypes.POINTER(ctypes.c_float), I] + [I] * 6
+                   + [ctypes.c_float, I, P])
+    fn.restype = I
+    cfreqs = (ctypes.c_float * MAX_FREQS)(*[float(f) for f in freqs])
+    rc = fn(_ptr(xyz), _ptr(dir_emb) if use_viewdir else None,
+            _ptr(a_emb) if encode_a else None,
+            _ptr(t_emb) if encode_t else None, wp, bp, out.data_ptr(),
+            n, 3 + 6 * len(freqs), dir_w, n_a, cfreqs, len(freqs),
+            int(static_branch), int(encode_t), int(use_viewdir),
+            int(encode_a), int(encode_t and "fw" in output_flow),
+            int(encode_t and "bw" in output_flow), float(flow_scale), n_tau,
+            torch.cuda.current_stream(xyz.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_nerf_eval kernel launch failed: "
+                           f"cudaError {rc}")
+    fused_nerf_eval_cuda.launches += 1
+    return out
+
+
+fused_nerf_eval_cuda.launches = 0
+
+
+def fused_nerf_eval(pw, xyz, dir_emb, a_emb, t_emb, **kw):
+    """CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    if xyz.is_cuda:
+        return fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, **kw)
+    return fused_nerf_eval_ref(pw, xyz, dir_emb, a_emb, t_emb, **kw)
+
+
+def packed_op_config(*, use_viewdir, encode_a, encode_t, output_flow,
+                     n_emb_xyz, s_emb_xyz, n_emb_dir, n_a, n_tau, flow_scale,
+                     D, skips, static_branch):
+    """(weight_names, pack_kw, kernel_kw) of a packed evaluator, shared
+    with `ops/mlp_train_kernel.py`."""
+    use_viewdir = use_viewdir and static_branch
+    encode_a = encode_a and use_viewdir
+    static_names, transient_names = branch_weight_names(
+        D=D, skips=skips, use_viewdir=use_viewdir,
+        static_branch=static_branch, encode_t=encode_t)
+    pack_kw = dict(output_flow=TRAIN_HEADS, skips=skips,
+                   xyz_w=3 + 6 * n_emb_xyz, n_tau=n_tau,
+                   dir_w=3 + 6 * n_emb_dir, n_a=n_a, encode_a=encode_a)
+    kernel_kw = dict(
+        freqs=tuple(float(f) for f in posenc_freqs(s_emb_xyz, n_emb_xyz)),
+        static_branch=static_branch, use_viewdir=use_viewdir,
+        encode_a=encode_a, encode_t=encode_t,
+        output_flow=tuple(f for f in output_flow if f in TRAIN_HEADS)
+        if encode_t else (),
+        flow_scale=flow_scale, D=D, skips=tuple(skips))
+    return static_names + transient_names, pack_kw, kernel_kw
+
+
+def make_fused_nerf_eval(
+    n_samples: int,
+    *,
+    use_viewdir: bool,
+    encode_a: bool,
+    encode_t: bool,
+    output_flow: Tuple[str, ...],
+    n_emb_xyz: int = 10,
+    s_emb_xyz: float = 9.0,
+    n_emb_dir: int = 4,
+    n_a: int = 48,
+    n_tau: int = 48,
+    flow_scale: float = 0.2,
+    D: int = 8,
+    skips=(4,),
+    static_branch: bool = True,
+):
+    """Build fn(params, xyz, dir_emb=None, a_emb=None, t_emb=None, pw=None)
+    -> (N, S, 16), the JAX function's contract: xyz (N, S, 3), per-ray
+    (N, C) conditioning embeddings. No gradient (`ops/mlp_train_kernel.py`
+    is the trainable form). `pw` takes weights already packed by `fn.pack`."""
+    weight_names, pack_kw, kernel_kw = packed_op_config(
+        use_viewdir=use_viewdir, encode_a=encode_a, encode_t=encode_t,
+        output_flow=output_flow, n_emb_xyz=n_emb_xyz, s_emb_xyz=s_emb_xyz,
+        n_emb_dir=n_emb_dir, n_a=n_a, n_tau=n_tau, flow_scale=flow_scale,
+        D=D, skips=skips, static_branch=static_branch)
+
+    def pack(params):
+        with torch.no_grad():
+            return pack_padded_weights(params, weight_names, **pack_kw)
+
+    def fn(params: Dict, xyz, dir_emb=None, a_emb=None, t_emb=None, pw=None):
+        if xyz.shape[1] != n_samples:
+            raise ValueError(f"xyz has {xyz.shape[1]} samples, evaluator "
+                             f"built for {n_samples}")
+        if encode_t and t_emb.shape[-1] != n_tau:
+            raise ValueError(f"evaluator built for n_tau={n_tau}, t_emb has "
+                             f"{t_emb.shape[-1]}")
+        with torch.no_grad():
+            return fused_nerf_eval(
+                pack(params) if pw is None else pw, xyz.contiguous(),
+                dir_emb.contiguous() if kernel_kw["use_viewdir"] else None,
+                a_emb.contiguous() if kernel_kw["encode_a"] else None,
+                t_emb.contiguous() if encode_t else None, **kernel_kw)
+
+    fn.weight_names = weight_names
+    fn.pack_kw = pack_kw
+    fn.kernel_kw = kernel_kw
+    fn.pack = pack
+    return fn

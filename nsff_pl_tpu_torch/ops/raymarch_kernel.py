@@ -105,9 +105,13 @@ def pack_padded_weights(params, weight_names, *, output_flow, skips, xyz_w,
     if "transient_heads" in weight_names:
         names = ["transient_sigma", "transient_rgb"] + [
             f"transient_flow_{f}" for f in ("fw", "bw") if f in output_flow]
+        sig = params["transient_sigma"]
+        # a model without flow heads gets zero columns in their place
+        zero = {"w": sig["w"].new_zeros((sig["w"].shape[0], 3)),
+                "b": sig["b"].new_zeros((3,))}
         packed["transient_heads"] = {
-            "w": torch.cat([params[n]["w"] for n in names], -1),
-            "b": torch.cat([params[n]["b"] for n in names], -1)}
+            "w": torch.cat([params.get(n, zero)["w"] for n in names], -1),
+            "b": torch.cat([params.get(n, zero)["b"] for n in names], -1)}
     out = {}
     for name in weight_names:
         w = packed[name]["w"]
@@ -664,29 +668,39 @@ def _tower_bwd_ref(pw, prefix, acts, dh, dws, D, skips, need_dinp):
     return dh if dinp is None else dinp + dh
 
 
-def planar_nerf_train_bwd_ref(branch: str, pw, o, d, zs, flows, dir_emb,
-                              a_emb, t_emb, g, *, freqs, use_viewdir: bool,
-                              encode_a: bool, flow_scale: float, D: int = 8,
-                              skips=(4,)):
-    """One branch of the hand-written backward in plain PyTorch.
+def _posenc_adjoint(dinp, xs, freqs, round_ops: bool = False):
+    """Cotangent of the sample points from the cotangent `dinp` of the
+    (N*S, SEG) encoding rows: dxs = dinp on identity lanes and
+    dinp * cos(xs + phase) on sine lanes (the cosine as the polynomial
+    sine of xs + phase + pi/2), then the product with the transposed
+    selector; `round_ops` rounds both of its operands to bf16. (N*S, 3)."""
+    dev = xs.device
+    chan, freq, is_id, phase, valid = (
+        torch.as_tensor(a, device=dev) for a in _posenc_tables(freqs, SEG))
+    dpe = dinp * valid
+    dxs = torch.where(is_id > 0, dpe,
+                      dpe * _sin_poly(xs + phase + 1.5707963267948966))
+    sel = torch.zeros((3, SEG), device=dev)
+    sel[chan, torch.arange(SEG, device=dev)] = freq * valid
+    if round_ops:
+        return _bf16(dxs) @ _bf16(sel).T
+    return dxs @ sel.T
 
-    `g` holds the branch's cotangent planes, each (N, S) f32 or None
-    (zero): static ("srgb_r", "srgb_g", "srgb_b", "ssig"); transient
-    ("trgb_r", "trgb_g", "trgb_b", "tsig", "ffw_x".."ffw_z",
-    "fbw_x".."fbw_z"). Returns {"dws": {name: {"w": padded f32 dW,
-    "b": db}}} plus "ddir"/"da" (static) or "dt"/"dflows" (transient)."""
-    n, S = zs.shape
-    xyz_w = 3 + 6 * len(freqs)
-    xs, pe = _posenc_rows(o, d, zs, freqs, flows)
 
-    def g_rows(keys):
-        cols = [g.get(k) for k in keys]
-        cols = [c if c is not None else zs.new_zeros((n, S)) for c in cols]
-        return torch.stack([c.reshape(n * S) for c in cols], -1)
-
+def _branch_bwd_rows(branch: str, pw, pe, g, S: int, dir_emb, a_emb, t_emb, *,
+                     xyz_w: int, use_viewdir: bool, encode_a: bool,
+                     flow_scale: float, need_dinp: bool, D: int = 8,
+                     skips=(4,)):
+    """One branch of the hand-written backward on (N*S, .) rows, shared by
+    the planar and the packed layout. `pe` holds the encoding rows, `g` the
+    branch's cotangent columns: static (N*S, 4) [rgb(3), sigma]; transient
+    (N*S, 10) [rgb(3), sigma, fw(3), bw(3)]. Returns (out, dinp): out has
+    "dws" ({name: {"w": padded f32 dW, "b": db}}) and "ddir"/"da" (static)
+    or "dt" (transient); dinp is the f32 cotangent of the tower's input
+    rows (always for the transient branch, for the static one only with
+    `need_dinp`, else None)."""
     dws, out = {}, {}
     if branch == "static":
-        gs = g_rows(_TRAIN_PLANES[0:4])
         acts = _tower_ref(pw, "static_xyz", _bf16(pe), D, skips, keep=True)
         h8 = acts[-1]
         w_sig = pw["static_sigma"]["w"]
@@ -706,8 +720,8 @@ def planar_nerf_train_bwd_ref(branch: str, pw, o, d, zs, flows, dir_emb,
         featb = _bf16(feat)
         w_rgb, b_rgb = pw["static_rgb"]["w"], pw["static_rgb"]["b"]
         s_rgb = torch.sigmoid(_mm(featb, w_rgb, b_rgb))
-        g_srgb = gs[:, 0:3] * s_rgb * (1.0 - s_rgb)
-        g_ssig = gs[:, 3:4]
+        g_srgb = g[:, 0:3] * s_rgb * (1.0 - s_rgb)
+        g_ssig = g[:, 3:4]
         dws["static_rgb"] = {"w": featb.T @ _bf16(g_srgb), "b": g_srgb.sum(0)}
         dfeat = _mmT(g_srgb, w_rgb)
         if use_viewdir:
@@ -730,9 +744,9 @@ def planar_nerf_train_bwd_ref(branch: str, pw, o, d, zs, flows, dir_emb,
         g_ssigb = _bf16(g_ssig)
         dws["static_sigma"] = {"w": h8.T @ g_ssigb, "b": g_ssig.sum(0)}
         dh8 = dh8 + _mmT(g_ssigb, w_sig)
-        _tower_bwd_ref(pw, "static_xyz", acts, dh8, dws, D, skips, False)
+        dinp = _tower_bwd_ref(pw, "static_xyz", acts, dh8, dws, D, skips,
+                              need_dinp)
     else:
-        gt = g_rows(_TRAIN_PLANES[4:14])
         tx = _bf16(pe + _t_lanes(t_emb, xyz_w, S))
         acts = _tower_ref(pw, "transient_xyz", tx, D, skips, keep=True)
         th8 = acts[-1]
@@ -743,30 +757,46 @@ def planar_nerf_train_bwd_ref(branch: str, pw, o, d, zs, flows, dir_emb,
         th = _mm(tfeatb, w_th, b_th)
         t_rgb = torch.sigmoid(th[:, 1:4])
         tf = torch.tanh(th[:, 4:10])
-        g_th = torch.cat([gt[:, 3:4], gt[:, 0:3] * t_rgb * (1.0 - t_rgb),
-                          gt[:, 4:10] * flow_scale * (1.0 - tf * tf)], -1)
+        g_th = torch.cat([g[:, 3:4], g[:, 0:3] * t_rgb * (1.0 - t_rgb),
+                          g[:, 4:10] * flow_scale * (1.0 - tf * tf)], -1)
         dws["transient_heads"] = {"w": tfeatb.T @ _bf16(g_th),
                                   "b": g_th.sum(0)}
         dtfeat = _mmT(g_th, w_th)
         dws["transient_xyz_final"] = {"w": th8.T @ _bf16(dtfeat),
                                       "b": dtfeat.sum(0)}
         dth8 = _mmT(dtfeat, w_tfin)
-        dtx = _tower_bwd_ref(pw, "transient_xyz", acts, dth8, dws, D, skips,
-                             True)
+        dinp = _tower_bwd_ref(pw, "transient_xyz", acts, dth8, dws, D, skips,
+                              True)
         n_tau = t_emb.shape[1]
-        out["dt"] = _bf16(_ray_sum(dtx, S))[:, xyz_w:xyz_w + n_tau]
-        if flows is not None:
-            chan, freq, is_id, phase, valid = (
-                torch.as_tensor(a, device=zs.device)
-                for a in _posenc_tables(freqs, SEG))
-            dpe = dtx * valid
-            dxs = torch.where(is_id > 0, dpe,
-                              dpe * _sin_poly(xs + phase + 1.5707963267948966))
-            sel = torch.zeros((3, SEG), device=zs.device)
-            sel[chan, torch.arange(SEG, device=zs.device)] = freq * valid
-            dfl = dxs @ sel.T  # (N*S, 3)
-            out["dflows"] = tuple(dfl[:, c].reshape(n, S) for c in range(3))
+        out["dt"] = _bf16(_ray_sum(dinp, S))[:, xyz_w:xyz_w + n_tau]
     out["dws"] = dws
+    return out, dinp
+
+
+def planar_nerf_train_bwd_ref(branch: str, pw, o, d, zs, flows, dir_emb,
+                              a_emb, t_emb, g, *, freqs, use_viewdir: bool,
+                              encode_a: bool, flow_scale: float, D: int = 8,
+                              skips=(4,)):
+    """One branch of the hand-written backward in plain PyTorch.
+
+    `g` holds the branch's cotangent planes, each (N, S) f32 or None
+    (zero): static ("srgb_r", "srgb_g", "srgb_b", "ssig"); transient
+    ("trgb_r", "trgb_g", "trgb_b", "tsig", "ffw_x".."ffw_z",
+    "fbw_x".."fbw_z"). Returns {"dws": {name: {"w": padded f32 dW,
+    "b": db}}} plus "ddir"/"da" (static) or "dt"/"dflows" (transient)."""
+    n, S = zs.shape
+    xs, pe = _posenc_rows(o, d, zs, freqs, flows)
+    keys = _TRAIN_PLANES[0:4] if branch == "static" else _TRAIN_PLANES[4:14]
+    cols = [g.get(k) for k in keys]
+    cols = [c if c is not None else zs.new_zeros((n, S)) for c in cols]
+    g_rows = torch.stack([c.reshape(n * S) for c in cols], -1)
+    out, dinp = _branch_bwd_rows(
+        branch, pw, pe, g_rows, S, dir_emb, a_emb, t_emb,
+        xyz_w=3 + 6 * len(freqs), use_viewdir=use_viewdir, encode_a=encode_a,
+        flow_scale=flow_scale, need_dinp=False, D=D, skips=skips)
+    if branch != "static" and flows is not None:
+        dfl = _posenc_adjoint(dinp, xs, freqs)  # (N*S, 3)
+        out["dflows"] = tuple(dfl[:, c].reshape(n, S) for c in range(3))
     return out
 
 

@@ -80,3 +80,27 @@ def ndc2world(xyz: torch.Tensor, K, eps: float = 1e-6) -> torch.Tensor:
     rx = -rz * xyz[..., 0] * cx / fx
     ry = -rz * xyz[..., 1] * cy / fy
     return torch.stack([rx, ry, rz], -1)
+
+
+def compute_world_visibility(xyz_w: torch.Tensor, K, H: int, W: int,
+                             c2ws) -> torch.Tensor:
+    """How many of the cameras `c2ws` ((C, 3, 4) camera-to-world poses,
+    intrinsics `K`, H x W images) see each of the (N, 3) world points:
+    (N,) float counts, 0 for a point inside no frustum."""
+    K = _k(K, xyz_w.device)
+    c2ws = torch.as_tensor(c2ws, dtype=torch.float32, device=xyz_w.device)
+    C = c2ws.shape[0]
+    c2w4 = torch.eye(4, device=xyz_w.device).repeat(C, 1, 1)
+    c2w4[:, :3] = c2ws
+    w2c = torch.linalg.inv(c2w4)
+    R, t = w2c[:, :3, :3], w2c[:, :3, 3]
+    xyz_cam = torch.einsum("cij,nj->cni", R, xyz_w) + t[:, None]
+    in_front = xyz_cam[..., 2] < 0  # front is the negative z axis
+    # flip to "right down front" for the projection
+    xyz_proj = xyz_cam * torch.tensor([1.0, -1.0, -1.0], device=xyz_w.device)
+    uvd = torch.einsum("ij,cnj->cni", K, xyz_proj)
+    d = uvd[..., 2]
+    denom = torch.where(d.abs() < 1e-8, torch.sign(d) * 1e-8 + 1e-12, d)
+    u, v = uvd[..., 0] / denom, uvd[..., 1] / denom
+    inside = (u >= 0) & (u < W) & (v >= 0) & (v < H) & in_front
+    return inside.float().sum(0)

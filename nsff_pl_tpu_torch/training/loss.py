@@ -1,18 +1,22 @@
-"""The NSFF loss suite on the planar layout (port of the exact branch of
-`nsff_pl_tpu/training/loss.py::compute_losses_planar`).
+"""The NSFF loss suite (port of `nsff_pl_tpu/training/loss.py`):
+`compute_losses` on the reference-shaped result dict of
+`models/rendering.py::render_rays`, `compute_losses_planar` (its exact
+branch) on the planar layout of `models/raymarch.py::render_train_planar`.
 
 Eight terms with epoch schedules: lambda_geo = lambda_geo_init *
 0.1**(epoch // 10) for the depth and flow terms, lambda_reg = 0.1,
 lambda_ent = 1e-3, and a cross-entropy weight ramping 0 -> lambda_ent / 5
 over 10 epochs. Batch-global statistics (median and mean absolute
 deviation of the depth loss, the disocclusion means, top-k) are taken
-over the whole batch. Per-sample vectors arrive as 3-tuples of dense
-(N, S) component planes.
+over the whole batch. On the planar layout per-sample vectors arrive as
+3-tuples of dense (N, S) component planes, on the reference-shaped one as
+(N, S, 3) tensors. A model without transient branch has the color and
+depth terms only.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -119,6 +123,80 @@ def _finalize_terms(ret, masks, weights, cfg):
         else:
             out[k] = per_ray.mean()
     return out
+
+
+def compute_losses(
+    results: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    cfg: LossConfig,
+    *,
+    epoch,
+    output_transient_flow: Tuple[str, ...],
+    Ks: Optional[torch.Tensor] = None,
+    Ps: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """All loss terms as scalars (sum them with `total_loss`), for the
+    result dict of `models/rendering.py::render_rays` in train mode. Ks
+    (N_cams, 3, 3) and Ps (N_cams, N_frames, 3, 4) serve the flow terms;
+    `weights` are optional per-ray priorities."""
+    epoch = torch.as_tensor(epoch, dtype=torch.float32)
+    dev = results["rgb_fine"].device
+    lambda_geo = (cfg.lambda_geo_init * 0.1 ** torch.floor(epoch / 10.0)).to(dev)
+
+    ret: Dict[str, torch.Tensor] = {}
+    masks: Dict[str, torch.Tensor] = {}
+    rgbs = batch["rgbs"]
+    ret["col_l"] = ((results["rgb_fine"] - rgbs) ** 2).mean(-1)
+    ret["disp_l"] = lambda_geo * shiftscale_invariant_depthloss(
+        results["depth_fine"], batch["disps"])
+
+    if output_transient_flow:
+        tw = results["transient_weights_fine"]  # (N, S)
+        ret["entropy_l"] = cfg.lambda_ent * (-tw * torch.log(tw + 1e-8)).sum(-1)
+        cross_entropy_w = cfg.lambda_ent / 5 * torch.clamp(epoch / 10.0,
+                                                           max=1.0)
+        tr_w = _dilate_along_samples(tw.detach(), cfg.thickness)
+        ret["cross_entropy_l"] = cross_entropy_w.to(dev) * (
+            tr_w * torch.log(results["static_weights_fine"] + 1e-8)).sum(-1)
+
+        Ks_r = _flow_uv_terms(ret, masks, results["xyz_fw"],
+                              results["xyz_bw"], batch, cfg, lambda_geo, Ks,
+                              Ps)
+
+        # photometric warping loss, normalized by the batch-mean disocclusion
+        pho_l = (results["disocc_fw"] * (results["rgb_fw"] - rgbs) ** 2
+                 / results["disocc_fw"].mean())
+        pho_l = pho_l + (results["disocc_bw"] * (results["rgb_bw"] - rgbs) ** 2
+                         / results["disocc_bw"].mean())
+        ret["pho_l"] = pho_l.mean(-1)
+
+        xyzs = results["xyzs_fine"]  # (N, S, 3)
+        cyc_l = (results["disoccs_fw"] * (results["xyzs_fw_bw"] - xyzs).abs()
+                 / results["disoccs_fw"].mean())
+        cyc_l = cyc_l + (results["disoccs_bw"]
+                         * (results["xyzs_bw_fw"] - xyzs).abs()
+                         / results["disoccs_bw"].mean())
+        ret["cyc_l"] = cyc_l.mean((-2, -1))
+
+        n_near = int(xyzs.shape[1] * Z_FAR)  # the static slice
+        xyzs_w = ray_ops.ndc2world(xyzs[:, :n_near], Ks_r)
+        xyzs_fw_w = ray_ops.ndc2world(results["xyzs_fw"][:, :n_near], Ks_r)
+        xyzs_bw_w = ray_ops.ndc2world(results["xyzs_bw"][:, :n_near], Ks_r)
+        ret["reg_temp_sm_l"] = cfg.lambda_reg * (
+            xyzs_fw_w + xyzs_bw_w - 2 * xyzs_w).abs().mean((-2, -1))
+        ret["reg_min_l"] = cfg.lambda_reg * (
+            (xyzs_fw_w - xyzs_w).abs()
+            + (xyzs_bw_w - xyzs_w).abs()).mean((-2, -1))
+        d = torch.linalg.norm(xyzs_w[:, 1:] - xyzs_w[:, :-1], dim=-1,
+                              keepdim=True)
+        sp_w = torch.exp(-2 * d)
+        sf_fw = xyzs_fw_w - xyzs_w
+        sf_bw = xyzs_bw_w - xyzs_w
+        ret["reg_sp_sm_l"] = cfg.lambda_reg * (
+            (sf_fw[:, 1:] - sf_fw[:, :-1]).abs() * sp_w
+            + (sf_bw[:, 1:] - sf_bw[:, :-1]).abs() * sp_w).mean((-2, -1))
+    return _finalize_terms(ret, masks, weights, cfg)
 
 
 def compute_losses_planar(

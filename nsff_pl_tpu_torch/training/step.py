@@ -2,18 +2,19 @@
 `nsff_pl_tpu/training/step.py`).
 
 `make_train_step` builds one training step: device-side batch gather ->
-planar render with scene-flow warping -> eight-term loss -> backward ->
-Adam update. PyTorch runs eagerly, so the step is a plain function where
-the JAX package returned a jitted one; its `scan_steps > 1` (several
-steps in one dispatch) has no counterpart yet: a CUDA graph of the step
-is later work (ROADMAP.md).
+render with scene-flow warping (the planar path where it applies, else
+the reference-shaped `render_rays`) -> loss -> backward -> Adam update.
+PyTorch runs eagerly, so the step is a plain function where the JAX
+package returned a jitted one; its `scan_steps > 1` (several steps in one
+dispatch) has no counterpart yet: a CUDA graph of the step is later work
+(ROADMAP.md).
 
 `make_render_fn` returns a plain function under `torch.inference_mode()`.
 `render_full_image` is the host chunk loop; it pads the last chunk to the
 full chunk size by repeating the last ray, as the JAX loop does, so every
-chunk has one shape. The JAX package's `scan_chunks` and the render's
-`rng` argument have no counterpart: the test-time render makes no random
-draws, and a CUDA graph of the chunk loop is later work.
+chunk has one shape. The JAX package's `scan_chunks` has no counterpart
+(a CUDA graph of the chunk loop is later work); in place of the render's
+`rng` argument a `test_time=False` renderer takes a `generator`.
 """
 from __future__ import annotations
 
@@ -67,20 +68,24 @@ def make_train_step(
     distribution, `t` the scheduler's frame; random draws come from the
     device `generator` unless given: `idx` (uniform pixel indices),
     `batch_u` (hard-sampling uniforms), `draws` (the renderer's, see
-    `render_train_planar`). The params are updated in place and returned
-    in the new state; metrics hold the per-term losses, `loss` and
-    `psnr` (device scalars), aux the rendered rgb, the ray ids and t.
+    `render_train_planar`; `render_rays` takes the same). The params are
+    updated in place and returned in the new state; metrics hold the
+    per-term losses, `loss` and `psnr` (device scalars), aux the rendered
+    rgb, the ray ids and t.
 
     The planar path is taken as the JAX package decides: when the
     configuration is in its envelope and `fused_train` is 'on', or 'auto'
     with the kernel backend active (`train_backend` 'pallas', or 'auto'
     on a CUDA device with bfloat16 compute). 'on' outside the envelope
-    raises; the packed-boundary path is not ported."""
+    raises. Every other case (no transient branch, not both flows,
+    `fused_train='off'`, the plain evaluators) renders through the
+    packed-boundary `render_rays` with `compute_losses`."""
     from nsff_pl_tpu_torch.data.pipeline import _sample_batch
     from nsff_pl_tpu_torch.models.raymarch import (
         check_train_envelope, planar_unapplicable_reasons,
         render_train_planar)
-    from nsff_pl_tpu_torch.training.loss import (compute_losses_planar,
+    from nsff_pl_tpu_torch.training.loss import (compute_losses,
+                                                 compute_losses_planar,
                                                  total_loss)
 
     dev = resolve_device(device)
@@ -101,14 +106,23 @@ def make_train_step(
                          f"is unavailable ({'; '.join(reasons)})")
     use_planar = not reasons and (render_cfg.fused_train == "on" or (
         render_cfg.fused_train == "auto" and kernels_active))
-    if not use_planar:
-        why = "; ".join(reasons) or (
-            f"fused_train={render_cfg.fused_train!r}, train_backend={tb!r}, "
-            f"device {dev.type}, compute_dtype {render_cfg.compute_dtype!r}")
+    if ((render_cfg.warp_subsample > 1 or render_cfg.warp_importance > 0)
+            and not use_planar):
+        which = (f"warp_subsample={render_cfg.warp_subsample}"
+                 if render_cfg.warp_subsample > 1
+                 else f"warp_importance={render_cfg.warp_importance}")
+        raise ValueError(
+            f"{which} is only implemented on the planar fused train path"
+            + (f" (unavailable here: {'; '.join(reasons)})" if reasons
+               else " (enable it: fused_train='on'/'auto' with the kernel "
+                    "train backend)"))
+    if use_planar:
+        check_train_envelope(render_cfg)
+    elif render_cfg.N_importance > 0:
         raise NotImplementedError(
-            "the packed-boundary train path is not ported yet (ROADMAP.md "
-            f"queue A, items 3 and 14); the planar path does not run: {why}")
-    check_train_envelope(render_cfg)
+            "coarse-to-fine training (N_importance > 0) is not ported yet "
+            "(ROADMAP.md queue A, 'coarse-to-fine')")
+    flow = tuple(output_transient_flow)
 
     def train_step(state: TrainState, table, weights, Ks, Ps, generator, t,
                    *, idx=None, batch_u=None, draws=None):
@@ -116,11 +130,20 @@ def make_train_step(
                               generator=generator, idx=idx, u=batch_u)
         epoch = state.step // steps_per_epoch
         models, embeddings = _split_params(state.params)
-        results = render_train_planar(
-            models["fine"], embeddings, batch["rays"], batch["ts"],
-            render_cfg, generator=generator, draws=draws)
-        loss_d = compute_losses_planar(results, batch, loss_cfg,
-                                       epoch=epoch, Ks=Ks, Ps=Ps)
+        if use_planar:
+            results = render_train_planar(
+                models["fine"], embeddings, batch["rays"], batch["ts"],
+                render_cfg, generator=generator, draws=draws)
+            loss_d = compute_losses_planar(results, batch, loss_cfg,
+                                           epoch=epoch, Ks=Ks, Ps=Ps)
+        else:
+            results = render_rays(
+                models, embeddings, batch["rays"],
+                batch["ts"] if output_transient else None, render_cfg,
+                test_time=False, output_transient=output_transient,
+                output_transient_flow=flow, generator=generator, draws=draws)
+            loss_d = compute_losses(results, batch, loss_cfg, epoch=epoch,
+                                    output_transient_flow=flow, Ks=Ks, Ps=Ps)
         loss = total_loss(loss_d)
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
@@ -137,27 +160,32 @@ def make_train_step(
         return TrainState(state.params, opt, state.step + 1), metrics, aux
 
     train_step.device = dev
+    train_step.use_planar = use_planar
     return train_step
 
 
 def make_render_fn(
     render_cfg: RenderConfig,
     *,
+    test_time: bool = True,
     output_transient: bool,
     output_transient_flow: Tuple[str, ...] = (),
     with_visibility: bool = False,
     keys: Optional[Tuple[str, ...]] = None,
     device="cuda",
 ):
-    """Test-time renderer for one ray batch on `device`:
-    render(params, rays, ts, vis_poses=None, vis_K=None, view_dir=None)
-    -> dict. Inputs are moved to `device`. `keys` restricts the returned
-    dict and, when it lies within `comp_eval_keys`, selects the
-    composited kernel route."""
+    """Renderer (no gradient) for one ray batch on `device`:
+    render(params, rays, ts, vis_poses=None, vis_K=None, view_dir=None,
+    generator=None, draws=None) -> dict. Inputs are moved to `device`.
+    `keys` restricts the returned dict and, on the planar test path when
+    it lies within `comp_eval_keys`, selects the composited kernel route.
+    With `test_time=False` the render perturbs the depths and adds sigma
+    noise as in training, from `generator` or `draws`."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
-    def render(params, rays, ts, vis_poses=None, vis_K=None, view_dir=None):
+    def render(params, rays, ts, vis_poses=None, vis_K=None, view_dir=None,
+               generator=None, draws=None):
         models, embeddings = _split_params(params)
         rays = torch.as_tensor(rays, dtype=torch.float32, device=dev)
         if ts is not None:
@@ -166,7 +194,8 @@ def make_render_fn(
             view_dir = torch.as_tensor(view_dir, dtype=torch.float32,
                                        device=dev)
         return render_rays(
-            models, embeddings, rays, ts, render_cfg,
+            models, embeddings, rays, ts, render_cfg, test_time=test_time,
+            generator=generator, draws=draws,
             output_transient=output_transient,
             output_transient_flow=output_transient_flow,
             vis_poses=vis_poses if with_visibility else None,

@@ -164,3 +164,136 @@ def test_compositor_kernels_match_plain(n):
     torch.testing.assert_close(maps, rmaps, atol=1e-5, rtol=0)
     for i, k in enumerate(tck.GRAD_KEYS):
         assert _rel_err(d[i], rd[i]) <= 1e-4, k
+
+
+def _packed_inputs(n, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    o = torch.rand(n, 3, generator=g) * 2 - 1
+    o[:, 2] = -1
+    d = (torch.rand(n, 3, generator=g) - 0.5) * 0.4
+    d[:, 2] = 2
+    zs = torch.sort(torch.rand(n, 128, generator=g), 1).values
+    xyz = o[:, None] + d[:, None] * zs[..., None]
+    dirs = torch.rand(n, 27, generator=g) * 2 - 1
+    a = torch.randn(n, 48, generator=g)
+    t = torch.randn(n, 48, generator=g)
+    return tuple(x.cuda().contiguous() for x in (xyz, zs, dirs, a, t)) + (g,)
+
+
+# (static_branch, encode_t, encode_a, output_flow)
+PACKED_VARIANTS = {"full": (True, True, False, ("fw", "bw")),
+                   "appearance": (True, True, True, ("fw", "bw")),
+                   "static_only": (True, False, False, ()),
+                   "fw_warp": (False, True, False, ("bw",)),
+                   "bw_warp": (False, True, False, ("fw",)),
+                   "no_flow": (True, True, False, ())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(PACKED_VARIANTS))
+def test_packed_kernels_match_plain(variant):
+    """fused_nerf_eval and both branches of the fused_nerf_train backward
+    (with and without the xyz cotangent) at S=128, 8x256 towers, N_tau=48,
+    an odd ray count. Packed rows: at most 1e-3 abs and at most a fifth of
+    the rows off by more than 1e-5 in any column (a row shows a bf16
+    rounding flip of an activation whole); unused columns exactly zero; gradients: every leaf
+    within 0.1 of its largest entry and 5e-2 in Frobenius norm, the
+    per-sample xyz cotangent within 0.25 of its largest entry (a flipped
+    ReLU mask shows whole in one sample's entry), as in chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.models import nerf as tn
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
+
+    static_branch, encode_t, encode_a, flow = PACKED_VARIANTS[variant]
+    params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
+                                 use_viewdir=True, encode_appearance=encode_a,
+                                 encode_transient=True, output_flow=True,
+                                 device="cuda")
+    n = 37
+    xyz, _, dirs, a, t, g = _packed_inputs(n)
+    op = mtk.make_fused_nerf_train(128, use_viewdir=True, encode_a=encode_a,
+                                   encode_t=encode_t, output_flow=flow,
+                                   static_branch=static_branch)
+    pw, kw = op.pack(params), op.kernel_kw
+    args = (pw, xyz, dirs if static_branch else None,
+            a if encode_a else None, t if encode_t else None)
+    before = mk.fused_nerf_eval_cuda.launches
+    got = mk.fused_nerf_eval(*args, **kw)
+    torch.cuda.synchronize()
+    assert mk.fused_nerf_eval_cuda.launches == before + 1
+    want = mk.fused_nerf_eval_ref(*args, **kw)
+    err = (got - want).abs()
+    assert float(err.max()) <= 1e-3
+    assert float((err.amax(-1) > 1e-5).float().mean()) <= 0.2
+    unused = ([] if static_branch else [0, 1, 2, 3]) + list(
+        range(8 + 3 * len(flow) if encode_t else 4, 16))
+    assert not bool(got[..., unused].any())
+
+    cot = torch.randn(n, 128, 16, generator=g).cuda()
+    bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                              "output_flow", "flow_scale", "D", "skips")}
+    for branch in (["static"] if static_branch else []) + (
+            ["transient"] if encode_t else []):
+        for need_dxyz in (False, True):
+            b0 = mtk.fused_nerf_train_bwd_cuda.launches[branch]
+            got = mtk.fused_nerf_train_bwd(branch, *args, cot,
+                                           need_dxyz=need_dxyz, **bkw)
+            torch.cuda.synchronize()
+            assert mtk.fused_nerf_train_bwd_cuda.launches[branch] == b0 + 1
+            want = mtk.fused_nerf_train_bwd_ref(branch, *args, cot,
+                                                need_dxyz=need_dxyz, **bkw)
+            assert ("dxyz" in got) == need_dxyz
+            pairs = [(f"{k}.{p}", got["dws"][k][p], want["dws"][k][p], 0.1)
+                     for k in want["dws"] for p in ("w", "b")]
+            pairs += [(k, got[k], want[k], 0.1)
+                      for k in ("ddir", "da", "dt") if k in want]
+            if need_dxyz:
+                pairs.append(("dxyz", got["dxyz"], want["dxyz"], 0.25))
+            assert set(got) == set(want)
+            for name, x, y, tol in pairs:
+                assert bool(torch.isfinite(x).all()), name
+                assert _rel_err(x, y) <= tol, (name, _rel_err(x, y))
+                assert float((x - y).norm()) <= 5e-2 * float(y.norm()) \
+                    + 1e-12, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 512])
+def test_packed_compositing_kernels_match_plain(n):
+    """fused_compositing forward (1e-5 abs) and adjoint (1e-4 of each
+    column's largest cotangent; columns 8-15 exactly zero), with sigmas
+    that drive 1 - alpha to underflow at some samples and raw sigmas of
+    exactly zero at others."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.ops import compositing_kernel as fck
+
+    g = torch.Generator().manual_seed(n)
+    packed = torch.randn(n, 128, 16, generator=g)
+    packed[..., [0, 1, 2, 4, 5, 6]] = torch.rand(n, 128, 6, generator=g)
+    packed[..., [3, 7]] *= 3
+    packed[::3, 40, 3] = 2000.0  # opaque sample: 1 - alpha underflows
+    packed[1::3, ::7, 3] = 0.0
+    zs = torch.sort(torch.rand(n, 128, generator=g), 1).values
+    ns, nt = (torch.randn(n, 128, generator=g) for _ in range(2))
+    ns[1::3, ::7] = 0.0
+    packed, zs, ns, nt = (x.cuda().contiguous() for x in (packed, zs, ns, nt))
+    cot = {k: torch.randn(n, 128, generator=g).cuda() for k in fck.OUT_KEYS}
+    gmap = torch.randn(n, 4, generator=g).cuda()
+    f0 = fck.fused_compositing_fwd_cuda.launches
+    b0 = fck.fused_compositing_bwd_cuda.launches
+    planes, maps = fck.fused_compositing_fwd(packed, zs, ns, nt)
+    dp = fck.fused_compositing_bwd(packed, zs, ns, nt, cot, gmap)
+    torch.cuda.synchronize()
+    assert fck.fused_compositing_fwd_cuda.launches == f0 + 1
+    assert fck.fused_compositing_bwd_cuda.launches == b0 + 1
+    rplanes, rmaps = fck.fused_compositing_fwd_ref(packed, zs, ns, nt)
+    rdp = fck.fused_compositing_bwd_ref(packed, zs, ns, nt, cot, gmap)
+    torch.testing.assert_close(planes, rplanes, atol=1e-5, rtol=0)
+    torch.testing.assert_close(maps, rmaps, atol=1e-5, rtol=0)
+    assert bool(torch.isfinite(dp).all())
+    assert not bool(dp[..., 8:].any())
+    for c in range(8):
+        assert _rel_err(dp[..., c], rdp[..., c]) <= 1e-4, c

@@ -91,6 +91,23 @@ def _entry_points():
         "RayBatcher": lambda: RayBatcher(torch.zeros(2, 4, 16).numpy(), 4),
         "opt_state_from_jax": lambda: checkpoint.opt_state_from_jax(
             {}, None, checkpoint.params_from_jax({"w": torch.zeros(1).numpy()})),
+        # the packed-boundary path
+        "build_params_static": lambda: build_params(
+            NSFFConfig(use_viewdir=True), g),
+        "make_train_step_packed": lambda: make_train_step(
+            RC(encode_t=True, fused_train="off", fused_compositing=True),
+            None, make_optimizer(train_cfg, 1), output_transient=True,
+            output_transient_flow=("fw", "bw", "disocc"), steps_per_epoch=1,
+            batch_size=4),
+        "make_train_step_static": lambda: make_train_step(
+            RC(), None, make_optimizer(train_cfg, 1), output_transient=False,
+            output_transient_flow=(), steps_per_epoch=1, batch_size=4),
+        "make_render_fn_train_mode": lambda: make_render_fn(
+            RC(encode_t=True, planar_eval="off"), test_time=False,
+            output_transient=True, output_transient_flow=("fw", "bw")),
+        "RenderService_packed_float32": lambda: RenderService(
+            {}, torch.eye(3).numpy(), torch.zeros(1, 3, 4).numpy(),
+            (8, 6), NSFFConfig(dtype="float32", planar_eval="off")),
     }
 
 
@@ -98,7 +115,9 @@ def _entry_points():
     ["resolve_device", "init_nerf_params", "init_embedding", "build_params",
      "params_from_jax", "load", "to_device", "make_render_fn",
      "RenderService", "build_params_train", "make_train_step", "RayBatcher",
-     "opt_state_from_jax"]))
+     "opt_state_from_jax", "build_params_static", "make_train_step_packed",
+     "make_train_step_static", "make_render_fn_train_mode",
+     "RenderService_packed_float32"]))
 def test_entry_points_need_a_gpu_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -135,6 +154,57 @@ def test_entry_points_run_on_cpu_when_asked():
     checkpoint.opt_state_from_jax(
         {"count": 0, "mu": checkpoint.params_to_numpy(params),
          "nu": checkpoint.params_to_numpy(params)}, opt, params)
+
+
+def test_packed_entry_points_run_on_cpu_when_asked():
+    """The packed-boundary path from its entry points on the CPU: a
+    static-only model takes a training step through render_rays (the
+    kernels' plain versions), and a float32 service with
+    `planar_eval="off"` renders a frame on the plain evaluators."""
+    import numpy as np
+
+    from nsff_pl_tpu_torch.apps.serve import RenderService
+    from nsff_pl_tpu_torch.config import (NSFFConfig, build_params,
+                                          loss_config, render_config)
+    from nsff_pl_tpu_torch.ops import mlp_kernel, mlp_train_kernel
+    from nsff_pl_tpu_torch.training.optim import make_optimizer
+    from nsff_pl_tpu_torch.training.step import TrainState, make_train_step
+
+    cfg = NSFFConfig(img_wh=(8, 6), start_end=(0, 2), use_viewdir=True,
+                     N_samples=8, batch_size=4, dtype="bfloat16",
+                     train_backend="pallas")
+    params = build_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert set(params) == {"nerf_fine"}
+    assert not any(k.startswith("transient") for k in params["nerf_fine"])
+    tx = make_optimizer(cfg, 1)
+    step = make_train_step(render_config(cfg), loss_config(cfg), tx,
+                           output_transient=False, output_transient_flow=(),
+                           steps_per_epoch=1, batch_size=4, device="cpu")
+    assert step.device.type == "cpu" and not step.use_planar
+    rng = np.random.RandomState(0)
+    table = rng.rand(2, 48, 16).astype(np.float32)
+    table[..., 2], table[..., 5] = -1.0, 2.0
+    table[..., 9] = np.arange(2, dtype=np.float32)[:, None]
+    K = np.array([[7.0, 0, 4], [0, 7.0, 3], [0, 0, 1]], np.float32)
+    eye = np.eye(4, dtype=np.float32)[None, :3]
+    before = mlp_kernel.fused_nerf_eval_cuda.launches
+    state, metrics, _ = step(
+        TrainState(params, tx.init(params), 0), torch.from_numpy(table),
+        torch.ones(2, 48), torch.from_numpy(K[None]),
+        torch.from_numpy(K[None] @ eye), torch.Generator().manual_seed(1), 1)
+    assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+    # CPU tensors take the plain versions: no launch is counted
+    assert mlp_kernel.fused_nerf_eval_cuda.launches == before
+    assert mlp_train_kernel.fused_nerf_train_bwd_cuda.launches == {
+        "static": 0, "transient": 0}
+
+    poses = np.tile(eye, (2, 1, 1))
+    svc = RenderService(params, K, poses, (8, 6),
+                        cfg.replace(dtype="float32", planar_eval="off"),
+                        chunk=32, device="cpu")
+    rgb, depth = svc.render_pose(1)
+    assert rgb.shape == (6, 8, 3) and depth.shape == (6, 8)
+    assert np.isfinite(depth).all()
 
 
 def _smoke(cwd, env=None):

@@ -159,27 +159,45 @@ def test_decision_reads_cuda_and_bfloat16():
     assert not planar_eval_decision(RenderConfig(), "cuda")[0]
     assert not planar_eval_decision(bf16, "cpu")[0]
     assert planar_eval_decision(RenderConfig(planar_eval="on"), "cpu")[0]
+    off = RenderConfig(planar_eval="off", compute_dtype="bfloat16")
+    assert planar_eval_decision(off, "cuda") == (False, ["planar_eval='off'"])
+    assert planar_eval_decision(
+        RenderConfig(mlp_backend="pallas"), "cpu") == (True, [])
+    assert not planar_eval_decision(
+        RenderConfig(mlp_backend="xla", compute_dtype="bfloat16"), "cuda")[0]
     with pytest.raises(ValueError, match="planar_eval"):
-        planar_eval_decision(RenderConfig(planar_eval="off"), "cuda")
+        planar_eval_decision(RenderConfig(planar_eval="maybe"), "cuda")
 
 
 @pytest.mark.parametrize("route", ["planes", "coarse_to_fine", "packed"])
 def test_unported_routes_raise(route):
+    """The planar planes route, coarse-to-fine on either path and the
+    plain evaluators in bfloat16 raise, naming their ROADMAP items; the
+    packed path itself (`packed`: planar_eval='auto' on the CPU) renders,
+    see tests/test_torch_packed_render.py."""
     params = params_from_jax(jax.tree.map(np.asarray, _jax_params()), "cpu")
     rays, ts = _rays(4)
-    kw = _cfg_kw()
-    keys = SERVE_KEYS
+
+    def render(keys=SERVE_KEYS, **over):
+        rfn = tstep.make_render_fn(RenderConfig(**{**_cfg_kw(), **over}),
+                                   output_transient=True, keys=keys,
+                                   device="cpu")
+        return tstep.render_full_image(rfn, params, torch.from_numpy(rays),
+                                       torch.from_numpy(ts), chunk=4)
+
     if route == "planes":
-        keys = ("rgb_fine", "weights_fine")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render(keys=("rgb_fine", "weights_fine"))
     elif route == "coarse_to_fine":
-        kw["N_importance"] = 4
+        for planar_eval in ("on", "off"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                render(N_importance=4, planar_eval=planar_eval)
     else:
-        kw["planar_eval"] = "auto"
-    rfn = tstep.make_render_fn(RenderConfig(**kw), output_transient=True,
-                               keys=keys, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.render_full_image(rfn, params, torch.from_numpy(rays),
-                                torch.from_numpy(ts), chunk=4)
+        out = render(planar_eval="auto")
+        assert set(out) == set(SERVE_KEYS)
+        assert bool(torch.isfinite(out["rgb_fine"]).all())
+        with pytest.raises(NotImplementedError, match="bf16 plain"):
+            render(planar_eval="auto", compute_dtype="bfloat16")
 
 
 def _http(url, body=None):

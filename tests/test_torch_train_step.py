@@ -191,13 +191,27 @@ def test_make_train_step_decisions():
     kw = dict(output_transient=True, output_transient_flow=("fw", "bw"),
               steps_per_epoch=1, batch_size=4, device="cpu")
     on = RenderConfig(**{**COMMON, "N_samples": 16})
-    assert callable(tstep.make_train_step(on, lcfg, tx, **kw))
+    assert tstep.make_train_step(on, lcfg, tx, **kw).use_planar
     with pytest.raises(ValueError, match="fused_train='on'"):
         tstep.make_train_step(on, lcfg, tx, **{
             **kw, "output_transient_flow": ("fw",)})
-    with pytest.raises(NotImplementedError, match="packed-boundary"):
-        tstep.make_train_step(dataclasses.replace(on, fused_train="auto"),
-                              lcfg, tx, **kw)
+    # outside the planar decision the step renders on the packed path
+    for packed in (dataclasses.replace(on, fused_train="auto"),
+                   dataclasses.replace(on, fused_train="off")):
+        assert not tstep.make_train_step(packed, lcfg, tx, **kw).use_planar
+    assert not tstep.make_train_step(
+        dataclasses.replace(on, fused_train="auto", train_backend="pallas"),
+        lcfg, tx, **{**kw, "output_transient": False,
+                     "output_transient_flow": ()}).use_planar
+    for bad in (dict(warp_subsample=2), dict(warp_importance=0.5)):
+        with pytest.raises(ValueError, match="only implemented on the planar"):
+            tstep.make_train_step(
+                dataclasses.replace(on, fused_train="off", **bad), lcfg, tx,
+                **kw)
+    with pytest.raises(NotImplementedError, match="coarse-to-fine"):
+        tstep.make_train_step(
+            dataclasses.replace(on, fused_train="off", N_importance=8), lcfg,
+            tx, **kw)
     for bad, match in ((dict(N_importance=8), "coarse-to-fine"),
                        (dict(warp_subsample=2), "warp_subsample"),
                        (dict(warp_importance=0.5), "warp_importance"),
