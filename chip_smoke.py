@@ -9,15 +9,17 @@ once), then:
 
 1. kernel phase: every kernel against its plain PyTorch version on the
    same inputs at full width (D=8, W=256, S=128): the serving evaluator
-   at the serving chunk; the train evaluator's forward and both backward
-   branches on the main evaluation and both warped evaluations, and the
-   compositor's forward and adjoint, at batch 512; the packed evaluator
-   at the serving chunk (full, static only, transient only), its
-   backward at batch 512 (static; transient with and without the xyz
-   cotangent) and the packed compositor's forward and adjoint at batch
-   512. Prints each output's error, times the kernel and the plain
-   version with CUDA events and computes the bound (operations or bytes)
-   from the shapes;
+   at the serving chunk (and at 4096 rays with flow maps and visibility,
+   static only, and a ragged 37 rays); the train evaluator's forward and
+   both backward branches on the main evaluation and both warped
+   evaluations, and the compositor's forward and adjoint, at batch 512;
+   the packed evaluator at the serving chunk (full, static only,
+   transient only) and at 37 rays, its backward at batch 512 (static;
+   transient with and without the xyz cotangent) and the packed
+   compositor's forward and adjoint at batch 512. Prints each output's
+   error, times the kernel and the plain version with CUDA events and
+   computes the bound (operations or bytes) from the shapes; the two
+   no-grad evaluators also print their TFLOP/s and share of the bound;
 2. serving phase (a main path): a `RenderService` at the flagship
    serving configuration (512x288, 30 frames, encode_t, use_viewdir,
    N_samples 128, bfloat16, chunk 32768) with seeded weights answers three
@@ -100,6 +102,7 @@ F32_TOL = 1e-2
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 CHUNK = 32768
+RAGGED = 37  # an odd ray count, below one wave of CTAs
 W_IMG, H_IMG, N_FRAMES = 512, 288, 30
 BATCH = 512
 TRAIN_STEPS = 10
@@ -531,6 +534,12 @@ def _record(name, source, replaces, err, ms, plain_ms, flops, nbytes,
             "library_ms": None}
 
 
+def rate_line(flops, ms, bound_ms):
+    """Achieved TFLOP/s and share of the bound of a kernel time."""
+    return (f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{100 * bound_ms / ms:.1f}% of the bound")
+
+
 def packed_kernel_phase(torch, np, params, rays, card):
     """The packed-boundary kernels against their plain versions: the
     evaluator at the serving chunk (full, static only, transient only),
@@ -562,16 +571,17 @@ def packed_kernel_phase(torch, np, params, rays, card):
     n = CHUNK
     xyz, _, de, te = inputs(n)
     src = "nsff_pl_tpu_torch/csrc/fused_nerf_eval.cu"
-    for label, static_branch, encode_t, flow in (
-            ("full", True, True, ("fw", "bw")),
-            ("static only", True, False, ()),
-            ("transient only", False, True, ("bw",))):
+    for label, static_branch, encode_t, flow, n in (
+            ("full", True, True, ("fw", "bw"), CHUNK),
+            ("static only", True, False, (), CHUNK),
+            ("transient only", False, True, ("bw",), CHUNK),
+            ("full, ragged", True, True, ("fw", "bw"), RAGGED)):
         fn = mk.make_fused_nerf_eval(S, use_viewdir=True, encode_a=False,
                                      encode_t=encode_t, output_flow=flow,
                                      static_branch=static_branch)
         pw = fn.pack(fine)
-        args = (pw, xyz, de if static_branch else None, None,
-                te if encode_t else None)
+        args = (pw, xyz[:n], de[:n] if static_branch else None, None,
+                te[:n] if encode_t else None)
         kw = fn.kernel_kw
         got = mk.fused_nerf_eval_cuda(*args, **kw)
         torch.cuda.synchronize()
@@ -593,23 +603,30 @@ def packed_kernel_phase(torch, np, params, rays, card):
         if bool(got[..., zero_cols].any()):
             fail(f"fused_nerf_eval wrote unused columns ({label})")
         del got
+        err = float(worst.max())
+        if label == "full, ragged":
+            records["fused_nerf_eval"]["max_abs_err"] = max(
+                records["fused_nerf_eval"]["max_abs_err"], err)
+            continue
+        flops, nbytes = train_fwd_work(fine, static_branch, len(flow), n, S,
+                                       pw, 16, False, encode_t=encode_t,
+                                       packed=True)
         ms = cuda_ms(torch, lambda: mk.fused_nerf_eval_cuda(*args, **kw),
                      iters=3)
         plain_ms = cuda_ms(torch, lambda: mk.fused_nerf_eval_ref(*args, **kw),
                            iters=1, warmup=0)
-        flops, nbytes = train_fwd_work(fine, static_branch, len(flow), n, S,
-                                       pw, 16, False, encode_t=encode_t,
-                                       packed=True)
+        bms = bound(flops, nbytes)[0]
         if label == "full":
             records["fused_nerf_eval"] = _record(
                 "fused_nerf_eval", src,
-                "nsff_pl_tpu/ops/mlp_kernel.py:121", float(worst.max()), ms,
+                "nsff_pl_tpu/ops/mlp_kernel.py:121", err, ms,
                 plain_ms, flops, nbytes)
         else:
             rec = records["fused_nerf_eval"]
-            rec["max_abs_err"] = max(rec["max_abs_err"], float(worst.max()))
-        print(f"kernel fused_nerf_eval [{label}] n={n}: {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound(flops, nbytes)[0]:.3f} ms "
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        print(f"kernel fused_nerf_eval [{label}] n={n}: {ms:.3f} ms "
+              f"({rate_line(flops, ms, bms)}), plain "
+              f"{plain_ms:.3f} ms, bound {bms:.3f} ms "
               f"({flops / 1e12:.2f} TFLOP) on {card}", flush=True)
     del xyz, de, te
 
@@ -1105,7 +1122,8 @@ def main() -> int:
     record = None
     cases = [("serving: encode_t, viewdir", CHUNK, (), False, True),
              ("encode_t + vis + flow maps", 4096, ("fw", "bw"), True, True),
-             ("static only", 4096, (), False, False)]
+             ("static only", 4096, (), False, False),
+             ("serving, ragged", RAGGED, (), False, True)]
     for label, n, flow, vis_in, encode_t in cases:
         r = rays[:n]
         o, d = r[:, :3].contiguous(), r[:, 3:].contiguous()
@@ -1132,6 +1150,7 @@ def main() -> int:
         if float(err.max()) > TOL:
             fail(f"planar_eval_comp disagrees with its plain version "
                  f"({label}): {float(err.max())} > {TOL}")
+        err = float(err.max())
         if record is None:  # the serving shape
             ms = cuda_ms(torch, lambda: rk.planar_eval_comp_cuda(
                 *args, **fn.kernel_kw), iters=5)
@@ -1144,17 +1163,17 @@ def main() -> int:
                 "name": "planar_eval_comp", "route": "cuda",
                 "source": "nsff_pl_tpu_torch/csrc/planar_eval_comp.cu",
                 "replaces": "nsff_pl_tpu/ops/raymarch_kernel.py:728",
-                "launches": None, "max_abs_err": float(err.max()),
+                "launches": None, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None}
-            print(f"kernel planar_eval_comp n={n}: {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {record['bound_ms']:.3f} ms "
-                  f"({flops / 1e12:.2f} TFLOP) on {card}", flush=True)
+            print(f"kernel planar_eval_comp n={n}: {ms:.3f} ms "
+                  f"({rate_line(flops, ms, record['bound_ms'])}), "
+                  f"plain {plain_ms:.3f} ms, bound {record['bound_ms']:.3f} "
+                  f"ms ({flops / 1e12:.2f} TFLOP) on {card}", flush=True)
         else:
-            record["max_abs_err"] = max(record["max_abs_err"],
-                                        float(err.max()))
+            record["max_abs_err"] = max(record["max_abs_err"], err)
         del want, got
 
     train_records = train_kernel_phase(torch, np, rk, tck, params, rays,

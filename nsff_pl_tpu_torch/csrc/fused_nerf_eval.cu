@@ -19,18 +19,29 @@
 // in f32.
 //
 // Bound: operations (about 1.2 MFLOP per sample against 12 input and 64
-// output bytes). Design: the evaluator of planar_nerf_train.cu, one CTA of
-// 8 warps per ray with the ray's 128 samples as the M dimension of every
-// product (nvcuda::wmma bf16, weights streamed from L2, activations in
-// shared memory); the head results stay in shared memory as planes and
-// the ray's (128, 16) tile, 8 KB contiguous, is written with coalesced
-// stores. The transient heads matrix is always 10 wide
-// [sigma, rgb, fw, bw]; has_fw / has_bw choose the columns written.
+// output bytes; 10.2 ms per 32768-ray chunk at 989 TFLOP/s).
+//
+// Design: the wgmma tower of tower_wgmma.cuh, as in planar_eval_comp.cu:
+// one CTA of two consumer warpgroups (64 samples each, wgmma m64n256k16 on
+// the ray's tiles in shared memory, epilogues in place from the
+// accumulators, the narrow heads folded into the epilogues that feed them)
+// and a producer warpgroup (one thread streams the weight K-slabs through
+// TMA into a 6-stage ring, three warps stage the parameters and the
+// static_dir bias). The ray's 128 points are staged in shared memory for
+// the posenc tile; each warpgroup writes its 64 rows of the (128, 16)
+// tile, 4 KB contiguous, with coalesced stores, zeros included. The
+// transient heads matrix is always 10 wide [sigma, rgb, fw, bw]; has_fw /
+// has_bw choose the columns written.
+// What bounds it now: as planar_eval_comp.cu, the epilogues that the
+// products wait for and slabs still in flight from L2.
 //
 // Plain C interface (loaded with ctypes); launches on the given stream and
-// returns the cudaError_t of the launch.
+// returns the cudaError_t of the launch (or of the tensor-map encoding).
+
+#include <cstring>
 
 #include "tower_ray.cuh"
+#include "tower_wgmma.cuh"
 
 using namespace planar;
 
@@ -44,62 +55,146 @@ struct EvalArgs {
   int has_fw, has_bw;
 };
 
-template <bool STATIC, bool TRANS>
-__global__ void __launch_bounds__(NTHREADS, 1)
-fused_eval_kernel(const EvalArgs F) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Common& A = F.c;
-  const Smem m = carve(smem);
-  const int ray = blockIdx.x, tid = threadIdx.x;
-  ray_setup(A, m, ray, TRANS, STATIC && A.use_viewdir, false);
-  // head results as planes of S floats: transient heads 0..9, static rgb
-  // 10..12, static sigma 13
-  float* s_rgb = m.pl + NHEAD * S;
-  float* s_sig = s_rgb + 3 * S;
+struct Params {
+  wg::Maps maps;
+  EvalArgs f;
+};
 
-  if (STATIC) {
-    bf16* h = tower_fwd(A.W, A.B, W_S0, m.xin, m.h0, m.h1, m.stage, nullptr, 0);
-    bf16* other = (h == m.h0) ? m.h1 : m.h0;
-    head<1>(h, A.W[W_SSIG], A.B[W_SSIG], s_sig);
-    dense_fwd(h, A.W[W_SFIN], A.B[W_SFIN], false, other, nullptr, m.stage);
-    __syncthreads();
-    bf16* feat = other;
-    if (A.use_viewdir) {
-      dense_fwd(other, A.W[W_SDIR], m.ray_b, true, h, nullptr, m.stage);
-      __syncthreads();
-      feat = h;
-    }
-    head<3>(feat, A.W[W_SRGB], A.B[W_SRGB], s_rgb);
-    __syncthreads();
-  }
-  if (TRANS) {
-    bf16* h = tower_fwd(A.W, A.B, W_T0, m.xin, m.h0, m.h1, m.stage, nullptr, 0);
-    bf16* other = (h == m.h0) ? m.h1 : m.h0;
-    dense_fwd(h, A.W[W_TFIN], A.B[W_TFIN], false, other, nullptr, m.stage);
-    __syncthreads();
-    head<NHEAD>(other, A.W[W_THEAD], A.B[W_THEAD], m.pl);
-    __syncthreads();
-  }
-  // head column behind each flow slot of the packed row (-1: none)
-  const int flow0 = F.has_fw ? 4 : (F.has_bw ? 7 : -1);
-  const int flow1 = (F.has_fw && F.has_bw) ? 7 : -1;
-  float* out = F.out + size_t(ray) * S * NCOL;
-  for (int e = tid; e < S * NCOL; e += NTHREADS) {
-    const int s = e / NCOL, c = e % NCOL;
-    float v = 0.f;
-    if (c < 4) {
-      if (STATIC) v = c < 3 ? sigmoid(s_rgb[c * S + s]) : s_sig[s];
-    } else if (TRANS) {
-      if (c < 7) {
-        v = sigmoid(m.pl[(c - 3) * S + s]);
-      } else if (c == 7) {
-        v = m.pl[s];
-      } else if (c < 14) {
-        const int col = c < 11 ? flow0 : flow1;
-        if (col >= 0) v = A.flow_scale * tanhf(m.pl[(col + (c - 8) % 3) * S + s]);
+template <bool STATIC, bool TRANS>
+__global__ void __launch_bounds__(wg::NTHR, 1)
+fused_eval_kernel(const __grid_constant__ Params P) {
+  // the dynamic shared memory starts 1024-byte aligned (the swizzle atoms
+  // and TMA boxes need it); pointers derived from it stay in the shared
+  // space, so the compiler emits shared loads and stores
+  extern __shared__ __align__(1024) unsigned char sm[];
+  if ((wg::saddr(sm) & 1023u) != 0) __trap();
+  const EvalArgs& F = P.f;
+  const Common& A = F.c;
+  const uint32_t ring = wg::saddr(sm + wg::OFF_RING);
+  const uint32_t bars = wg::saddr(sm + wg::OFF_BAR);
+  const int tid = threadIdx.x;
+  if (tid == 0) wg::init_ring(bars);
+  __syncthreads();
+
+  const int ray = blockIdx.x;
+  float* ray_b = reinterpret_cast<float*>(sm + wg::OFF_RAYB);
+  const wg::Staged st = wg::staged(sm);
+  const bool dir = STATIC && A.use_viewdir;
+
+  if (tid >= wg::NCONS) {
+    // ---- producer warpgroup: one thread streams the weight slabs, three
+    // warps stage the parameters and the ray's static_dir bias ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == wg::NCONS) {
+      wg::produce(P.maps, ring, bars, STATIC, dir, TRANS);
+    } else if (tid >= wg::HELP0) {
+      const int h = tid - wg::HELP0;
+      wg::stage_params(st, A.W, A.B, NHEAD, h);
+      wg::bar_arrive(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
+      if (dir) {
+        wg::dir_bias(A.W[W_SDIR], A.B[W_SDIR], A.dir + size_t(ray) * A.dir_w,
+                     A.dir_w, A.encode_a ? A.a + size_t(ray) * A.n_a : nullptr,
+                     A.n_a, ray_b, h);
+        wg::bar_arrive(wg::BAR_DIR, wg::NCONS + wg::NHELP);
       }
     }
-    out[e] = v;
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  // head results as planes of S floats: transient heads 0..9, static rgb
+  // 10..12, static sigma 13
+  float* pl = reinterpret_cast<float*>(sm + wg::OFF_PLANES);
+  float* s_rgb = pl + NHEAD * S;
+  float* s_sig = s_rgb + 3 * S;
+  float* pts = reinterpret_cast<float*>(sm + wg::OFF_EXTRA);  // (S, 3)
+  unsigned char* act = sm + wg::OFF_ACT;
+  unsigned char* pe = sm + wg::OFF_PE;
+
+  for (int e = tid; e < 3 * S; e += wg::NCONS) pts[e] = A.xyz[size_t(ray) * S * 3 + e];
+  wg::consumers_sync();
+
+  // ---- posenc tile (+ the time latent for the transient tower): thread
+  // tid fills chunk tid % 16 (8 lanes, fixed for the ray) of rows tid / 16
+  // + 16 k; pre-activation x_c * f, one f32 product ----
+  {
+    const int c = tid & 15;
+    wg::Lanes8 L;
+    wg::lanes8(L, A.freqs, A.xyz_w, c, TRANS ? A.t + size_t(ray) * A.n_tau : nullptr,
+               A.n_tau);
+#pragma unroll 2
+    for (int k = 0; k < S / 16; ++k) {
+      const int s = (tid >> 4) + 16 * k;
+      const float* x = pts + 3 * s;
+      uint32_t pk[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int u = 2 * h;
+        pk[h] = wg::pack_bf16(wg::lane_val(L, u, __fmul_rn(x[L.ch[u]], L.f[u])),
+                              wg::lane_val(L, u + 1, __fmul_rn(x[L.ch[u + 1]], L.f[u + 1])));
+      }
+      *reinterpret_cast<uint4*>(pe + wg::tile_off(s, c)) =
+          make_uint4(pk[0], pk[1], pk[2], pk[3]);
+    }
+  }
+  wg::fence_async_smem();
+  wg::consumers_sync();
+  wg::bar_sync(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
+
+  const int g = tid >> 7;
+  const uint32_t pe_g = wg::saddr(pe) + g * wg::WG_ROWS_BYTES;
+  const uint32_t act_g = wg::saddr(act) + g * wg::WG_ROWS_BYTES;
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  wg::Pipe p;
+
+  if (STATIC) {
+    wg::tower<true>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(false),
+                        st.w_sig(), st.hb, s_sig);
+    wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+    if (dir) {
+      wg::epilogue<false, true, 0>(d, st.tower_bias(false) + 8 * WID, act, g, nullptr,
+                                   nullptr, nullptr);
+      wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+      wg::bar_sync(wg::BAR_DIR, wg::NCONS + wg::NHELP);
+      wg::epilogue<true, false, 3>(d, ray_b, act, g, st.w_rgb(), st.hb + 1, s_rgb);
+    } else {
+      wg::epilogue<false, false, 3>(d, st.tower_bias(false) + 8 * WID, act, g,
+                                    st.w_rgb(), st.hb + 1, s_rgb);
+    }
+  }
+  if (TRANS) {
+    wg::tower<false>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(true),
+                         nullptr, nullptr, nullptr);
+    wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+    wg::epilogue<false, false, NHEAD>(d, st.tower_bias(true) + 8 * WID, act, g,
+                                      st.w_th(), st.hb + 4, pl);
+  }
+  wg::wg_sync(g);
+
+  // ---- this warpgroup's 64 rows of the packed tile ----
+  {
+    // head column behind each flow slot of the packed row (-1: none)
+    const int flow0 = F.has_fw ? 4 : (F.has_bw ? 7 : -1);
+    const int flow1 = (F.has_fw && F.has_bw) ? 7 : -1;
+    float* out = F.out + (size_t(ray) * S + 64 * g) * NCOL;
+    for (int e = tid & 127; e < 64 * NCOL; e += 128) {
+      const int s = 64 * g + e / NCOL, c = e % NCOL;
+      float v = 0.f;
+      if (c < 4) {
+        if (STATIC) v = c < 3 ? sigmoid(s_rgb[c * S + s]) : s_sig[s];
+      } else if (TRANS) {
+        if (c < 7) {
+          v = sigmoid(pl[(c - 3) * S + s]);
+        } else if (c == 7) {
+          v = pl[s];
+        } else if (c < 14) {
+          const int col = c < 11 ? flow0 : flow1;
+          if (col >= 0) v = A.flow_scale * tanhf(pl[(col + (c - 8) % 3) * S + s]);
+        }
+      }
+      out[e] = v;
+    }
   }
 }
 
@@ -114,28 +209,25 @@ extern "C" int nsff_fused_eval(
   if (n_freqs > MAXF || xyz_w + n_tau > SEG || (!static_branch && !encode_t) ||
       xyz == nullptr)
     return int(cudaErrorInvalidValue);
-  EvalArgs F;
+  Params P;
+  memset(&P, 0, sizeof(P));
+  EvalArgs& F = P.f;
   fill_common(F.c, nullptr, nullptr, nullptr, xyz, dir, a, t, nullptr, w, b,
               n_rays, xyz_w, dir_w, n_a, freqs, n_freqs, use_viewdir, encode_a,
               flow_scale, n_tau);
+  // only the evaluated branches get tensor maps
+  if (!static_branch)
+    for (int i = W_S0; i < W_T0; ++i) F.c.W[i] = nullptr;
+  if (!encode_t)
+    for (int i = W_T0; i < NSLOT; ++i) F.c.W[i] = nullptr;
+  if (!(static_branch && use_viewdir)) F.c.W[W_SDIR] = nullptr;
   F.out = static_cast<float*>(out);
   F.has_fw = has_fw;
   F.has_bw = has_bw;
+  if (!wg::encode_maps(P.maps, F.c.W)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (static_branch && encode_t) {
-    err = big_smem(fused_eval_kernel<true, true>);
-    if (err == cudaSuccess)
-      fused_eval_kernel<true, true><<<n_rays, NTHREADS, SM_BYTES, s>>>(F);
-  } else if (static_branch) {
-    err = big_smem(fused_eval_kernel<true, false>);
-    if (err == cudaSuccess)
-      fused_eval_kernel<true, false><<<n_rays, NTHREADS, SM_BYTES, s>>>(F);
-  } else {
-    err = big_smem(fused_eval_kernel<false, true>);
-    if (err == cudaSuccess)
-      fused_eval_kernel<false, true><<<n_rays, NTHREADS, SM_BYTES, s>>>(F);
-  }
-  if (err != cudaSuccess) return int(err);
-  return int(cudaGetLastError());
+  if (static_branch && encode_t)
+    return int(wg::launch(fused_eval_kernel<true, true>, P, n_rays, s));
+  if (static_branch) return int(wg::launch(fused_eval_kernel<true, false>, P, n_rays, s));
+  return int(wg::launch(fused_eval_kernel<false, true>, P, n_rays, s));
 }

@@ -10,24 +10,36 @@
 //
 // Bound: operations. A sample costs ~1.2 M bf16 MACs across both towers,
 // against ~1 KB of input per ray, so the tensor cores and not memory bound
-// it. Design (the tower blocks are shared with the train kernels,
-// planar_tower.cuh): one CTA (8 warps) per ray; the ray's 128 samples are
-// the M dimension of every layer. The (128, 128) posenc tile and two (128, 256)
-// activation tiles stay in shared memory as bf16 (ping-pong), so no
-// activation touches device memory. Weights (segment-padded (in, out) bf16,
-// ~2.6 MB) stream from L2 straight into wmma fragments: each warp owns two
-// 16-column strips of every layer, so a CTA reads each weight once, and
-// holds both strips' accumulators (128 registers) so that every A fragment
-// read from shared memory feeds two products. Matmuls are nvcuda::wmma
-// bf16 16x16x16 with f32 accumulation; activations round to bf16 after each
-// ReLU as on the TPU. Compositing (exclusive cumsum of tau
-// over the 128 samples) runs in one warp with shuffles.
-// wgmma, TMA-staged weights and several rays per CTA are later work.
+// it (10.2 ms per 32768-ray chunk at 989 TFLOP/s).
+//
+// Design (tower_wgmma.cuh): one CTA of three warpgroups per ray. Two
+// consumer warpgroups each own 64 of the ray's 128 samples and run every
+// layer as wgmma m64n256k16 (bf16 in, f32 accumulators in registers) on the
+// ray's posenc tile and activation tile in shared memory; one producer
+// thread streams the ~2.4 MB of weight K-slabs per ray through TMA into a
+// 6-stage ring, while the producer warpgroup's other warps stage biases and
+// head weights in shared memory and compute the per-ray static_dir bias.
+// Each layer's epilogue adds the bias, rounds to bf16 with the ReLU fused
+// into the conversion and writes the activation tile in place, straight
+// from the accumulators; the narrow heads (sigma, rgb, transient
+// sigma/rgb/flow) are per-row dot products in the epilogue of the layer
+// that feeds them, so the features they read never go back to shared
+// memory. Rounding points are the TPU kernel's: bf16 matmul inputs, f32
+// accumulation, bf16 activations, f32 biases and compositing. Compositing
+// (exclusive cumsum of tau over the 128 samples) runs in one warp with
+// shuffles.
+// What bounds it now: the products wait for each layer's epilogue (the
+// next layer reads all of its columns), ~1/3 of a ray's time, and for
+// slabs still in flight from L2; the posenc tile and the compositing
+// (~9% of a ray) overlap no product, since a CTA holds one ray
+// (scripts/profile_evaluator.py prints the breakdown).
 //
 // Plain C interface (loaded with ctypes); launches on the given stream and
-// returns the cudaError_t of the launch.
+// returns the cudaError_t of the launch (or of the tensor-map encoding).
 
-#include "planar_tower.cuh"
+#include <cstring>
+
+#include "tower_wgmma.cuh"
 
 using namespace planar;
 
@@ -38,6 +50,7 @@ enum {
   P_SR = 0, P_SG, P_SB, P_SSIG, P_TSIG, P_TR, P_TG, P_TB,
   P_FW0, P_FW1, P_FW2, P_BW0, P_BW1, P_BW2, NPLANE
 };
+static_assert(NPLANE <= wg::NPL, "planes fit the shared carve-up");
 
 struct Args {
   const float* o; const float* d; const float* zs; const float* vis;
@@ -50,95 +63,16 @@ struct Args {
   float freqs[MAXF];
 };
 
-constexpr size_t SMEM_X = size_t(S) * LDX * sizeof(bf16);
-constexpr size_t SMEM_H = size_t(S) * LDH * sizeof(bf16);
-constexpr size_t SMEM_STAGE = size_t(NWARPS) * 256 * sizeof(float);
-constexpr size_t SMEM_BYTES = SMEM_X + 2 * SMEM_H + SMEM_STAGE
-    + WID * sizeof(float) + size_t(NPLANE) * S * sizeof(float)
-    + 2 * S * sizeof(float);
+struct Params {
+  wg::Maps maps;
+  Args a;
+};
 
+// warp 0 of the consumers: composite the ray's planes into its maps row
 template <bool ENCODE_T, bool FLOW>
-__global__ void __launch_bounds__(NTHREADS, 1)
-planar_eval_comp_kernel(const Args A) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xin = reinterpret_cast<bf16*>(smem);
-  bf16* h0 = reinterpret_cast<bf16*>(smem + SMEM_X);
-  bf16* h1 = reinterpret_cast<bf16*>(smem + SMEM_X + SMEM_H);
-  float* stage = reinterpret_cast<float*>(smem + SMEM_X + 2 * SMEM_H);
-  float* ray_b = stage + NWARPS * 256;
-  float* planes = ray_b + WID;
-  float* zsh = planes + NPLANE * S;
-  float* vsh = zsh + S;
-
-  const int ray = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float o0 = A.o[ray * 3 + 0], o1 = A.o[ray * 3 + 1], o2 = A.o[ray * 3 + 2];
-  const float d0 = A.d[ray * 3 + 0], d1 = A.d[ray * 3 + 1], d2 = A.d[ray * 3 + 2];
-  const float* zrow = A.zs + size_t(ray) * S;
-  for (int s = tid; s < S; s += NTHREADS) {
-    zsh[s] = zrow[s];
-    vsh[s] = A.vis_in ? A.vis[size_t(ray) * S + s] : 1.f;
-  }
-  __syncthreads();
-
-  // ---- posenc tile (+ time latent lanes for the transient tower; the
-  // static tower's padded weight rows there are zero) ----
-  const float od[6] = {o0, o1, o2, d0, d1, d2};
-  for (int e = tid; e < S * SEG; e += NTHREADS) {
-    const int s = e / SEG, j = e % SEG;
-    float v = 0.f;
-    if (j < A.xyz_w) {
-      v = posenc_val(A.freqs, od, nullptr, zsh[s], j);
-    } else if (ENCODE_T && j < A.xyz_w + A.n_tau) {
-      v = A.t[size_t(ray) * A.n_tau + (j - A.xyz_w)];
-    }
-    xin[s * LDX + j] = __float2bfloat16_rn(v);
-  }
-  // ---- per-ray viewdir/appearance bias of the static_dir layer ----
-  if (A.use_viewdir)
-    static_dir_bias(A.W[W_SDIR], A.B[W_SDIR], A.dir + size_t(ray) * A.dir_w,
-                    A.dir_w, A.encode_a ? A.a + size_t(ray) * A.n_a : nullptr,
-                    A.n_a, ray_b);
-  __syncthreads();
-
-  // ---- static tower + heads ----
-  bf16* h = tower_fwd(A.W, A.B, W_S0, xin, h0, h1, stage, nullptr, 0);
-  bf16* other = (h == h0) ? h1 : h0;
-  head<1>(h, A.W[W_SSIG], A.B[W_SSIG], planes + P_SSIG * S);
-  dense_fwd(h, A.W[W_SFIN], A.B[W_SFIN], false, other, nullptr,
-            stage);  // static_xyz_final (linear), bf16-rounded
-  __syncthreads();
-  bf16* feat = other;
-  if (A.use_viewdir) {
-    dense_fwd(other, A.W[W_SDIR], ray_b, true, h, nullptr, stage);
-    __syncthreads();
-    feat = h;
-  }
-  head<3>(feat, A.W[W_SRGB], A.B[W_SRGB], planes + P_SR * S);
-  __syncthreads();
-  for (int e = tid; e < 3 * S; e += NTHREADS)
-    planes[P_SR * S + e] = sigmoid(planes[P_SR * S + e]);
-
-  // ---- transient tower + packed heads [sigma, rgb(3), fw(3), bw(3)] ----
-  if (ENCODE_T) {
-    __syncthreads();
-    h = tower_fwd(A.W, A.B, W_T0, xin, h0, h1, stage, nullptr, 0);
-    other = (h == h0) ? h1 : h0;
-    dense_fwd(h, A.W[W_TFIN], A.B[W_TFIN], false, other, nullptr, stage);
-    __syncthreads();
-    head<FLOW ? 10 : 4>(other, A.W[W_THEAD], A.B[W_THEAD], planes + P_TSIG * S);
-    __syncthreads();
-    for (int e = tid; e < 3 * S; e += NTHREADS)
-      planes[P_TR * S + e] = sigmoid(planes[P_TR * S + e]);
-    if (FLOW)
-      for (int e = tid; e < 6 * S; e += NTHREADS)
-        planes[P_FW0 * S + e] = A.flow_scale * tanhf(planes[P_FW0 * S + e]);
-  }
-  __syncthreads();
-
-  // ---- compositing: warp 0, lane l owns samples 4l..4l+3 ----
-  if (tid >= 32) return;
-  const int lane = tid;
+__device__ void composite(const Args& A, const float* planes, const float* zsh,
+                          const float* vsh, const float* od, int ray) {
+  const int lane = threadIdx.x;
   constexpr int Q = S / 32;
   float z[Q], ts[Q], tt[Q], u[Q];
 #pragma unroll
@@ -197,9 +131,9 @@ planar_eval_comp_kernel(const Args A) {
       m[8] += sw_only * sr; m[9] += sw_only * sg; m[10] += sw_only * sb;
       m[11] += sw_only * z[q];
       if (FLOW) {
-        m[12] += w * (o0 + d0 * z[q]);
-        m[13] += w * (o1 + d1 * z[q]);
-        m[14] += w * (o2 + d2 * z[q]);
+        m[12] += w * (od[0] + od[3] * z[q]);
+        m[13] += w * (od[1] + od[4] * z[q]);
+        m[14] += w * (od[2] + od[5] * z[q]);
         const bool far = z[q] > A.z_far;
 #pragma unroll
         for (int c = 0; c < 6; ++c)
@@ -222,13 +156,159 @@ planar_eval_comp_kernel(const Args A) {
 }
 
 template <bool ENCODE_T, bool FLOW>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kern = planar_eval_comp_kernel<ENCODE_T, FLOW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
-  if (err != cudaSuccess) return err;
-  kern<<<a.n_rays, NTHREADS, SMEM_BYTES, stream>>>(a);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(wg::NTHR, 1)
+planar_eval_comp_kernel(const __grid_constant__ Params P) {
+  // the dynamic shared memory starts 1024-byte aligned (the swizzle atoms
+  // and TMA boxes need it); pointers derived from it stay in the shared
+  // space, so the compiler emits shared loads and stores
+  extern __shared__ __align__(1024) unsigned char sm[];
+  if ((wg::saddr(sm) & 1023u) != 0) __trap();
+  const Args& A = P.a;
+  const uint32_t ring = wg::saddr(sm + wg::OFF_RING);
+  const uint32_t bars = wg::saddr(sm + wg::OFF_BAR);
+  const int tid = threadIdx.x;
+  WG_STAMP(0);
+  if (tid == 0) wg::init_ring(bars);
+  __syncthreads();
+
+  const int ray = blockIdx.x;
+  float* ray_b = reinterpret_cast<float*>(sm + wg::OFF_RAYB);
+  const wg::Staged st = wg::staged(sm);
+
+  if (tid >= wg::NCONS) {
+    // ---- producer warpgroup: one thread streams the weight slabs, three
+    // warps stage the parameters and the ray's static_dir bias ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == wg::NCONS) {
+      wg::produce(P.maps, ring, bars, true, A.use_viewdir != 0, ENCODE_T);
+    } else if (tid >= wg::HELP0) {
+      const int h = tid - wg::HELP0;
+      wg::stage_params(st, A.W, A.B, FLOW ? 10 : 4, h);
+      if (h == 0) WG_STAMP_ANY(10);
+      wg::bar_arrive(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
+      if (A.use_viewdir) {
+        wg::dir_bias(A.W[W_SDIR], A.B[W_SDIR], A.dir + size_t(ray) * A.dir_w,
+                     A.dir_w, A.encode_a ? A.a + size_t(ray) * A.n_a : nullptr,
+                     A.n_a, ray_b, h);
+        if (h == 0) WG_STAMP_ANY(11);
+        wg::bar_arrive(wg::BAR_DIR, wg::NCONS + wg::NHELP);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  float* planes = reinterpret_cast<float*>(sm + wg::OFF_PLANES);
+  float* zsh = reinterpret_cast<float*>(sm + wg::OFF_EXTRA);
+  float* vsh = zsh + S;
+  float* od = vsh + S;
+  unsigned char* act = sm + wg::OFF_ACT;
+  unsigned char* pe = sm + wg::OFF_PE;
+
+  if (tid < S) {
+    zsh[tid] = A.zs[size_t(ray) * S + tid];
+    vsh[tid] = A.vis_in ? A.vis[size_t(ray) * S + tid] : 1.f;
+  } else if (tid < S + 6) {
+    const int c = tid - S;
+    od[c] = c < 3 ? A.o[ray * 3 + c] : A.d[ray * 3 + c - 3];
+  }
+  wg::consumers_sync();
+  WG_STAMP(8);
+
+  // ---- posenc tile (+ time latent lanes for the transient tower; the
+  // static tower's padded weight rows there are zero): thread tid fills
+  // chunk tid % 16 (8 lanes, fixed for the ray) of rows tid / 16 + 16 k.
+  // Pre-activation o_c f + (d_c f) z, without fused multiply-adds ----
+  {
+    const int c = tid & 15;
+    wg::Lanes8 L;
+    wg::lanes8(L, A.freqs, A.xyz_w, c,
+               ENCODE_T ? A.t + size_t(ray) * A.n_tau : nullptr, A.n_tau);
+    float lo[8], ld[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      lo[u] = __fmul_rn(od[L.ch[u]], L.f[u]);
+      ld[u] = __fmul_rn(od[3 + L.ch[u]], L.f[u]);
+    }
+#pragma unroll 2
+    for (int k = 0; k < S / 16; ++k) {
+      const int s = (tid >> 4) + 16 * k;
+      const float z = zsh[s];
+      uint32_t pk[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int u = 2 * h;
+        pk[h] = wg::pack_bf16(
+            wg::lane_val(L, u, __fadd_rn(lo[u], __fmul_rn(ld[u], z))),
+            wg::lane_val(L, u + 1, __fadd_rn(lo[u + 1], __fmul_rn(ld[u + 1], z))));
+      }
+      *reinterpret_cast<uint4*>(pe + wg::tile_off(s, c)) =
+          make_uint4(pk[0], pk[1], pk[2], pk[3]);
+    }
+  }
+  WG_STAMP(9);
+  wg::fence_async_smem();
+  wg::consumers_sync();
+  wg::bar_sync(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
+  WG_STAMP(1);
+
+  const int g = tid >> 7;
+  const uint32_t pe_g = wg::saddr(pe) + g * wg::WG_ROWS_BYTES;
+  const uint32_t act_g = wg::saddr(act) + g * wg::WG_ROWS_BYTES;
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  wg::Pipe p;
+
+  // ---- static tower + sigma (layer 7's epilogue), final, dir, rgb ----
+  wg::tower<true>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(false),
+                      st.w_sig(), st.hb, planes + P_SSIG * S);
+  wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+  if (A.use_viewdir) {
+    // static_xyz_final (linear), bf16-rounded, in place
+    wg::epilogue<false, true, 0>(d, st.tower_bias(false) + 8 * WID, act, g, nullptr,
+                                 nullptr, nullptr);
+    wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+    wg::bar_sync(wg::BAR_DIR, wg::NCONS + wg::NHELP);
+    wg::epilogue<true, false, 3>(d, ray_b, act, g, st.w_rgb(), st.hb + 1,
+                                 planes + P_SR * S);
+  } else {
+    wg::epilogue<false, false, 3>(d, st.tower_bias(false) + 8 * WID, act, g,
+                                  st.w_rgb(), st.hb + 1, planes + P_SR * S);
+  }
+
+  WG_STAMP(2);
+  // ---- transient tower + packed heads [sigma, rgb(3), fw(3), bw(3)] ----
+  if (ENCODE_T) {
+    wg::tower<false>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(true),
+                         nullptr, nullptr, nullptr);
+    wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+    wg::epilogue<false, false, FLOW ? 10 : 4>(d, st.tower_bias(true) + 8 * WID, act,
+                                               g, st.w_th(), st.hb + 4,
+                                               planes + P_TSIG * S);
+  }
+  wg::wg_sync(g);
+  WG_STAMP(3);
+  // head activations on this warpgroup's rows
+  const int t = tid & 127;
+  if (t < 64) {
+    const int s = 64 * g + t;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) planes[(P_SR + c) * S + s] = sigmoid(planes[(P_SR + c) * S + s]);
+    if (ENCODE_T) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        planes[(P_TR + c) * S + s] = sigmoid(planes[(P_TR + c) * S + s]);
+      if (FLOW) {
+#pragma unroll
+        for (int c = 0; c < 6; ++c)
+          planes[(P_FW0 + c) * S + s] = A.flow_scale * tanhf(planes[(P_FW0 + c) * S + s]);
+      }
+    }
+  }
+  wg::consumers_sync();
+
+  if (tid < 32) composite<ENCODE_T, FLOW>(A, planes, zsh, vsh, od, ray);
+  WG_STAMP(4);
 }
 
 }  // namespace
@@ -243,7 +323,9 @@ extern "C" int nsff_planar_eval_comp(
     float z_far, float flow_scale, int n_tau, int n_map, void* stream) {
   if (n_samples != S || n_freqs > MAXF || n_map < (encode_t ? (flow ? 21 : 12) : 4))
     return int(cudaErrorInvalidValue);
-  Args A;
+  Params P;
+  memset(&P, 0, sizeof(P));
+  Args& A = P.a;
   A.o = static_cast<const float*>(o);
   A.d = static_cast<const float*>(d);
   A.zs = static_cast<const float*>(zs);
@@ -255,14 +337,28 @@ extern "C" int nsff_planar_eval_comp(
     A.W[i] = static_cast<const bf16*>(w[i]);
     A.B[i] = static_cast<const float*>(b[i]);
   }
+  if (!encode_t)
+    for (int i = W_T0; i < NSLOT; ++i) A.W[i] = nullptr;  // no transient maps
+  if (!use_viewdir) A.W[W_SDIR] = nullptr;
   A.out = static_cast<float*>(out);
   A.n_rays = n_rays; A.xyz_w = xyz_w; A.dir_w = dir_w; A.n_a = n_a;
   A.n_tau = n_tau; A.n_map = n_map;
   A.use_viewdir = use_viewdir; A.encode_a = encode_a; A.vis_in = vis_in;
   A.z_far = z_far; A.flow_scale = flow_scale;
   for (int i = 0; i < MAXF; ++i) A.freqs[i] = i < n_freqs ? freqs[i] : 0.f;
+  if (!wg::encode_maps(P.maps, A.W)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!encode_t) return int(launch<false, false>(A, s));
-  if (flow) return int(launch<true, true>(A, s));
-  return int(launch<true, false>(A, s));
+  if (!encode_t) return int(wg::launch(planar_eval_comp_kernel<false, false>, P, n_rays, s));
+  if (flow) return int(wg::launch(planar_eval_comp_kernel<true, true>, P, n_rays, s));
+  return int(wg::launch(planar_eval_comp_kernel<true, false>, P, n_rays, s));
 }
+
+#ifdef WG_PROFILE
+extern "C" int nsff_prof_read(void* host, int n) {
+  return int(cudaMemcpyFromSymbol(host, wg::wg_prof, size_t(n) * 8));
+}
+extern "C" int nsff_prof_clear() {
+  static unsigned long long zero[4096 * 16];
+  return int(cudaMemcpyToSymbol(wg::wg_prof, zero, sizeof(zero)));
+}
+#endif

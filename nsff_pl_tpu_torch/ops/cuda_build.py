@@ -19,8 +19,11 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+# -lcuda: the evaluators encode their TMA tensor maps with the driver API
+# (cuTensorMapEncodeTiled)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lcuda"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

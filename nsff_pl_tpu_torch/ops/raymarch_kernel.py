@@ -345,6 +345,9 @@ def _slot_ptrs(pw, names, dev, heads: int, encode_a: bool):
         shp = wshape.get(name, (WIDTH, WIDTH))
         _check(pw[name]["w"], f"{name}.w", shp, torch.bfloat16, dev)
         _check(pw[name]["b"], f"{name}.b", (shp[1],), f32, dev)
+        if pw[name]["w"].data_ptr() % 16 or pw[name]["b"].data_ptr() % 16:
+            # TMA tensor maps and the evaluators' 16-byte parameter copies
+            raise ValueError(f"{name}: weights must start 16-byte aligned")
         wp[i] = pw[name]["w"].data_ptr()
         bp[i] = pw[name]["b"].data_ptr()
     return wp, bp

@@ -11,12 +11,13 @@ from nsff_pl_tpu_torch.ops import raymarch_kernel as trk
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 4096])
 @pytest.mark.parametrize("encode_t,flow,vis_in", [
     (True, (), False), (True, ("fw", "bw"), True), (False, (), False)])
-def test_cuda_kernel_matches_plain(encode_t, flow, vis_in):
-    """planar_eval_comp at S=128, 8x256 towers, N_tau=48, an odd ray
-    count; tolerance as in chip_smoke.py (same bf16 rounding points, f32
-    sums in another order)."""
+def test_cuda_kernel_matches_plain(encode_t, flow, vis_in, n):
+    """planar_eval_comp at S=128, 8x256 towers, N_tau=48, for one ray, an
+    odd ray count and 4096 rays; tolerance as in chip_smoke.py (same bf16
+    rounding points, f32 sums in another order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from nsff_pl_tpu_torch.models import nerf as tn
@@ -25,7 +26,7 @@ def test_cuda_kernel_matches_plain(encode_t, flow, vis_in):
     params = tn.init_nerf_params(g, "fine", use_viewdir=True,
                                  encode_transient=True, output_flow=True,
                                  device="cuda")
-    n, s = 37, 128
+    s = 128
     o = torch.rand(n, 3, generator=g) * 2 - 1
     o[:, 2] = -1
     d = (torch.rand(n, 3, generator=g) - 0.5) * 0.4
@@ -190,16 +191,19 @@ PACKED_VARIANTS = {"full": (True, True, False, ("fw", "bw")),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 4096])
 @pytest.mark.parametrize("variant", sorted(PACKED_VARIANTS))
-def test_packed_kernels_match_plain(variant):
-    """fused_nerf_eval and both branches of the fused_nerf_train backward
-    (with and without the xyz cotangent) at S=128, 8x256 towers, N_tau=48,
-    an odd ray count. Packed rows: at most 1e-3 abs and at most a fifth of
-    the rows off by more than 1e-5 in any column (a row shows a bf16
-    rounding flip of an activation whole); unused columns exactly zero; gradients: every leaf
-    within 0.1 of its largest entry and 5e-2 in Frobenius norm, the
-    per-sample xyz cotangent within 0.25 of its largest entry (a flipped
-    ReLU mask shows whole in one sample's entry), as in chip_smoke.py."""
+def test_packed_kernels_match_plain(variant, n):
+    """fused_nerf_eval at S=128, 8x256 towers, N_tau=48, for one ray, an
+    odd ray count and 4096 rays, and both
+    branches of the fused_nerf_train backward (with and without the xyz
+    cotangent) at the odd count. Packed rows: at most 1e-3 abs and at most
+    a fifth of the rows off by more than 1e-5 in any column (a row shows a
+    bf16 rounding flip of an activation whole); unused columns exactly
+    zero; gradients: every leaf within 0.1 of its largest entry and 5e-2
+    in Frobenius norm, the per-sample xyz cotangent within 0.25 of its
+    largest entry (a flipped ReLU mask shows whole in one sample's entry),
+    as in chip_smoke.py."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from nsff_pl_tpu_torch.models import nerf as tn
@@ -211,7 +215,6 @@ def test_packed_kernels_match_plain(variant):
                                  use_viewdir=True, encode_appearance=encode_a,
                                  encode_transient=True, output_flow=True,
                                  device="cuda")
-    n = 37
     xyz, _, dirs, a, t, g = _packed_inputs(n)
     op = mtk.make_fused_nerf_train(128, use_viewdir=True, encode_a=encode_a,
                                    encode_t=encode_t, output_flow=flow,
@@ -230,6 +233,8 @@ def test_packed_kernels_match_plain(variant):
     unused = ([] if static_branch else [0, 1, 2, 3]) + list(
         range(8 + 3 * len(flow) if encode_t else 4, 16))
     assert not bool(got[..., unused].any())
+    if n != 37:  # the backward at the odd count only
+        return
 
     cot = torch.randn(n, 128, 16, generator=g).cuda()
     bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",

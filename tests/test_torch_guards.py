@@ -13,7 +13,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "nsff_pl_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+              + sorted((REPO / "scripts").glob("*.py")))
 
 
 def _imported_modules(path: Path):

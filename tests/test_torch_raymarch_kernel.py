@@ -151,3 +151,24 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(out, ref)
     with pytest.raises(ValueError, match="vis_in"):
         fn(params, T(o), T(d), T(zs), T(zs), T(dirs), None, T(t))
+
+
+def test_slot_ptrs_check_the_tensor_map_inputs():
+    """The weights behind the evaluators' TMA tensor maps: (K_pad, 256)
+    bf16, contiguous, 16-byte aligned; a view that starts one element in,
+    a transposed copy or a wrong width raises before any launch."""
+    params = params_from_jax(jax.tree.map(np.asarray, _params()), "cpu")
+    fn = trk.make_planar_nerf_eval_comp(S, use_viewdir=True, n_tau=N_TAU)
+    pw = fn.pack(params)
+    names = [k for k in trk._SLOTS if k in pw]
+    wp, _ = trk._slot_ptrs(pw, names, torch.device("cpu"), 4, False)
+    assert all(wp[i] % 16 == 0 for i, k in enumerate(trk._SLOTS) if k in pw)
+    w = pw["static_xyz_1"]["w"]
+    bad = {"misaligned": torch.cat([w.new_zeros(1), w.flatten()])[1:].view(
+               w.shape),
+           "transposed": w.t(),
+           "narrow": w[:, :128].contiguous()}
+    for what, wb in bad.items():
+        pw_bad = {**pw, "static_xyz_1": {**pw["static_xyz_1"], "w": wb}}
+        with pytest.raises(ValueError, match="static_xyz_1"):
+            trk._slot_ptrs(pw_bad, names, torch.device("cpu"), 4, False)
