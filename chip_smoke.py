@@ -20,6 +20,9 @@ once), then:
    error, times the kernel and the plain version with CUDA events and
    computes the bound (operations or bytes) from the shapes; the two
    no-grad evaluators also print their TFLOP/s and share of the bound;
+   each backward's main calls also print the device ms per call of its
+   chain, dW and reduction phases (torch.profiler) and, as a yardstick,
+   the cuBLAS time of the dW products on operands of the same shapes;
 2. serving phase (a main path): a `RenderService` at the flagship
    serving configuration (512x288, 30 frames, encode_t, use_viewdir,
    N_samples 128, bfloat16, chunk 32768) with seeded weights answers three
@@ -47,9 +50,9 @@ once), then:
    and draws (loss terms and Adam's first moments), on the planar and on
    the packed path.
 
-The training phase ends with a torch.profiler trace of 5 more steps
-(device time by kernel, the device's busy share; the full table goes to
-chip_smoke_out/profile_train_step.txt).
+The training phases end with a torch.profiler trace of 5 more steps
+(device time by kernel, the device's busy share and the backward's
+phases per step; the full tables go to chip_smoke_out/).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -460,6 +463,10 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
                 print(f"kernel {name} [main] n={n}: {ms:.3f} ms, plain "
                       f"{plain_ms:.3f} ms, bound {bms:.3f} ms "
                       f"({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
+                bwd_phases(torch, records[name],
+                           lambda: rk.planar_nerf_train_bwd_cuda(
+                               branch, *args, cot, **bkw),
+                           n, S, branch == "static", card)
             else:
                 _fold_errs(records[name], abs_err, errs[w_max][0])
         del got, want
@@ -702,6 +709,10 @@ def packed_kernel_phase(torch, np, params, rays, card):
             print(f"kernel {name} [main] n={n}: {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms, bound {bound(flops, nbytes)[0]:.3f} "
                   f"ms ({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
+            bwd_phases(torch, records[name],
+                       lambda: mtk.fused_nerf_train_bwd_cuda(
+                           *args, need_dxyz=need_dxyz, **bkw),
+                       n, S, branch == "static", card)
         else:
             _fold_errs(records[name], abs_err, rel_err)
             print(f"kernel {name} [{label}] n={n}: {ms:.3f} ms, bound "
@@ -935,9 +946,82 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
     return counts, dev_ms
 
 
-OUR_KERNELS = ("train_fwd_kernel", "train_bwd_chain_kernel", "dw_kernel",
-               "dw_reduce_kernel", "db_reduce_kernel", "comp_fwd_kernel",
-               "comp_bwd_kernel", "fused_eval_kernel")
+OUR_KERNELS = ("train_fwd_kernel", "train_bwd_chain_kernel", "dw_gemm_kernel",
+               "dw_narrow_kernel", "dw_reduce_kernel", "db_reduce_kernel",
+               "comp_fwd_kernel", "comp_bwd_kernel", "fused_eval_kernel")
+# the three phases of a backward call (csrc/tower_bwd_wgmma.cuh), by kernel
+BWD_PHASES = {"chain": ("train_bwd_chain_kernel",),
+              "dW": ("dw_gemm_kernel", "dw_narrow_kernel"),
+              "reductions": ("dw_reduce_kernel", "db_reduce_kernel")}
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", 0.0) or 0.0
+
+
+def phase_ms(torch, avgs, n):
+    """Device ms per call (n calls) of each backward phase, from
+    torch.profiler key averages."""
+    kernels = [e for e in avgs if _dev_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    return {ph: sum(_dev_us(e) for e in kernels
+                    if any(k in e.key for k in names)) / 1e3 / n
+            for ph, names in BWD_PHASES.items()}
+
+
+def bwd_phase_ms(torch, fn, n=5):
+    """Profile n calls of a backward wrapper: device ms per call of its
+    chain, dW and reduction phases."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return phase_ms(torch, prof.key_averages(), n)
+
+
+def bwd_phases(torch, record, fn, n_rays, S, static, card):
+    """Print a backward's chain / dW / reduction device ms per call and the
+    cuBLAS yardstick of its dW products; keep both in its record."""
+    ph = bwd_phase_ms(torch, fn)
+    print(f"kernel {record['name']} [main] phases per call "
+          + json.dumps({k: round(v, 4) for k, v in ph.items()})
+          + f" ms on {card}", flush=True)
+    record["phase_ms"] = ph
+    record["cublas_dw_ms"] = cublas_dw_ms(torch, n_rays, S, static, card,
+                                          record["name"])
+
+
+def cublas_dw_ms(torch, n_rays: int, S: int, static: bool, card: str,
+                 label: str):
+    """Yardstick for the dW phase: cuBLAS (`torch.matmul(A.T, dz)`, bf16)
+    on operands of the shapes of the backward's wide dW products (A (R, ka)
+    activations, dz (R, 256) cotangents, R = n_rays * S; the per-ray
+    static_dir rows over n_rays rows), timed here only; the port never
+    calls it."""
+    R = n_rays * S
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    a = torch.randn((R, 256), generator=gen, device="cuda").bfloat16()
+    dz = torch.randn((R, 256), generator=gen, device="cuda").bfloat16()
+    kas = [128, 256, 256, 256, 128, 256, 256, 256, 256, 256]
+    rows = [R] * len(kas)
+    if static:  # static_dir: the feature rows and the per-ray dir rows
+        kas += [256, 128]
+        rows += [R, n_rays]
+
+    def run():
+        for ka, r in zip(kas, rows):
+            torch.matmul(a[:r, :ka].T, dz[:r])
+
+    ms = cuda_ms(torch, run, iters=5, graph=True)
+    print(f"yardstick {label}: cuBLAS bf16 dW products (torch.matmul(A.T, "
+          f"dz), {len(kas)} products of the same shapes) {ms:.3f} ms on "
+          f"{card}", flush=True)
+    return ms
 
 
 def profile_steps(torch, step, state, args, sched, card, label, n_steps=5):
@@ -958,10 +1042,7 @@ def profile_steps(torch, step, state, args, sched, card, label, n_steps=5):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0.0) or 0.0
-
+    dev_us = _dev_us
     # device-side events only (kernels, copies): the CPU ops above them
     # carry their kernels' time too
     kernels = [e for e in avgs if dev_us(e) > 0
@@ -982,6 +1063,10 @@ def profile_steps(torch, step, state, args, sched, card, label, n_steps=5):
     for e in top:
         print(f"profile ({label}): {dev_us(e) / 1e3 / n_steps:9.3f} ms/step "
               f"{e.count // n_steps:5d} calls/step  {e.key[:90]}", flush=True)
+    print(f"profile ({label}): backward phases per step " + json.dumps(
+        {k: round(v, 4) for k, v in phase_ms(torch, avgs, n_steps).items()})
+        + f" ms; device busy {total / n_steps:.3f} ms per step on {card}",
+        flush=True)
 
 
 def train_agreement(torch, cfg, table, Ks, Ps, label):

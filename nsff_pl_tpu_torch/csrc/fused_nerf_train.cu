@@ -21,10 +21,10 @@
 // polynomial sine of xs + phase + pi/2.
 //
 // Bound: operations (recompute, data gradient and weight gradient of every
-// layer: about 3.6 MFLOP per sample). Design: csrc/tower_bwd.cuh, shared
-// with planar_nerf_train.cu: a chain kernel with one CTA per ray
-// (activations and cotangents through a global scratch buffer), a dW GEMM
-// kernel over row splits and fixed-order reductions, so the gradients are
+// layer: about 3.6 MFLOP per sample). Design: csrc/tower_bwd_wgmma.cuh,
+// shared with planar_nerf_train.cu: a wgmma + TMA chain kernel with one CTA
+// per ray (activations and cotangents through a global scratch buffer), a
+// wgmma split-K dW GEMM and fixed-order reductions, so the gradients are
 // the same bits on every run (no atomics). The packed cotangent is read
 // column by column with stride 16; a transient call whose output lacks a
 // flow passes no cotangent for that head's columns, which leaves exact
@@ -35,7 +35,7 @@
 // Plain C interface (loaded with ctypes); launches on the given stream and
 // returns the cudaError_t of the launches.
 
-#include "tower_bwd.cuh"
+#include "tower_bwd_wgmma.cuh"
 
 using namespace planar;
 
@@ -89,3 +89,13 @@ extern "C" int nsff_fused_train_bwd(
   return int(launch_branch_bwd(G, stat, use_viewdir, encode_a, scratch, dw, db,
                                static_cast<cudaStream_t>(stream)));
 }
+
+#ifdef WG_PROFILE
+extern "C" int nsff_prof_read(void* host, int n) {
+  return int(cudaMemcpyFromSymbol(host, bw::bw_prof, size_t(n) * 8));
+}
+extern "C" int nsff_prof_clear() {
+  static unsigned long long zero[4096 * 32];
+  return int(cudaMemcpyToSymbol(bw::bw_prof, zero, sizeof(zero)));
+}
+#endif

@@ -11,16 +11,16 @@
 // every cotangent dz rounded to bf16 before its products, biases and
 // bias gradients in f32.
 //
-// Bound: operations. The forward is the evaluator of planar_eval_comp.cu
-// (one CTA of 8 warps per ray, the ray's 128 samples are the M dimension,
-// nvcuda::wmma bf16 with weights streamed from L2) writing planes instead of
-// compositing them. The backward (chain kernel, dW kernel, fixed-order
-// reductions) is csrc/tower_bwd.cuh, shared with fused_nerf_train.cu.
+// Bound: operations. The forward is PR 1's evaluator design (one CTA of 8
+// warps per ray, the ray's 128 samples are the M dimension, nvcuda::wmma
+// bf16 with weights streamed from L2, planar_tower.cuh) writing planes. The
+// backward (a wgmma + TMA chain kernel, a wgmma split-K dW GEMM, fixed-order
+// reductions) is csrc/tower_bwd_wgmma.cuh, shared with fused_nerf_train.cu.
 //
 // Plain C interface (loaded with ctypes); launches on the given stream and
 // returns the cudaError_t of the launches.
 
-#include "tower_bwd.cuh"
+#include "tower_bwd_wgmma.cuh"
 
 using namespace planar;
 

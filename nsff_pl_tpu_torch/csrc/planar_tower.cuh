@@ -142,39 +142,24 @@ __device__ __forceinline__ void zero_acc(Acc (&acc)[NP][MT]) {
 
 // acc[p][m] += A[m-th 16 rows, 0:K] @ B[0:K, n0 + 16p : +16]. A is a bf16
 // tile in shared memory (pitch lda). B is row-major in global memory with
-// pitch ldb (B(k, n) = B[k*ldb + n]) or, with BT, the transpose of a
-// row-major W (B(k, n) = W[n*ldb + k]).
-template <bool BT, int NP>
+// pitch ldb (B(k, n) = B[k*ldb + n]).
+template <int NP>
 __device__ __forceinline__ void mma_seg(Acc (&acc)[NP][MT], const bf16* A,
                                         int lda, int K,
                                         const bf16* __restrict__ B, int ldb,
                                         int n0) {
 #pragma unroll 1
   for (int k = 0; k < K; k += 16) {
-    if constexpr (BT) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[NP];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[NP];
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
-        wmma::load_matrix_sync(b[p], B + size_t(n0 + 16 * p) * ldb + k, ldb);
+    for (int p = 0; p < NP; ++p)
+      wmma::load_matrix_sync(b[p], B + size_t(k) * ldb + n0 + 16 * p, ldb);
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
-        wmma::load_matrix_sync(afr, A + m * 16 * lda + k, lda);
+    for (int m = 0; m < MT; ++m) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
+      wmma::load_matrix_sync(afr, A + m * 16 * lda + k, lda);
 #pragma unroll
-        for (int p = 0; p < NP; ++p) wmma::mma_sync(acc[p][m], afr, b[p], acc[p][m]);
-      }
-    } else {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[NP];
-#pragma unroll
-      for (int p = 0; p < NP; ++p)
-        wmma::load_matrix_sync(b[p], B + size_t(k) * ldb + n0 + 16 * p, ldb);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
-        wmma::load_matrix_sync(afr, A + m * 16 * lda + k, lda);
-#pragma unroll
-        for (int p = 0; p < NP; ++p) wmma::mma_sync(acc[p][m], afr, b[p], acc[p][m]);
-      }
+      for (int p = 0; p < NP; ++p) wmma::mma_sync(acc[p][m], afr, b[p], acc[p][m]);
     }
   }
 }
@@ -240,7 +225,7 @@ __device__ __forceinline__ void dense_fwd(const bf16* in, const bf16* W,
   const int n0 = (threadIdx.x >> 5) * 32;
   Acc acc[2][MT];
   zero_acc<2>(acc);
-  mma_seg<false, 2>(acc, in, LDH, WID, W, WID, n0);
+  mma_seg<2>(acc, in, LDH, WID, W, WID, n0);
   epi_fwd<2>(acc, n0, bias, relu, out_s, out_g, stage);
 }
 
@@ -259,12 +244,12 @@ __device__ bf16* tower_fwd(const bf16* const* W, const float* const* B,
     zero_acc<2>(acc);
     const bf16* Wi = W[w0 + i];
     if (i == 0) {
-      mma_seg<false, 2>(acc, xin, LDX, SEG, Wi, WID, n0);
+      mma_seg<2>(acc, xin, LDX, SEG, Wi, WID, n0);
     } else if (i == SKIP) {
-      mma_seg<false, 2>(acc, xin, LDX, SEG, Wi, WID, n0);
-      mma_seg<false, 2>(acc, src, LDH, WID, Wi + SEG * WID, WID, n0);
+      mma_seg<2>(acc, xin, LDX, SEG, Wi, WID, n0);
+      mma_seg<2>(acc, src, LDH, WID, Wi + SEG * WID, WID, n0);
     } else {
-      mma_seg<false, 2>(acc, src, LDH, WID, Wi, WID, n0);
+      mma_seg<2>(acc, src, LDH, WID, Wi, WID, n0);
     }
     epi_fwd<2>(acc, n0, B[w0 + i], true, dst,
                act_g != nullptr ? act_g + i * layer_stride : nullptr, stage);

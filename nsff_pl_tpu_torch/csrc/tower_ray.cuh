@@ -10,7 +10,6 @@
 
 namespace planar {
 
-constexpr int LDF = SEG + 4;  // f32 row pitch of the input-cotangent tile
 constexpr int NHEAD = 10;     // packed transient heads [sigma, rgb, fw, bw]
 
 struct Common {
@@ -31,13 +30,12 @@ constexpr size_t SM_H = size_t(S) * LDH * sizeof(bf16);
 constexpr size_t SM_STAGE = size_t(NWARPS) * 256 * sizeof(float);
 constexpr int NPLS = 20;  // per-sample f32 planes kept in shared memory
 constexpr size_t SM_BYTES = SM_X + 2 * SM_H + SM_STAGE + WID * sizeof(float)
-    + size_t(NPLS + 2 + 3) * S * sizeof(float) + 8 * sizeof(float);
-static_assert(size_t(S) * LDF * sizeof(float) <= SM_H, "dtx tile fits a bf16 tile");
+    + size_t(NPLS + 1 + 3) * S * sizeof(float) + 8 * sizeof(float);
 
 struct Smem {
   bf16* xin; bf16* h0; bf16* h1; float* stage; float* ray_b;
   float* pl;   // NPLS planes of S floats
-  float* zsh; float* r1g; float* fl; float* od;
+  float* zsh; float* fl; float* od;
 };
 
 __device__ __forceinline__ Smem carve(unsigned char* smem) {
@@ -49,8 +47,7 @@ __device__ __forceinline__ Smem carve(unsigned char* smem) {
   m.ray_b = m.stage + NWARPS * 256;
   m.pl = m.ray_b + WID;
   m.zsh = m.pl + NPLS * S;
-  m.r1g = m.zsh + S;
-  m.fl = m.r1g + S;
+  m.fl = m.zsh + S;
   m.od = m.fl + 3 * S;
   return m;
 }

@@ -66,10 +66,12 @@ def _train_inputs(n, flow_in, seed=0):
             cuda(dirs), cuda(t), g)
 
 
-# (static_branch, flow_in, output_flow): main, fw warp, bw warp
-TRAIN_VARIANTS = {"main": (True, False, ("fw", "bw")),
-                  "fw_warp": (False, True, ("bw",)),
-                  "bw_warp": (False, True, ("fw",))}
+# (static_branch, flow_in, output_flow, use_viewdir): main, main without
+# the view direction, fw warp, bw warp
+TRAIN_VARIANTS = {"main": (True, False, ("fw", "bw"), True),
+                  "main_no_viewdir": (True, False, ("fw", "bw"), False),
+                  "fw_warp": (False, True, ("bw",), True),
+                  "bw_warp": (False, True, ("fw",), True)}
 
 
 def _rel_err(got, want):
@@ -77,36 +79,51 @@ def _rel_err(got, want):
                                                  1e-12)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("variant", sorted(TRAIN_VARIANTS))
-def test_train_kernels_match_plain(variant):
-    """planar_nerf_train forward and both backward branches at S=128, 8x256
-    towers, N_tau=48, an odd ray count. Forward planes: at most 2e-3 abs
-    and at most a fifth of the samples off by more than 1e-5 (a per-sample
-    plane shows a bf16 rounding flip of an activation whole); gradients:
-    every leaf within 0.1 of its largest entry and 5e-2 in Frobenius norm
-    (such a flip can turn a ReLU mask), as in chip_smoke.py."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def _train_setup(variant, n):
     from nsff_pl_tpu_torch.models import nerf as tn
 
-    static_branch, flow_in, output_flow = TRAIN_VARIANTS[variant]
+    static_branch, flow_in, output_flow, viewdir = TRAIN_VARIANTS[variant]
     params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
-                                 use_viewdir=True, encode_transient=True,
+                                 use_viewdir=viewdir, encode_transient=True,
                                  output_flow=True, device="cuda")
-    n = 37
     o, d, zs, flows, dirs, t, g = _train_inputs(n, flow_in)
     fn = trk.make_planar_nerf_train(128, static_branch=static_branch,
-                                    flow_in=flow_in, use_viewdir=True,
+                                    flow_in=flow_in, use_viewdir=viewdir,
                                     output_flow=output_flow)
-    pw = fn.pack(params)
+    de = dirs if static_branch and viewdir else None
+    return fn, fn.pack(params), (o, d, zs, flows, de, None, t), g
+
+
+def _grad_pairs(got, want, keys=("ddir", "da", "dt")):
+    pairs = [(f"{k}.{p}", got["dws"][k][p], want["dws"][k][p])
+             for k in want["dws"] for p in ("w", "b")]
+    pairs += [(k, got[k], want[k]) for k in keys if k in want]
+    if "dflows" in want:
+        pairs += [(f"dflow{c}", got["dflows"][c], want["dflows"][c])
+                  for c in range(3)]
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 512])
+@pytest.mark.parametrize("variant", sorted(TRAIN_VARIANTS))
+def test_train_kernels_match_plain(variant, n):
+    """planar_nerf_train forward and both backward branches at S=128, 8x256
+    towers, N_tau=48, for one ray, an odd ray count and the training batch.
+    Forward planes: at most 2e-3 abs and at most a fifth of the samples off
+    by more than 1e-5 (a per-sample plane shows a bf16 rounding flip of an
+    activation whole); gradients: every leaf within 0.1 of its largest
+    entry and 5e-2 in Frobenius norm (such a flip can turn a ReLU mask), as
+    in chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fn, pw, args, g = _train_setup(variant, n)
     kw = fn.kernel_kw
-    de = dirs if static_branch else None
     before = trk.planar_nerf_train_fwd_cuda.launches
-    got = trk.planar_nerf_train_fwd(pw, o, d, zs, flows, de, None, t, **kw)
+    got = trk.planar_nerf_train_fwd(pw, *args, **kw)
     torch.cuda.synchronize()
     assert trk.planar_nerf_train_fwd_cuda.launches == before + 1
-    want = trk.planar_nerf_train_ref(pw, o, d, zs, flows, de, None, t, **kw)
+    want = trk.planar_nerf_train_ref(pw, *args, **kw)
     err = (got - want).abs()
     assert float(err.max()) <= 2e-3
     assert float((err > 1e-5).float().mean()) <= 0.2
@@ -114,25 +131,82 @@ def test_train_kernels_match_plain(variant):
     cot = {k: torch.randn(n, 128, generator=g).cuda() for k in fn.out_keys}
     bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
                               "flow_scale", "D", "skips")}
+    static_branch = TRAIN_VARIANTS[variant][0]
     for branch in (["static"] if static_branch else []) + ["transient"]:
         b0 = trk.planar_nerf_train_bwd_cuda.launches[branch]
-        got = trk.planar_nerf_train_bwd(branch, pw, o, d, zs, flows, de,
-                                        None, t, cot, **bkw)
+        got = trk.planar_nerf_train_bwd(branch, pw, *args, cot, **bkw)
         torch.cuda.synchronize()
         assert trk.planar_nerf_train_bwd_cuda.launches[branch] == b0 + 1
-        want = trk.planar_nerf_train_bwd_ref(branch, pw, o, d, zs, flows,
-                                             de, None, t, cot, **bkw)
-        pairs = [(f"{k}.{p}", got["dws"][k][p], want["dws"][k][p])
-                 for k in want["dws"] for p in ("w", "b")]
-        pairs += [(k, got[k], want[k]) for k in ("ddir", "dt") if k in want]
-        if "dflows" in want:
-            pairs += [(f"dflow{c}", got["dflows"][c], want["dflows"][c])
-                      for c in range(3)]
-        for name, a, b in pairs:
+        want = trk.planar_nerf_train_bwd_ref(branch, pw, *args, cot, **bkw)
+        assert set(got) == set(want)
+        for name, a, b in _grad_pairs(got, want):
             assert bool(torch.isfinite(a).all()), name
             assert _rel_err(a, b) <= 0.1, (name, _rel_err(a, b))
             assert float((a - b).norm()) <= 5e-2 * float(b.norm()) + 1e-12, \
                 name
+
+
+def _flat_outputs(out):
+    """Every tensor of a backward's output dict, by name."""
+    flat = {}
+    for k, v in out.items():
+        if k == "dws":
+            flat.update({f"{n}.{p}": t for n, d in v.items()
+                         for p, t in d.items()})
+        elif isinstance(v, tuple):
+            flat.update({f"{k}{c}": t for c, t in enumerate(v)})
+        else:
+            flat[k] = v
+    return flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["planar", "packed"])
+def test_backward_is_deterministic(path):
+    """Two calls of each backward branch on the same inputs give the same
+    bits in every output (dW, db, ddir, dt, dflows / dxyz) at the training
+    batch: partials are reduced in a fixed order, no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 512
+    calls = []
+    if path == "planar":
+        for variant in ("main", "fw_warp"):
+            fn, pw, args, g = _train_setup(variant, n)
+            kw = fn.kernel_kw
+            cot = {k: torch.randn(n, 128, generator=g).cuda()
+                   for k in fn.out_keys}
+            bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                                      "flow_scale", "D", "skips")}
+            for branch in (["static"] if variant == "main" else []) + [
+                    "transient"]:
+                calls.append(lambda b=branch, pw=pw, a=args, c=cot, k=bkw:
+                             trk.planar_nerf_train_bwd(b, pw, *a, c, **k))
+    else:
+        from nsff_pl_tpu_torch.models import nerf as tn
+        from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
+
+        params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
+                                     use_viewdir=True, encode_transient=True,
+                                     output_flow=True, device="cuda")
+        xyz, _, dirs, _, t, g = _packed_inputs(n)
+        op = mtk.make_fused_nerf_train(128, use_viewdir=True, encode_a=False,
+                                       encode_t=True,
+                                       output_flow=("fw", "bw"))
+        pw, kw = op.pack(params), op.kernel_kw
+        bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                                  "output_flow", "flow_scale", "D", "skips")}
+        cot = torch.randn(n, 128, 16, generator=g).cuda()
+        for branch in ("static", "transient"):
+            calls.append(lambda b=branch: mtk.fused_nerf_train_bwd(
+                b, pw, xyz, dirs, None, t, cot, need_dxyz=True, **bkw))
+    for call in calls:
+        first = _flat_outputs(call())
+        second = _flat_outputs(call())
+        torch.cuda.synchronize()
+        assert set(first) == set(second)
+        for name in first:
+            assert torch.equal(first[name], second[name]), name
 
 
 @pytest.mark.cuda
@@ -197,7 +271,7 @@ def test_packed_kernels_match_plain(variant, n):
     """fused_nerf_eval at S=128, 8x256 towers, N_tau=48, for one ray, an
     odd ray count and 4096 rays, and both
     branches of the fused_nerf_train backward (with and without the xyz
-    cotangent) at the odd count. Packed rows: at most 1e-3 abs and at most
+    cotangent) at one ray and the odd count. Packed rows: at most 1e-3 abs and at most
     a fifth of the rows off by more than 1e-5 in any column (a row shows a
     bf16 rounding flip of an activation whole); unused columns exactly
     zero; gradients: every leaf within 0.1 of its largest entry and 5e-2
@@ -233,7 +307,7 @@ def test_packed_kernels_match_plain(variant, n):
     unused = ([] if static_branch else [0, 1, 2, 3]) + list(
         range(8 + 3 * len(flow) if encode_t else 4, 16))
     assert not bool(got[..., unused].any())
-    if n != 37:  # the backward at the odd count only
+    if n > 37:  # the backward at one ray and the odd count
         return
 
     cot = torch.randn(n, 128, 16, generator=g).cuda()

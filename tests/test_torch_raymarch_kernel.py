@@ -138,6 +138,37 @@ def test_sin_poly_and_posenc_tables_match_jax():
     np.testing.assert_array_equal(t_valid, valid[0])
 
 
+def test_posenc_adjoint_cosine_lanes_match_jax():
+    """`_posenc_adjoint` against the JAX kernels' adjoint formula
+    (`dxs = dpe * _sin_poly(xs + phase + pi/2)` on sine lanes, then the
+    product with the selector) over xs up to +-1100 on every sine lane of
+    the 10-frequency table. Each row carries one lane's cotangent, scaled
+    by 1 / freq, so the selector product adds exact zeros and the result
+    is ~1: what differs is a rounding of the same f32 operations (<= 2e-7),
+    while a true cosine in place of the polynomial moves it by up to
+    ~1e-4."""
+    freqs = tuple(float(f) for f in 2.0 ** np.linspace(0, 9, 10))
+    rng = np.random.default_rng(11)
+    lanes = np.arange(3, 63)
+    n = 40 * len(lanes)
+    xs = rng.uniform(-1100, 1100, (n, 128)).astype(np.float32)
+    lane = lanes[np.arange(n) % len(lanes)]
+    freq = np.asarray(freqs, np.float32)[(lane - 3) // 6]
+    dinp = np.zeros((n, 128), np.float32)
+    dinp[np.arange(n), lane] = (rng.uniform(0.5, 1.0, n) * rng.choice(
+        [-1.0, 1.0], n) / freq).astype(np.float32)
+    sel, is_id, phase, valid = jmlp._posenc_tables(freqs, 128)
+    dpe = jnp.asarray(dinp) * valid
+    dxs = jnp.where(is_id > 0, dpe,
+                    dpe * jmlp._sin_poly(jnp.asarray(xs) + phase
+                                         + 1.5707963267948966))
+    want = np.asarray(jnp.dot(dxs, jnp.asarray(sel).T,
+                              preferred_element_type=jnp.float32))
+    got = trk._posenc_adjoint(torch.from_numpy(dinp), torch.from_numpy(xs),
+                              freqs).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
 def test_cpu_tensors_take_the_plain_version():
     params = params_from_jax(jax.tree.map(np.asarray, _params()), "cpu")
     o, d, zs, _, dirs, _, t = _inputs(n=3)
