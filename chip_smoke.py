@@ -18,8 +18,10 @@ once), then:
    transient with and without the xyz cotangent) and the packed
    compositor's forward and adjoint at batch 512. Prints each output's
    error, times the kernel and the plain version with CUDA events and
-   computes the bound (operations or bytes) from the shapes; the two
-   no-grad evaluators also print their TFLOP/s and share of the bound;
+   computes the bound (operations or bytes) from the shapes; the train
+   evaluator's forward is timed in all three calls (main and both warps,
+   each with its bound) with its host time per call; the two no-grad
+   evaluators also print their TFLOP/s and share of the bound;
    each backward's main calls also print the device ms per call of its
    chain, dW and reduction phases (torch.profiler) and, as a yardstick,
    the cuBLAS time of the dW products on operands of the same shapes;
@@ -178,6 +180,23 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1,
         end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_call_us(torch, fn, calls: int = 100, batches: int = 7) -> float:
+    """Host microseconds of one call of a kernel wrapper, from call to
+    return (the launch is asynchronous): the median over `batches` runs
+    of `calls` calls each (the host is shared, so single runs scatter),
+    after a warm-up, the device queue drained before each run."""
+    fn()
+    runs = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return sorted(runs)[batches // 2]
 
 
 def eval_comp_work(params, kw, n: int, S: int, pw):
@@ -393,27 +412,39 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
         if float(worst.max()) > PLANE_TOL or share > PLANE_SHARE:
             fail(f"planar_nerf_train forward disagrees ({label})")
         planes[label] = dict(zip(op.out_keys, got))
+        ms = cuda_ms(torch, lambda: rk.planar_nerf_train_fwd_cuda(
+            *args, **kw), iters=10, graph=True)
+        host_us = host_call_us(torch, lambda: rk.planar_nerf_train_fwd_cuda(
+            *args, **kw))
+        flops, nbytes = train_fwd_work(fine, static_branch, len(flow), n, S,
+                                       pw, len(op.out_keys), flow_in)
+        bms, bby = bound(flops, nbytes)
         if label == "main":
-            ms = cuda_ms(torch, lambda: rk.planar_nerf_train_fwd_cuda(
-                *args, **kw), iters=10, graph=True)
             plain_ms = cuda_ms(torch, lambda: rk.planar_nerf_train_ref(
                 *args, **kw), iters=3)
-            flops, nbytes = train_fwd_work(fine, True, 2, n, S, pw,
-                                           len(op.out_keys), False)
-            bms, bby = bound(flops, nbytes)
             records["planar_nerf_train_fwd"] = {
                 "name": "planar_nerf_train_fwd", "route": "cuda",
                 "source": src,
                 "replaces": "nsff_pl_tpu/ops/raymarch_kernel.py:64",
                 "launches": None, "max_abs_err": float(worst.max()),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                "bound_by": bby, "library_ms": None}
+                "bound_by": bby, "library_ms": None, "host_us": host_us,
+                "warp_ms_each": []}
             print(f"kernel planar_nerf_train_fwd [main] n={n}: {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
-                  f"({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
+                  f"({flops / 1e12:.3f} TFLOP), host {host_us:.1f} us per "
+                  f"call on {card}", flush=True)
         else:
             rec = records["planar_nerf_train_fwd"]
             rec["max_abs_err"] = max(rec["max_abs_err"], float(worst.max()))
+            rec["warp_ms_each"].append(ms)
+            rec["warp_ms"] = sum(rec["warp_ms_each"]) / len(
+                rec["warp_ms_each"])
+            rec["warp_bound_ms"] = bms
+            rec["warp_host_us"] = host_us
+            print(f"kernel planar_nerf_train_fwd [{label}] n={n}: {ms:.3f} "
+                  f"ms, bound {bms:.3f} ms ({flops / 1e12:.3f} TFLOP), host "
+                  f"{host_us:.1f} us per call on {card}", flush=True)
 
         cot = {k: torch.randn((n, S), generator=gen, device="cuda")
                for k in op.out_keys}

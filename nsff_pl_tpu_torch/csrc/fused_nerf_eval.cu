@@ -18,8 +18,8 @@
 // f32 accumulation, activations rounded to bf16 after each ReLU, biases
 // in f32.
 //
-// Bound: operations (about 1.2 MFLOP per sample against 12 input and 64
-// output bytes; 10.2 ms per 32768-ray chunk at 989 TFLOP/s).
+// Bound: operations (about 1.2 M MACs, 2.4 MFLOP, per sample against 12
+// input and 64 output bytes; 10.2 ms per 32768-ray chunk at 989 TFLOP/s).
 //
 // Design: the wgmma tower of tower_wgmma.cuh, as in planar_eval_comp.cu:
 // one CTA of two consumer warpgroups (64 samples each, wgmma m64n256k16 on
@@ -40,7 +40,6 @@
 
 #include <cstring>
 
-#include "tower_ray.cuh"
 #include "tower_wgmma.cuh"
 
 using namespace planar;
@@ -70,107 +69,34 @@ fused_eval_kernel(const __grid_constant__ Params P) {
   if ((wg::saddr(sm) & 1023u) != 0) __trap();
   const EvalArgs& F = P.f;
   const Common& A = F.c;
-  const uint32_t ring = wg::saddr(sm + wg::OFF_RING);
-  const uint32_t bars = wg::saddr(sm + wg::OFF_BAR);
   const int tid = threadIdx.x;
-  if (tid == 0) wg::init_ring(bars);
+  if (tid == 0) wg::init_ring(wg::saddr(sm + wg::OFF_BAR));
   __syncthreads();
 
   const int ray = blockIdx.x;
-  float* ray_b = reinterpret_cast<float*>(sm + wg::OFF_RAYB);
-  const wg::Staged st = wg::staged(sm);
   const bool dir = STATIC && A.use_viewdir;
-
   if (tid >= wg::NCONS) {
-    // ---- producer warpgroup: one thread streams the weight slabs, three
-    // warps stage the parameters and the ray's static_dir bias ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == wg::NCONS) {
-      wg::produce(P.maps, ring, bars, STATIC, dir, TRANS);
-    } else if (tid >= wg::HELP0) {
-      const int h = tid - wg::HELP0;
-      wg::stage_params(st, A.W, A.B, NHEAD, h);
-      wg::bar_arrive(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
-      if (dir) {
-        wg::dir_bias(A.W[W_SDIR], A.B[W_SDIR], A.dir + size_t(ray) * A.dir_w,
-                     A.dir_w, A.encode_a ? A.a + size_t(ray) * A.n_a : nullptr,
-                     A.n_a, ray_b, h);
-        wg::bar_arrive(wg::BAR_DIR, wg::NCONS + wg::NHELP);
-      }
-    }
+    // producer warpgroup: the weight slabs, the parameters, the dir bias
+    wg::producer_wg(P.maps, A, sm, ray, STATIC, dir, TRANS);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  // head results as planes of S floats: transient heads 0..9, static rgb
-  // 10..12, static sigma 13
-  float* pl = reinterpret_cast<float*>(sm + wg::OFF_PLANES);
-  float* s_rgb = pl + NHEAD * S;
-  float* s_sig = s_rgb + 3 * S;
+  // head results as planes of S floats (wg::PL_*)
+  const float* pl = reinterpret_cast<const float*>(sm + wg::OFF_PLANES);
+  const float* s_rgb = pl + wg::PL_SRGB * S;
+  const float* s_sig = pl + wg::PL_SSIG * S;
   float* pts = reinterpret_cast<float*>(sm + wg::OFF_EXTRA);  // (S, 3)
-  unsigned char* act = sm + wg::OFF_ACT;
-  unsigned char* pe = sm + wg::OFF_PE;
 
   for (int e = tid; e < 3 * S; e += wg::NCONS) pts[e] = A.xyz[size_t(ray) * S * 3 + e];
   wg::consumers_sync();
-
-  // ---- posenc tile (+ the time latent for the transient tower): thread
-  // tid fills chunk tid % 16 (8 lanes, fixed for the ray) of rows tid / 16
-  // + 16 k; pre-activation x_c * f, one f32 product ----
-  {
-    const int c = tid & 15;
-    wg::Lanes8 L;
-    wg::lanes8(L, A.freqs, A.xyz_w, c, TRANS ? A.t + size_t(ray) * A.n_tau : nullptr,
-               A.n_tau);
-#pragma unroll 2
-    for (int k = 0; k < S / 16; ++k) {
-      const int s = (tid >> 4) + 16 * k;
-      const float* x = pts + 3 * s;
-      uint32_t pk[4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const int u = 2 * h;
-        pk[h] = wg::pack_bf16(wg::lane_val(L, u, __fmul_rn(x[L.ch[u]], L.f[u])),
-                              wg::lane_val(L, u + 1, __fmul_rn(x[L.ch[u + 1]], L.f[u + 1])));
-      }
-      *reinterpret_cast<uint4*>(pe + wg::tile_off(s, c)) =
-          make_uint4(pk[0], pk[1], pk[2], pk[3]);
-    }
-  }
+  // posenc tile (+ the time latent for the transient tower)
+  wg::posenc_tile<wg::PE_PTS>(sm + wg::OFF_PE, A.freqs, A.xyz_w,
+                              TRANS ? A.t + size_t(ray) * A.n_tau : nullptr, A.n_tau,
+                              pts, nullptr, nullptr);
   wg::fence_async_smem();
   wg::consumers_sync();
-  wg::bar_sync(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
-
+  wg::run_towers<STATIC, TRANS>(sm, dir);
   const int g = tid >> 7;
-  const uint32_t pe_g = wg::saddr(pe) + g * wg::WG_ROWS_BYTES;
-  const uint32_t act_g = wg::saddr(act) + g * wg::WG_ROWS_BYTES;
-  float d[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) d[i] = 0.f;
-  wg::Pipe p;
-
-  if (STATIC) {
-    wg::tower<true>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(false),
-                        st.w_sig(), st.hb, s_sig);
-    wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
-    if (dir) {
-      wg::epilogue<false, true, 0>(d, st.tower_bias(false) + 8 * WID, act, g, nullptr,
-                                   nullptr, nullptr);
-      wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
-      wg::bar_sync(wg::BAR_DIR, wg::NCONS + wg::NHELP);
-      wg::epilogue<true, false, 3>(d, ray_b, act, g, st.w_rgb(), st.hb + 1, s_rgb);
-    } else {
-      wg::epilogue<false, false, 3>(d, st.tower_bias(false) + 8 * WID, act, g,
-                                    st.w_rgb(), st.hb + 1, s_rgb);
-    }
-  }
-  if (TRANS) {
-    wg::tower<false>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(true),
-                         nullptr, nullptr, nullptr);
-    wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
-    wg::epilogue<false, false, NHEAD>(d, st.tower_bias(true) + 8 * WID, act, g,
-                                      st.w_th(), st.hb + 4, pl);
-  }
-  wg::wg_sync(g);
 
   // ---- this warpgroup's 64 rows of the packed tile ----
   {

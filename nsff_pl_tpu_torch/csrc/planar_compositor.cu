@@ -16,6 +16,10 @@
 // 16 cotangent planes out); each plane is read or written once. Design:
 // one warp per ray, four consecutive samples per lane (16-byte loads and
 // stores), the scans over the ray's S = 128 samples as warp shuffles.
+// The kernels are a few microseconds long, so what bounds them is the
+// latency of their loads: each starts every load it needs before any
+// arithmetic (the forward all 21 planes, read-only loads), so a ray pays
+// one round trip to memory and not one per phase.
 //
 // Plain C interface (loaded with ctypes); launches on the given stream and
 // returns the cudaError_t of the launch.
@@ -44,32 +48,40 @@ struct Args {
 };
 
 
+// the planes of the forward quantities, loaded at once
+struct In {
+  Row z, sg[4], nz[4];  // sigma, noise: static, transient, two warps
+};
+
+__device__ __forceinline__ In load_in(const Args& A, size_t base) {
+  In x;
+  x.z = load_ro(A.in[I_ZS], base);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x.sg[i] = load_ro(A.in[I_SSIG + i], base);
+    x.nz[i] = load_ro(A.in[I_NS + i], base);
+  }
+  return x;
+}
+
 // the forward quantities both kernels need
 struct Core {
   Row z, ds, dt, a_s;
   Row T[3], a[3], alpha[3];
 };
 
-__device__ __forceinline__ Core core(const Args& A, size_t base, int lane) {
+__device__ __forceinline__ Core core(const In& x, int lane) {
   Core k;
-  k.z = load(A.in[I_ZS], base);
-  const float z_next = __shfl_down_sync(0xffffffffu, k.z.v[0], 1);
-  const bool last_lane = lane == 31;
+  k.z = x.z;
   Row sp[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Row sg = load(A.in[I_SSIG + i], base), nz = load(A.in[I_NS + i], base);
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int q = 0; q < Q; ++q) sp[i].v[q] = softplus(sg.v[q] + nz.v[q]);
-  }
+    for (int q = 0; q < Q; ++q) sp[i].v[q] = softplus(x.sg[i].v[q] + x.nz[i].v[q]);
+  deltas(k.z, lane, k.ds, k.dt);
   Row tau_s, tau[3];
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
-    const float nxt = q < Q - 1 ? k.z.v[q + 1] : z_next;
-    const bool far = last_lane && q == Q - 1;
-    const float dz = nxt - k.z.v[q];
-    k.ds.v[q] = far ? STATIC_FAR_DELTA : dz;
-    k.dt.v[q] = far ? TRANSIENT_FAR_DELTA : dz;
     tau_s.v[q] = k.ds.v[q] * sp[0].v[q];
     k.a_s.v[q] = 1.f - expf(-tau_s.v[q]);
   }
@@ -96,7 +108,17 @@ comp_fwd_kernel(const Args A) {
   const int ray = blockIdx.x * RAYS_PER_BLOCK + (threadIdx.x >> 5);
   if (ray >= A.n_rays) return;
   const size_t base = size_t(ray) * S + lane * Q;
-  const Core k = core(A, base, lane);
+  // every load first: the 9 planes of the scans and the 12 rgb planes
+  const In x = load_in(A, base);
+  Row rgb[4][3];  // static, transient, two warps
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    rgb[0][c] = load_ro(A.in[I_SRGB + c], base);
+    rgb[1][c] = load_ro(A.in[I_TRGB + c], base);
+    rgb[2][c] = load_ro(A.in[I_TRGB1 + c], base);
+    rgb[3][c] = load_ro(A.in[I_TRGB2 + c], base);
+  }
+  const Core k = core(x, lane);
   Row w[NOUT], sw1, sw2;
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
@@ -115,8 +137,7 @@ comp_fwd_kernel(const Args A) {
   for (int i = 0; i < 10; ++i) m[i] = 0.f;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const Row sr = load(A.in[I_SRGB + c], base), tr = load(A.in[I_TRGB + c], base);
-    const Row t1 = load(A.in[I_TRGB1 + c], base), t2 = load(A.in[I_TRGB2 + c], base);
+    const Row &sr = rgb[0][c], &tr = rgb[1][c], &t1 = rgb[2][c], &t2 = rgb[3][c];
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       m[c] += w[0].v[q] * sr.v[q] + w[1].v[q] * tr.v[q];
@@ -141,16 +162,17 @@ comp_bwd_kernel(const Args A) {
   const int ray = blockIdx.x * RAYS_PER_BLOCK + (threadIdx.x >> 5);
   if (ray >= A.n_rays) return;
   const size_t base = size_t(ray) * S + lane * Q;
-  const Core k = core(A, base, lane);
+  const In x = load_in(A, base);
+  Row g_sw = load(A.g[0], base), g_tw = load(A.g[1], base);
+  Row g_w = load(A.g[2], base), g_tww1 = load(A.g[3], base);
+  Row g_tww2 = load(A.g[4], base), g_sww1, g_sww2;
   float gm[NMAP];
 #pragma unroll
   for (int i = 0; i < NMAP; ++i)
     gm[i] = A.gmap != nullptr ? A.gmap[size_t(ray) * NMAP + i] : 0.f;
+  const Core k = core(x, lane);
 
   // map adjoints fold into the weight-plane cotangents + rgb cotangents
-  Row g_sw = load(A.g[0], base), g_tw = load(A.g[1], base);
-  Row g_w = load(A.g[2], base), g_tww1 = load(A.g[3], base);
-  Row g_tww2 = load(A.g[4], base), g_sww1, g_sww2;
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     g_w.v[q] = g_w.v[q] + gm[3] * k.z.v[q];
@@ -206,7 +228,7 @@ comp_bwd_kernel(const Args A) {
     }
     const Row rc = rev_excl_cumsum(gT, lane);
     Row dsig;
-    const Row sg = load(A.in[I_TSIG + c], base), nz = load(A.in[I_NT + c], base);
+    const Row &sg = x.sg[1 + c], &nz = x.nz[1 + c];
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const float u = gu.v[q] - rc.v[q];
@@ -216,11 +238,10 @@ comp_bwd_kernel(const Args A) {
     }
     store(A.out[1 + c], base, dsig);
   }
-  const Row sg = load(A.in[I_SSIG], base), nz = load(A.in[I_NS], base);
   Row dss;
 #pragma unroll
   for (int q = 0; q < Q; ++q)
-    dss.v[q] = g_tau_s.v[q] * k.ds.v[q] * sigmoid(sg.v[q] + nz.v[q]);
+    dss.v[q] = g_tau_s.v[q] * k.ds.v[q] * sigmoid(x.sg[0].v[q] + x.nz[0].v[q]);
   store(A.out[0], base, dss);
 }
 

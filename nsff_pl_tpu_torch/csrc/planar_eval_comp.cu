@@ -215,36 +215,10 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
   WG_STAMP(8);
 
   // ---- posenc tile (+ time latent lanes for the transient tower; the
-  // static tower's padded weight rows there are zero): thread tid fills
-  // chunk tid % 16 (8 lanes, fixed for the ray) of rows tid / 16 + 16 k.
-  // Pre-activation o_c f + (d_c f) z, without fused multiply-adds ----
-  {
-    const int c = tid & 15;
-    wg::Lanes8 L;
-    wg::lanes8(L, A.freqs, A.xyz_w, c,
-               ENCODE_T ? A.t + size_t(ray) * A.n_tau : nullptr, A.n_tau);
-    float lo[8], ld[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      lo[u] = __fmul_rn(od[L.ch[u]], L.f[u]);
-      ld[u] = __fmul_rn(od[3 + L.ch[u]], L.f[u]);
-    }
-#pragma unroll 2
-    for (int k = 0; k < S / 16; ++k) {
-      const int s = (tid >> 4) + 16 * k;
-      const float z = zsh[s];
-      uint32_t pk[4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const int u = 2 * h;
-        pk[h] = wg::pack_bf16(
-            wg::lane_val(L, u, __fadd_rn(lo[u], __fmul_rn(ld[u], z))),
-            wg::lane_val(L, u + 1, __fadd_rn(lo[u + 1], __fmul_rn(ld[u + 1], z))));
-      }
-      *reinterpret_cast<uint4*>(pe + wg::tile_off(s, c)) =
-          make_uint4(pk[0], pk[1], pk[2], pk[3]);
-    }
-  }
+  // static tower's padded weight rows there are zero) ----
+  wg::posenc_tile<wg::PE_RAY>(pe, A.freqs, A.xyz_w,
+                              ENCODE_T ? A.t + size_t(ray) * A.n_tau : nullptr, A.n_tau,
+                              nullptr, od, zsh);
   WG_STAMP(9);
   wg::fence_async_smem();
   wg::consumers_sync();

@@ -11,14 +11,27 @@
 // every cotangent dz rounded to bf16 before its products, biases and
 // bias gradients in f32.
 //
-// Bound: operations. The forward is PR 1's evaluator design (one CTA of 8
-// warps per ray, the ray's 128 samples are the M dimension, nvcuda::wmma
-// bf16 with weights streamed from L2, planar_tower.cuh) writing planes. The
-// backward (a wgmma + TMA chain kernel, a wgmma split-K dW GEMM, fixed-order
-// reductions) is csrc/tower_bwd_wgmma.cuh, shared with fused_nerf_train.cu.
+// Bound: operations (forward ~1.2 M MACs, 2.4 MFLOP, per sample of the main
+// call, 0.16 ms at batch 512 and 989 TFLOP/s; a warp call about half of it).
+//
+// Forward design: the wgmma tower of tower_wgmma.cuh, as in
+// fused_nerf_eval.cu: one CTA per ray of two consumer warpgroups (64
+// samples each, wgmma m64n256k16 on the ray's tiles in shared memory,
+// epilogues in place from the accumulators, the narrow heads folded into
+// the epilogues that feed them) and a producer warpgroup (one thread
+// streams the weight K-slabs through TMA into a 6-stage ring, three warps
+// stage the parameters and the static_dir bias). The ray's depths, o, d
+// and (warp calls) flows are staged in the head-plane region, free until
+// the first head, and the posenc tile is wg::posenc_tile's, the bits the
+// backward's recompute builds. Each warpgroup then writes its 64 rows of
+// every requested plane, 256 contiguous bytes a plane, with the heads'
+// activations (sigmoid, flow_scale * tanh) applied on the way.
+// The backward (a wgmma + TMA chain kernel, a wgmma split-K dW GEMM,
+// fixed-order reductions) is csrc/tower_bwd_wgmma.cuh, shared with
+// fused_nerf_train.cu.
 //
 // Plain C interface (loaded with ctypes); launches on the given stream and
-// returns the cudaError_t of the launches.
+// returns the cudaError_t of the launches (or of the tensor-map encoding).
 
 #include "tower_bwd_wgmma.cuh"
 
@@ -34,58 +47,76 @@ enum {
 
 // ------------------------------- forward -------------------------------
 
-struct FwdArgs {
+struct FwdParams {
+  wg::Maps maps;
   Common c;
-  float* out[NPL];
+  float* out[NPL];  // (n_rays, S) planes; null: not written
 };
 
 template <bool STATIC, bool TRANS>
-__global__ void __launch_bounds__(NTHREADS, 1)
-train_fwd_kernel(const FwdArgs F) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Common& A = F.c;
-  const Smem m = carve(smem);
-  const int ray = blockIdx.x, tid = threadIdx.x;
-  ray_setup(A, m, ray, TRANS, STATIC && A.use_viewdir, A.flows[0] != nullptr);
-
-  if (STATIC) {
-    bf16* h = tower_fwd(A.W, A.B, W_S0, m.xin, m.h0, m.h1, m.stage, nullptr, 0);
-    bf16* other = (h == m.h0) ? m.h1 : m.h0;
-    head<1>(h, A.W[W_SSIG], A.B[W_SSIG], m.pl + P_SSIG * S);
-    dense_fwd(h, A.W[W_SFIN], A.B[W_SFIN], false, other, nullptr, m.stage);
-    __syncthreads();
-    bf16* feat = other;
-    if (A.use_viewdir) {
-      dense_fwd(other, A.W[W_SDIR], m.ray_b, true, h, nullptr, m.stage);
-      __syncthreads();
-      feat = h;
-    }
-    head<3>(feat, A.W[W_SRGB], A.B[W_SRGB], m.pl + P_SR * S);
-    __syncthreads();
-    for (int e = tid; e < 4 * S; e += NTHREADS) {
-      const int k = e / S, s = e % S;
-      const float v = m.pl[k * S + s];
-      F.out[k][size_t(ray) * S + s] = k == P_SSIG ? v : sigmoid(v);
-    }
-    __syncthreads();
+__global__ void __launch_bounds__(wg::NTHR, 1)
+train_fwd_kernel(const __grid_constant__ FwdParams P) {
+  // 1024-byte aligned dynamic shared memory (swizzle atoms, TMA boxes)
+  extern __shared__ __align__(1024) unsigned char sm[];
+  if ((wg::saddr(sm) & 1023u) != 0) __trap();
+  const Common& A = P.c;
+  const int tid = threadIdx.x, ray = blockIdx.x;
+  if (tid == 0) wg::init_ring(wg::saddr(sm + wg::OFF_BAR));
+  __syncthreads();
+  const bool dir = STATIC && A.use_viewdir;
+  if (tid >= wg::NCONS) {
+    // producer warpgroup: the weight slabs, the parameters, the dir bias
+    wg::producer_wg(P.maps, A, sm, ray, STATIC, dir, TRANS);
+    return;
   }
-  if (TRANS) {
-    bf16* h = tower_fwd(A.W, A.B, W_T0, m.xin, m.h0, m.h1, m.stage, nullptr, 0);
-    bf16* other = (h == m.h0) ? m.h1 : m.h0;
-    dense_fwd(h, A.W[W_TFIN], A.B[W_TFIN], false, other, nullptr, m.stage);
-    __syncthreads();
-    head<NHEAD>(other, A.W[W_THEAD], A.B[W_THEAD], m.pl);
-    __syncthreads();
-    // heads [sigma, rgb(3), fw(3), bw(3)] -> planes trgb, tsig, fw, bw
-    for (int e = tid; e < NHEAD * S; e += NTHREADS) {
-      const int k = e / S, s = e % S;
-      const float v = m.pl[k * S + s];
-      const int slot = k == 0 ? P_TSIG : (k < 4 ? P_TR + k - 1 : P_FW0 + k - 4);
-      float* dst = F.out[slot];
-      if (dst == nullptr) continue;
-      dst[size_t(ray) * S + s] =
-          k == 0 ? v : (k < 4 ? sigmoid(v) : A.flow_scale * tanhf(v));
-    }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  float* pl = reinterpret_cast<float*>(sm + wg::OFF_PLANES);
+  // the ray's inputs, in the head planes until the posenc tile is built
+  float* zsh = pl;
+  float* fl = pl + S;      // (S, 3) flows
+  float* od = pl + 4 * S;  // o, d
+  const bool flow = A.flows[0] != nullptr;
+  const size_t row0 = size_t(ray) * S;
+  if (tid < S) {
+    zsh[tid] = A.zs[row0 + tid];
+    if (flow)
+      for (int c = 0; c < 3; ++c) fl[tid * 3 + c] = A.flows[c][row0 + tid];
+  } else if (tid < S + 6) {
+    const int c = tid - S;
+    od[c] = c < 3 ? A.o[ray * 3 + c] : A.d[ray * 3 + c - 3];
+  }
+  wg::consumers_sync();
+  // posenc tile (+ the time latent for the transient tower; the static
+  // tower's padded weight rows there are zero)
+  const float* t = TRANS ? A.t + size_t(ray) * A.n_tau : nullptr;
+  if (flow)
+    wg::posenc_tile<wg::PE_RAY_FLOW>(sm + wg::OFF_PE, A.freqs, A.xyz_w, t, A.n_tau, fl,
+                                     od, zsh);
+  else
+    wg::posenc_tile<wg::PE_RAY>(sm + wg::OFF_PE, A.freqs, A.xyz_w, t, A.n_tau, nullptr,
+                                od, zsh);
+  wg::fence_async_smem();
+  wg::consumers_sync();  // the inputs are read: the head planes are free
+  wg::run_towers<STATIC, TRANS>(sm, dir);
+
+  // ---- this warpgroup's 64 rows of every requested plane ----
+  const int g = tid >> 7;
+  for (int e = tid & 127; e < NPL * 64; e += 128) {
+    const int k = e >> 6, s = 64 * g + (e & 63);  // k is warp-uniform
+    float* dst = P.out[k];
+    if (dst == nullptr || (k < P_TR ? !STATIC : !TRANS)) continue;
+    float v;
+    if (k < P_SSIG)
+      v = sigmoid(pl[(wg::PL_SRGB + k) * S + s]);
+    else if (k == P_SSIG)
+      v = pl[wg::PL_SSIG * S + s];
+    else if (k < P_TSIG)
+      v = sigmoid(pl[(wg::PL_TH + 1 + k - P_TR) * S + s]);
+    else if (k == P_TSIG)
+      v = pl[wg::PL_TH * S + s];
+    else
+      v = A.flow_scale * tanhf(pl[(wg::PL_TH + 4 + k - P_FW0) * S + s]);
+    dst[row0 + s] = v;
   }
 }
 
@@ -100,28 +131,26 @@ extern "C" int nsff_planar_train_fwd(
     int encode_a, float flow_scale, int n_tau, void* stream) {
   if (n_freqs > MAXF || xyz_w + n_tau > SEG || (!static_branch && !encode_t))
     return int(cudaErrorInvalidValue);
-  FwdArgs F;
-  fill_common(F.c, o, d, zs, nullptr, dir, a, t, flows, w, b, n_rays, xyz_w,
+  FwdParams P;
+  memset(&P, 0, sizeof(P));
+  fill_common(P.c, o, d, zs, nullptr, dir, a, t, flows, w, b, n_rays, xyz_w,
               dir_w, n_a, freqs, n_freqs, use_viewdir, encode_a, flow_scale,
               n_tau);
-  for (int i = 0; i < NPL; ++i) F.out[i] = static_cast<float*>(outs[i]);
+  // only the evaluated branches get tensor maps and planes
+  if (!static_branch)
+    for (int i = W_S0; i < W_T0; ++i) P.c.W[i] = nullptr;
+  if (!encode_t)
+    for (int i = W_T0; i < NSLOT; ++i) P.c.W[i] = nullptr;
+  if (!(static_branch && use_viewdir)) P.c.W[W_SDIR] = nullptr;
+  for (int i = 0; i < NPL; ++i)
+    P.out[i] = (i < P_TR ? static_branch : encode_t) ? static_cast<float*>(outs[i])
+                                                      : nullptr;
+  if (!wg::encode_maps(P.maps, P.c.W)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (static_branch && encode_t) {
-    err = big_smem(train_fwd_kernel<true, true>);
-    if (err == cudaSuccess)
-      train_fwd_kernel<true, true><<<n_rays, NTHREADS, SM_BYTES, s>>>(F);
-  } else if (static_branch) {
-    err = big_smem(train_fwd_kernel<true, false>);
-    if (err == cudaSuccess)
-      train_fwd_kernel<true, false><<<n_rays, NTHREADS, SM_BYTES, s>>>(F);
-  } else {
-    err = big_smem(train_fwd_kernel<false, true>);
-    if (err == cudaSuccess)
-      train_fwd_kernel<false, true><<<n_rays, NTHREADS, SM_BYTES, s>>>(F);
-  }
-  if (err != cudaSuccess) return int(err);
-  return int(cudaGetLastError());
+  if (static_branch && encode_t)
+    return int(wg::launch(train_fwd_kernel<true, true>, P, n_rays, s));
+  if (static_branch) return int(wg::launch(train_fwd_kernel<true, false>, P, n_rays, s));
+  return int(wg::launch(train_fwd_kernel<false, true>, P, n_rays, s));
 }
 
 extern "C" size_t nsff_planar_train_bwd_scratch_bytes(int static_branch,

@@ -63,7 +63,6 @@
 
 #include <cstring>
 
-#include "tower_ray.cuh"
 #include "tower_wgmma.cuh"
 
 namespace bw {
@@ -815,40 +814,16 @@ train_bwd_chain_kernel(const __grid_constant__ ChainParams P) {
   }
   consumers_sync();
 
-  // ---- posenc tile (+ the time latent for the transient tower), as the
-  // evaluators: thread tid fills chunk tid % 16 of rows tid / 16 + 16 k;
-  // pre-activation o_c f + (d_c f) z [+ flow_c f] or x_c f, no FMA ----
+  // ---- posenc tile (+ the time latent for the transient tower), the
+  // forward's bits (wg::posenc_tile) ----
   {
-    const int c = tid & 15;
-    wg::Lanes8 L;
-    wg::lanes8(L, A.freqs, A.xyz_w, c, STATIC ? nullptr : A.t + size_t(ray) * A.n_tau,
-               A.n_tau);
-    float lo[8], ld[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      lo[u] = packed ? 0.f : __fmul_rn(od[L.ch[u]], L.f[u]);
-      ld[u] = packed ? 0.f : __fmul_rn(od[3 + L.ch[u]], L.f[u]);
-    }
-#pragma unroll 2
-    for (int k = 0; k < S / 16; ++k) {
-      const int s = (tid >> 4) + 16 * k;
-      const float* x = fl + 3 * s;
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        float xs;
-        if (packed) {
-          xs = __fmul_rn(x[L.ch[u]], L.f[u]);
-        } else {
-          xs = __fadd_rn(lo[u], __fmul_rn(ld[u], zsh[s]));
-          if (with_flow) xs = __fadd_rn(xs, __fmul_rn(x[L.ch[u]], L.f[u]));
-        }
-        v[u] = wg::lane_val(L, u, xs);
-      }
-      *reinterpret_cast<uint4*>(pe + wg::tile_off(s, c)) =
-          make_uint4(wg::pack_bf16(v[0], v[1]), wg::pack_bf16(v[2], v[3]),
-                     wg::pack_bf16(v[4], v[5]), wg::pack_bf16(v[6], v[7]));
-    }
+    const float* t = STATIC ? nullptr : A.t + size_t(ray) * A.n_tau;
+    if (packed)
+      wg::posenc_tile<wg::PE_PTS>(pe, A.freqs, A.xyz_w, t, A.n_tau, fl, nullptr, nullptr);
+    else if (with_flow)
+      wg::posenc_tile<wg::PE_RAY_FLOW>(pe, A.freqs, A.xyz_w, t, A.n_tau, fl, od, zsh);
+    else
+      wg::posenc_tile<wg::PE_RAY>(pe, A.freqs, A.xyz_w, t, A.n_tau, nullptr, od, zsh);
   }
   fence_async_smem();
   consumers_sync();

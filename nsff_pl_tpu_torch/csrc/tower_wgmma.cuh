@@ -1,13 +1,15 @@
-// Hopper tower of the port's no-grad evaluators (planar_eval_comp.cu,
-// fused_nerf_eval.cu): one ray per CTA, its S = 128 samples the M rows of
-// every product, computed by two consumer warpgroups (warpgroup g owns
-// samples 64g..64g+63) with wgmma.mma_async m64n256k16 (bf16 in, f32
-// accumulators in registers). In the third (producer) warpgroup one
-// thread streams the weight K-slabs of every layer, in the fixed order of
-// the towers, through TMA into a 6-stage mbarrier ring in shared memory,
-// and three warps stage the biases and head weights in shared memory
-// (cp.async) and compute the ray's static_dir bias; setmaxnreg moves the
-// producer warpgroup's registers to the consumers.
+// Hopper tower of the port's forward evaluators (planar_eval_comp.cu,
+// fused_nerf_eval.cu and the forward of planar_nerf_train.cu): one ray per
+// CTA, its S = 128 samples the M rows of every product, computed by two
+// consumer warpgroups (warpgroup g owns samples 64g..64g+63) with
+// wgmma.mma_async m64n256k16 (bf16 in, f32 accumulators in registers). In
+// the third (producer) warpgroup one thread streams the weight K-slabs of
+// every layer, in the fixed order of the towers, through TMA into a 6-stage
+// mbarrier ring in shared memory, and three warps stage the biases and head
+// weights in shared memory (cp.async) and compute the ray's static_dir
+// bias; setmaxnreg moves the producer warpgroup's registers to the
+// consumers. The posenc tile is filled by posenc_tile, which the backward's
+// recompute (tower_bwd_wgmma.cuh) calls too.
 //
 // Layouts in shared memory (all 128-byte swizzled, the TMA/wgmma "128B"
 // mode, every region 1024-byte aligned):
@@ -62,6 +64,10 @@ constexpr uint32_t OFF_HW = OFF_BIAS + NBIAS * WID * 4;
 constexpr uint32_t OFF_HB = OFF_HW + NHW * 2;
 constexpr uint32_t OFF_PLANES = OFF_HB + 16 * 4;
 constexpr int NPL = 14;                                // per-sample f32 planes
+// head planes in OFF_PLANES: transient heads [sigma, rgb(3), fw(3), bw(3)],
+// static rgb, static sigma
+constexpr int PL_TH = 0, PL_SRGB = planar::NHEAD, PL_SSIG = planar::NHEAD + 3;
+static_assert(PL_SSIG < NPL, "head planes fit the carve-up");
 constexpr uint32_t OFF_EXTRA = OFF_PLANES + NPL * S * 4;
 constexpr uint32_t EXTRA_BYTES = 3 * S * 4 + 64;       // per-ray inputs
 constexpr size_t SMEM_BYTES = OFF_EXTRA + EXTRA_BYTES;
@@ -291,6 +297,53 @@ __device__ __forceinline__ void lanes8(Lanes8& L, const float* freqs, int xyz_w,
 __device__ __forceinline__ float lane_val(const Lanes8& L, int u, float xs) {
   const float sn = planar::sin_poly(__fadd_rn(xs, L.ph[u]));
   return L.kind[u] == 1 ? xs : (L.kind[u] == 2 ? sn : L.cst[u]);
+}
+
+// How a tile's sample points are given: as points (S, 3) (packed layout),
+// or as the ray o + d z (planar layout), optionally plus a flow (S, 3).
+enum { PE_PTS = 0, PE_RAY = 1, PE_RAY_FLOW = 2 };
+
+// The ray's posenc tile (+ the time latent t in lanes [xyz_w, xyz_w +
+// n_tau) when t is given), written by the NCONS consumer threads: thread
+// tid fills chunk tid % 16 (8 lanes, fixed for the ray) of rows tid / 16 +
+// 16 k. Pre-activations without fused multiply-adds: x_c f (PE_PTS, x the
+// points pts), else o_c f + (d_c f) z [+ flow_c f] (od = (o, d), zsh the
+// depths, pts the flows). Every kernel that builds a tile calls this, so a
+// forward and the backward's recompute put the same bf16 bits in it.
+template <int MODE>
+__device__ __forceinline__ void posenc_tile(unsigned char* pe, const float* freqs,
+                                            int xyz_w, const float* t, int n_tau,
+                                            const float* pts, const float* od,
+                                            const float* zsh) {
+  const int tid = threadIdx.x, c = tid & 15;
+  Lanes8 L;
+  lanes8(L, freqs, xyz_w, c, t, n_tau);
+  float lo[8], ld[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    lo[u] = MODE == PE_PTS ? 0.f : __fmul_rn(od[L.ch[u]], L.f[u]);
+    ld[u] = MODE == PE_PTS ? 0.f : __fmul_rn(od[3 + L.ch[u]], L.f[u]);
+  }
+#pragma unroll 2
+  for (int k = 0; k < S / 16; ++k) {
+    const int s = (tid >> 4) + 16 * k;
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float xs;
+      if constexpr (MODE == PE_PTS) {
+        xs = __fmul_rn(pts[3 * s + L.ch[u]], L.f[u]);
+      } else {
+        xs = __fadd_rn(lo[u], __fmul_rn(ld[u], zsh[s]));
+        if constexpr (MODE == PE_RAY_FLOW)
+          xs = __fadd_rn(xs, __fmul_rn(pts[3 * s + L.ch[u]], L.f[u]));
+      }
+      v[u] = lane_val(L, u, xs);
+    }
+    *reinterpret_cast<uint4*>(pe + tile_off(s, c)) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
 }
 
 // ---------------------------------------------------------------- pipeline
@@ -585,9 +638,9 @@ __device__ void stage_params(const Staged& st, const bf16* const* W,
   }
 }
 
-// The per-ray part of the static_dir layer, as planar::static_dir_bias
-// (the same sums in the same order) on the helper threads:
-// bf16(dir) @ Wd[WID:WID+dir_w] + b [+ bf16(a) @ Wd[WID+SEG:WID+SEG+n_a]].
+// The per-ray part of the static_dir layer on the helper threads, thread
+// per output column: bf16(dir) @ Wd[WID:WID+dir_w] + b [+ bf16(a) @
+// Wd[WID+SEG:WID+SEG+n_a]].
 __device__ void dir_bias(const bf16* Wd, const float* bd, const float* dir,
                          int dir_w, const float* a, int n_a, float* ray_b, int h) {
   using planar::bfr;
@@ -606,6 +659,83 @@ __device__ void dir_bias(const bf16* Wd, const float* bd, const float* dir,
     }
     ray_b[n] = z;
   }
+}
+
+// ---------------------------------------------------------------- CTA
+
+// The producer warpgroup of a trainable evaluator (fused_nerf_eval.cu, the
+// forward of planar_nerf_train.cu): thread NCONS streams the weight slabs
+// of the evaluated branches; the helpers stage the parameters and, with
+// dir, the ray's static_dir bias, arriving at BAR_PARAMS / BAR_DIR.
+__device__ __forceinline__ void producer_wg(const Maps& maps, const planar::Common& A,
+                                            unsigned char* sm, int ray, bool stat,
+                                            bool dir, bool trans) {
+  using namespace planar;
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+  const int tid = threadIdx.x;
+  if (tid == NCONS) {
+    produce(maps, saddr(sm + OFF_RING), saddr(sm + OFF_BAR), stat, dir, trans);
+  } else if (tid >= HELP0) {
+    const int h = tid - HELP0;
+    stage_params(staged(sm), A.W, A.B, NHEAD, h);
+    bar_arrive(BAR_PARAMS, NCONS + NHELP);
+    if (dir) {
+      dir_bias(A.W[W_SDIR], A.B[W_SDIR], A.dir + size_t(ray) * A.dir_w, A.dir_w,
+               A.encode_a ? A.a + size_t(ray) * A.n_a : nullptr, A.n_a,
+               reinterpret_cast<float*>(sm + OFF_RAYB), h);
+      bar_arrive(BAR_DIR, NCONS + NHELP);
+    }
+  }
+}
+
+// The towers of one ray on the consumer warpgroups, once the posenc tile
+// is filled and fenced (the parameters are waited for here): with STAT,
+// the static tower (its sigma head in layer 7's epilogue),
+// static_xyz_final, [static_dir with the ray's dir bias] and the rgb head;
+// with TRANS, the transient tower, its final layer and the NHEAD packed
+// heads. The head outputs, before their activations, go to the planes of
+// OFF_PLANES (PL_TH, PL_SRGB, PL_SSIG); each warpgroup writes its own rows
+// and ends at its own barrier.
+template <bool STAT, bool TRANS>
+__device__ __forceinline__ void run_towers(unsigned char* sm, bool dir) {
+  using planar::NHEAD;
+  bar_sync(BAR_PARAMS, NCONS + NHELP);
+  const int g = threadIdx.x >> 7;
+  const uint32_t ring = saddr(sm + OFF_RING), bars = saddr(sm + OFF_BAR);
+  unsigned char* act = sm + OFF_ACT;
+  const uint32_t pe_g = saddr(sm + OFF_PE) + g * WG_ROWS_BYTES;
+  const uint32_t act_g = saddr(act) + g * WG_ROWS_BYTES;
+  const Staged st = staged(sm);
+  float* pl = reinterpret_cast<float*>(sm + OFF_PLANES);
+  const float* ray_b = reinterpret_cast<const float*>(sm + OFF_RAYB);
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  Pipe p;
+  if (STAT) {
+    tower<true>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(false), st.w_sig(),
+                st.hb, pl + PL_SSIG * S);
+    mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+    if (dir) {
+      // static_xyz_final (linear), bf16-rounded, in place
+      epilogue<false, true, 0>(d, st.tower_bias(false) + 8 * WID, act, g, nullptr,
+                               nullptr, nullptr);
+      mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+      bar_sync(BAR_DIR, NCONS + NHELP);
+      epilogue<true, false, 3>(d, ray_b, act, g, st.w_rgb(), st.hb + 1, pl + PL_SRGB * S);
+    } else {
+      epilogue<false, false, 3>(d, st.tower_bias(false) + 8 * WID, act, g, st.w_rgb(),
+                                st.hb + 1, pl + PL_SRGB * S);
+    }
+  }
+  if (TRANS) {
+    tower<false>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(true), nullptr,
+                 nullptr, nullptr);
+    mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+    epilogue<false, false, NHEAD>(d, st.tower_bias(true) + 8 * WID, act, g, st.w_th(),
+                                  st.hb + 4, pl + PL_TH * S);
+  }
+  wg_sync(g);
 }
 
 // ---------------------------------------------------------------- host

@@ -41,6 +41,15 @@ __device__ __forceinline__ Row load(const float* p, size_t base) {
   return r;
 }
 
+// load of a plane the kernel only reads and that is never null, through
+// the read-only data path
+__device__ __forceinline__ Row load_ro(const float* p, size_t base) {
+  Row r;
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p + base));
+  r.v[0] = x.x; r.v[1] = x.y; r.v[2] = x.z; r.v[3] = x.w;
+  return r;
+}
+
 __device__ __forceinline__ void store(float* p, size_t base, const Row& r) {
   *reinterpret_cast<float4*>(p + base) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
 }

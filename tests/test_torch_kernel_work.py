@@ -1,0 +1,69 @@
+"""The work counts behind the bounds that `chip_smoke.py` and PERF.md divide
+by: `train_fwd_work`, for the train evaluator's forward in the planar
+step's three calls at the flagship configuration (D=8, W=256, 63 posenc
+lanes, 27 direction lanes, N_tau=48, S=128, batch 512), held to a count
+written out from the weight shapes. Runs on the CPU; no kernel runs."""
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from nsff_pl_tpu_torch.models import nerf as tn
+from nsff_pl_tpu_torch.ops import raymarch_kernel as trk
+
+REPO = Path(__file__).resolve().parents[1]
+N, S = 512, 128
+XYZ, DIR, TAU, W = 63, 27, 48, 256
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tower_macs(k0):
+    """MACs per sample of an 8-layer tower with input width k0 (skip at
+    layer 4) and its 256-wide final layer."""
+    return k0 * W + 6 * W * W + (k0 + W) * W + W * W
+
+
+# padded bf16 weight bytes of a tower and its final layer: layer 0 and the
+# skip layer read 128-lane input segments (128 and 128 + 256 rows)
+TOWER_W_BYTES = 2 * W * (128 + 6 * W + (128 + W) + W)
+
+
+@pytest.mark.parametrize("call", ["main", "warp"])
+def test_train_fwd_work_counts_the_flagship_shapes(call):
+    cs = _chip_smoke()
+    params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
+                                 use_viewdir=True, encode_transient=True,
+                                 output_flow=True, device="cpu")
+    op = trk.make_planar_nerf_train(S, use_viewdir=True,
+                                    output_flow=("fw", "bw"))
+    pw = op.pack(params)
+    if call == "main":
+        flops, nbytes = cs.train_fwd_work(params, True, 2, N, S, pw, 14,
+                                          False)
+        per_sample = (_tower_macs(XYZ) + W * W + W * 1 + W * 3
+                      + _tower_macs(XYZ + TAU) + W * 10)
+        per_ray = DIR * W  # the direction rows of static_dir, once a ray
+        weights = (2 * TOWER_W_BYTES + 2 * (128 + W) * W + 2 * W * (1 + 3)
+                   + 2 * W * 10 + 4 * (10 * W + 4) + 4 * (9 * W + 10))
+        inputs = N * (3 + 3 + S + TAU + DIR) * 4
+        outputs = 14 * N * S * 4
+    else:  # a warp call: transient only, flows in, one flow head out
+        flops, nbytes = cs.train_fwd_work(params, False, 1, N, S, pw, 7,
+                                          True)
+        per_sample = _tower_macs(XYZ + TAU) + W * 7
+        per_ray = 0
+        weights = TOWER_W_BYTES + 2 * W * 10 + 4 * (9 * W + 10)
+        inputs = N * (3 + 3 + S + 3 * S + TAU) * 4
+        outputs = 7 * N * S * 4
+    assert flops == 2 * (per_sample * N * S + per_ray * N)
+    assert nbytes == inputs + weights + outputs
+    # operations, not bytes, bound both calls on the H100
+    assert cs.bound(flops, nbytes)[1] == "operations"
