@@ -16,7 +16,9 @@ once), then:
    the packed evaluator at the serving chunk (full, static only,
    transient only) and at 37 rays, its backward at batch 512 (static;
    transient with and without the xyz cotangent) and the packed
-   compositor's forward and adjoint at batch 512. Prints each output's
+   compositor's forward and adjoint at batch 512 and 8192, beside the
+   launch floor (an empty kernel on the compositor's grid, the same
+   stopwatch). Prints each output's
    error, times the kernel and the plain version with CUDA events and
    computes the bound (operations or bytes) from the shapes; the train
    evaluator's forward is timed in all three calls (main and both warps,
@@ -35,17 +37,23 @@ once), then:
    5e-4 cosine over 50 epochs, bfloat16) on a synthetic 30 x 147456 x 16
    ray table on the card, through `FrameScheduler` and `make_train_step`:
    one warm-up step, then `TRAIN_STEPS` timed steps with the launch
-   counts read around exactly them; then `TRAIN_STEPS` steps on one
-   repeated batch, whose loss must fall;
+   counts read around exactly them, on frames and draws drawn up front;
+   then the same steps from a copy of the state taken before them as one
+   graphed dispatch (`make_train_step(scan_steps=TRAIN_STEPS)`, a CUDA
+   graph): its loss terms must equal the eager ones within GRAPH_RTOL,
+   a second dispatch is timed with its launches counted as the capture's
+   times the replays, and torch.profiler over a third counts the kernels
+   the replays ran; then `TRAIN_STEPS` eager steps on one repeated batch,
+   whose loss must fall;
 4. packed serving phase (a main path): one frame through a
    `RenderService` with `planar_eval="off"` in bfloat16 (the packed
    evaluator, once per chunk, compositing outside it), held against the
    planar frame, and one in float32 (the plain evaluators, no kernel);
 5. packed training phase (a main path): the same recipe with
    `fused_train="off"` and `fused_compositing=True` (render_rays +
-   compute_losses): warm-up, `TRAIN_STEPS` timed steps with the launch
-   counts read around them, a repeated batch whose loss must fall, and
-   three steps of the static-only model (no `encode_t`);
+   compute_losses): the same eager, graphed and repeated-batch runs,
+   and three steps of the static-only model (no `encode_t`), eager and
+   graphed;
 6. agreement: a small frame rendered on the card equals the plain CPU
    render of the same weights within `TOL`; one training step at batch
    64 on the card equals the plain CPU step from the same state, batch
@@ -83,6 +91,9 @@ GRAD_MAX, GRAD_FRO = 0.1, 5e-2
 # compositor kernels vs plain versions: the same f32 formulas, scans and
 # transcendentals in another order
 COMP_TOL = 1e-4
+# the graphed dispatch vs the same steps run eagerly on the card: the
+# same kernels on the same inputs
+GRAPH_RTOL = 1e-4
 # card training step vs the plain CPU step: loss terms (the depth loss
 # normalizes by the batch median and MAD, which carries a flip to every
 # ray)
@@ -110,6 +121,7 @@ CHUNK = 32768
 RAGGED = 37  # an odd ray count, below one wave of CTAs
 W_IMG, H_IMG, N_FRAMES = 512, 288, 30
 BATCH = 512
+LARGE_BATCH = 8192  # the packed compositor is also timed here
 TRAIN_STEPS = 10
 # kernel launches per training step: train forward (main + two warps),
 # backward static branch (main), backward transient branch (all three),
@@ -792,7 +804,82 @@ def packed_kernel_phase(torch, np, params, rays, card):
         print(f"kernel {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
               f"bound {records[name]['bound_ms']:.4f} ms "
               f"({nbytes / 1e6:.2f} MB) on {card}", flush=True)
+    packed_comp_large(torch, fck, records, card)
     return records
+
+
+def empty_launch_ms(torch, n_rays: int) -> float:
+    """The launch floor: an empty kernel on the packed compositor's grid
+    for n_rays rays, by the compositor's stopwatch."""
+    import ctypes
+
+    from nsff_pl_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("fused_compositing").nsff_empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        if fn(n_rays, torch.cuda.current_stream().cuda_stream) != 0:
+            fail("empty kernel launch failed")
+
+    return cuda_ms(torch, launch, iters=100, graph=True)
+
+
+def packed_comp_large(torch, fck, records, card, n=LARGE_BATCH):
+    """The packed compositor at a large batch against its plain version,
+    its times at `n` rays, and the launch floor at both batches."""
+    S = 128
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    packed = torch.randn((n, S, 16), generator=gen, device="cuda")
+    packed[..., [0, 1, 2, 4, 5, 6]] = torch.rand((n, S, 6), generator=gen,
+                                                 device="cuda")
+    zs = torch.sort(torch.rand((n, S), generator=gen, device="cuda"),
+                    1).values
+    ns, nt = (torch.randn((n, S), generator=gen, device="cuda")
+              for _ in range(2))
+    cargs = (packed.contiguous(), zs.contiguous(), ns, nt)
+    cot = {k: torch.randn((n, S), generator=gen, device="cuda")
+           for k in fck.OUT_KEYS}
+    gmap = torch.randn((n, 4), generator=gen, device="cuda")
+    planes, maps = fck.fused_compositing_fwd_cuda(*cargs)
+    dp = fck.fused_compositing_bwd_cuda(*cargs, cot, gmap)
+    torch.cuda.synchronize()
+    rplanes, rmaps = fck.fused_compositing_fwd_ref(*cargs)
+    rdp = fck.fused_compositing_bwd_ref(*cargs, cot, gmap)
+    fwd_err = max(float((planes - rplanes).abs().max()),
+                  float((maps - rmaps).abs().max()))
+    errs = [rel_errs(dp[..., c], rdp[..., c]) for c in range(8)]
+    bwd_err, bwd_abs = max(e[0] for e in errs), max(e[2] for e in errs)
+    print(f"kernel fused_compositing n={n}: forward max abs err "
+          f"{fwd_err:.2e}, adjoint worst error/max per column {bwd_err:.2e} "
+          f"(tol {COMP_TOL})", flush=True)
+    if fwd_err > COMP_TOL or bwd_err > COMP_TOL:
+        fail(f"fused_compositing disagrees with its plain version at {n}")
+    for which, fn in (
+            ("fwd", lambda: fck.fused_compositing_fwd_cuda(*cargs)),
+            ("bwd", lambda: fck.fused_compositing_bwd_cuda(*cargs, cot,
+                                                           gmap))):
+        rec = records[f"fused_compositing_{which}"]
+        rec[f"ms_{n}"] = cuda_ms(torch, fn, iters=100, graph=True)
+        ops, nbytes = packed_comp_work(which, n, S)
+        rec[f"bound_ms_{n}"] = bound(ops, nbytes, PEAK_F32_FLOPS)[0]
+        if which == "fwd":
+            rec["max_abs_err"] = max(rec["max_abs_err"], fwd_err)
+        else:
+            _fold_errs(rec, bwd_abs, bwd_err)
+        print(f"kernel {rec['name']} n={n}: {rec[f'ms_{n}']:.4f} ms, bound "
+              f"{rec[f'bound_ms_{n}']:.4f} ms ({nbytes / 1e6:.2f} MB), "
+              f"{100 * rec[f'bound_ms_{n}'] / rec[f'ms_{n}']:.1f}% of the "
+              f"bound on {card}", flush=True)
+    del planes, maps, dp, rplanes, rmaps, rdp
+    floor = {nr: empty_launch_ms(torch, nr) for nr in (BATCH, n)}
+    for which in ("fwd", "bwd"):
+        records[f"fused_compositing_{which}"]["floor_ms"] = floor[BATCH]
+        records[f"fused_compositing_{which}"][f"floor_ms_{n}"] = floor[n]
+    print(f"launch floor (an empty kernel on the compositor's grid, same "
+          f"stopwatch): {floor[BATCH]:.4f} ms at {BATCH} rays, "
+          f"{floor[n]:.4f} ms at {n} rays on {card}", flush=True)
 
 
 def train_scene(torch, np, K, poses):
@@ -830,47 +917,17 @@ def train_scene(torch, np, K, poses):
     return table, torch.from_numpy(Ks).cuda(), torch.from_numpy(Ps).cuda()
 
 
-def _kernel_modules():
-    from nsff_pl_tpu_torch.ops import compositing_kernel as fck
-    from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
-    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
-    from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
-    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
-
-    return rk, tck, mk, mtk, fck
-
-
 def launch_counts():
     """Every wrapper's launch count, by kernel name."""
-    rk, tck, mk, mtk, fck = _kernel_modules()
-    return {"planar_eval_comp": rk.planar_eval_comp_cuda.launches,
-            "planar_nerf_train_fwd": rk.planar_nerf_train_fwd_cuda.launches,
-            "planar_nerf_train_bwd_static":
-                rk.planar_nerf_train_bwd_cuda.launches["static"],
-            "planar_nerf_train_bwd_transient":
-                rk.planar_nerf_train_bwd_cuda.launches["transient"],
-            "planar_compositor_fwd": tck.planar_compositor_fwd_cuda.launches,
-            "planar_compositor_bwd": tck.planar_compositor_bwd_cuda.launches,
-            "fused_nerf_eval": mk.fused_nerf_eval_cuda.launches,
-            "fused_nerf_train_bwd_static":
-                mtk.fused_nerf_train_bwd_cuda.launches["static"],
-            "fused_nerf_train_bwd_transient":
-                mtk.fused_nerf_train_bwd_cuda.launches["transient"],
-            "fused_compositing_fwd": fck.fused_compositing_fwd_cuda.launches,
-            "fused_compositing_bwd": fck.fused_compositing_bwd_cuda.launches}
+    from nsff_pl_tpu_torch.ops import launches
+
+    return launches.counts()
 
 
 def reset_counts():
-    rk, tck, mk, mtk, fck = _kernel_modules()
-    rk.planar_eval_comp_cuda.launches = 0
-    rk.planar_nerf_train_fwd_cuda.launches = 0
-    rk.planar_nerf_train_bwd_cuda.launches = {"static": 0, "transient": 0}
-    tck.planar_compositor_fwd_cuda.launches = 0
-    tck.planar_compositor_bwd_cuda.launches = 0
-    mk.fused_nerf_eval_cuda.launches = 0
-    mtk.fused_nerf_train_bwd_cuda.launches = {"static": 0, "transient": 0}
-    fck.fused_compositing_fwd_cuda.launches = 0
-    fck.fused_compositing_bwd_cuda.launches = 0
+    from nsff_pl_tpu_torch.ops import launches
+
+    launches.reset()
 
 
 def check_counts(counts, expected, n, what):
@@ -882,8 +939,11 @@ def check_counts(counts, expected, n, what):
             fail(f"{what}: {k} launched {v} times, expected {want}")
 
 
-def train_setup(torch, cfg, params, device, batch):
-    """Optimizer, state and train step of the recipe `cfg` on `device`."""
+def train_setup(torch, cfg, params, device, batch, scan_steps=1,
+                graph_steps=None):
+    """Optimizer, state and train step of the recipe `cfg` on `device`
+    (`scan_steps` > 1: the K-step dispatch, in graphs of `graph_steps`
+    steps)."""
     import dataclasses
 
     from nsff_pl_tpu_torch.config import loss_config, render_config
@@ -900,19 +960,36 @@ def train_setup(torch, cfg, params, device, batch):
                            output_transient_flow=tuple(
                                cfg.output_transient_flow),
                            steps_per_epoch=spe, batch_size=batch,
+                           scan_steps=scan_steps, graph_steps=graph_steps,
                            device=device)
     return TrainState(params, tx.init(params), 0), step
 
 
+def step_rows(torch, cfg, sched, gen, steps):
+    """The frames and draws of `steps` steps, drawn up front on the card,
+    so that the eager steps and the graphed dispatch read the same."""
+    ts = [sched.next() for _ in range(steps)]
+    idx = torch.randint(0, H_IMG * W_IMG, (steps, BATCH), generator=gen,
+                        device="cuda")
+    draws = {k: (torch.rand if k == "u" else torch.randn)(
+        (steps, BATCH, cfg.N_samples), generator=gen, device="cuda")
+        for k in ("u", "ns", "nt", "nw1", "nw2")}
+    return ts, idx, draws
+
+
 def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
                    planar, steps=TRAIN_STEPS, repeat=True, profile=False):
-    """A main training path: warm-up, `steps` timed steps with the launch
-    counts set to 0 just before and read just after them, then (`repeat`)
-    `steps` steps on one repeated batch, whose loss must fall. Returns the
-    counts and the device ms per step."""
+    """A main training path: warm-up, `steps` timed eager steps with the
+    launch counts set to 0 just before and read just after them, then the
+    same steps as one graphed dispatch (`graphed_phase`) from a copy of
+    the state taken before them, on the same frames and draws; then
+    (`repeat`) `steps` steps on one repeated batch, whose loss must fall.
+    Returns the eager counts, the graphed counts and the device ms per
+    step of both."""
     from nsff_pl_tpu_torch.config import build_params
     from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
     from nsff_pl_tpu_torch.training.optim import param_leaves
+    from nsff_pl_tpu_torch.training.step import clone_state
 
     params = build_params(cfg, torch.Generator().manual_seed(0),
                           device="cuda")
@@ -927,25 +1004,30 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
     args = (batcher.table, batcher.weights, Ks, Ps, gen)
 
     state, m, _ = step(state, *args, sched.next())  # warm-up
+    ts, idx, draws = step_rows(torch, cfg, sched, gen, steps)
+    start = clone_state(state)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
     rows = []
     t0 = time.perf_counter()
-    start.record()
-    for _ in range(steps):
-        state, m, _ = step(state, *args, sched.next())
+    ev0.record()
+    for i in range(steps):
+        state, m, _ = step(state, *args, ts[i], idx=idx[i],
+                           draws={k: v[i] for k, v in draws.items()})
         rows.append(m)
-    end.record()
+    ev1.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    dev_ms = start.elapsed_time(end) / steps
+    dev_ms = ev0.elapsed_time(ev1) / steps
     counts = launch_counts()
-    print(f"{label}: {steps} steps at batch {BATCH}, {dev_ms:.3f} ms "
-          f"per step (CUDA events), {host_ms:.3f} ms (host clock) on {card}",
-          flush=True)
-    print(f"{label}: launches over the timed steps "
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: {steps} eager steps at batch {BATCH}, {dev_ms:.3f} ms "
+          f"per step (CUDA events), {host_ms:.3f} ms (host clock), "
+          f"max_memory_allocated {mem:.3f} GiB on {card}", flush=True)
+    print(f"{label}: launches over the eager steps "
           + json.dumps({k: v for k, v in counts.items() if v}), flush=True)
     check_counts(counts, per_step, steps, label)
     for i, row in enumerate(rows):
@@ -956,6 +1038,11 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
     if all(bool(torch.equal(a, b)) for a, b in
            zip(before, param_leaves(state.params))):
         fail(f"{label}: params did not change")
+    eager = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    graph_counts, graph_ms = graphed_phase(
+        torch, np, cfg, start, (batcher.table, batcher.weights, Ks, Ps, gen),
+        ts, idx, draws, eager, card, label=label, per_step=per_step,
+        profile=profile)
 
     if repeat:  # one repeated batch and draws: the loss must fall
         t = sched.next()
@@ -974,6 +1061,134 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
             fail(f"{label}: loss on a repeated batch did not fall: {losses}")
     if profile:
         profile_steps(torch, step, state, args, sched, card, label)
+    return counts, graph_counts, dev_ms, graph_ms
+
+
+# the kernel (device function) each wrapper launches first, for the
+# profiler's count of a replayed dispatch; a backward call launches five
+# kernels, its chain kernel once
+SYMBOLS = {"planar_nerf_train_fwd": "train_fwd_kernel",
+           "planar_nerf_train_bwd_static": "train_bwd_chain_kernel",
+           "planar_nerf_train_bwd_transient": "train_bwd_chain_kernel",
+           "planar_compositor_fwd": "comp_fwd_kernel",
+           "planar_compositor_bwd": "comp_bwd_kernel",
+           "fused_nerf_eval": "fused_eval_kernel",
+           "fused_nerf_train_bwd_static": "train_bwd_chain_kernel",
+           "fused_nerf_train_bwd_transient": "train_bwd_chain_kernel",
+           "fused_compositing_fwd": "fused_comp_fwd_kernel",
+           "fused_compositing_bwd": "fused_comp_bwd_kernel"}
+
+
+def _symbol_count(key, symbol):
+    """Does profiler key `key` name the kernel `symbol` (and not one whose
+    name holds it, such as fused_comp_fwd_kernel for comp_fwd_kernel)?"""
+    import re
+
+    return re.search(r"(^|[^A-Za-z0-9_])" + symbol + r"\b", key) is not None
+
+
+def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager, card,
+                  *, label, per_step, profile):
+    """The same steps as one K-step dispatch (`make_train_step(scan_steps=
+    K)`, one CUDA graph) from `state`: the first dispatch captures (its
+    seconds printed) and its per-step loss terms must equal the eager
+    steps' (`eager`, stacked) within GRAPH_RTOL; a second dispatch is
+    timed with the launch counts set to 0 just before it and read just
+    after, counted as the capture's launches times the replays; with
+    `profile`, torch.profiler over a third dispatch counts the kernels
+    the replays ran against the same. Returns the counts and the device
+    ms per step."""
+    K = len(ts)
+    multi = train_setup(torch, cfg, state.params, "cuda", BATCH,
+                        scan_steps=K)[1]
+    table, weights, Ks, Ps, gen = args
+    tmp = torch.zeros((1, 1, 3), device="cuda")
+    ts_dev = torch.tensor(ts, device="cuda")
+    margs = (tmp, table, weights, Ks, Ps, gen, ts_dev)
+    mkw = dict(idx=idx, draws=draws)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _, m = multi(state, *margs, **mkw)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label} [graphed]: capture of one {K}-step graph (warm-up "
+          f"included): {multi.capture_seconds:.3f} s", flush=True)
+    worst, where = 0.0, None
+    for k, want in eager.items():
+        got = m[k]
+        rel = ((got - want).abs() / want.abs().clamp(min=1e-12)).cpu()
+        rel[want.abs().cpu() <= 1e-9] = 0.0
+        if float(rel.max()) > worst:
+            worst, where = float(rel.max()), (k, int(rel.argmax()) + 1)
+    print(f"{label} [graphed]: loss terms against the eager steps, worst "
+          f"relative error {worst:.2e} ({where}) (tol {GRAPH_RTOL}); "
+          f"max_memory_allocated {mem:.3f} GiB (capture and dispatch)",
+          flush=True)
+    if not worst <= GRAPH_RTOL:
+        fail(f"{label}: the graphed steps disagree with the eager steps")
+    for i in range(K):
+        print(f"{label} [graphed]: step {i + 1} " + json.dumps(
+            {k: float(v[i]) for k, v in m.items()}), flush=True)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    r0 = multi.replays
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    state, _, m = multi(state, *margs, **mkw)
+    ev1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / K
+    dev_ms = ev0.elapsed_time(ev1) / K
+    eager_counts = launch_counts()
+    if any(eager_counts.values()):
+        fail(f"{label}: a replayed dispatch called a kernel wrapper: "
+             f"{eager_counts}")
+    replays = multi.replays - r0
+    counts = {k: multi.graph_launches[k] * replays for k in eager_counts}
+    print(f"{label} [graphed]: {K} steps in one dispatch at batch {BATCH}, "
+          f"{dev_ms:.3f} ms per step (CUDA events), {host_ms:.3f} ms (host "
+          f"clock), {replays} replay(s) of a graph of {multi.G} step(s) on "
+          f"{card}", flush=True)
+    print(f"{label} [graphed]: launches (capture x replays) "
+          + json.dumps({k: v for k, v in counts.items() if v}), flush=True)
+    check_counts(counts, per_step, K, f"{label} [graphed]")
+    if not all(bool(torch.isfinite(v).all()) for v in m.values()):
+        fail(f"{label} [graphed]: loss terms not finite")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        torch.cuda.synchronize()
+        r0 = multi.replays
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _, m = multi(state, *margs, **mkw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        replays = multi.replays - r0
+        kernels = [e for e in prof.key_averages() if _dev_us(e) > 0 and
+                   e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(_dev_us(e) for e in kernels) / 1e3
+        seen = {}
+        for name, sym in SYMBOLS.items():
+            want = multi.graph_launches[name] * replays
+            seen.setdefault(sym, [0, sum(e.count for e in kernels
+                                         if _symbol_count(e.key, sym))])
+            seen[sym][0] += want
+        print(f"profile ({label} [graphed]): one dispatch of {K} steps, wall "
+              f"{wall / K:.3f} ms per step, device busy {busy / K:.3f} ms "
+              f"per step ({100 * busy / wall:.1f}%) on {card}", flush=True)
+        print(f"profile ({label} [graphed]): kernels by name, launched per "
+              "capture x replays / counted by torch.profiler "
+              + json.dumps({k: v for k, v in seen.items() if v[0] or v[1]}),
+              flush=True)
+        if any(a != b for a, b in seen.values()):
+            fail(f"{label}: torch.profiler counts other kernel launches "
+                 f"than capture x replays: {seen}")
     return counts, dev_ms
 
 
@@ -1362,11 +1577,13 @@ def main() -> int:
     table, Ks, Ps = train_scene(torch, np, K, poses)
     print(f"training: ray table {tuple(table.shape)} float32 on the card "
           f"({table.numel() * 4 / 1e6:.1f} MB)", flush=True)
-    train_counts, planar_ms = training_phase(
-        torch, np, tcfg, table, Ks, Ps, card, label="training",
-        per_step=PER_STEP, planar=True, profile=True)
+    train_counts, train_graph_counts, planar_ms, planar_graph_ms = \
+        training_phase(torch, np, tcfg, table, Ks, Ps, card,
+                       label="training", per_step=PER_STEP, planar=True,
+                       profile=True)
     for name, rec in train_records.items():
-        rec["launches"] = train_counts[name]
+        # the eager steps' launches and the graphed dispatch's
+        rec["launches"] = train_counts[name] + train_graph_counts[name]
     phase_s["training"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
@@ -1378,15 +1595,19 @@ def main() -> int:
 
     # ---------------- packed training phase (a main path) ----------------
     pcfg = tcfg.replace(fused_train="off", fused_compositing=True)
-    packed_counts, packed_ms = training_phase(
-        torch, np, pcfg, table, Ks, Ps, card, label="packed training",
-        per_step=PER_STEP_PACKED, planar=False, profile=True)
-    print(f"packed training: {packed_ms:.3f} ms per step against "
-          f"{planar_ms:.3f} ms on the planar path in this run", flush=True)
+    packed_counts, packed_graph_counts, packed_ms, packed_graph_ms = \
+        training_phase(torch, np, pcfg, table, Ks, Ps, card,
+                       label="packed training", per_step=PER_STEP_PACKED,
+                       planar=False, profile=True)
+    print(f"packed training: {packed_ms:.3f} ms per step eager, "
+          f"{packed_graph_ms:.3f} ms graphed, against {planar_ms:.3f} / "
+          f"{planar_graph_ms:.3f} ms on the planar path in this run",
+          flush=True)
     for name, rec in packed_records.items():
-        # the evaluator also serves: its count is the training steps' plus
-        # the packed frame's
-        rec["launches"] = packed_counts[name] + packed_serve_counts[name]
+        # the eager steps', the graphed dispatch's and (the evaluator also
+        # serves) the packed frame's
+        rec["launches"] = (packed_counts[name] + packed_graph_counts[name]
+                           + packed_serve_counts[name])
     training_phase(torch, np, pcfg.replace(encode_t=False), table, Ks, Ps,
                    card, label="static-only training",
                    per_step=PER_STEP_STATIC, planar=False,

@@ -10,20 +10,35 @@
 // alpha = 1 - (1 - a_s)(1 - a_t), the static / transient / total weights and
 // the rgb and depth maps. The adjoint recomputes the forward and uses
 //   dL/dalpha_j = g_w_j T_j - (sum_{i>j} g_T_i T_i) / max(1 - alpha_j, 1e-37)
-// with the trailing sum as a direct reverse scan (total minus prefix
-// cancels catastrophically at the far sample, where 1 - alpha ~ 1e-31);
-// softplus' is the sigmoid, written out. zs and the noises are data. The
+// with the trailing sum as a direct reverse scan of the next samples'
+// terms, never a total or an inclusive sum minus a prefix, so it is an
+// exact 0 at the far sample, where 1 - alpha ~ 1e-31 (0 in f32) would
+// divide any residue; softplus' is the sigmoid, written out. zs and the noises are data. The
 // plain versions are fused_compositing_fwd_ref / _bwd_ref in
-// ops/compositing_kernel.py.
+// ops/compositing_kernel.py, which take their products and sums in the
+// order written below.
 //
 // Bound: bytes (a few dozen flops per sample; it reads 32 of each packed
 // row's 64 bytes, three planes, and writes seven planes, or reads seven
-// more and writes the 64-byte cotangent rows). Design: one warp per ray,
-// four consecutive samples per lane, scans as warp shuffles
-// (csrc/warp_ray.cuh). The packed rows are moved with 16-byte accesses
-// that cover whole 32-byte sectors and are transposed through shared
-// memory into per-column planes, so that each lane finds its four samples
-// of a column as one 16-byte shared-memory access.
+// more and writes the 64-byte cotangent rows). At the training batch (512
+// rays) the whole call moves ~5 MB, so it is a latency problem: four warps
+// per ray, one sample per thread (2048 warps at 512 rays, ~16 per SM,
+// where one warp per ray gave four), four rays per CTA (an empty kernel
+// of one CTA per ray took ~1.1 us just to launch its 512 CTAs), every
+// global load issued before any arithmetic (one memory round trip), and
+// the scans as warp shuffles joined across a ray's four warps through
+// shared memory:
+//   - products (transmittance): inclusive Hillis-Steele within the warp,
+//     exclusive by a shift, times the product of the earlier warps'
+//     totals taken in warp order;
+//   - trailing sums: the next sample's term shifted in, an inclusive
+//     reverse Hillis-Steele within the warp, plus the sum of the later
+//     warps' totals taken from the last warp down;
+//   - map sums: the warp's butterfly, then the warps' partials in order.
+// A packed row is read as two 16-byte loads of one 32-byte sector. The
+// adjoint's cotangent rows are staged in shared memory so that each
+// store instruction of a warp writes 512 contiguous bytes (columns 8-15
+// zero).
 //
 // Plain C interface (loaded with ctypes); launches on the given stream and
 // returns the cudaError_t of the launch.
@@ -35,10 +50,11 @@ using namespace warp_ray;
 namespace {
 
 constexpr int NCOL = 16;   // columns of a packed row
-constexpr int NUSED = 8;   // columns the compositor reads and differentiates
 constexpr int NPLANE = 7;  // output planes
-constexpr int PITCH = S + 4;  // floats per staged column (16-byte aligned)
-constexpr int RAYS_PER_BLOCK = 4;
+constexpr int NWARP = S / 32;  // warps per ray (one sample per thread)
+constexpr int RAYS = 4;        // rays per CTA
+constexpr int NTHR = RAYS * S;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float TINY = 1e-37f;
 
 // output planes / their cotangents
@@ -52,181 +68,195 @@ struct Args {
   float* out[NPLANE];      // forward: output planes
   float* maps;             // forward: (n, 4) rgb + depth
   float* dpacked;          // adjoint: (n, S, 16)
-  int n_rays;
 };
 
-// columns 0..7 of the ray's packed rows -> tile[c * PITCH + s]
-__device__ __forceinline__ void stage_in(const float* rows, float* tile, int lane) {
+__device__ __forceinline__ float ld(const float* p, size_t i) {
+  return p != nullptr ? __ldg(p + i) : 0.f;
+}
+
+// prod_{i < s} x_i over the ray; `tot` holds NWARP floats of shared memory
+__device__ __forceinline__ float block_excl_cumprod(float x, int lane, int w,
+                                                    float* tot) {
+  float inc = x;
 #pragma unroll
-  for (int i = 0; i < S * 2 / 32; ++i) {
-    const int idx = i * 32 + lane, s = idx >> 1, c0 = (idx & 1) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(rows + s * NCOL + c0);
-    tile[(c0 + 0) * PITCH + s] = v.x;
-    tile[(c0 + 1) * PITCH + s] = v.y;
-    tile[(c0 + 2) * PITCH + s] = v.z;
-    tile[(c0 + 3) * PITCH + s] = v.w;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(FULL, inc, off);
+    if (lane >= off) inc *= y;
   }
-  __syncwarp();
+  if (lane == 31) tot[w] = inc;
+  float exc = __shfl_up_sync(FULL, inc, 1);
+  if (lane == 0) exc = 1.f;
+  __syncthreads();
+  float pre = 1.f;
+  for (int k = 0; k < w; ++k) pre *= tot[k];
+  return pre * exc;
 }
 
-__device__ __forceinline__ Row col(const float* tile, int c, int lane) {
-  const float4 x = *reinterpret_cast<const float4*>(tile + c * PITCH + lane * Q);
-  Row r;
-  r.v[0] = x.x; r.v[1] = x.y; r.v[2] = x.z; r.v[3] = x.w;
-  return r;
+// sum_{i > s} x_i over the ray, directly; `tot` as above
+__device__ __forceinline__ float block_rev_excl_cumsum(float x, int lane,
+                                                       int w, float* tot) {
+  float inc = __shfl_down_sync(FULL, x, 1);
+  if (lane == 31) inc = 0.f;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_down_sync(FULL, inc, off);
+    if (lane + off < 32) inc += y;
+  }
+  if (lane == 0) tot[w] = inc + x;
+  __syncthreads();
+  float post = 0.f;
+  for (int k = NWARP - 1; k > w; --k) post += tot[k];
+  return inc + post;
 }
 
-// the forward quantities both kernels need
-struct Core {
-  Row z, ds, dt, s_s, s_t, a_s, a_t, alpha, T;
+// the quantities of one sample that both kernels need
+struct Sample {
+  float4 c0, c1;  // packed columns 0-3 and 4-7
+  float z, ns, nt, ds, dt, s_s, s_t, a_s, a_t, alpha, T;
 };
 
-__device__ __forceinline__ Core core(const Args& A, const float* tile,
-                                     size_t base, int lane) {
-  Core k;
-  k.z = load(A.zs, base);
-  deltas(k.z, lane, k.ds, k.dt);
-  const Row ps = col(tile, 3, lane), pt = col(tile, 7, lane);
-  const Row ns = load(A.ns, base), nt = load(A.nt, base);
-  Row keep;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    k.s_s.v[q] = softplus(ps.v[q] + ns.v[q]);
-    k.s_t.v[q] = softplus(pt.v[q] + nt.v[q]);
-    k.a_s.v[q] = 1.f - expf(-k.ds.v[q] * k.s_s.v[q]);
-    k.a_t.v[q] = 1.f - expf(-k.dt.v[q] * k.s_t.v[q]);
-    k.alpha.v[q] = 1.f - (1.f - k.a_s.v[q]) * (1.f - k.a_t.v[q]);
-    keep.v[q] = 1.f - k.alpha.v[q];
-  }
-  k.T = excl_cumprod(keep, lane);
+// the ray's sample s: every load is issued before the first use
+__device__ __forceinline__ Sample load_sample(const Args& A, int ray, int s) {
+  // a CTA's rays past the last load the last one's and store nothing
+  Sample k;
+  const size_t i = size_t(ray) * S + s;
+  const float4* row = reinterpret_cast<const float4*>(A.packed + i * NCOL);
+  k.c0 = __ldg(row);
+  k.c1 = __ldg(row + 1);
+  k.z = __ldg(A.zs + i);
+  const float zn = s < S - 1 ? __ldg(A.zs + i + 1) : 0.f;
+  k.ns = __ldg(A.ns + i);
+  k.nt = __ldg(A.nt + i);
+  const float dz = zn - k.z;
+  k.ds = s == S - 1 ? STATIC_FAR_DELTA : dz;
+  k.dt = s == S - 1 ? TRANSIENT_FAR_DELTA : dz;
   return k;
 }
 
-__global__ void __launch_bounds__(32 * RAYS_PER_BLOCK)
-fused_comp_fwd_kernel(const Args A) {
-  __shared__ __align__(16) float tiles[RAYS_PER_BLOCK][NUSED * PITCH];
-  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
-  const int ray = blockIdx.x * RAYS_PER_BLOCK + wi;
-  if (ray >= A.n_rays) return;
-  float* tile = tiles[wi];
-  stage_in(A.packed + size_t(ray) * S * NCOL, tile, lane);
-  const size_t base = size_t(ray) * S + lane * Q;
-  const Core k = core(A, tile, base, lane);
-  Row w_s, w_t, w;
+__device__ __forceinline__ void alphas(Sample& k) {
+  k.s_s = softplus(k.c0.w + k.ns);
+  k.s_t = softplus(k.c1.w + k.nt);
+  k.a_s = 1.f - expf(-k.ds * k.s_s);
+  k.a_t = 1.f - expf(-k.dt * k.s_t);
+  k.alpha = 1.f - (1.f - k.a_s) * (1.f - k.a_t);
+}
+
+// this thread's ray (of the CTA's RAYS), sample, lane and warp in the ray
+struct Slot {
+  int r, s, lane, w, ray;
+  bool on;
+};
+
+__device__ __forceinline__ Slot slot(int n_rays) {
+  Slot t;
+  t.r = threadIdx.x / S;
+  t.s = threadIdx.x % S;
+  t.lane = t.s & 31;
+  t.w = t.s >> 5;
+  t.ray = blockIdx.x * RAYS + t.r;
+  t.on = t.ray < n_rays;
+  if (!t.on) t.ray = n_rays - 1;
+  return t;
+}
+
+__global__ void __launch_bounds__(NTHR) fused_comp_fwd_kernel(const Args A,
+                                                              int n_rays) {
+  __shared__ float tot[RAYS][NWARP];
+  __shared__ float part[RAYS][NWARP][4];
+  const Slot t = slot(n_rays);
+  Sample k = load_sample(A, t.ray, t.s);
+  alphas(k);
+  k.T = block_excl_cumprod(1.f - k.alpha, t.lane, t.w, tot[t.r]);
+  const float w_s = k.a_s * k.T, w_t = k.a_t * k.T, wgt = k.alpha * k.T;
+  float m[4] = {w_s * k.c0.x + w_t * k.c1.x, w_s * k.c0.y + w_t * k.c1.y,
+                w_s * k.c0.z + w_t * k.c1.z, wgt * k.z};
 #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    w_s.v[q] = k.a_s.v[q] * k.T.v[q];
-    w_t.v[q] = k.a_t.v[q] * k.T.v[q];
-    w.v[q] = k.alpha.v[q] * k.T.v[q];
+  for (int c = 0; c < 4; ++c) {
+    m[c] = warp_sum(m[c]);
+    if (t.lane == 0) part[t.r][t.w][c] = m[c];
   }
-  store(A.out[O_SS], base, k.s_s);
-  store(A.out[O_ST], base, k.s_t);
-  store(A.out[O_AS], base, k.a_s);
-  store(A.out[O_AT], base, k.a_t);
-  store(A.out[O_WS], base, w_s);
-  store(A.out[O_WT], base, w_t);
-  store(A.out[O_W], base, w);
-  float m[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const Row sr = col(tile, c, lane), tr = col(tile, 4 + c, lane);
-#pragma unroll
-    for (int q = 0; q < Q; ++q) m[c] += w_s.v[q] * sr.v[q] + w_t.v[q] * tr.v[q];
+  if (t.on) {
+    const size_t i = size_t(t.ray) * S + t.s;
+    A.out[O_SS][i] = k.s_s;
+    A.out[O_ST][i] = k.s_t;
+    A.out[O_AS][i] = k.a_s;
+    A.out[O_AT][i] = k.a_t;
+    A.out[O_WS][i] = w_s;
+    A.out[O_WT][i] = w_t;
+    A.out[O_W][i] = wgt;
   }
-#pragma unroll
-  for (int q = 0; q < Q; ++q) m[3] += w.v[q] * k.z.v[q];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float v = warp_sum(m[i]);
-    if (lane == 0) A.maps[size_t(ray) * 4 + i] = v;
+  __syncthreads();
+  if (t.on && t.s < 4) {
+    float acc = part[t.r][0][t.s];
+    for (int w = 1; w < NWARP; ++w) acc += part[t.r][w][t.s];
+    A.maps[size_t(t.ray) * 4 + t.s] = acc;
   }
 }
 
-__global__ void __launch_bounds__(32 * RAYS_PER_BLOCK)
-fused_comp_bwd_kernel(const Args A) {
-  __shared__ __align__(16) float tiles[RAYS_PER_BLOCK][NUSED * PITCH];
-  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
-  const int ray = blockIdx.x * RAYS_PER_BLOCK + wi;
-  if (ray >= A.n_rays) return;
-  float* tile = tiles[wi];
-  stage_in(A.packed + size_t(ray) * S * NCOL, tile, lane);
-  const size_t base = size_t(ray) * S + lane * Q;
-  const Core k = core(A, tile, base, lane);
-  float gm[4];
+__global__ void __launch_bounds__(NTHR) fused_comp_bwd_kernel(const Args A,
+                                                              int n_rays) {
+  __shared__ float tot[RAYS][NWARP];
+  __shared__ float tot2[RAYS][NWARP];
+  __shared__ __align__(16) float4 stage[RAYS * NWARP][64];
+  const Slot t = slot(n_rays);
+  const size_t i = size_t(t.ray) * S + t.s;
+  Sample k = load_sample(A, t.ray, t.s);
+  float g[NPLANE], gm[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    gm[i] = A.gmap != nullptr ? A.gmap[size_t(ray) * 4 + i] : 0.f;
+  for (int p = 0; p < NPLANE; ++p) g[p] = ld(A.g[p], i);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) gm[c] = ld(A.gmap, size_t(t.ray) * 4 + c);
+  alphas(k);
+  k.T = block_excl_cumprod(1.f - k.alpha, t.lane, t.w, tot[t.r]);
 
   // the rgb and depth map adjoints fold into the weight cotangents
-  Row g_ws = load(A.g[O_WS], base), g_wt = load(A.g[O_WT], base);
-  Row g_w = load(A.g[O_W], base);
+  const float sr[3] = {k.c0.x, k.c0.y, k.c0.z};
+  const float tr[3] = {k.c1.x, k.c1.y, k.c1.z};
+  float g_ws = g[O_WS], g_wt = g[O_WT];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const Row sr = col(tile, c, lane), tr = col(tile, 4 + c, lane);
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      g_ws.v[q] += gm[c] * sr.v[q];
-      g_wt.v[q] += gm[c] * tr.v[q];
-    }
+    g_ws += gm[c] * sr[c];
+    g_wt += gm[c] * tr[c];
   }
-  Row gTT;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    g_w.v[q] += gm[3] * k.z.v[q];
-    const float g_T = g_ws.v[q] * k.a_s.v[q] + g_wt.v[q] * k.a_t.v[q]
-        + g_w.v[q] * k.alpha.v[q];
-    gTT.v[q] = g_T * k.T.v[q];
-  }
-  const Row trail = rev_excl_cumsum(gTT, lane);
-  const Row g_as_in = load(A.g[O_AS], base), g_at_in = load(A.g[O_AT], base);
-  const Row g_ss_in = load(A.g[O_SS], base), g_st_in = load(A.g[O_ST], base);
-  const Row ps = col(tile, 3, lane), pt = col(tile, 7, lane);
-  const Row ns = load(A.ns, base), nt = load(A.nt, base);
-  __syncwarp();  // every lane has read the tile: it now takes the cotangent
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const float g_alpha = g_w.v[q] * k.T.v[q]
-        - trail.v[q] / fmaxf(1.f - k.alpha.v[q], TINY);
-    const float g_as = g_ws.v[q] * k.T.v[q] + g_alpha * (1.f - k.a_t.v[q])
-        + g_as_in.v[q];
-    const float g_at = g_wt.v[q] * k.T.v[q] + g_alpha * (1.f - k.a_s.v[q])
-        + g_at_in.v[q];
-    const float g_ss = g_as * k.ds.v[q] * expf(-k.ds.v[q] * k.s_s.v[q])
-        + g_ss_in.v[q];
-    const float g_st = g_at * k.dt.v[q] * expf(-k.dt.v[q] * k.s_t.v[q])
-        + g_st_in.v[q];
-    const int s = lane * Q + q;
-    const float ws = k.a_s.v[q] * k.T.v[q], wt = k.a_t.v[q] * k.T.v[q];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      tile[c * PITCH + s] = gm[c] * ws;
-      tile[(4 + c) * PITCH + s] = gm[c] * wt;
-    }
-    tile[3 * PITCH + s] = g_ss * sigmoid(ps.v[q] + ns.v[q]);
-    tile[7 * PITCH + s] = g_st * sigmoid(pt.v[q] + nt.v[q]);
-  }
+  const float g_w = g[O_W] + gm[3] * k.z;
+  const float g_T = g_ws * k.a_s + g_wt * k.a_t + g_w * k.alpha;
+  const float trail = block_rev_excl_cumsum(g_T * k.T, t.lane, t.w,
+                                            tot2[t.r]);
+  const float g_alpha = g_w * k.T - trail / fmaxf(1.f - k.alpha, TINY);
+  const float g_as = g_ws * k.T + g_alpha * (1.f - k.a_t) + g[O_AS];
+  const float g_at = g_wt * k.T + g_alpha * (1.f - k.a_s) + g[O_AT];
+  const float g_ss = g_as * k.ds * expf(-k.ds * k.s_s) + g[O_SS];
+  const float g_st = g_at * k.dt * expf(-k.dt * k.s_t) + g[O_ST];
+  const float ws = k.a_s * k.T, wt = k.a_t * k.T;
+  // the warp's 32 rows: columns 0-7 through shared memory, then 2 KB of
+  // rows written 512 contiguous bytes an instruction
+  float4* tile = stage[threadIdx.x >> 5];
+  tile[2 * t.lane] = make_float4(gm[0] * ws, gm[1] * ws, gm[2] * ws,
+                                 g_ss * sigmoid(k.c0.w + k.ns));
+  tile[2 * t.lane + 1] = make_float4(gm[0] * wt, gm[1] * wt, gm[2] * wt,
+                                     g_st * sigmoid(k.c1.w + k.nt));
   __syncwarp();
-  // the cotangent rows, columns 8..15 zero, 16 bytes per lane and store
-  float* rows = A.dpacked + size_t(ray) * S * NCOL;
+  if (!t.on) return;
+  float4* rows = reinterpret_cast<float4*>(
+      A.dpacked + (size_t(t.ray) * S + t.w * 32) * NCOL);
 #pragma unroll
-  for (int i = 0; i < S * 4 / 32; ++i) {
-    const int idx = i * 32 + lane, s = idx >> 2, c0 = (idx & 3) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c0 < NUSED)
-      v = make_float4(tile[(c0 + 0) * PITCH + s], tile[(c0 + 1) * PITCH + s],
-                      tile[(c0 + 2) * PITCH + s], tile[(c0 + 3) * PITCH + s]);
-    *reinterpret_cast<float4*>(rows + s * NCOL + c0) = v;
+  for (int j = 0; j < 4; ++j) {
+    const int q = j * 32 + t.lane, row = q >> 2, c4 = q & 3;
+    rows[q] = c4 < 2 ? tile[2 * row + c4] : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
+// no work: its time by the same stopwatch is the launch floor of a kernel
+// of this grid
+__global__ void empty_kernel() {}
+
 Args make_args(const void* packed, const void* zs, const void* ns,
-               const void* nt, int n_rays) {
+               const void* nt) {
   Args A = {};
   A.packed = static_cast<const float*>(packed);
   A.zs = static_cast<const float*>(zs);
   A.ns = static_cast<const float*>(ns);
   A.nt = static_cast<const float*>(nt);
-  A.n_rays = n_rays;
   return A;
 }
 
@@ -236,12 +266,11 @@ extern "C" int nsff_fused_comp_fwd(const void* packed, const void* zs,
                                    const void* ns, const void* nt,
                                    void* const* outs, void* maps, int n_rays,
                                    void* stream) {
-  Args A = make_args(packed, zs, ns, nt, n_rays);
+  Args A = make_args(packed, zs, ns, nt);
   for (int i = 0; i < NPLANE; ++i) A.out[i] = static_cast<float*>(outs[i]);
   A.maps = static_cast<float*>(maps);
-  const int blocks = (n_rays + RAYS_PER_BLOCK - 1) / RAYS_PER_BLOCK;
-  fused_comp_fwd_kernel<<<blocks, 32 * RAYS_PER_BLOCK, 0,
-                          static_cast<cudaStream_t>(stream)>>>(A);
+  fused_comp_fwd_kernel<<<(n_rays + RAYS - 1) / RAYS, NTHR, 0,
+                          static_cast<cudaStream_t>(stream)>>>(A, n_rays);
   return int(cudaGetLastError());
 }
 
@@ -249,12 +278,18 @@ extern "C" int nsff_fused_comp_bwd(const void* packed, const void* zs,
                                    const void* ns, const void* nt,
                                    const void* const* g, const void* gmap,
                                    void* dpacked, int n_rays, void* stream) {
-  Args A = make_args(packed, zs, ns, nt, n_rays);
+  Args A = make_args(packed, zs, ns, nt);
   for (int i = 0; i < NPLANE; ++i) A.g[i] = static_cast<const float*>(g[i]);
   A.gmap = static_cast<const float*>(gmap);
   A.dpacked = static_cast<float*>(dpacked);
-  const int blocks = (n_rays + RAYS_PER_BLOCK - 1) / RAYS_PER_BLOCK;
-  fused_comp_bwd_kernel<<<blocks, 32 * RAYS_PER_BLOCK, 0,
-                          static_cast<cudaStream_t>(stream)>>>(A);
+  fused_comp_bwd_kernel<<<(n_rays + RAYS - 1) / RAYS, NTHR, 0,
+                          static_cast<cudaStream_t>(stream)>>>(A, n_rays);
+  return int(cudaGetLastError());
+}
+
+// the empty kernel on the compositor's grid for n_rays rays
+extern "C" int nsff_empty_launch(int n_rays, void* stream) {
+  empty_kernel<<<(n_rays + RAYS - 1) / RAYS, NTHR, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
   return int(cudaGetLastError());
 }

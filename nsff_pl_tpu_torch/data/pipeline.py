@@ -11,7 +11,10 @@ device copy per step.
   workers). An exact numpy port: the same seed gives the same frames.
 - `RayBatcher` / `_sample_batch` (device): `batch_size` rays of frame t,
   uniformly or by inverse-CDF draws over the hard-sampling weights. The
-  pixel indices (uniform) or the uniforms (hard) can be passed in.
+  pixel indices (uniform) or the uniforms (hard) can be passed in. t is a
+  Python int or a 0-d device tensor (a captured step's frame, which
+  indexing with `table[t]` would read on the host); the rays are one
+  gather at t * H*W + index from the flattened table.
 """
 from __future__ import annotations
 
@@ -95,12 +98,12 @@ def _sample_batch(table, weights, t, batch_size: int, hard_sampling: bool,
     drawn from `generator`. Hard sampling: weighted draws with
     replacement by inverse-CDF sampling, from uniforms `u` ((B,) in
     [0, 1)) or drawn from `generator`."""
-    n_pixels = table.shape[1]
+    n_frames, n_pixels, n_ch = table.shape
     dev = table.device
-    frame = table[t]  # (H*W, 16)
     if hard_sampling:
-        w = torch.clamp(weights[t], min=0.0)
-        cw = torch.cumsum(w, 0)
+        w = weights[t] if not isinstance(t, torch.Tensor) else \
+            weights.index_select(0, t.reshape(1))[0]
+        cw = torch.cumsum(torch.clamp(w, min=0.0), 0)
         if u is None:
             u = torch.rand((batch_size,), generator=generator, device=dev)
         idx = torch.clamp(torch.searchsorted(cw, u.to(dev) * cw[-1],
@@ -109,7 +112,7 @@ def _sample_batch(table, weights, t, batch_size: int, hard_sampling: bool,
         idx = torch.randint(0, n_pixels, (batch_size,), generator=generator,
                             device=dev)
     idx = torch.as_tensor(idx, device=dev).long()
-    rays = frame[idx]  # (B, 16)
+    rays = table.reshape(n_frames * n_pixels, n_ch)[t * n_pixels + idx]
     B = RayBatcher
     return {
         "rays": rays[:, B.RAYS],

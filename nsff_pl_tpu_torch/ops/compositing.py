@@ -14,6 +14,7 @@ import torch
 # the last interval is padded with 100 (static) / 1e-3 (transient)
 STATIC_FAR_DELTA = 100.0
 TRANSIENT_FAR_DELTA = 1e-3
+WARP = 32  # samples per warp of the compositor kernels' scans
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -52,12 +53,83 @@ def sigma2alpha(sigma_raw, deltas, noise=None):
     return 1.0 - torch.exp(-deltas * softplus(sigma_raw))
 
 
+# Scans along the sample axis in the order of the compositor kernels
+# (csrc/fused_compositing.cu): the samples in warps of 32, a Hillis-Steele
+# scan inside each warp, the warps joined in order. The axis is padded to
+# a multiple of 32 with the scan's identity, which leaves every value
+# unchanged.
+
+def _warps(v, fill):
+    """(N, S) -> (N, W, 32): the samples in warps of 32, the tail padded
+    with `fill`."""
+    n, S = v.shape
+    pad = -S % WARP
+    if pad:
+        v = torch.cat([v, v.new_full((n, pad), fill)], -1)
+    return v.reshape(n, -1, WARP)
+
+
+def _unwarp(b, S):
+    return b.reshape(b.shape[0], -1)[:, :S]
+
+
+def block_excl_cumprod(v):
+    """out[:, j] = prod_{i<j} v[:, i], in the kernel's order: an inclusive
+    Hillis-Steele scan inside each warp, shifted to exclusive, times the
+    product of the earlier warps' totals taken in warp order."""
+    inc = _warps(v, 1.0)
+    off = 1
+    while off < WARP:
+        inc = torch.cat([inc[..., :off], inc[..., off:] * inc[..., :-off]],
+                        -1)
+        off *= 2
+    exc = torch.cat([torch.ones_like(inc[..., :1]), inc[..., :-1]], -1)
+    pre = [torch.ones_like(inc[:, 0, :1])]
+    for w in range(1, inc.shape[1]):
+        pre.append(pre[-1] * inc[:, w - 1, -1:])
+    return _unwarp(torch.stack(pre, 1) * exc, v.shape[1])
+
+
+def block_rev_excl_cumsum(v):
+    """out[:, j] = sum_{i>j} v[:, i], directly, in the kernel's order: the
+    next sample's term shifted in, an inclusive reverse Hillis-Steele scan
+    inside each warp, plus the later warps' totals summed from the last
+    warp down."""
+    b = _warps(v, 0.0)
+    inc = torch.cat([b[..., 1:], torch.zeros_like(b[..., :1])], -1)
+    off = 1
+    while off < WARP:
+        inc = torch.cat([inc[..., :-off] + inc[..., off:], inc[..., -off:]],
+                        -1)
+        off *= 2
+    tot = inc[..., :1] + b[..., :1]  # (N, W, 1)
+    post = [torch.zeros_like(tot[:, 0])]
+    for w in range(inc.shape[1] - 1, 0, -1):
+        post.insert(0, post[0] + tot[:, w])
+    return _unwarp(inc + torch.stack(post, 1), v.shape[1])
+
+
+def block_sum(v):
+    """sum_j v[:, j], in the kernel's order: each warp's butterfly (a
+    halving tree), then the warps' partials in order."""
+    b = _warps(v, 0.0)
+    h = WARP // 2
+    while h:
+        b = b[..., :h] + b[..., h:]
+        h //= 2
+    acc = b[:, 0, 0]
+    for w in range(1, b.shape[1]):
+        acc = acc + b[:, w, 0]
+    return acc
+
+
 def transmittance(alphas: torch.Tensor) -> torch.Tensor:
     """T_i = prod_{j<i} (1 - alpha_j): the exclusive cumulative product
-    along the sample axis."""
-    shifted = torch.cat([torch.ones_like(alphas[:, :1]),
-                         1.0 - alphas[:, :-1]], -1)
-    return torch.cumprod(shifted, -1)
+    along the sample axis, by `block_excl_cumprod`, a log-depth scan as
+    XLA gives the JAX package's cumprod. Its autograd is products only:
+    torch.cumprod's backward looks for zeros on the host, which a captured
+    CUDA graph cannot do, and divides."""
+    return block_excl_cumprod(1.0 - alphas)
 
 
 def composite_two_fields(static_alphas, transient_alphas):

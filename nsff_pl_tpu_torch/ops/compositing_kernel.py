@@ -12,11 +12,16 @@ The backward is the hand-written adjoint of the TPU kernel:
 
     dL/dalpha_j = g_w_j T_j - (sum_{i>j} g_T_i T_i) / max(1 - alpha_j, 1e-37)
 
-with the trailing sum as a direct reverse scan: formed as total minus
-prefix it cancels catastrophically at the far sample, where
-1 - alpha ~ 1e-31 divides the residue. The softplus derivative is the
-sigmoid, written out. zs and the noises are data and get no gradient;
-columns 8-15 of the packed cotangent are zero.
+with the trailing sum as a direct reverse scan of the next samples'
+terms, never a total or an inclusive sum minus a prefix, so it is an
+exact 0 at the far sample, where 1 - alpha ~ 1e-31 (0 in f32) would
+divide any residue. The softplus derivative is the sigmoid, written out.
+zs and the noises are data and get no gradient; columns 8-15 of the
+packed cotangent are zero.
+
+The plain versions take the transmittance products, the trailing sums
+and the map sums in the CUDA kernels' order (`ops/compositing.py`:
+`block_excl_cumprod`, `block_rev_excl_cumsum`, `block_sum`).
 
 `fused_compositing_fwd` / `_bwd` launch `csrc/fused_compositing.cu` for
 CUDA tensors and run the plain versions for CPU tensors. The CUDA
@@ -29,10 +34,10 @@ from typing import Dict, Optional
 
 import torch
 
-from nsff_pl_tpu_torch.ops.compositing import (deltas_from_zs, softplus,
-                                               transmittance)
-from nsff_pl_tpu_torch.ops.compositing_planar_kernel import \
-    rev_exclusive_cumsum
+from nsff_pl_tpu_torch.ops.compositing import (block_excl_cumprod,
+                                               block_rev_excl_cumsum,
+                                               block_sum, deltas_from_zs,
+                                               softplus)
 
 KERNEL_SAMPLES = 128  # S the CUDA kernels are built for
 N_PACKED = 16
@@ -51,7 +56,8 @@ def _fwd_core(packed, zs, noise_s, noise_t):
     a_s = 1.0 - torch.exp(-d_s * s_s)
     a_t = 1.0 - torch.exp(-d_t * s_t)
     alpha = 1.0 - (1.0 - a_s) * (1.0 - a_t)
-    return d_s, d_t, s_s, s_t, a_s, a_t, alpha, transmittance(alpha)
+    return (d_s, d_t, s_s, s_t, a_s, a_t, alpha,
+            block_excl_cumprod(1.0 - alpha))
 
 
 def fused_compositing_fwd_ref(packed, zs, noise_s, noise_t):
@@ -60,9 +66,9 @@ def fused_compositing_fwd_ref(packed, zs, noise_s, noise_t):
     _, _, s_s, s_t, a_s, a_t, alpha, T = _fwd_core(packed, zs, noise_s,
                                                    noise_t)
     w_s, w_t, w = a_s * T, a_t * T, alpha * T
-    cols = [(w_s * packed[..., c] + w_t * packed[..., 4 + c]).sum(-1)
+    cols = [block_sum(w_s * packed[..., c] + w_t * packed[..., 4 + c])
             for c in range(3)]
-    cols.append((w * zs).sum(-1))
+    cols.append(block_sum(w * zs))
     return (torch.stack([s_s, s_t, a_s, a_t, w_s, w_t, w]),
             torch.stack(cols, -1))
 
@@ -86,7 +92,7 @@ def fused_compositing_bwd_ref(packed, zs, noise_s, noise_t,
     g_w = gz["weights"] + gmap[:, 3:4] * zs
 
     g_T = g_ws * a_s + g_wt * a_t + g_w * alpha
-    trail = rev_exclusive_cumsum(g_T * T)
+    trail = block_rev_excl_cumsum(g_T * T)
     g_alpha = g_w * T - trail / torch.clamp(1.0 - alpha, min=TINY)
     g_as = g_ws * T + g_alpha * (1.0 - a_t) + gz["static_alphas"]
     g_at = g_wt * T + g_alpha * (1.0 - a_s) + gz["transient_alphas"]
@@ -94,9 +100,10 @@ def fused_compositing_bwd_ref(packed, zs, noise_s, noise_t,
     g_st = g_at * d_t * torch.exp(-d_t * s_t) + gz["transient_sigmas"]
 
     dp = torch.zeros_like(packed)
+    w_s, w_t = a_s * T, a_t * T
     for c in range(3):
-        dp[..., c] = gmap[:, c:c + 1] * a_s * T
-        dp[..., 4 + c] = gmap[:, c:c + 1] * a_t * T
+        dp[..., c] = gmap[:, c:c + 1] * w_s
+        dp[..., 4 + c] = gmap[:, c:c + 1] * w_t
     dp[..., 3] = g_ss * torch.sigmoid(packed[..., 3] + noise_s)
     dp[..., 7] = g_st * torch.sigmoid(packed[..., 7] + noise_t)
     return dp
@@ -136,8 +143,8 @@ def _lib_fn(name, argtypes):
 
 
 def fused_compositing_fwd_cuda(packed, zs, noise_s, noise_t):
-    """Launch the forward kernel (one warp per ray) on the current stream;
-    adds one to `fused_compositing_fwd_cuda.launches`."""
+    """Launch the forward kernel (four warps a ray, four rays a CTA) on the
+    current stream; adds one to `fused_compositing_fwd_cuda.launches`."""
     n, S, dev, ptrs = _inputs(packed, zs, noise_s, noise_t)
     out = torch.empty((len(OUT_KEYS), n, S), dtype=torch.float32, device=dev)
     maps = torch.empty((n, 4), dtype=torch.float32, device=dev)
@@ -160,8 +167,8 @@ fused_compositing_fwd_cuda.launches = 0
 
 
 def fused_compositing_bwd_cuda(packed, zs, noise_s, noise_t, g, gmap):
-    """Launch the adjoint kernel (one warp per ray) on the current stream;
-    adds one to `fused_compositing_bwd_cuda.launches`."""
+    """Launch the adjoint kernel (four warps a ray, four rays a CTA) on the
+    current stream; adds one to `fused_compositing_bwd_cuda.launches`."""
     n, S, dev, ptrs = _inputs(packed, zs, noise_s, noise_t)
     dp = torch.empty((n, S, N_PACKED), dtype=torch.float32, device=dev)
     if n == 0:

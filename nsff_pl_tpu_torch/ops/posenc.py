@@ -2,9 +2,13 @@
 
 Channel order `[x, sin(f0 x), cos(f0 x), sin(f1 x), cos(f1 x), ...]`,
 frequencies `2**linspace(0, max_logscale, N_freqs)` (logscale) or
-`linspace(1, 2**max_logscale, N_freqs)`.
+`linspace(1, 2**max_logscale, N_freqs)`. The frequencies of each device
+are made once, by fills on the device, and kept: a copy from the host
+would wait on it, which a captured CUDA graph cannot hold.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -17,11 +21,18 @@ def posenc_freqs(max_logscale: float, n_freqs: int,
     return np.linspace(1, 2.0 ** max_logscale, n_freqs)
 
 
+@functools.lru_cache(maxsize=None)
+def _freqs_on(max_logscale: float, n_freqs: int, logscale: bool, dtype,
+              device) -> torch.Tensor:
+    return torch.stack([torch.full((), float(f), dtype=dtype, device=device)
+                        for f in posenc_freqs(max_logscale, n_freqs,
+                                              logscale)])
+
+
 def posenc(x: torch.Tensor, max_logscale: float, n_freqs: int,
            logscale: bool = True) -> torch.Tensor:
     """Embed (..., C) -> (..., C*(1+2*n_freqs)), f32 in, f32 out."""
-    freqs = torch.as_tensor(posenc_freqs(max_logscale, n_freqs, logscale),
-                            dtype=x.dtype, device=x.device)
+    freqs = _freqs_on(max_logscale, n_freqs, logscale, x.dtype, x.device)
     xf = x[..., None, :] * freqs[:, None]  # (..., N_freqs, C)
     sc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)
     sc = sc.reshape(*x.shape[:-1], 2 * n_freqs * x.shape[-1])

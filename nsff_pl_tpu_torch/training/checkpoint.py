@@ -65,10 +65,10 @@ def _adam_state(tree):
     return None
 
 
-def opt_state_from_jax(np_opt_state, opt: torch.optim.Adam, params):
+def opt_state_from_jax(np_opt_state, opt, params):
     """Load the Adam count and moments of an optax `adam` state (as
     numpy, e.g. `jax.tree.map(np.asarray, opt_state)`) into the
-    `torch.optim.Adam` that `optim.Adam.init(params)` made."""
+    `optim.AdamState` that `optim.Adam.init(params)` made, in place."""
     from nsff_pl_tpu_torch.training.optim import param_leaves
 
     st = _adam_state(np_opt_state)
@@ -78,16 +78,15 @@ def opt_state_from_jax(np_opt_state, opt: torch.optim.Adam, params):
     leaves = param_leaves(params)
     if len(mu) != len(leaves):
         raise ValueError(f"{len(mu)} moments for {len(leaves)} parameters")
-    for p, m, v in zip(leaves, mu, nu):
-        opt.state[p] = {
-            "step": torch.tensor(float(np.asarray(count))),
-            "exp_avg": torch.as_tensor(np.asarray(m), dtype=p.dtype).to(
-                p.device).reshape(p.shape),
-            "exp_avg_sq": torch.as_tensor(np.asarray(v), dtype=p.dtype).to(
-                p.device).reshape(p.shape)}
+    opt.count.fill_(int(np.asarray(count)))
+    for p, m, v, om, ov in zip(leaves, mu, nu, opt.mu, opt.nu):
+        om.copy_(torch.as_tensor(np.asarray(m), dtype=p.dtype).reshape(
+            p.shape))
+        ov.copy_(torch.as_tensor(np.asarray(v), dtype=p.dtype).reshape(
+            p.shape))
 
 
-def opt_state_to_numpy(opt: torch.optim.Adam, params):
+def opt_state_to_numpy(opt, params):
     """Adam's count and moments as {"count", "mu", "nu"}, the moments
     nested like `params`, as numpy."""
     from nsff_pl_tpu_torch.training.optim import moments

@@ -8,7 +8,10 @@ Eight terms with epoch schedules: lambda_geo = lambda_geo_init *
 lambda_ent = 1e-3, and a cross-entropy weight ramping 0 -> lambda_ent / 5
 over 10 epochs. Batch-global statistics (median and mean absolute
 deviation of the depth loss, the disocclusion means, top-k) are taken
-over the whole batch. On the planar layout per-sample vectors arrive as
+over the whole batch. `epoch` is a Python int, or a device tensor (the
+step counter of a captured multi-step dispatch), in which case the
+schedules are computed on the device and nothing is read on the host.
+On the planar layout per-sample vectors arrive as
 3-tuples of dense (N, S) component planes, on the reference-shaped one as
 (N, S, 3) tensors. A model without transient branch has the color and
 depth terms only.
@@ -65,6 +68,17 @@ def _dilate_along_samples(w, thickness: int):
     pad_l = (t - 1) // 2
     wp = torch.nn.functional.pad(w, (pad_l, t - 1 - pad_l))
     return sum(wp[:, i:i + w.shape[1]] for i in range(t))
+
+
+def _epoch_weights(epoch, cfg):
+    """lambda_geo and the cross-entropy weight at `epoch`: floats for an
+    int, f32 device tensors for a tensor."""
+    if isinstance(epoch, torch.Tensor):
+        e = epoch.to(torch.float32)
+        return (cfg.lambda_geo_init * 0.1 ** torch.floor(e / 10.0),
+                cfg.lambda_ent / 5 * torch.clamp(e / 10.0, max=1.0))
+    return (cfg.lambda_geo_init * 0.1 ** (epoch // 10),
+            cfg.lambda_ent / 5 * min(epoch / 10.0, 1.0))
 
 
 def _masked_mean(x, mask, dim=None):
@@ -140,9 +154,7 @@ def compute_losses(
     result dict of `models/rendering.py::render_rays` in train mode. Ks
     (N_cams, 3, 3) and Ps (N_cams, N_frames, 3, 4) serve the flow terms;
     `weights` are optional per-ray priorities."""
-    epoch = torch.as_tensor(epoch, dtype=torch.float32)
-    dev = results["rgb_fine"].device
-    lambda_geo = (cfg.lambda_geo_init * 0.1 ** torch.floor(epoch / 10.0)).to(dev)
+    lambda_geo, cross_entropy_w = _epoch_weights(epoch, cfg)
 
     ret: Dict[str, torch.Tensor] = {}
     masks: Dict[str, torch.Tensor] = {}
@@ -154,10 +166,8 @@ def compute_losses(
     if output_transient_flow:
         tw = results["transient_weights_fine"]  # (N, S)
         ret["entropy_l"] = cfg.lambda_ent * (-tw * torch.log(tw + 1e-8)).sum(-1)
-        cross_entropy_w = cfg.lambda_ent / 5 * torch.clamp(epoch / 10.0,
-                                                           max=1.0)
         tr_w = _dilate_along_samples(tw.detach(), cfg.thickness)
-        ret["cross_entropy_l"] = cross_entropy_w.to(dev) * (
+        ret["cross_entropy_l"] = cross_entropy_w * (
             tr_w * torch.log(results["static_weights_fine"] + 1e-8)).sum(-1)
 
         Ks_r = _flow_uv_terms(ret, masks, results["xyz_fw"],
@@ -211,9 +221,7 @@ def compute_losses_planar(
 ) -> Dict[str, torch.Tensor]:
     """All loss terms as scalars (sum them with `total_loss`), for the
     result dict of `models/raymarch.py::render_train_planar`."""
-    epoch = torch.as_tensor(epoch, dtype=torch.float32)
-    lambda_geo = cfg.lambda_geo_init * 0.1 ** torch.floor(epoch / 10.0)
-    lambda_geo = lambda_geo.to(results["rgb_fine"].device)
+    lambda_geo, cross_entropy_w = _epoch_weights(epoch, cfg)
 
     ret: Dict[str, torch.Tensor] = {}
     masks: Dict[str, torch.Tensor] = {}
@@ -224,9 +232,8 @@ def compute_losses_planar(
 
     tw = results["transient_weights"]  # (N, S)
     ret["entropy_l"] = cfg.lambda_ent * (-tw * torch.log(tw + 1e-8)).sum(-1)
-    cross_entropy_w = cfg.lambda_ent / 5 * torch.clamp(epoch / 10.0, max=1.0)
     tr_w = _dilate_along_samples(tw.detach(), cfg.thickness)
-    ret["cross_entropy_l"] = cross_entropy_w.to(tw.device) * (
+    ret["cross_entropy_l"] = cross_entropy_w * (
         tr_w * torch.log(results["static_weights"] + 1e-8)).sum(-1)
 
     Ks_r = _flow_uv_terms(ret, masks, results["xyz_fw"], results["xyz_bw"],

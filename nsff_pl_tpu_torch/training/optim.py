@@ -5,13 +5,17 @@ The schedule is a step function of `epoch = step // steps_per_epoch`:
 const | steplr | cosine | poly, optionally behind a linear warmup over
 `warmup_epochs` epochs (epochs 0..warmup inclusive ramp base_lr ->
 base_lr * multiplier; from epoch warmup+1 the after-scheduler runs with
-its own epoch counter from 0 and base lr base_lr * multiplier).
+its own epoch counter from 0 and base lr base_lr * multiplier). It takes
+a Python int (-> float) or a device tensor (-> an f32 tensor on that
+device, as the JAX schedule computes in f32).
 
-`make_optimizer` ports the `adam` branch: `torch.optim.Adam` with eps
-1e-8 and coupled (L2) weight decay computes optax's `adam` update, and
-the lr of each update is the schedule at the number of updates made
-before it, as optax's `scale_by_schedule` reads its count. sgd, radam
-and ranger raise `NotImplementedError`.
+`make_optimizer` ports the `adam` branch: optax's `adam` (eps 1e-8) after
+coupled (L2) weight decay, written out on the device. Its state (the
+update count and the moments) lives beside the params, and the lr of an
+update is the schedule at the count of updates made before it, as
+optax's `scale_by_schedule` reads its count; an update reads nothing on
+the host, so it can be captured in a CUDA graph. sgd, radam and ranger
+raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -21,38 +25,54 @@ from typing import Dict, List
 import torch
 
 EPS = 1e-8
+B1, B2 = 0.9, 0.999
 
 
 def make_lr_schedule(cfg, steps_per_epoch: int):
-    """Return sched(step) -> lr (a Python float)."""
+    """Return sched(step) -> lr: a Python float for an int step, an f32
+    tensor on its device for a tensor step."""
     base_lr = cfg.lr
     # radam/ranger skip the warmup wrap
     warmup = cfg.warmup_epochs \
         if cfg.optimizer not in ("radam", "ranger") else 0
     mult = cfg.warmup_multiplier if warmup > 0 else 1.0
 
-    def after(e, base):
-        if cfg.lr_scheduler == "const":
-            return base
-        if cfg.lr_scheduler == "steplr":
-            lr = base
-            for m in sorted(cfg.decay_step):
-                lr = lr * (cfg.decay_gamma if e >= m else 1.0)
-            return lr
-        if cfg.lr_scheduler == "cosine":
-            return EPS + (base - EPS) * 0.5 * (
-                1 + math.cos(math.pi * e / cfg.num_epochs))
-        if cfg.lr_scheduler == "poly":
-            return base * (1 - e / cfg.num_epochs) ** cfg.poly_exp
-        raise ValueError(f"scheduler {cfg.lr_scheduler} not recognized!")
+    def sched(step):
+        on_device = isinstance(step, torch.Tensor)
+        if on_device:
+            cos = torch.cos
+            where = torch.where
 
-    def sched(step: int) -> float:
-        e = int(step) // max(steps_per_epoch, 1)
+            def floor0(x):
+                return torch.clamp(x, min=0)
+        else:
+            cos, floor0 = math.cos, (lambda x: max(x, 0))
+
+            def where(c, a, b):
+                return a if c else b
+
+        def after(e, base):
+            if cfg.lr_scheduler == "const":
+                return base + 0.0 * e
+            if cfg.lr_scheduler == "steplr":
+                lr = base
+                for m in sorted(cfg.decay_step):
+                    lr = lr * where(e >= m, cfg.decay_gamma, 1.0)
+                return lr
+            if cfg.lr_scheduler == "cosine":
+                return EPS + (base - EPS) * 0.5 * (
+                    1 + cos(math.pi * e / cfg.num_epochs))
+            if cfg.lr_scheduler == "poly":
+                return base * (1 - e / cfg.num_epochs) ** cfg.poly_exp
+            raise ValueError(f"scheduler {cfg.lr_scheduler} not recognized!")
+
+        spe = max(steps_per_epoch, 1)
+        e = torch.div(step, spe, rounding_mode="floor") if on_device \
+            else int(step) // spe
         if warmup <= 0:
             return after(e, base_lr)
-        if e <= warmup:
-            return base_lr * ((mult - 1.0) * e / warmup + 1.0)
-        return after(max(e - (warmup + 1), 0), base_lr * mult)
+        return where(e <= warmup, base_lr * ((mult - 1.0) * e / warmup + 1.0),
+                     after(floor0(e - (warmup + 1)), base_lr * mult))
 
     return sched
 
@@ -65,6 +85,23 @@ def param_leaves(params) -> List[torch.Tensor]:
     return [params]
 
 
+class AdamState:
+    """Adam's state on the params' device: the leaves it updates, the
+    number of updates made (a 0-d int64 tensor) and the first and second
+    moments, in the leaf order of `param_leaves`."""
+
+    def __init__(self, leaves: List[torch.Tensor]):
+        self.params = leaves
+        self.count = torch.zeros((), dtype=torch.int64,
+                                 device=leaves[0].device)
+        self.mu = [torch.zeros_like(p) for p in leaves]
+        self.nu = [torch.zeros_like(p) for p in leaves]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+
 class Adam:
     """The `adam` branch of `make_optimizer`."""
 
@@ -72,24 +109,35 @@ class Adam:
         self.schedule = schedule
         self.weight_decay = weight_decay
 
-    def init(self, params) -> torch.optim.Adam:
-        """A `torch.optim.Adam` over the params (made leaves that require
-        grad)."""
-        leaves = [p.requires_grad_(True) for p in param_leaves(params)]
-        return torch.optim.Adam(leaves, lr=self.schedule(0),
-                                betas=(0.9, 0.999), eps=EPS,
-                                weight_decay=self.weight_decay)
+    def init(self, params) -> AdamState:
+        """The state over the params (made leaves that require grad)."""
+        return AdamState([p.requires_grad_(True)
+                          for p in param_leaves(params)])
 
-    def step(self, opt: torch.optim.Adam, count: int) -> None:
-        """Apply one update with lr = schedule(count); a parameter the loss
-        did not reach gets a zero gradient, as optax updates every leaf."""
-        lr = float(self.schedule(count))
-        for group in opt.param_groups:
-            group["lr"] = lr
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        opt.step()
+    @torch.no_grad()
+    def step(self, opt: AdamState) -> None:
+        """One update in optax's order, on the device; a parameter the
+        loss did not reach gets a zero gradient, as optax updates every
+        leaf."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in opt.params]
+        if self.weight_decay:
+            grads = torch._foreach_add(grads, opt.params,
+                                       alpha=self.weight_decay)
+        lr = self.schedule(opt.count)
+        opt.count += 1
+        count = opt.count.to(torch.float32)
+        torch._foreach_mul_(opt.mu, B1)
+        torch._foreach_add_(opt.mu, grads, alpha=1 - B1)
+        torch._foreach_mul_(opt.nu, B2)
+        torch._foreach_addcmul_(opt.nu, grads, grads, value=1 - B2)
+        mu_hat = torch._foreach_div(opt.mu, 1 - B1 ** count)
+        denom = torch._foreach_sqrt(torch._foreach_div(opt.nu,
+                                                       1 - B2 ** count))
+        torch._foreach_add_(denom, EPS)
+        upd = torch._foreach_div(mu_hat, denom)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(opt.params, upd)
 
 
 def make_optimizer(cfg, steps_per_epoch: int) -> Adam:
@@ -103,10 +151,6 @@ def make_optimizer(cfg, steps_per_epoch: int) -> Adam:
     raise ValueError(f"optimizer {cfg.optimizer} not recognized!")
 
 
-def moments(opt: torch.optim.Adam) -> Dict[str, list]:
+def moments(opt: AdamState) -> Dict[str, list]:
     """Adam's count and per-leaf moments (leaf order of `param_leaves`)."""
-    params = opt.param_groups[0]["params"]
-    st = [opt.state.get(p, {}) for p in params]
-    return {"count": int(st[0]["step"]) if st and "step" in st[0] else 0,
-            "mu": [s.get("exp_avg") for s in st],
-            "nu": [s.get("exp_avg_sq") for s in st]}
+    return {"count": int(opt.count), "mu": opt.mu, "nu": opt.nu}

@@ -5,9 +5,11 @@
 render with scene-flow warping (the planar path where it applies, else
 the reference-shaped `render_rays`) -> loss -> backward -> Adam update.
 PyTorch runs eagerly, so the step is a plain function where the JAX
-package returned a jitted one; its `scan_steps > 1` (several steps in one
-dispatch) has no counterpart yet: a CUDA graph of the step is later work
-(ROADMAP.md).
+package returned a jitted one. With `scan_steps=K > 1` it returns the
+counterpart of the JAX package's K-step dispatch (`lax.scan` over K
+steps): on a CUDA device the step is captured once in a CUDA graph and
+replayed, so one dispatch issues no Python op per step (see
+`_MultiStep`); on the CPU the same steps run eagerly.
 
 `make_render_fn` returns a plain function under `torch.inference_mode()`.
 `render_full_image` is the host chunk loop; it pads the last chunk to the
@@ -18,17 +20,19 @@ chunk has one shape. The JAX package's `scan_chunks` has no counterpart
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from nsff_pl_tpu_torch import resolve_device
 from nsff_pl_tpu_torch.models.rendering import RenderConfig, render_rays
+from nsff_pl_tpu_torch.training.optim import AdamState, param_leaves
 
 
 class TrainState(NamedTuple):
     params: Any  # {'nerf_fine', 'embedding_a'?, 'embedding_t'?}
-    opt_state: Any  # torch.optim.Adam over `optim.param_leaves(params)`
+    opt_state: Any  # optim.AdamState over `optim.param_leaves(params)`
     step: int
 
 
@@ -56,6 +60,7 @@ def make_train_step(
     batch_size: int,
     hard_sampling: bool = False,
     scan_steps: int = 1,
+    graph_steps: Optional[int] = None,
     device="cuda",
 ):
     """Build the train step on `device`:
@@ -79,7 +84,14 @@ def make_train_step(
     on a CUDA device with bfloat16 compute). 'on' outside the envelope
     raises. Every other case (no transient branch, not both flows,
     `fused_train='off'`, the plain evaluators) renders through the
-    packed-boundary `render_rays` with `compute_losses`."""
+    packed-boundary `render_rays` with `compute_losses`.
+
+    With `scan_steps=K > 1` it returns the K-step dispatch `_MultiStep`
+    (its docstring has the signature), which on a CUDA device replays a
+    CUDA graph of `graph_steps` steps. The default, K, makes one graph of
+    the whole dispatch, replayed once: a one-step graph replayed K times
+    measured the same per step on an H100 and captures faster, but keeps
+    the host issuing K replays (PERF.md)."""
     from nsff_pl_tpu_torch.data.pipeline import _sample_batch
     from nsff_pl_tpu_torch.models.raymarch import (
         check_train_envelope, planar_unapplicable_reasons,
@@ -89,10 +101,8 @@ def make_train_step(
                                                  total_loss)
 
     dev = resolve_device(device)
-    if scan_steps != 1:
-        raise NotImplementedError(
-            "scan_steps > 1 has no counterpart yet (ROADMAP.md queue A, "
-            "'CUDA graph of the train step')")
+    if scan_steps < 1:
+        raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
     if render_cfg.fused_train not in ("auto", "on", "off"):
         raise ValueError(f"unknown fused_train {render_cfg.fused_train!r}")
     tb = render_cfg.train_backend
@@ -124,12 +134,14 @@ def make_train_step(
             "(ROADMAP.md queue A, 'coarse-to-fine')")
     flow = tuple(output_transient_flow)
 
-    def train_step(state: TrainState, table, weights, Ks, Ps, generator, t,
-                   *, idx=None, batch_u=None, draws=None):
+    def step_body(params, opt, step, table, weights, Ks, Ps, generator, t,
+                  idx, batch_u, draws):
+        """One step from `step` steps made (an int, or the device counter
+        of a dispatch): (metrics, rendered rgb, ray ids)."""
         batch = _sample_batch(table, weights, t, batch_size, hard_sampling,
                               generator=generator, idx=idx, u=batch_u)
-        epoch = state.step // steps_per_epoch
-        models, embeddings = _split_params(state.params)
+        epoch = step // steps_per_epoch
+        models, embeddings = _split_params(params)
         if use_planar:
             results = render_train_planar(
                 models["fine"], embeddings, batch["rays"], batch["ts"],
@@ -145,23 +157,243 @@ def make_train_step(
             loss_d = compute_losses(results, batch, loss_cfg, epoch=epoch,
                                     output_transient_flow=flow, Ks=Ks, Ps=Ps)
         loss = total_loss(loss_d)
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad()
         loss.backward()
-        tx.step(opt, state.step)
+        tx.step(opt)
 
         with torch.no_grad():
             mse = ((results["rgb_fine"] - batch["rgbs"]) ** 2).mean()
             metrics = {k: v.detach() for k, v in loss_d.items()}
             metrics["loss"] = loss.detach()
             metrics["psnr"] = -10.0 * torch.log10(mse)
-        aux = {"rgb_fine": results["rgb_fine"].detach(),
-               "rand_idx": batch["rand_idx"], "t": t}
-        return TrainState(state.params, opt, state.step + 1), metrics, aux
+        return metrics, results["rgb_fine"].detach(), batch["rand_idx"]
 
-    train_step.device = dev
-    train_step.use_planar = use_planar
-    return train_step
+    def train_step(state: TrainState, table, weights, Ks, Ps, generator, t,
+                   *, idx=None, batch_u=None, draws=None):
+        metrics, rgb, rand_idx = step_body(
+            state.params, state.opt_state, state.step, table, weights, Ks,
+            Ps, generator, t, idx, batch_u, draws)
+        aux = {"rgb_fine": rgb, "rand_idx": rand_idx, "t": t}
+        return TrainState(state.params, state.opt_state, state.step + 1), \
+            metrics, aux
+
+    if scan_steps == 1:
+        fn = train_step
+    else:
+        fn = _MultiStep(step_body, scan_steps, graph_steps or scan_steps,
+                        hard_sampling, dev)
+    fn.device = dev
+    fn.use_planar = use_planar
+    return fn
+
+
+def _clone_params(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_params(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(True)
+
+
+def clone_state(state: TrainState) -> TrainState:
+    """A copy of a train state: its params, Adam's count and moments."""
+    params = _clone_params(state.params)
+    opt = AdamState(param_leaves(params))
+    with torch.no_grad():
+        opt.count.copy_(state.opt_state.count)
+        torch._foreach_copy_(opt.mu + opt.nu,
+                             state.opt_state.mu + state.opt_state.nu)
+    return state._replace(params=params, opt_state=opt)
+
+
+def _tensors(x):
+    """The tensors of a nested dict / state, for the capture's key."""
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _tensors(x[k])]
+    if isinstance(x, AdamState):
+        return [x.count] + x.params + x.mu + x.nu
+    return [x] if isinstance(x, torch.Tensor) else []
+
+
+class _Bound:
+    """What one run of the steps reads and writes."""
+
+    def __init__(self, params, opt, tmp_rgb, generator, step, rows, args):
+        self.params, self.opt, self.tmp_rgb = params, opt, tmp_rgb
+        self.generator, self.step, self.rows = generator, step, rows
+        self.table, self.weights, self.Ks, self.Ps = args
+
+
+class _MultiStep:
+    """K training steps in one dispatch (the JAX package's
+    `make_train_step(scan_steps=K)`):
+
+        multi_step(state, tmp_rgb, table, weights, Ks, Ps, generator, ts, *,
+                   idx=None, batch_u=None, draws=None)
+            -> (state, tmp_rgb, metrics)
+
+    `ts` is the (K,) frame schedule (a long tensor on the device), each
+    metric comes stacked to (K,), and with `hard_sampling` each step
+    writes `tmp_rgb[t, rand_idx] = rgb_fine`, in place (which of two draws
+    of one pixel in a batch lands is unspecified, as in JAX's scatter); a
+    dummy (1, 1, 3) passes through untouched otherwise. The optional
+    draws carry a leading K axis: `idx` / `batch_u` (K, B), `draws` a
+    dict of (K, B, S); what is not given is drawn from `generator`.
+    Per step this is exactly the single step: the same function, the
+    same device state. The step counter, the frame t, the epoch and the
+    lr are device values that every step reads and advances.
+
+    On a CUDA device the steps are captured once in a CUDA graph of
+    `graph_steps` steps (a divisor of K) and the graph is replayed
+    K / graph_steps times a dispatch. The capture is made at the first
+    dispatch, after `WARMUP` eager steps on a copy of the state (so the
+    dispatch's own steps are all replays; they run under
+    `torch.cuda.set_sync_debug_mode("error")`, so a step that waits on
+    the host raises there), and again whenever the tensors it reads
+    change (another state, table or buffer). The graph reads the
+    parameters, the Adam state, the table and `tmp_rgb` at their
+    addresses and updates them in place; everything else (the packed
+    weights, the backward's scratch, the activations) comes from the
+    graph's own pool. Between replays only device-to-device copies run:
+    the next rows of the schedule into the graph's static buffers and the
+    metrics out. A CUDA generator is registered with the graph, so each
+    replay draws new numbers. A capture that fails raises with the
+    operation that broke it; nothing falls back to the eager loop.
+    `graph_launches` holds the kernel launches recorded by one capture
+    (`ops/launches.py`), `replays` the replays since, and
+    `capture_seconds` the warm-up and capture's host seconds.
+
+    On the CPU the same function runs the steps eagerly, on the same
+    static buffers."""
+
+    WARMUP = 2
+
+    def __init__(self, body, K: int, G: int, hard_sampling: bool, dev):
+        if G < 1 or K % G:
+            raise ValueError(f"graph_steps={G} must divide scan_steps={K}")
+        self.body, self.K, self.G = body, K, G
+        self.hard_sampling = hard_sampling
+        self.dev = dev
+        self._key = None
+        self.graph_launches: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_seconds = 0.0
+
+    def _run(self, b: _Bound) -> torch.Tensor:
+        """`G` steps on `b`; the (G, n_metrics) metrics."""
+        out = []
+        for g in range(self.G):
+            t = b.rows["ts"][g]
+            draws = {k[5:]: v[g] for k, v in b.rows.items()
+                     if k.startswith("draw_")}
+            metrics, rgb, rand_idx = self.body(
+                b.params, b.opt, b.step, b.table, b.weights, b.Ks, b.Ps,
+                b.generator, t, b.rows["idx"][g] if "idx" in b.rows else None,
+                b.rows["batch_u"][g] if "batch_u" in b.rows else None,
+                draws or None)
+            with torch.no_grad():
+                b.step += 1
+                if self.hard_sampling:
+                    b.tmp_rgb.index_put_((t.expand_as(rand_idx), rand_idx),
+                                         rgb)
+                self.metric_keys = list(metrics)
+                out.append(torch.stack([metrics[k] for k in metrics]))
+        return torch.stack(out)
+
+    def _build(self, state, tmp_rgb, generator, rows, args, key):
+        """Static buffers, and on CUDA the warm-up and the capture."""
+        self._key = self._graph = self._out = None
+        self._step = torch.zeros((), dtype=torch.int64, device=self.dev)
+        self._host_step = None
+        self._rows = {k: torch.empty((self.G,) + tuple(v.shape[1:]),
+                                     dtype=v.dtype, device=self.dev)
+                      for k, v in rows.items()}
+        self._bound = _Bound(state.params, state.opt_state, tmp_rgb,
+                             generator, self._step, self._rows, args)
+        if self.dev.type == "cuda":
+            t0 = time.perf_counter()
+            self._capture(state, tmp_rgb, generator, rows, args)
+            self.capture_seconds = time.perf_counter() - t0
+        self._key = key
+
+    def _capture(self, state, tmp_rgb, generator, rows, args):
+        from nsff_pl_tpu_torch.ops import launches
+
+        spare = clone_state(state)
+        gen = None
+        if generator is not None:
+            gen = torch.Generator(device=self.dev).manual_seed(0)
+        shadow = _Bound(spare.params, spare.opt_state,
+                        tmp_rgb.clone() if self.hard_sampling else tmp_rgb,
+                        gen, self._step.clone(), self._rows, args)
+        for k, v in rows.items():
+            self._rows[k].copy_(v[:self.G])
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(side):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(self.WARMUP):
+                    self._run(shadow)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        del shadow, spare
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    "this PyTorch cannot register a generator with a CUDA "
+                    "graph (CUDAGraph.register_generator_state); a graphed "
+                    "dispatch needs it, or every draw given")
+            graph.register_generator_state(generator)
+        before = launches.counts()
+        try:
+            with torch.cuda.graph(graph):
+                self._out = self._run(self._bound)
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA graph capture of the train step failed: {e}") from e
+        after = launches.counts()
+        self.graph_launches = {k: after[k] - before[k] for k in after}
+        self.replays = 0
+        self._graph = graph
+
+    def __call__(self, state: TrainState, tmp_rgb, table, weights, Ks, Ps,
+                 generator, ts, *, idx=None, batch_u=None, draws=None):
+        K, G = self.K, self.G
+        rows = {"ts": ts, "idx": idx, "batch_u": batch_u}
+        rows.update({f"draw_{k}": v for k, v in (draws or {}).items()})
+        rows = {k: v for k, v in rows.items() if v is not None}
+        for k, v in rows.items():
+            if v.device.type != self.dev.type or v.shape[0] != K:
+                raise ValueError(f"{k}: need a ({K}, ...) tensor on "
+                                 f"{self.dev}, got {tuple(v.shape)} on "
+                                 f"{v.device}")
+        if ts.dtype != torch.int64:
+            raise ValueError(f"ts: need int64 frames, got {ts.dtype}")
+        args = (table, weights, Ks, Ps)
+        key = (tuple(t.data_ptr() for t in _tensors(state.params)
+                     + _tensors(state.opt_state) + [tmp_rgb, *args]),
+               id(generator),
+               tuple((k, tuple(v.shape), v.dtype) for k, v in rows.items()))
+        if key != self._key:
+            self._build(state, tmp_rgb, generator, rows, args, key)
+        if self._host_step != state.step:
+            self._step.fill_(state.step)
+        outs = []
+        for r in range(K // G):
+            for k, v in rows.items():
+                self._rows[k].copy_(v[r * G:(r + 1) * G])
+            if self._graph is not None:
+                self._graph.replay()
+                self.replays += 1
+                outs.append(self._out.clone())
+            else:
+                outs.append(self._run(self._bound))
+        metrics = torch.cat(outs)
+        self._host_step = state.step + K
+        return (TrainState(state.params, state.opt_state, state.step + K),
+                tmp_rgb, {k: metrics[:, i]
+                          for i, k in enumerate(self.metric_keys)})
 
 
 def make_render_fn(

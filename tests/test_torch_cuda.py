@@ -475,7 +475,7 @@ def test_packed_kernels_match_plain(variant, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [37, 512])
+@pytest.mark.parametrize("n", [1, 37, 512, 8192])
 def test_packed_compositing_kernels_match_plain(n):
     """fused_compositing forward (1e-5 abs) and adjoint (1e-4 of each
     column's largest cotangent; columns 8-15 exactly zero), with sigmas
@@ -512,3 +512,124 @@ def test_packed_compositing_kernels_match_plain(n):
     assert not bool(dp[..., 8:].any())
     for c in range(8):
         assert _rel_err(dp[..., c], rdp[..., c]) <= 1e-4, c
+
+
+@pytest.mark.cuda
+def test_packed_compositing_is_deterministic():
+    """The packed compositor's forward and adjoint give the same bits on
+    two calls (fixed-order scans and sums, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.ops import compositing_kernel as fck
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n = 512
+    packed = torch.randn(n, 128, 16, generator=g, device="cuda")
+    zs = torch.sort(torch.rand(n, 128, generator=g, device="cuda"), 1).values
+    ns, nt = (torch.randn(n, 128, generator=g, device="cuda")
+              for _ in range(2))
+    cot = {k: torch.randn(n, 128, generator=g, device="cuda")
+           for k in fck.OUT_KEYS}
+    gmap = torch.randn(n, 4, generator=g, device="cuda")
+    runs = [(fck.fused_compositing_fwd(packed, zs, ns, nt),
+             fck.fused_compositing_bwd(packed, zs, ns, nt, cot, gmap))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (p1, m1), d1 = runs[0]
+    (p2, m2), d2 = runs[1]
+    assert torch.equal(p1, p2) and torch.equal(m1, m2) and torch.equal(d1, d2)
+
+
+def _train_inputs_small(n_frames=3, hw=4096, seed=0):
+    """A small ray table in the JAX package's channel layout (rays 0:6,
+    rgb 6:9, t 9, disparity 10, mask 11, flow targets 12:16) and the
+    cameras of the flow loss."""
+    g = torch.Generator().manual_seed(seed)
+    table = torch.rand(n_frames, hw, 16, generator=g)
+    table[..., 0:2] = table[..., 0:2] * 2 - 1
+    table[..., 2] = -1.0
+    table[..., 3:5] = (table[..., 3:5] - 0.5) * 0.4
+    table[..., 5] = 2.0
+    table[..., 9] = torch.arange(n_frames, dtype=torch.float32)[:, None]
+    f = 200.0
+    K = torch.tensor([[[f, 0, 32], [0, f, 32], [0, 0, 1]]])
+    Ps = K[:, None] @ torch.eye(3, 4).expand(1, n_frames, 3, 4)
+    return table.cuda(), K.cuda(), Ps.contiguous().cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["planar", "packed"])
+def test_graphed_steps_match_eager(path):
+    """Three steps as one graphed dispatch (`make_train_step(scan_steps=
+    3)`, one CUDA graph) against three eager single steps from a copy of
+    the same state on the same frames and draws, at full width and
+    batch 64: the same kernels on the same inputs, so loss terms within
+    1e-4 relative and the params within 1e-5; the capture recorded each
+    kernel's per-step launches; a dispatch that draws from a registered
+    generator draws anew on each replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.config import (NSFFConfig, build_params,
+                                          loss_config, render_config)
+    from nsff_pl_tpu_torch.training.optim import make_optimizer, param_leaves
+    from nsff_pl_tpu_torch.training.step import TrainState, make_train_step
+
+    K, B, S = 3, 64, 128
+    cfg = NSFFConfig(img_wh=(64, 64), start_end=(0, 3), use_viewdir=True,
+                     encode_t=True, N_samples=S, batch_size=B, lr=5e-4,
+                     lr_scheduler="cosine", num_epochs=50, dtype="bfloat16")
+    if path == "packed":
+        cfg = cfg.replace(fused_train="off", fused_compositing=True)
+    table, Ks, Ps = _train_inputs_small()
+    weights = torch.ones(table.shape[:2], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ts = torch.tensor([0, 2, 1], device="cuda")
+    idx = torch.randint(0, table.shape[1], (K, B), generator=g,
+                        device="cuda")
+    draws = {k: (torch.rand if k == "u" else torch.randn)(
+        (K, B, S), generator=g, device="cuda")
+        for k in ("u", "ns", "nt", "nw1", "nw2")}
+
+    def setup(scan_steps):
+        params = build_params(cfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+        tx = make_optimizer(cfg, 100)
+        step = make_train_step(
+            render_config(cfg), loss_config(cfg), tx, output_transient=True,
+            output_transient_flow=tuple(cfg.output_transient_flow),
+            steps_per_epoch=100, batch_size=B, scan_steps=scan_steps)
+        assert step.use_planar == (path == "planar")
+        return TrainState(params, tx.init(params), 0), step
+
+    state, single = setup(1)
+    rows = []
+    for i in range(K):
+        state, m, _ = single(state, table, weights, Ks, Ps, None,
+                             ts[i], idx=idx[i],
+                             draws={k: v[i] for k, v in draws.items()})
+        rows.append(m)
+    gstate, multi = setup(K)
+    tmp = torch.zeros(1, 1, 3, device="cuda")
+    gstate, _, gm = multi(gstate, tmp, table, weights, Ks, Ps, None, ts,
+                          idx=idx, draws=draws)
+    torch.cuda.synchronize()
+    assert multi.replays == 1 and gstate.step == K
+    for k in rows[0]:
+        want = torch.stack([r[k] for r in rows])
+        torch.testing.assert_close(gm[k], want, rtol=1e-4, atol=1e-9)
+    for a, b in zip(param_leaves(gstate.params), param_leaves(state.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    fwd = ("planar_nerf_train_fwd" if path == "planar"
+           else "fused_nerf_eval")
+    assert multi.graph_launches[fwd] == 3 * K
+
+    # draws from a registered generator: each replay draws anew
+    _, drawing = setup(K)
+    dstate = setup(1)[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dstate, _, m1 = drawing(dstate, tmp, table, weights, Ks, Ps, gen, ts)
+    dstate, _, m2 = drawing(dstate, tmp, table, weights, Ks, Ps, gen, ts)
+    torch.cuda.synchronize()
+    assert drawing.replays == 2
+    assert all(bool(torch.isfinite(v).all()) for v in m2.values())
+    assert not torch.equal(m1["col_l"], m2["col_l"])

@@ -110,7 +110,7 @@ def test_adam_matches_optax(weight_decay):
         jp = optax.apply_updates(jp, upd)
         for leaf, gl in zip(toptim.param_leaves(tp), jax.tree.leaves(g)):
             leaf.grad = torch.from_numpy(gl)
-        ttx.step(opt, step)
+        ttx.step(opt)
         for a, b in zip(toptim.param_leaves(tp), jax.tree.leaves(jp)):
             np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
                                        rtol=1e-5, atol=1e-7)
