@@ -808,22 +808,30 @@ def packed_kernel_phase(torch, np, params, rays, card):
     return records
 
 
-def empty_launch_ms(torch, n_rays: int) -> float:
-    """The launch floor: an empty kernel on the packed compositor's grid
-    for n_rays rays, by the compositor's stopwatch."""
+def empty_launch(torch, n_rays: int):
+    """A launch of an empty kernel (`csrc/launch_floor.cu`) on the packed
+    compositor's grid for n_rays rays (two rays of 128 threads a CTA,
+    `csrc/fused_compositing.cu`)."""
     import ctypes
 
     from nsff_pl_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.load("fused_compositing").nsff_empty_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn = cuda_build.load("launch_floor").nsff_empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    rays_per_cta, threads = 2, 2 * 128
 
     def launch():
-        if fn(n_rays, torch.cuda.current_stream().cuda_stream) != 0:
+        if fn(-(-n_rays // rays_per_cta), threads,
+              torch.cuda.current_stream().cuda_stream) != 0:
             fail("empty kernel launch failed")
 
-    return cuda_ms(torch, launch, iters=100, graph=True)
+    return launch
+
+
+def empty_launch_ms(torch, n_rays: int) -> float:
+    """The launch floor: `empty_launch` by the compositor's stopwatch."""
+    return cuda_ms(torch, empty_launch(torch, n_rays), iters=100, graph=True)
 
 
 def packed_comp_large(torch, fck, records, card, n=LARGE_BATCH):
@@ -940,10 +948,9 @@ def check_counts(counts, expected, n, what):
 
 
 def train_setup(torch, cfg, params, device, batch, scan_steps=1,
-                graph_steps=None):
+                hard_sampling=False):
     """Optimizer, state and train step of the recipe `cfg` on `device`
-    (`scan_steps` > 1: the K-step dispatch, in graphs of `graph_steps`
-    steps)."""
+    (`scan_steps` > 1: the K-step dispatch)."""
     import dataclasses
 
     from nsff_pl_tpu_torch.config import loss_config, render_config
@@ -960,17 +967,18 @@ def train_setup(torch, cfg, params, device, batch, scan_steps=1,
                            output_transient_flow=tuple(
                                cfg.output_transient_flow),
                            steps_per_epoch=spe, batch_size=batch,
-                           scan_steps=scan_steps, graph_steps=graph_steps,
-                           device=device)
+                           hard_sampling=hard_sampling,
+                           scan_steps=scan_steps, device=device)
     return TrainState(params, tx.init(params), 0), step
 
 
 def step_rows(torch, cfg, sched, gen, steps):
     """The frames and draws of `steps` steps, drawn up front on the card,
-    so that the eager steps and the graphed dispatch read the same."""
+    so that the eager steps and the graphed dispatch read the same; a
+    step's pixels are distinct (drawn without replacement)."""
     ts = [sched.next() for _ in range(steps)]
-    idx = torch.randint(0, H_IMG * W_IMG, (steps, BATCH), generator=gen,
-                        device="cuda")
+    idx = torch.argsort(torch.rand((steps, H_IMG * W_IMG), generator=gen,
+                                   device="cuda"), 1)[:, :BATCH]
     draws = {k: (torch.rand if k == "u" else torch.randn)(
         (steps, BATCH, cfg.N_samples), generator=gen, device="cuda")
         for k in ("u", "ns", "nt", "nw1", "nw2")}
@@ -1011,13 +1019,14 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
     reset_counts()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    rows = []
+    rows, auxs = [], []
     t0 = time.perf_counter()
     ev0.record()
     for i in range(steps):
-        state, m, _ = step(state, *args, ts[i], idx=idx[i],
-                           draws={k: v[i] for k, v in draws.items()})
+        state, m, aux = step(state, *args, ts[i], idx=idx[i],
+                             draws={k: v[i] for k, v in draws.items()})
         rows.append(m)
+        auxs.append(aux)
     ev1.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
@@ -1039,10 +1048,13 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
            zip(before, param_leaves(state.params))):
         fail(f"{label}: params did not change")
     eager = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    eager_tmp = torch.zeros((N_FRAMES, H_IMG * W_IMG, 3), device="cuda")
+    for t, aux in zip(ts, auxs):
+        eager_tmp[t, aux["rand_idx"]] = aux["rgb_fine"]
     graph_counts, graph_ms = graphed_phase(
         torch, np, cfg, start, (batcher.table, batcher.weights, Ks, Ps, gen),
-        ts, idx, draws, eager, card, label=label, per_step=per_step,
-        profile=profile)
+        ts, idx, draws, eager, eager_tmp, card, label=label,
+        per_step=per_step, profile=profile)
 
     if repeat:  # one repeated batch and draws: the loss must fall
         t = sched.next()
@@ -1087,12 +1099,24 @@ def _symbol_count(key, symbol):
     return re.search(r"(^|[^A-Za-z0-9_])" + symbol + r"\b", key) is not None
 
 
-def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager, card,
-                  *, label, per_step, profile):
+def cdf_uniforms(torch, weights, ts, idx):
+    """The hard-sampling uniforms that draw pixels `idx` (K, B) of frames
+    `ts`: the middle of each pixel's step of its frame's weight CDF."""
+    cw = torch.cumsum(weights[torch.tensor(ts, device=weights.device)], 1)
+    lo = torch.where(idx > 0, cw.gather(1, (idx - 1).clamp(min=0)), 0.0)
+    return (lo + cw.gather(1, idx)) / 2 / cw[:, -1:]
+
+
+def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager,
+                  eager_tmp, card, *, label, per_step, profile):
     """The same steps as one K-step dispatch (`make_train_step(scan_steps=
-    K)`, one CUDA graph) from `state`: the first dispatch captures (its
-    seconds printed) and its per-step loss terms must equal the eager
-    steps' (`eager`, stacked) within GRAPH_RTOL; a second dispatch is
+    K)`, one CUDA graph) from `state`, with hard sampling on, so that the
+    graph also holds the weighted draw and the `tmp_rgb[t, rand_idx] =
+    rgb` write: its uniforms draw the eager steps' pixels (`cdf_uniforms`).
+    The first dispatch captures (its seconds printed); its per-step loss
+    terms must equal the eager steps' (`eager`, stacked) within
+    GRAPH_RTOL, and its `tmp_rgb` the eager steps' rgb written at their
+    ray ids (`eager_tmp`) within the same; a second dispatch is
     timed with the launch counts set to 0 just before it and read just
     after, counted as the capture's launches times the replays; with
     `profile`, torch.profiler over a third dispatch counts the kernels
@@ -1100,12 +1124,12 @@ def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager, card,
     ms per step."""
     K = len(ts)
     multi = train_setup(torch, cfg, state.params, "cuda", BATCH,
-                        scan_steps=K)[1]
+                        scan_steps=K, hard_sampling=True)[1]
     table, weights, Ks, Ps, gen = args
-    tmp = torch.zeros((1, 1, 3), device="cuda")
+    tmp = torch.zeros_like(eager_tmp)
     ts_dev = torch.tensor(ts, device="cuda")
     margs = (tmp, table, weights, Ks, Ps, gen, ts_dev)
-    mkw = dict(idx=idx, draws=draws)
+    mkw = dict(batch_u=cdf_uniforms(torch, weights, ts, idx), draws=draws)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, _, m = multi(state, *margs, **mkw)
@@ -1126,6 +1150,16 @@ def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager, card,
           flush=True)
     if not worst <= GRAPH_RTOL:
         fail(f"{label}: the graphed steps disagree with the eager steps")
+    written = int((tmp != 0).any(-1).sum())
+    want = int((eager_tmp != 0).any(-1).sum())
+    tmp_err = float((tmp - eager_tmp).abs().max())
+    print(f"{label} [graphed]: tmp_rgb (hard sampling) against the eager "
+          f"steps' rgb at their ray ids: {written} pixels written "
+          f"({want} by the eager steps), worst abs error {tmp_err:.2e} (tol "
+          f"{GRAPH_RTOL})", flush=True)
+    if written != want or not tmp_err <= GRAPH_RTOL:
+        fail(f"{label}: the graphed tmp_rgb writes disagree with the eager "
+             "steps")
     for i in range(K):
         print(f"{label} [graphed]: step {i + 1} " + json.dumps(
             {k: float(v[i]) for k, v in m.items()}), flush=True)
@@ -1150,7 +1184,7 @@ def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager, card,
     counts = {k: multi.graph_launches[k] * replays for k in eager_counts}
     print(f"{label} [graphed]: {K} steps in one dispatch at batch {BATCH}, "
           f"{dev_ms:.3f} ms per step (CUDA events), {host_ms:.3f} ms (host "
-          f"clock), {replays} replay(s) of a graph of {multi.G} step(s) on "
+          f"clock), {replays} replay(s) of a graph of {K} steps on "
           f"{card}", flush=True)
     print(f"{label} [graphed]: launches (capture x replays) "
           + json.dumps({k: v for k, v in counts.items() if v}), flush=True)
@@ -1431,7 +1465,8 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build(["planar_eval_comp", "planar_nerf_train",
                       "planar_compositor", "fused_nerf_eval",
-                      "fused_nerf_train", "fused_compositing"])
+                      "fused_nerf_train", "fused_compositing",
+                      "launch_floor"])
     phase_s["build"] = time.perf_counter() - t0
     print(f"build: {phase_s['build']:.1f} s", flush=True)
     t_phase = time.perf_counter()

@@ -23,9 +23,10 @@
 // more and writes the 64-byte cotangent rows). At the training batch (512
 // rays) the whole call moves ~5 MB, so it is a latency problem: four warps
 // per ray, one sample per thread (2048 warps at 512 rays, ~16 per SM,
-// where one warp per ray gave four), four rays per CTA (an empty kernel
-// of one CTA per ray took ~1.1 us just to launch its 512 CTAs), every
-// global load issued before any arithmetic (one memory round trip), and
+// where one warp per ray gave four), two rays per CTA (256 threads:
+// measured on an H100 against one and four rays a CTA, it was the fastest
+// by the stopwatch of a graph replay at 512 rays and no slower at 8192),
+// every global load issued before any arithmetic (one memory round trip), and
 // the scans as warp shuffles joined across a ray's four warps through
 // shared memory:
 //   - products (transmittance): inclusive Hillis-Steele within the warp,
@@ -52,7 +53,7 @@ namespace {
 constexpr int NCOL = 16;   // columns of a packed row
 constexpr int NPLANE = 7;  // output planes
 constexpr int NWARP = S / 32;  // warps per ray (one sample per thread)
-constexpr int RAYS = 4;        // rays per CTA
+constexpr int RAYS = 2;        // rays per CTA
 constexpr int NTHR = RAYS * S;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float TINY = 1e-37f;
@@ -246,10 +247,6 @@ __global__ void __launch_bounds__(NTHR) fused_comp_bwd_kernel(const Args A,
   }
 }
 
-// no work: its time by the same stopwatch is the launch floor of a kernel
-// of this grid
-__global__ void empty_kernel() {}
-
 Args make_args(const void* packed, const void* zs, const void* ns,
                const void* nt) {
   Args A = {};
@@ -284,12 +281,5 @@ extern "C" int nsff_fused_comp_bwd(const void* packed, const void* zs,
   A.dpacked = static_cast<float*>(dpacked);
   fused_comp_bwd_kernel<<<(n_rays + RAYS - 1) / RAYS, NTHR, 0,
                           static_cast<cudaStream_t>(stream)>>>(A, n_rays);
-  return int(cudaGetLastError());
-}
-
-// the empty kernel on the compositor's grid for n_rays rays
-extern "C" int nsff_empty_launch(int n_rays, void* stream) {
-  empty_kernel<<<(n_rays + RAYS - 1) / RAYS, NTHR, 0,
-                 static_cast<cudaStream_t>(stream)>>>();
   return int(cudaGetLastError());
 }

@@ -143,7 +143,7 @@ def _lib_fn(name, argtypes):
 
 
 def fused_compositing_fwd_cuda(packed, zs, noise_s, noise_t):
-    """Launch the forward kernel (four warps a ray, four rays a CTA) on the
+    """Launch the forward kernel (four warps a ray, two rays a CTA) on the
     current stream; adds one to `fused_compositing_fwd_cuda.launches`."""
     n, S, dev, ptrs = _inputs(packed, zs, noise_s, noise_t)
     out = torch.empty((len(OUT_KEYS), n, S), dtype=torch.float32, device=dev)
@@ -167,7 +167,7 @@ fused_compositing_fwd_cuda.launches = 0
 
 
 def fused_compositing_bwd_cuda(packed, zs, noise_s, noise_t, g, gmap):
-    """Launch the adjoint kernel (four warps a ray, four rays a CTA) on the
+    """Launch the adjoint kernel (four warps a ray, two rays a CTA) on the
     current stream; adds one to `fused_compositing_bwd_cuda.launches`."""
     n, S, dev, ptrs = _inputs(packed, zs, noise_s, noise_t)
     dp = torch.empty((n, S, N_PACKED), dtype=torch.float32, device=dev)

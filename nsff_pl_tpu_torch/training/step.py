@@ -60,7 +60,6 @@ def make_train_step(
     batch_size: int,
     hard_sampling: bool = False,
     scan_steps: int = 1,
-    graph_steps: Optional[int] = None,
     device="cuda",
 ):
     """Build the train step on `device`:
@@ -87,11 +86,8 @@ def make_train_step(
     packed-boundary `render_rays` with `compute_losses`.
 
     With `scan_steps=K > 1` it returns the K-step dispatch `_MultiStep`
-    (its docstring has the signature), which on a CUDA device replays a
-    CUDA graph of `graph_steps` steps. The default, K, makes one graph of
-    the whole dispatch, replayed once: a one-step graph replayed K times
-    measured the same per step on an H100 and captures faster, but keeps
-    the host issuing K replays (PERF.md)."""
+    (its docstring has the signature), which on a CUDA device replays one
+    CUDA graph of all K steps."""
     from nsff_pl_tpu_torch.data.pipeline import _sample_batch
     from nsff_pl_tpu_torch.models.raymarch import (
         check_train_envelope, planar_unapplicable_reasons,
@@ -180,8 +176,7 @@ def make_train_step(
     if scan_steps == 1:
         fn = train_step
     else:
-        fn = _MultiStep(step_body, scan_steps, graph_steps or scan_steps,
-                        hard_sampling, dev)
+        fn = _MultiStep(step_body, scan_steps, hard_sampling, dev)
     fn.device = dev
     fn.use_planar = use_planar
     return fn
@@ -241,9 +236,10 @@ class _MultiStep:
     same device state. The step counter, the frame t, the epoch and the
     lr are device values that every step reads and advances.
 
-    On a CUDA device the steps are captured once in a CUDA graph of
-    `graph_steps` steps (a divisor of K) and the graph is replayed
-    K / graph_steps times a dispatch. The capture is made at the first
+    On a CUDA device the K steps are captured once in one CUDA graph,
+    replayed once a dispatch (a graph of one step replayed K times
+    measured no faster per step on an H100 and keeps the host issuing K
+    replays, PERF.md). The capture is made at the first
     dispatch, after `WARMUP` eager steps on a copy of the state (so the
     dispatch's own steps are all replays; they run under
     `torch.cuda.set_sync_debug_mode("error")`, so a step that waits on
@@ -252,9 +248,9 @@ class _MultiStep:
     parameters, the Adam state, the table and `tmp_rgb` at their
     addresses and updates them in place; everything else (the packed
     weights, the backward's scratch, the activations) comes from the
-    graph's own pool. Between replays only device-to-device copies run:
-    the next rows of the schedule into the graph's static buffers and the
-    metrics out. A CUDA generator is registered with the graph, so each
+    graph's own pool. Around a replay only device-side work runs: a fill
+    of the step counter, copies of the schedule's rows into the graph's
+    static buffers, and the metrics out. A CUDA generator is registered with the graph, so each
     replay draws new numbers. A capture that fails raises with the
     operation that broke it; nothing falls back to the eager loop.
     `graph_launches` holds the kernel launches recorded by one capture
@@ -266,10 +262,8 @@ class _MultiStep:
 
     WARMUP = 2
 
-    def __init__(self, body, K: int, G: int, hard_sampling: bool, dev):
-        if G < 1 or K % G:
-            raise ValueError(f"graph_steps={G} must divide scan_steps={K}")
-        self.body, self.K, self.G = body, K, G
+    def __init__(self, body, K: int, hard_sampling: bool, dev):
+        self.body, self.K = body, K
         self.hard_sampling = hard_sampling
         self.dev = dev
         self._key = None
@@ -278,9 +272,9 @@ class _MultiStep:
         self.capture_seconds = 0.0
 
     def _run(self, b: _Bound) -> torch.Tensor:
-        """`G` steps on `b`; the (G, n_metrics) metrics."""
+        """`K` steps on `b`; the (K, n_metrics) metrics."""
         out = []
-        for g in range(self.G):
+        for g in range(self.K):
             t = b.rows["ts"][g]
             draws = {k[5:]: v[g] for k, v in b.rows.items()
                      if k.startswith("draw_")}
@@ -302,9 +296,7 @@ class _MultiStep:
         """Static buffers, and on CUDA the warm-up and the capture."""
         self._key = self._graph = self._out = None
         self._step = torch.zeros((), dtype=torch.int64, device=self.dev)
-        self._host_step = None
-        self._rows = {k: torch.empty((self.G,) + tuple(v.shape[1:]),
-                                     dtype=v.dtype, device=self.dev)
+        self._rows = {k: torch.empty_like(v, device=self.dev)
                       for k, v in rows.items()}
         self._bound = _Bound(state.params, state.opt_state, tmp_rgb,
                              generator, self._step, self._rows, args)
@@ -325,7 +317,7 @@ class _MultiStep:
                         tmp_rgb.clone() if self.hard_sampling else tmp_rgb,
                         gen, self._step.clone(), self._rows, args)
         for k, v in rows.items():
-            self._rows[k].copy_(v[:self.G])
+            self._rows[k].copy_(v)
         side = torch.cuda.Stream(self.dev)
         side.wait_stream(torch.cuda.current_stream(self.dev))
         with torch.cuda.stream(side):
@@ -359,7 +351,7 @@ class _MultiStep:
 
     def __call__(self, state: TrainState, tmp_rgb, table, weights, Ks, Ps,
                  generator, ts, *, idx=None, batch_u=None, draws=None):
-        K, G = self.K, self.G
+        K = self.K
         rows = {"ts": ts, "idx": idx, "batch_u": batch_u}
         rows.update({f"draw_{k}": v for k, v in (draws or {}).items()})
         rows = {k: v for k, v in rows.items() if v is not None}
@@ -377,20 +369,15 @@ class _MultiStep:
                tuple((k, tuple(v.shape), v.dtype) for k, v in rows.items()))
         if key != self._key:
             self._build(state, tmp_rgb, generator, rows, args, key)
-        if self._host_step != state.step:
-            self._step.fill_(state.step)
-        outs = []
-        for r in range(K // G):
-            for k, v in rows.items():
-                self._rows[k].copy_(v[r * G:(r + 1) * G])
-            if self._graph is not None:
-                self._graph.replay()
-                self.replays += 1
-                outs.append(self._out.clone())
-            else:
-                outs.append(self._run(self._bound))
-        metrics = torch.cat(outs)
-        self._host_step = state.step + K
+        self._step.fill_(state.step)
+        for k, v in rows.items():
+            self._rows[k].copy_(v)
+        if self._graph is not None:
+            self._graph.replay()
+            self.replays += 1
+            metrics = self._out.clone()
+        else:
+            metrics = self._run(self._bound)
         return (TrainState(state.params, state.opt_state, state.step + K),
                 tmp_rgb, {k: metrics[:, i]
                           for i, k in enumerate(self.metric_keys)})

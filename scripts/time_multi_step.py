@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's training step on the card three ways, in turns: eager
-single steps, and the K-step dispatch (`make_train_step(scan_steps=K)`)
-as one CUDA graph of K steps or as one graph of one step replayed K
-times (`graph_steps`).
+"""Time the port's training step on the card two ways, in turns: eager
+single steps, and the K-step dispatch (`make_train_step(scan_steps=K)`,
+one CUDA graph of K steps).
 
     python3 scripts/time_multi_step.py [--steps K] [--turns N]
 
@@ -12,9 +11,8 @@ the planar path and on the packed path (`fused_train="off"`,
 `fused_compositing=True`): for each way, device ms per step by CUDA
 events around a dispatch of K steps (K eager steps) and host ms per step
 by the clock from call to the end of a synchronize, in N turns of
-(eager, K-step graph, 1-step graph, 1-step graph, K-step graph, eager);
-each graphed way's capture seconds and `torch.cuda.max_memory_allocated`
-after its capture. The steps' draws are drawn up front on the card. The
+(eager, graph, graph, eager); the graph's capture seconds and
+`torch.cuda.max_memory_allocated` after its capture. The steps' draws are drawn up front on the card. The
 recipe, state set-up and timers are `chip_smoke.py`'s, loaded by path.
 Prints one JSON line per measurement. Needs one CUDA card.
 """
@@ -70,27 +68,21 @@ def main() -> int:
             torch, cfg, FrameScheduler(cs.N_FRAMES, seed=cfg.seed), gen, K)
         ts_dev = torch.tensor(ts, device="cuda")
         tmp = torch.zeros((1, 1, 3), device="cuda")
-        ways = {"eager": None}
-        for G in (K, 1):
-            gstate = clone_state(state)
-            multi = cs.train_setup(torch, cfg, gstate.params, "cuda",
-                                   cs.BATCH, scan_steps=K,
-                                   graph_steps=G)[1]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            gstate, _, _ = multi(gstate, tmp, table, weights, Ks, Ps, gen,
-                                 ts_dev, idx=idx, draws=draws)
-            torch.cuda.synchronize()
-            ways[f"graph of {G} step(s)"] = (multi, gstate)
-            print(json.dumps({
-                "path": path, "way": f"graph of {G} step(s)",
-                "capture_s": multi.capture_seconds,
-                "max_memory_allocated_gib":
-                    torch.cuda.max_memory_allocated() / 2**30,
-                "card": card}), flush=True)
-        order = ["eager", f"graph of {K} step(s)", "graph of 1 step(s)"]
+        gstate = clone_state(state)
+        multi = cs.train_setup(torch, cfg, gstate.params, "cuda", cs.BATCH,
+                               scan_steps=K)[1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gstate, _, _ = multi(gstate, tmp, table, weights, Ks, Ps, gen,
+                             ts_dev, idx=idx, draws=draws)
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "path": path, "way": "graph", "capture_s": multi.capture_seconds,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30,
+            "card": card}), flush=True)
         for turn in range(args.turns):
-            for way in order + order[::-1]:
+            for way in ("eager", "graph", "graph", "eager"):
                 ev0 = torch.cuda.Event(enable_timing=True)
                 ev1 = torch.cuda.Event(enable_timing=True)
                 torch.cuda.synchronize()
@@ -103,11 +95,9 @@ def main() -> int:
                             idx=idx[i],
                             draws={k: v[i] for k, v in draws.items()})
                 else:
-                    multi, gstate = ways[way]
                     gstate, _, _ = multi(gstate, tmp, table, weights, Ks,
                                          Ps, gen, ts_dev, idx=idx,
                                          draws=draws)
-                    ways[way] = (multi, gstate)
                 ev1.record()
                 torch.cuda.synchronize()
                 host = (time.perf_counter() - t0) * 1e3 / K
@@ -115,7 +105,7 @@ def main() -> int:
                                   "ms": ev0.elapsed_time(ev1) / K,
                                   "host_ms": host, "card": card}),
                       flush=True)
-        del ways
+        del multi, gstate
     return 0
 
 

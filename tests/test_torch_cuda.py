@@ -558,15 +558,20 @@ def _train_inputs_small(n_frames=3, hw=4096, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hard", [False, True])
 @pytest.mark.parametrize("path", ["planar", "packed"])
-def test_graphed_steps_match_eager(path):
+def test_graphed_steps_match_eager(path, hard):
     """Three steps as one graphed dispatch (`make_train_step(scan_steps=
     3)`, one CUDA graph) against three eager single steps from a copy of
     the same state on the same frames and draws, at full width and
     batch 64: the same kernels on the same inputs, so loss terms within
     1e-4 relative and the params within 1e-5; the capture recorded each
     kernel's per-step launches; a dispatch that draws from a registered
-    generator draws anew on each replay."""
+    generator draws anew on each replay. With `hard`, both sample by
+    hard sampling on random weights (the graph then also holds the
+    weighted draw and the `tmp_rgb[t, rand_idx] = rgb` write), from
+    uniforms that pick distinct pixels, so every write lands: the graphed
+    buffer must equal the eager steps' rgb written at their ray ids."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from nsff_pl_tpu_torch.config import (NSFFConfig, build_params,
@@ -581,11 +586,18 @@ def test_graphed_steps_match_eager(path):
     if path == "packed":
         cfg = cfg.replace(fused_train="off", fused_compositing=True)
     table, Ks, Ps = _train_inputs_small()
-    weights = torch.ones(table.shape[:2], device="cuda")
     g = torch.Generator(device="cuda").manual_seed(1)
+    hw = table.shape[1]
+    weights = (torch.rand(table.shape[:2], generator=g, device="cuda") + 0.5
+               if hard else torch.ones(table.shape[:2], device="cuda"))
     ts = torch.tensor([0, 2, 1], device="cuda")
-    idx = torch.randint(0, table.shape[1], (K, B), generator=g,
-                        device="cuda")
+    idx = torch.argsort(torch.rand((K, hw), generator=g, device="cuda"),
+                        1)[:, :B]
+    # hard sampling: the uniform at the middle of each pixel's CDF step
+    cw = torch.cumsum(weights[ts], 1)
+    lo = torch.where(idx > 0, cw.gather(1, (idx - 1).clamp(min=0)), 0.0)
+    batch_u = (lo + cw.gather(1, idx)) / 2 / cw[:, -1:]
+    sel = dict(batch_u=batch_u) if hard else dict(idx=idx)
     draws = {k: (torch.rand if k == "u" else torch.randn)(
         (K, B, S), generator=g, device="cuda")
         for k in ("u", "ns", "nt", "nw1", "nw2")}
@@ -597,23 +609,33 @@ def test_graphed_steps_match_eager(path):
         step = make_train_step(
             render_config(cfg), loss_config(cfg), tx, output_transient=True,
             output_transient_flow=tuple(cfg.output_transient_flow),
-            steps_per_epoch=100, batch_size=B, scan_steps=scan_steps)
+            steps_per_epoch=100, batch_size=B, hard_sampling=hard,
+            scan_steps=scan_steps)
         assert step.use_planar == (path == "planar")
         return TrainState(params, tx.init(params), 0), step
 
     state, single = setup(1)
     rows = []
+    want_tmp = torch.zeros(table.shape[:2] + (3,), device="cuda")
     for i in range(K):
-        state, m, _ = single(state, table, weights, Ks, Ps, None,
-                             ts[i], idx=idx[i],
-                             draws={k: v[i] for k, v in draws.items()})
+        state, m, aux = single(state, table, weights, Ks, Ps, None,
+                               ts[i], **{k: v[i] for k, v in sel.items()},
+                               draws={k: v[i] for k, v in draws.items()})
         rows.append(m)
+        assert torch.equal(aux["rand_idx"], idx[i])
+        want_tmp[ts[i], aux["rand_idx"]] = aux["rgb_fine"]
     gstate, multi = setup(K)
-    tmp = torch.zeros(1, 1, 3, device="cuda")
-    gstate, _, gm = multi(gstate, tmp, table, weights, Ks, Ps, None, ts,
-                          idx=idx, draws=draws)
+    tmp = torch.zeros_like(want_tmp) if hard else torch.zeros(1, 1, 3,
+                                                              device="cuda")
+    gstate, tmp_out, gm = multi(gstate, tmp, table, weights, Ks, Ps, None,
+                                ts, **sel, draws=draws)
     torch.cuda.synchronize()
-    assert multi.replays == 1 and gstate.step == K
+    assert multi.replays == 1 and gstate.step == K and tmp_out is tmp
+    if hard:
+        assert int((tmp != 0).any(-1).sum()) == K * B
+        torch.testing.assert_close(tmp, want_tmp, rtol=1e-4, atol=1e-6)
+    else:
+        assert not tmp.any()
     for k in rows[0]:
         want = torch.stack([r[k] for r in rows])
         torch.testing.assert_close(gm[k], want, rtol=1e-4, atol=1e-9)
@@ -629,6 +651,8 @@ def test_graphed_steps_match_eager(path):
     gen = torch.Generator(device="cuda").manual_seed(5)
     dstate, _, m1 = drawing(dstate, tmp, table, weights, Ks, Ps, gen, ts)
     dstate, _, m2 = drawing(dstate, tmp, table, weights, Ks, Ps, gen, ts)
+    if hard:  # fresh weighted draws write fresh pixels
+        assert int((tmp != 0).any(-1).sum()) > K * B
     torch.cuda.synchronize()
     assert drawing.replays == 2
     assert all(bool(torch.isfinite(v).all()) for v in m2.values())

@@ -5,9 +5,10 @@ eight loss terms), at that tool's --quick shapes (batch 64, S=16, 30
 frames, N_tau 48, perturb and noise 0, epoch 2), on the planar path with
 the kernels' plain versions in bfloat16, the step the flagship recipe
 runs. Loss terms only (the tool's finite differences stay with the JAX
-package's test). Tolerance: the tool's own for the JAX planar bf16 path,
-6e-2 of max(|term|, 0.01): bf16 products through eight layers against
-f64."""
+package's test). Tolerance: 1e-2 of max(|term|, 0.01), set from
+readings: over the eight input seeds the test runs, the worst term is
+4.5e-3 (reg_temp_sm_l, seed 3) and the median seed's worst ~2.3e-3
+(bf16 products through eight layers against f64)."""
 import os
 import sys
 
@@ -29,12 +30,15 @@ from tools.golden_train_grads import (EPOCH, N_FRAMES, N_TAU,  # noqa: E402
                                       ref_train_loss)
 
 N, S = 64, 16
-TOL = 6e-2
+TOL = 1e-2
+SEEDS = (13, 0, 1, 2, 3, 4, 5, 6)
 
 
-def test_planar_loss_terms_match_the_f64_golden(tmp_path):
-    rng = np.random.RandomState(13)
-    ckpt = str(tmp_path / "golden_train.ckpt")
+def term_errors(tmp_path, seed):
+    """Each loss term's |port - f64| / max(|f64|, 0.01) on the inputs of
+    `seed`."""
+    rng = np.random.RandomState(seed)
+    ckpt = str(tmp_path / f"golden_train_{seed}.ckpt")
     sd = {k: v.astype(np.float64) for k, v in
           make_torch_ckpt(ckpt, rng, n_tau=N_TAU, n_frames=N_FRAMES).items()}
     rays_o = rng.uniform(-0.5, 0.5, (N, 3))
@@ -76,6 +80,11 @@ def test_planar_loss_terms_match_the_f64_golden(tmp_path):
                                     epoch=EPOCH, Ks=f32(K[None]),
                                     Ps=f32(Ps[None]))
     assert set(got) == set(want) - {"total"}
-    for k, v in got.items():
-        assert abs(float(v) - want[k]) <= TOL * max(abs(want[k]), 0.01), (
-            k, float(v), want[k])
+    return {k: abs(float(v) - want[k]) / max(abs(want[k]), 0.01)
+            for k, v in got.items()}
+
+
+def test_planar_loss_terms_match_the_f64_golden(tmp_path):
+    for seed in SEEDS:
+        errs = term_errors(tmp_path, seed)
+        assert max(errs.values()) <= TOL, (seed, errs)

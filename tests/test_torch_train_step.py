@@ -219,9 +219,6 @@ def test_make_train_step_decisions():
         with pytest.raises(NotImplementedError, match=match):
             tstep.make_train_step(dataclasses.replace(on, **bad), lcfg, tx,
                                   **kw)
-    # scan_steps > 1: the K-step dispatch, graphs of a divisor of K steps
+    # scan_steps > 1: the K-step dispatch
     multi = tstep.make_train_step(on, lcfg, tx, scan_steps=4, **kw)
-    assert multi.use_planar and (multi.K, multi.G) == (4, 4)
-    with pytest.raises(ValueError, match="graph_steps"):
-        tstep.make_train_step(on, lcfg, tx, scan_steps=4, graph_steps=3,
-                              **kw)
+    assert multi.use_planar and multi.K == 4
