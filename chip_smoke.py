@@ -54,7 +54,24 @@ once), then:
    compute_losses): the same eager, graphed and repeated-batch runs,
    and three steps of the static-only model (no `encode_t`), eager and
    graphed;
-6. agreement: a small frame rendered on the card equals the plain CPU
+6. scene training phase (a main path): a seeded, learnable scene of 30
+   frames at 1024x576 written to chip_smoke_out/scene/ with the port's
+   own writers (RGB PNGs whose rows cycle through all five filters,
+   16-bit disparity PNGs, grey masks, `.flo` flows, a COLMAP binary
+   model), then the train CLI (`apps.train.cli`, in process) at the
+   flagship recipe with `--hard_sampling --scan_steps 10 --num_epochs 1
+   --val_every_steps 1000`: a fresh system's validation, a first run
+   stopped mid-epoch by `--time_budget_s` (a checkpoint), its resume by
+   `--ckpt_path` to the end of the epoch, and a packed run of a few
+   hundred steps (`--fused_train off --fused_compositing`). Checks: one
+   capture per dispatch shape, launches per step as PER_STEP /
+   PER_STEP_PACKED (validations on the serving evaluator), the resume's
+   params and Adam state equal to the checkpoint file bit for bit,
+   finite loss rows, and the last validation's PSNR above the fresh
+   one's by PSNR_GAIN_DB; prints the scene load, the CLI's ms per step
+   beside the graphed step, seconds per validation and checkpoint, each
+   validation's PSNR and SSIM;
+7. agreement: a small frame rendered on the card equals the plain CPU
    render of the same weights within `TOL`; one training step at batch
    64 on the card equals the plain CPU step from the same state, batch
    and draws (loss terms and Adam's first moments), on the planar and on
@@ -1438,6 +1455,294 @@ def packed_serving_phase(torch, np, cfg, params, K, poses, planar_maps,
     return frames["bfloat16"][0]
 
 
+# ---------------- scene training (a main path) ----------------
+
+SCENE_DIR = "chip_smoke_out/scene"
+SCENE_RUN_DIR = "chip_smoke_out/scene_runs"
+SCENE_WH = (1024, 576)  # native; the recipe trains at (W_IMG, H_IMG)
+VAL_EVERY = 1000
+# the first run stops at its time budget, mid-epoch
+RUN1_BUDGET_S = 15.0
+# the packed run: a few hundred steps
+RUN3_BUDGET_S = 6.0
+# the last validation's PSNR must beat a validation of the fresh system
+# by this many dB (measured on an H100: +16.1 and +16.3 dB in two runs,
+# 12.95 -> 29.04 / 29.28 dB at step 4000; the validations between read
+# 16.9, 25.5-25.9 and 22.5-27.8 dB)
+PSNR_GAIN_DB = 10.0
+
+
+def scene_frame(np, H, W, N, i):
+    """A structured, learnable frame (as `tests/helpers_scene.py::_frame`):
+    sinusoids that shift with the camera and a bright disk moving across
+    the frames; also the disk's mask."""
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    shift = 0.05 * i * 0.9 * W / 5.0
+    img = np.stack([
+        0.5 + 0.35 * np.sin(2 * np.pi * (x + shift) / W * 3.0),
+        0.5 + 0.35 * np.sin(2 * np.pi * y / H * 2.0 + 1.0),
+        0.5 + 0.25 * np.sin(2 * np.pi * ((x + shift) / W + y / H) * 2.0),
+    ], -1)
+    cx = (0.15 + 0.7 * i / max(N - 1, 1)) * W
+    cy = H * (0.5 + 0.15 * np.sin(2 * np.pi * i / max(N, 1)))
+    disk = np.exp(-((x - cx) ** 2 + (y - cy) ** 2)
+                  / (0.08 * min(H, W)) ** 2)[..., None]
+    img = img * (1 - disk) + disk * np.array([0.95, 0.3, 0.2])
+    return ((np.clip(img, 0, 1) * 255).astype(np.uint8),
+            ((disk[..., 0] > 0.5) * 255).astype(np.uint8))
+
+
+def write_scene(np, root, N=N_FRAMES, seed=0):
+    """A seeded scene of N frames at SCENE_WH, written with the port's own
+    writers: RGB frames whose rows cycle through all five PNG filters,
+    16-bit disparity PNGs, grey masks, `.flo` flows (the camera's shift)
+    and a COLMAP binary model whose points every frame sees."""
+    import os
+
+    from nsff_pl_tpu_torch.scene import colmap, flowio, imageio
+    from nsff_pl_tpu_torch.scene.poses import rotmat2qvec
+
+    W, H = SCENE_WH
+    rng = np.random.default_rng(seed)
+    for sub in ("images", "disps", "masks", "flow_fw", "flow_bw",
+                "sparse/0"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    cams = {1: colmap.Camera(1, "SIMPLE_RADIAL", W, H,
+                             np.array([0.9 * W, W / 2, H / 2, 0.0]))}
+    images = {i + 1: colmap.Image(i + 1, rotmat2qvec(np.eye(3)),
+                                  np.array([0.05 * i, 0.0, 0.0]), 1,
+                                  f"{i:05d}.png", np.zeros((0, 2)),
+                                  np.zeros(0, np.int64)) for i in range(N)}
+    pts = {j: colmap.Point3D(j, np.array([rng.uniform(-1, 1),
+                                          rng.uniform(-1, 1),
+                                          rng.uniform(3.0, 8.0)]),
+                             np.array([128, 128, 128], np.uint8), 0.1,
+                             np.arange(1, N + 1), np.zeros(N, np.int64))
+           for j in range(1, 200)}
+    colmap.write_model(cams, images, pts, os.path.join(root, "sparse/0"))
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    disp = (1000.0 / (5.0 + 2.0 * np.sin(2 * np.pi * x / W)
+                      * np.cos(2 * np.pi * y / H))).astype(np.uint16)
+    dx = 0.05 * 0.9 * W / 5.0  # the background's shift per frame, pixels
+    flow = np.zeros((H, W, 2), np.float32)
+    for i in range(N):
+        img, mask = scene_frame(np, H, W, N, i)
+        imageio.write_png(f"{root}/images/{i:05d}.png", img,
+                          filters=[0, 1, 2, 3, 4])
+        imageio.write_png(f"{root}/disps/{i:05d}.png", disp,
+                          filters=[4, 1, 2])
+        imageio.write_png(f"{root}/masks/{i:05d}.png", mask, filters=[2])
+        if i < N - 1:
+            flow[..., 0] = dx
+            flowio.write_flow(flow, f"{root}/flow_fw/{i:05d}.flo")
+        if i > 0:
+            flow[..., 0] = -dx
+            flowio.write_flow(flow, f"{root}/flow_bw/{i:05d}.flo")
+
+
+def scene_argv(exp, extra=()):
+    """The flagship recipe on the written scene, through the CLI."""
+    return ["--root_dir", SCENE_DIR, "--img_wh", str(W_IMG), str(H_IMG),
+            "--start_end", "0", str(N_FRAMES), "--encode_t", "--use_viewdir",
+            "--N_samples", "128", "--batch_size", str(BATCH), "--lr", "5e-4",
+            "--lr_scheduler", "cosine", "--dtype", "bfloat16",
+            "--hard_sampling", "--scan_steps", str(TRAIN_STEPS),
+            "--num_epochs", "1", "--val_every_steps", str(VAL_EVERY),
+            "--cache_dir", f"{SCENE_RUN_DIR}/cache",
+            "--log_dir", f"{SCENE_RUN_DIR}/logs",
+            "--ckpt_dir", f"{SCENE_RUN_DIR}/ckpts", "--exp_name", exp,
+            *extra]
+
+
+def jsonl_rows(exp):
+    """The per-step train rows of a run's JSONL, by step."""
+    rows = {}
+    with open(f"{SCENE_RUN_DIR}/logs/{exp}/metrics.jsonl") as f:
+        for line in f:
+            r = json.loads(line)
+            if "train/loss" in r:
+                rows[r["step"]] = r
+    return rows
+
+
+def run_counts(system, counts, per_step, label):
+    """Check one CLI run's launches: the wrappers counted the capture's
+    warm-up (`WARMUP` eager runs of the K steps on a copy of the state),
+    the capture, the single steps and the validations' frames; the card
+    ran capture x replays plus the single steps. Returns the launches the
+    card ran."""
+    multi = system.train_step
+    K = multi.K
+    if multi.captures != 1:
+        fail(f"{label}: {multi.captures} captures of the {K}-step dispatch, "
+             "expected 1")
+    singles = system.single_steps
+    n_val = len(system.val_seconds)
+    n_chunks = -(-W_IMG * H_IMG // min(max(system.cfg.chunk // 4, 1024),
+                                       W_IMG * H_IMG))
+    want = {k: v * ((multi.WARMUP + 1) * K + singles)
+            for k, v in per_step.items()}
+    want["planar_eval_comp"] = n_val * n_chunks
+    for k, v in counts.items():
+        if v != want.get(k, 0):
+            fail(f"{label}: {k} counted {v} times, expected {want.get(k, 0)}")
+        if multi.graph_launches[k] != per_step.get(k, 0) * K:
+            fail(f"{label}: the {K}-step graph holds "
+                 f"{multi.graph_launches[k]} launches of {k}")
+    ran = {k: multi.graph_launches[k] * multi.replays
+           + per_step.get(k, 0) * singles for k in counts}
+    ran["planar_eval_comp"] = counts["planar_eval_comp"]
+    steps = multi.replays * K + singles
+    if steps != system.steps_run:
+        fail(f"{label}: {steps} steps dispatched, {system.steps_run} run")
+    for k, v in per_step.items():
+        if ran[k] != v * steps:
+            fail(f"{label}: {k} ran {ran[k]} times over {steps} steps")
+    print(f"{label}: {steps} steps ({multi.replays} replays of one "
+          f"{K}-step graph, {singles} single steps), {n_val} validations of "
+          f"{n_chunks} chunks; launches on the card "
+          + json.dumps({k: v for k, v in ran.items() if v}), flush=True)
+    return ran
+
+
+def cli_step_ms(system):
+    """Host ms per step of a CLI run: fit's wall time without its
+    validations, checkpoints and the capture."""
+    other = (sum(system.val_seconds) + sum(system.save_seconds)
+             + system.train_step.capture_seconds)
+    return (system.fit_seconds - other) * 1e3 / max(system.steps_run, 1)
+
+
+def scene_training_phase(torch, np, card, graph_ms):
+    """The train CLI from a scene on disk (`apps.train.cli`, in process):
+    a run stopped by its time budget, its resume to the end of the epoch
+    and a packed run (B4-B6); `graph_ms` holds the graphed step's ms of
+    the training phases ("planar", "packed"), printed beside the CLI's.
+    Returns the launches the card ran."""
+    import os
+    import shutil
+
+    from nsff_pl_tpu_torch.apps.train import cli
+    from nsff_pl_tpu_torch.config import get_opts
+    from nsff_pl_tpu_torch.scene import imageio
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+    from nsff_pl_tpu_torch.training.optim import param_leaves
+    from nsff_pl_tpu_torch.training.trainer import NSFFSystem
+
+    for d in (SCENE_DIR, SCENE_RUN_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_scene(np, SCENE_DIR)
+    print(f"scene training: wrote {N_FRAMES} frames at {SCENE_WH[0]}x"
+          f"{SCENE_WH[1]} in {time.perf_counter() - t0:.2f} s", flush=True)
+    frames = sorted(os.listdir(f"{SCENE_DIR}/images"))
+    t0 = time.perf_counter()
+    decoded = [imageio.to_rgb(imageio.read_png(f"{SCENE_DIR}/images/{f}"))
+               for f in frames]
+    t1 = time.perf_counter()
+    for img in decoded:
+        imageio.resize_lanczos(img, (W_IMG, H_IMG))
+    t2 = time.perf_counter()
+    print(f"scene training: {len(frames)} RGB frames decoded in "
+          f"{t1 - t0:.2f} s, resized (LANCZOS) in {t2 - t1:.2f} s "
+          "(host, numpy)", flush=True)
+    del decoded
+
+    reset_counts()
+    # a fresh system: the uncached scene load (decode, resize, table on
+    # the card) and the validation before any step
+    fresh = NSFFSystem(get_opts(scene_argv("fresh")))
+    print(f"scene training: scene load (decode, resize, ray table "
+          f"{tuple(fresh.train_scene.rays.shape)} on the card) "
+          f"{fresh.load_seconds:.2f} s", flush=True)
+    base = fresh.validate(0)
+    fresh_counts = launch_counts()
+    del fresh
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for label, exp, extra, per_step in (
+            ("scene run 1", "planar", ("--time_budget_s",
+                                       str(RUN1_BUDGET_S)), PER_STEP),
+            ("scene run 2", "planar", None, PER_STEP),
+            ("scene run 3", "packed", ("--fused_train", "off",
+                                       "--fused_compositing",
+                                       "--time_budget_s",
+                                       str(RUN3_BUDGET_S)),
+             PER_STEP_PACKED)):
+        if extra is None:  # the resume of run 1
+            ckpt1 = ckpt_lib.latest_checkpoint(f"{SCENE_RUN_DIR}/ckpts/{exp}")
+            extra = ("--ckpt_path", ckpt1)
+        torch.cuda.synchronize()
+        reset_counts()
+        system = cli(scene_argv(exp, extra))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        runs[label] = (system, run_counts(system, counts, per_step, label))
+        print(f"{label}: {system.steps_run} steps to step "
+              f"{system.state.step} of {system.total_steps}, "
+              f"{cli_step_ms(system):.3f} ms per step through the CLI "
+              f"(host clock), against {graph_ms[exp]:.3f} "
+              f"ms per graphed step in the training phase of this run; "
+              f"capture {system.train_step.capture_seconds:.2f} s; scene "
+              f"load {system.load_seconds:.2f} s (cached table); "
+              "validations " + json.dumps([round(s, 3) for s in
+                                           system.val_seconds])
+              + " s; checkpoints " + json.dumps(
+                  [round(s, 3) for s in system.save_seconds])
+              + f" s on {card}", flush=True)
+        for step, log in system.val_history:
+            print(f"{label}: validation at step {step} " + json.dumps(
+                {k: round(v, 4) for k, v in log.items()}), flush=True)
+        rows = jsonl_rows(exp)
+        bad = [s for s, r in rows.items()
+               if not all(np.isfinite(v) for v in r.values())]
+        if bad:
+            fail(f"{label}: loss rows not finite at steps {bad[:5]}")
+        del system
+        torch.cuda.empty_cache()
+
+    r1, r2 = runs["scene run 1"][0], runs["scene run 2"][0]
+    stop = r1.state.step
+    if not 0 < stop < r1.total_steps:
+        fail(f"scene run 1 stopped at step {stop}, not mid-epoch")
+    if r2.state.step != r2.total_steps or \
+            r2.steps_run != r2.total_steps - stop:
+        fail(f"scene run 2 resumed at {r2.total_steps - r2.steps_run}, "
+             f"ended at {r2.state.step}; run 1 stopped at {stop}")
+    rows = jsonl_rows("planar")
+    if sorted(rows) != list(range(r2.total_steps)):
+        fail("scene runs 1 and 2: the JSONL does not hold every step once")
+    # the resume starts from the checkpoint's exact state
+    tree = ckpt_lib.restore_checkpoint(ckpt1)
+    again = NSFFSystem(get_opts(scene_argv("planar", ("--ckpt_path",
+                                                      ckpt1))))
+    opt = again.state.opt_state
+    exact = (again.state.step == int(tree["step"]) == stop
+             and int(opt.count) == int(tree["opt_state"]["count"])
+             and all(torch.equal(a.cpu(), b) for a, b in zip(
+                 param_leaves(again.state.params),
+                 param_leaves(tree["params"])))
+             and all(torch.equal(a.cpu(), b) for a, b in zip(
+                 opt.mu + opt.nu, param_leaves(tree["opt_state"]["mu"])
+                 + param_leaves(tree["opt_state"]["nu"]))))
+    print(f"scene run 2: resumed at step {stop} from {ckpt1}, params and "
+          f"Adam state equal to the file bit for bit: {exact}", flush=True)
+    if not exact:
+        fail("the resumed state differs from the checkpoint")
+    del again, tree
+    last_step, last = r2.val_history[-1]
+    gain = last["psnr"] - base["psnr"]
+    print(f"scene training: validation PSNR {base['psnr']:.3f} dB before "
+          f"any step, {last['psnr']:.3f} dB at step {last_step}: +{gain:.3f} "
+          f"dB (must exceed {PSNR_GAIN_DB} dB)", flush=True)
+    if not gain > PSNR_GAIN_DB:
+        fail(f"validation PSNR gained {gain:.3f} dB, not {PSNR_GAIN_DB}")
+    ran = {k: fresh_counts[k] + sum(c[k] for _, c in runs.values())
+           for k in fresh_counts}
+    return ran
+
+
 def main() -> int:
     import torch
 
@@ -1648,6 +1953,17 @@ def main() -> int:
                    per_step=PER_STEP_STATIC, planar=False,
                    steps=STATIC_STEPS, repeat=False)
     phase_s["packed training"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- scene training (a main path) ----------------
+    scene_ran = scene_training_phase(
+        torch, np, card, {"planar": planar_graph_ms,
+                          "packed": packed_graph_ms})
+    record["launches"] += scene_ran["planar_eval_comp"]
+    for name, rec in list(train_records.items()) + list(
+            packed_records.items()):
+        rec["launches"] += scene_ran[name]
+    phase_s["scene training"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---------------- agreement ----------------

@@ -2,12 +2,11 @@
 """Minimal HTTP render server (port of `tools/serve_render.py`).
 
 Keeps one renderer warm on the card and serves novel-view/novel-time
-renders with the stdlib server, one request at a time. The scene parsers
-are not ported yet, so the service takes the scene metadata directly:
-intrinsics K (3, 3), the model-frame poses (N_frames, 3, 4) and the image
-size. From the command line they come from an `.npz` holding `K` and
-`poses`, and the parameters from a file written by
-`training/checkpoint.py::save`:
+renders with the stdlib server, one request at a time. The service takes
+the scene metadata directly: intrinsics K (3, 3), the model-frame poses
+(N_frames, 3, 4) and the image size. From the command line they come
+from an `.npz` holding `K` and `poses`, and the parameters from a file
+written by `training/checkpoint.py::save`:
 
     python -m nsff_pl_tpu_torch.apps.serve --ckpt_path params.pt \
         --scene_meta scene.npz --img_wh 512 288 --encode_t \
@@ -29,8 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import struct
-import zlib
 
 import numpy as np
 import torch
@@ -38,6 +35,7 @@ import torch
 from nsff_pl_tpu_torch import resolve_device
 from nsff_pl_tpu_torch.config import NSFFConfig, render_config
 from nsff_pl_tpu_torch.ops import rays as ray_ops
+from nsff_pl_tpu_torch.scene.imageio import png_bytes
 from nsff_pl_tpu_torch.training.step import make_render_fn, render_full_image
 
 RENDER_KEYS = ("rgb_fine", "depth_fine")
@@ -125,20 +123,6 @@ class RenderService:
         depth = out["depth_fine"].float().cpu().numpy().reshape(self.h,
                                                                 self.w)
         return rgb, depth
-
-
-def png_bytes(rgb: np.ndarray) -> bytes:
-    """(h, w, 3) uint8 -> PNG file bytes (stdlib zlib, no imaging package)."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xffffffff))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def make_handler(service):

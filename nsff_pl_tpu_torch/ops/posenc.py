@@ -4,7 +4,9 @@ Channel order `[x, sin(f0 x), cos(f0 x), sin(f1 x), cos(f1 x), ...]`,
 frequencies `2**linspace(0, max_logscale, N_freqs)` (logscale) or
 `linspace(1, 2**max_logscale, N_freqs)`. The frequencies of each device
 are made once, by fills on the device, and kept: a copy from the host
-would wait on it, which a captured CUDA graph cannot hold.
+would wait on it, which a captured CUDA graph cannot hold. They are made
+outside inference mode, so a first call from a no-grad render leaves
+tensors that training's autograd can save.
 """
 from __future__ import annotations
 
@@ -24,9 +26,11 @@ def posenc_freqs(max_logscale: float, n_freqs: int,
 @functools.lru_cache(maxsize=None)
 def _freqs_on(max_logscale: float, n_freqs: int, logscale: bool, dtype,
               device) -> torch.Tensor:
-    return torch.stack([torch.full((), float(f), dtype=dtype, device=device)
-                        for f in posenc_freqs(max_logscale, n_freqs,
-                                              logscale)])
+    with torch.inference_mode(False):
+        return torch.stack([torch.full((), float(f), dtype=dtype,
+                                       device=device)
+                            for f in posenc_freqs(max_logscale, n_freqs,
+                                                  logscale)])
 
 
 def posenc(x: torch.Tensor, max_logscale: float, n_freqs: int,

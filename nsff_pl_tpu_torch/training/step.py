@@ -239,8 +239,8 @@ class _MultiStep:
     On a CUDA device the K steps are captured once in one CUDA graph,
     replayed once a dispatch (a graph of one step replayed K times
     measured no faster per step on an H100 and keeps the host issuing K
-    replays, PERF.md). The capture is made at the first
-    dispatch, after `WARMUP` eager steps on a copy of the state (so the
+    replays, PERF.md). The capture is made at the first dispatch, after
+    `WARMUP` eager runs of the K steps on a copy of the state (so the
     dispatch's own steps are all replays; they run under
     `torch.cuda.set_sync_debug_mode("error")`, so a step that waits on
     the host raises there), and again whenever the tensors it reads
@@ -254,8 +254,9 @@ class _MultiStep:
     replay draws new numbers. A capture that fails raises with the
     operation that broke it; nothing falls back to the eager loop.
     `graph_launches` holds the kernel launches recorded by one capture
-    (`ops/launches.py`), `replays` the replays since, and
-    `capture_seconds` the warm-up and capture's host seconds.
+    (`ops/launches.py`), `replays` the replays since, `captures` the
+    captures made, and `capture_seconds` the last warm-up and capture's
+    host seconds.
 
     On the CPU the same function runs the steps eagerly, on the same
     static buffers."""
@@ -269,6 +270,7 @@ class _MultiStep:
         self._key = None
         self.graph_launches: Dict[str, int] = {}
         self.replays = 0
+        self.captures = 0
         self.capture_seconds = 0.0
 
     def _run(self, b: _Bound) -> torch.Tensor:
@@ -347,6 +349,7 @@ class _MultiStep:
         after = launches.counts()
         self.graph_launches = {k: after[k] - before[k] for k in after}
         self.replays = 0
+        self.captures += 1
         self._graph = graph
 
     def __call__(self, state: TrainState, tmp_rgb, table, weights, Ks, Ps,

@@ -13,8 +13,13 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "nsff_pl_tpu_torch"
+# scripts/jax_ckpt_to_torch.py bridges the two packages (it reads the JAX
+# package's orbax checkpoints) and runs where both are installed, never
+# on the card's machine
+BRIDGES = {REPO / "scripts" / "jax_ckpt_to_torch.py"}
 PORT_FILES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-              + sorted((REPO / "scripts").glob("*.py")))
+              + sorted(p for p in (REPO / "scripts").glob("*.py")
+                       if p not in BRIDGES))
 
 
 def _imported_modules(path: Path):
@@ -70,6 +75,10 @@ def _entry_points():
     g = torch.Generator().manual_seed(0)
     train_cfg = NSFFConfig(encode_t=True, use_viewdir=True, N_importance=4,
                            batch_size=4, lr_scheduler="cosine")
+    from nsff_pl_tpu_torch.apps import train as train_app
+    from nsff_pl_tpu_torch.scene import MonocularScene
+    from nsff_pl_tpu_torch.training.trainer import NSFFSystem
+
     return {
         "resolve_device": lambda: resolve_device(),
         "init_nerf_params": lambda: nerf.init_nerf_params(g),
@@ -109,6 +118,10 @@ def _entry_points():
         "RenderService_packed_float32": lambda: RenderService(
             {}, torch.eye(3).numpy(), torch.zeros(1, 3, 4).numpy(),
             (8, 6), NSFFConfig(dtype="float32", planar_eval="off")),
+        # the scene on disk, the trainer and the train CLI
+        "MonocularScene": lambda: MonocularScene("unused"),
+        "NSFFSystem": lambda: NSFFSystem(train_cfg),
+        "train_main": lambda: train_app.main(train_cfg),
     }
 
 
@@ -118,7 +131,8 @@ def _entry_points():
      "RenderService", "build_params_train", "make_train_step", "RayBatcher",
      "opt_state_from_jax", "build_params_static", "make_train_step_packed",
      "make_train_step_static", "make_render_fn_train_mode",
-     "RenderService_packed_float32"]))
+     "RenderService_packed_float32", "MonocularScene", "NSFFSystem",
+     "train_main"]))
 def test_entry_points_need_a_gpu_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -206,6 +220,31 @@ def test_packed_entry_points_run_on_cpu_when_asked():
     rgb, depth = svc.render_pose(1)
     assert rgb.shape == (6, 8, 3) and depth.shape == (6, 8)
     assert np.isfinite(depth).all()
+
+
+def test_scene_entry_points_run_on_cpu_when_asked(tmp_path):
+    """`MonocularScene`, `NSFFSystem` and the train CLI's `main` on the CPU
+    on a scene too small for a step (16x12, 3 frames: 0 steps an epoch):
+    the ray table and the system's state lie on the CPU."""
+    from nsff_pl_tpu_torch.apps.train import main
+    from nsff_pl_tpu_torch.config import NSFFConfig
+    from nsff_pl_tpu_torch.scene import MonocularScene
+    from nsff_pl_tpu_torch.training.trainer import NSFFSystem
+    from tests.helpers_scene import make_synthetic_scene
+
+    root = make_synthetic_scene(str(tmp_path / "scene"), W=16, H=12, N=3)
+    scene = MonocularScene(root, img_wh=(16, 12), start_end=(0, 3),
+                           device="cpu")
+    assert scene.rays.device.type == "cpu" and len(scene) == 0
+    cfg = NSFFConfig(root_dir=root, img_wh=(16, 12), start_end=(0, 3),
+                     encode_t=True, N_samples=8, batch_size=4,
+                     log_dir=str(tmp_path / "logs"),
+                     ckpt_dir=str(tmp_path / "ckpts"))
+    system = NSFFSystem(cfg, device="cpu")
+    assert system.batcher.table.device.type == "cpu"
+    system = main(cfg, device="cpu")
+    assert system.state.step == 0 == system.total_steps
+    assert (tmp_path / "logs" / "exp" / "metrics.jsonl").exists()
 
 
 def _smoke(cwd, env=None):

@@ -47,6 +47,19 @@ def test_posenc_matches_jax(max_log, n_freqs, logscale):
     assert tpe.posenc_dim(3, n_freqs) == jpe.posenc_dim(3, n_freqs)
 
 
+def test_posenc_first_called_in_inference_mode_serves_autograd():
+    """The per-device frequencies made by a first call inside a no-grad
+    render (inference mode) must be usable by a later training step's
+    autograd: a render before training (a trainer's validation, a
+    service in the same process) once broke the next step."""
+    x = torch.rand(4, 3)
+    with torch.inference_mode():
+        tpe.posenc(x, 5.5, 7)  # a scale no other test uses: a new cache key
+    y = torch.rand(4, 3, requires_grad=True)
+    tpe.posenc(y, 5.5, 7).sum().backward()
+    assert y.grad is not None and torch.isfinite(y.grad).all()
+
+
 @pytest.mark.parametrize("flatten", [True, False])
 def test_ray_directions_match_jax(flatten):
     jd, juv = jrays.get_ray_directions(12, 16, K, flatten=flatten,
