@@ -71,7 +71,28 @@ once), then:
    one's by PSNR_GAIN_DB; prints the scene load, the CLI's ms per step
    beside the graphed step, seconds per validation and checkpoint, each
    validation's PSNR and SSIM;
-7. agreement: a small frame rendered on the card equals the plain CPU
+7. eval phase (a main path): the eval CLI (`apps.evaluate`, in process)
+   on that scene with the checkpoint run 2 wrote (trained weights), in
+   bfloat16, each frame as 5 equal chunks of 29696 rays in one CUDA graph
+   replay: the test split (30 frames, both towers with
+   `--output_transient`, depth maps, PSNR / SSIM tables,
+   LPIPS n/a), each frame held against the host loop's (GRAPH_TOL), its
+   PSNR against the untrained render's (PSNR_GAIN_DB), a flatness floor
+   (FLAT_STD), and three frames of the static tower in float32 on the
+   plain evaluators against bfloat16 (F32_TOL); the spiral (180 frames), again with `--fix_view_dir`;
+   `test_fixview0_interp4` (30 items) on the planes route (B2's forward
+   + B3: held against B1's composited route within FRAME_TOL, its dt = 0
+   frame against the t render, the splat twice for the same bits, in its
+   shift form and in its scatter form, the two forms within SPLAT_TOL,
+   every interpolated frame finite in [0, 1], ms per splat call and per
+   interpolated frame); the test split with `--planar_eval off` (B5),
+   its frame 0 against the B1 frame (FRAME_TOL). B2's forward, B3's
+   forward and B5 are each held against their plain versions on the
+   inputs their path gives them on the first 29696-ray chunk of frame 0
+   (PLANE_TOL / PLANE_SHARE, COMP_TOL, PACKED_TOL / PACKED_SHARE). Each
+   run's launches: the wrappers' counts against its graph's warm-up and
+   capture, one graph, one replay a frame;
+8. agreement: a small frame rendered on the card equals the plain CPU
    render of the same weights within `TOL`; one training step at batch
    64 on the card equals the plain CPU step from the same state, batch
    and draws (loss terms and Adam's first moments), on the planar and on
@@ -1743,6 +1764,523 @@ def scene_training_phase(torch, np, card, graph_ms):
     return ran
 
 
+# ---------------- eval (a main path) ----------------
+
+EVAL_DIR = "chip_smoke_out/eval"
+# the frames also rendered in float32 on the plain evaluators (~1.8 s each)
+F32_FRAMES = (0, 15, 29)
+# the frames the untrained render is scored on (reading a frame's image
+# takes ~0.4 s of the host)
+UNTRAINED_FRAMES = tuple(range(0, N_FRAMES, 5))
+# graphed frame vs host-loop frame: the same kernels on the same rays
+GRAPH_TOL = 1e-6
+# a trained frame's per-channel standard deviation must exceed this (the
+# scene's frames: 0.1-0.25; a frame of seeded weights: ~1e-3)
+FLAT_STD = 0.05
+# the splat's two forms on the same planes: the same bilinear terms
+# summed in another order (measured 4.2e-7 on random planes in [0, 1])
+SPLAT_TOL = 1e-5
+# evaluator kernels vs plain versions on the eval paths' inputs (trained
+# weights): a bf16 rounding flip of one activation, where the two sum in
+# another order, grows through trained layers to 4e-2-6e-2 on a raw
+# sigma and 7e-3 on an rgb, past PLANE_TOL; both then stand as far from
+# the unrounded model (the plain version in float64 without its bf16
+# roundings; measured on the 64 worst rays: mean error per plane equal
+# to 3 digits, largest 0.95x). So the kernel is held to that model: per
+# plane, its mean error at most EXACT_MEAN and its largest at most
+# EXACT_MAX times the plain version's, and at most PLANE_SHARE of the
+# samples off the plain version by more than 1e-5
+EXACT_MEAN, EXACT_MAX = 1.1, 1.5
+
+
+def kept_calls(fn, wrappers):
+    """Run fn() with each kernel wrapper `wrappers` names (module,
+    attribute) replaced by one that calls it and keeps its arguments and
+    result; returns {attribute: [(args, kwargs, result), ...]}: the
+    inputs a main path gives each kernel. A wrapper adds to its launch
+    count by its module-level name, so the stand-in carries the count
+    while it is in place and hands it back after."""
+    calls, real = {}, {}
+    for mod, name in wrappers:
+        fn_real = real[name] = getattr(mod, name)
+        calls[name] = []
+
+        def keep(*a, _fn=fn_real, _calls=calls[name], **kw):
+            out = _fn(*a, **kw)
+            _calls.append((a, kw, out))
+            return out
+
+        keep.launches = fn_real.launches
+        setattr(mod, name, keep)
+    try:
+        fn()
+    finally:
+        for mod, name in wrappers:
+            real[name].launches = getattr(mod, name).launches
+            setattr(mod, name, real[name])
+    return calls
+
+
+def plane_errs(got, want):
+    """(largest abs error, share of entries off by more than 1e-5)."""
+    err = (got - want).abs()
+    return float(err.max()), float((err > 1e-5).float().mean())
+
+
+def unrounded(torch, fn, args, kw, ray_dim, rays=2048):
+    """`fn(*args, **kw)`, a plain version in `ops/raymarch_kernel.py` or
+    `ops/mlp_kernel.py`, without its bf16 roundings of activations and in
+    float64 (the weights stay the bf16 values the kernel reads): the
+    model that the kernel and its plain version both round. Their
+    rounding helpers `_bf16` and `_mm` are swapped for the call, which
+    runs `rays` rays at a time (the tensor arguments' first dimension),
+    joined on the output's `ray_dim`."""
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
+
+    def mm(x, w, b=None):
+        y = x.double() @ w.double()
+        return y if b is None else y + b.double()
+
+    saved = [(m, m._bf16, m._mm) for m in (rk, mk)]
+    for m, _, _ in saved:
+        m._bf16, m._mm = (lambda x: x.double()), mm
+    n = next(x for x in args if torch.is_tensor(x)).shape[0]
+    try:
+        return torch.cat([fn(*(x[i:i + rays].double() if torch.is_tensor(x)
+                               else x for x in args), **kw).float()
+                          for i in range(0, n, rays)], ray_dim)
+    finally:
+        for m, bf16, mm_ in saved:
+            m._bf16, m._mm = bf16, mm_
+
+
+def reversed_rays(torch, fn, args, kw, ray_dim):
+    """`fn(*args, **kw)` on the same rays in reverse order (the tensor
+    arguments' first dimension), its output put back in order on
+    `ray_dim`: a kernel gives each ray the same bits in any place of its
+    grid."""
+    n = next(x for x in args if torch.is_tensor(x)).shape[0]
+    p = torch.arange(n - 1, -1, -1, device="cuda")
+    return fn(*(x[p].contiguous() if torch.is_tensor(x) else x
+                for x in args), **kw).flip(ray_dim)
+
+
+def unrounded_ratios(got, want, exact, dims):
+    """Per plane (reduced over `dims`): the kernel's mean and largest
+    distance to the unrounded model over the plain version's; returns
+    the worst (mean ratio, max ratio)."""
+    ek, ep = (got - exact).abs(), (want - exact).abs()
+    mean = (ek.mean(dims) + 1e-9) / (ep.mean(dims) + 1e-9)
+    top = (ek.amax(dims) + 1e-9) / (ep.amax(dims) + 1e-9)
+    return float(mean.max()), float(top.max())
+
+
+def graph_ran(render):
+    """What the card ran of the CUDA graphs `render_full_image` captured
+    for `render`: each graph's warm-up launches plus its capture's
+    launches times its replays; and what the wrappers counted (warm-up
+    and capture)."""
+    ran, counted = {}, {}
+    for g in render.chunk_graphs.values():
+        for k, v in g.graph_launches.items():
+            ran[k] = ran.get(k, 0) + g.warmup_launches[k] + v * g.replays
+            counted[k] = counted.get(k, 0) + g.warmup_launches[k] + v
+    return ran, counted
+
+
+def eval_split(torch, np, card, label, argv, expected, frames):
+    """One eval CLI run (`apps.evaluate`, in process): the launches the
+    wrappers counted around it against its graphs, one graph of 5 equal
+    chunks replayed once a frame, `expected` launches per chunk. Returns
+    (report, the launches the card ran, the graph)."""
+    from nsff_pl_tpu_torch.apps import evaluate
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = evaluate.main(evaluate.get_opts(argv))
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    ran, counted = graph_ran(rep.render)
+    if counts != counted:
+        fail(f"eval {label}: the wrappers counted {counts}, the graphs "
+             f"hold {counted}")
+    (g,) = rep.render.chunk_graphs.values()
+    n_chunks = -(-W_IMG * H_IMG // CHUNK)
+    want = {k: v * n_chunks for k, v in expected.items()}
+    if {k: v for k, v in g.graph_launches.items() if v} != want:
+        fail(f"eval {label}: one frame's graph holds {g.graph_launches}, "
+             f"expected {want}")
+    if g.replays != frames:
+        fail(f"eval {label}: {g.replays} graph replays for {frames} frames")
+    print(f"eval {label}: {rep.n_items} items in {secs:.3f} s, "
+          f"{np.mean(rep.item_seconds):.4f} s per item, "
+          f"{np.mean(rep.render_seconds):.4f} s per frame render "
+          f"({g.n_chunks} chunks of {g.chunk} in one graph replay; "
+          f"capture {g.capture_seconds:.3f} s); launches on the card "
+          + json.dumps({k: v for k, v in ran.items() if v}) + f" on {card}",
+          flush=True)
+    return rep, ran, g
+
+
+def eval_phase(torch, np, card):
+    """The eval CLI (`apps.evaluate`, in process) on the scene and the
+    trained checkpoint of the scene training phase: the test split (30
+    frames, bfloat16, depth maps) with its frames held against the host
+    loop, the untrained render, a flatness floor and float32 on the plain
+    evaluators; the spiral (180 frames) and a few frames with
+    --fix_view_dir; test_fixview0_interp4 (the planes route, the splat in
+    both its forms); the test split with --planar_eval off (B5). Each
+    kernel of these paths is held against its plain version on the
+    inputs the path gives it on one chunk of frame 0, with the trained
+    weights. Returns the launches the card ran in the CLI runs and each
+    kernel's largest error there."""
+    import os
+
+    from nsff_pl_tpu_torch.config import (NSFFConfig, build_params,
+                                          render_config)
+    from nsff_pl_tpu_torch.models.rendering import _interp_pre, interpolate
+    from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
+    from nsff_pl_tpu_torch.ops import softsplat as ss
+    from nsff_pl_tpu_torch.scene import imageio
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+    from nsff_pl_tpu_torch.training.step import (equal_chunks,
+                                                 make_render_fn,
+                                                 render_full_image)
+
+    scene_dir = os.path.abspath(SCENE_DIR)
+    ckpt = os.path.abspath(ckpt_lib.latest_checkpoint(
+        f"{SCENE_RUN_DIR}/ckpts/planar"))
+    base = ["--root_dir", scene_dir, "--img_wh", str(W_IMG), str(H_IMG),
+            "--start_end", "0", str(N_FRAMES), "--encode_t", "--use_viewdir",
+            "--N_samples", "128", "--dtype", "bfloat16", "--ckpt_path", ckpt]
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    here = os.getcwd()
+    os.chdir(EVAL_DIR)  # the CLI writes results/monocular/<scene_name>
+    total, kernel_errs = {}, {}
+    chunk_rows = slice(0, equal_chunks(W_IMG * H_IMG, CHUNK)[1])
+
+    def add(ran):
+        for k, v in ran.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        # ---- test split, both towers (the static tower alone of this
+        # scene's dynamic frames scored 23.2-28.2 dB across runs, its gain
+        # over the untrained render 10.3-15.1 dB: too near PSNR_GAIN_DB to
+        # tell trained weights from a fault) ----
+        rep, ran, g = eval_split(
+            torch, np, card, "test", base + ["--split", "test", "--save_depth",
+                                   "--output_transient", "--scene_name",
+                                   "test"],
+            {"planar_eval_comp": 1}, N_FRAMES)
+        add(ran)
+        if not np.isnan(rep.lpips).all():
+            fail("eval test: LPIPS without a weights file")
+        print(f"eval test: LPIPS n/a (no weights file); mean PSNR whole / "
+              f"dynamic {np.nanmean(rep.psnr, 0).tolist()}, SSIM "
+              f"{np.nanmean(rep.ssim, 0).tolist()}", flush=True)
+        data, params = rep.dataset, rep.params
+        cfg = NSFFConfig(img_wh=(W_IMG, H_IMG), start_end=(0, N_FRAMES),
+                         use_viewdir=True, encode_t=True, N_samples=128,
+                         dtype="bfloat16")
+        fresh = build_params(cfg, torch.Generator().manual_seed(cfg.seed),
+                             device="cuda")
+        errs, exact, g_s, loop_s, fresh_psnr, stds = [], True, [], [], [], []
+
+        def frame_vis(i):
+            """The CLI's visibility culling of frame i's render."""
+            return {"vis_poses": torch.as_tensor(
+                data.poses[i:i + 1], dtype=torch.float32, device="cuda"),
+                "vis_K": torch.as_tensor(data.K, device="cuda")}
+
+        for i in range(N_FRAMES):
+            item = data.test_item(
+                i, targets=("rgbs",) if i in UNTRAINED_FRAMES else ())
+            rays, ts = item["rays"], item["ts"]
+            times = []
+            outs = []
+            for scan in (True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(render_full_image(rep.render, params, rays, ts,
+                                              chunk=CHUNK, scan_chunks=scan,
+                                              **frame_vis(i)))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            g_s.append(times[0])
+            loop_s.append(times[1])
+            for k in ("rgb_fine", "depth_fine"):
+                errs.append(float((outs[0][k] - outs[1][k]).abs().max()))
+                exact = exact and torch.equal(outs[0][k], outs[1][k])
+            img = outs[0]["rgb_fine"].reshape(H_IMG, W_IMG, 3)
+            stds.append(float(img.std((0, 1)).min()))
+            if i in UNTRAINED_FRAMES:
+                un = render_full_image(rep.render, fresh, rays, ts,
+                                       chunk=CHUNK, **frame_vis(i))
+                mse = ((torch.clamp(un["rgb_fine"], 0, 1) - item["rgbs"])
+                       ** 2).mean()
+                fresh_psnr.append(float(-10 * torch.log10(mse)))
+        print(f"eval test: graphed frame against the host-loop frame max abs "
+              f"err {max(errs):.3e} (tol {GRAPH_TOL}), bit for bit: {exact}; "
+              f"{np.mean(g_s):.4f} s per graphed frame, {np.mean(loop_s):.4f} "
+              f"s per host-loop frame (host clock, synchronized) on {card}",
+              flush=True)
+        if max(errs) > GRAPH_TOL:
+            fail("eval test: the graphed frames differ from the host loop's")
+        trained = float(np.mean(rep.psnr[list(UNTRAINED_FRAMES), 0]))
+        gain = trained - float(np.mean(fresh_psnr))
+        print(f"eval test: mean PSNR over frames {list(UNTRAINED_FRAMES)} "
+              f"{trained:.3f} dB trained, {np.mean(fresh_psnr):.3f} dB "
+              f"untrained: +{gain:.3f} dB (must exceed {PSNR_GAIN_DB}); "
+              f"smallest per-channel std of a frame {min(stds):.4f} (floor "
+              f"{FLAT_STD})", flush=True)
+        if not gain > PSNR_GAIN_DB:
+            fail(f"eval test: PSNR gained {gain:.3f} dB over the untrained "
+                 "render")
+        if not min(stds) > FLAT_STD:
+            fail(f"eval test: a flat frame (std {min(stds):.4f})")
+        # float32 against bfloat16 on the static tower's frames (both
+        # towers' frames part by 1.4e-2 on trained weights: ROADMAP C)
+        b16, f32 = (make_render_fn(render_config(cfg.replace(dtype=dt)),
+                                   output_transient=False,
+                                   keys=("rgb_fine", "depth_fine"))
+                    for dt in ("bfloat16", "float32"))
+        err32 = 0.0
+        for i in F32_FRAMES:
+            item = data.test_item(i, targets=())
+            out, want = (render_full_image(fn, params, item["rays"],
+                                           item["ts"], chunk=CHUNK)
+                         for fn in (f32, b16))
+            err32 = max(err32, *(float((out[k] - want[k]).abs().max())
+                                 for k in ("rgb_fine", "depth_fine")))
+        print(f"eval test: frames {list(F32_FRAMES)} of the static tower in "
+              f"float32 on the plain evaluators against bfloat16 (B1) max abs "
+              f"err {err32:.3e} (tol {F32_TOL})", flush=True)
+        if not err32 <= F32_TOL:
+            fail("eval test: float32 frames disagree with bfloat16")
+        del fresh, b16, f32, rep
+        torch.cuda.empty_cache()
+
+        # ---- spiral, and a few frames with a fixed view direction ----
+        _, ran, _ = eval_split(
+            torch, np, card, "test_spiral", base + ["--split", "test_spiral",
+                                          "--scene_name", "spiral"],
+            {"planar_eval_comp": 1}, 6 * N_FRAMES)
+        add(ran)
+        _, ran, _ = eval_split(
+            torch, np, card, "test_spiral --fix_view_dir",
+            base + ["--split", "test_spiral", "--fix_view_dir",
+                    "--scene_name", "spiral_fixed"],
+            {"planar_eval_comp": 1}, 6 * N_FRAMES)
+        add(ran)
+        a = imageio.read_png("results/monocular/spiral/005.png")
+        b = imageio.read_png("results/monocular/spiral_fixed/005.png")
+        print(f"eval test_spiral --fix_view_dir: frame 5 against the "
+              f"spiral's: {(a != b).mean():.4f} of the pixel channels "
+              "differ", flush=True)
+
+        # ---- space-time interpolation: the planes route ----
+        rep, ran, g = eval_split(
+            torch, np, card, "test_fixview0_interp4",
+            base + ["--split", "test_fixview0_interp4", "--scene_name",
+                    "interp"],
+            {"planar_nerf_train_fwd": 1, "planar_compositor_fwd": 1},
+            N_FRAMES)
+        add(ran)
+        data, params = rep.dataset, rep.params
+        item = data.test_item(0, targets=())
+        rays, ts = item["rays"], item["ts"]
+        vis = {"vis_poses": torch.as_tensor(data.poses[0:1],
+                                            dtype=torch.float32,
+                                            device="cuda"),
+               "vis_K": torch.as_tensor(data.K, device="cuda")}
+        calls = kept_calls(
+            lambda: rep.render(params, rays[chunk_rows], ts[chunk_rows],
+                               vis["vis_poses"], vis["vis_K"]),
+            ((rk, "planar_nerf_train_fwd_cuda"),
+             (tck, "planar_compositor_fwd_cuda")))
+        ((a, kw, got),) = calls["planar_nerf_train_fwd_cuda"]
+        want = rk.planar_nerf_train_ref(*a, **kw)
+        if not bool(torch.isfinite(got).all()):
+            fail("eval interp: B2's forward output not finite")
+        err, share = plane_errs(got, want)
+        r_mean, r_max = unrounded_ratios(
+            got, want, unrounded(torch, rk.planar_nerf_train_ref, a, kw, 1),
+            (1, 2))
+        same = torch.equal(reversed_rays(
+            torch, rk.planar_nerf_train_fwd_cuda, a, kw, 1), got)
+        kernel_errs["planar_nerf_train_fwd"] = err
+        print(f"eval interp: kernel planar_nerf_train_fwd on the planes "
+              f"route's inputs ({a[1].shape[0]} rays x {a[3].shape[1]} "
+              f"samples, trained weights): max abs err {err:.3e}, share > "
+              f"1e-5 {share:.4f} (tol {PLANE_SHARE}); its distance to the "
+              f"unrounded model over the plain version's: mean {r_mean:.3f}"
+              f", largest {r_max:.3f} per plane at worst (tol {EXACT_MEAN}, "
+              f"{EXACT_MAX}); the same bits with the rays reversed: {same}",
+              flush=True)
+        if share > PLANE_SHARE or r_mean > EXACT_MEAN or r_max > EXACT_MAX:
+            fail("eval interp: B2's forward disagrees with its plain version")
+        if not same:
+            fail("eval interp: B2's forward depends on a ray's place")
+        ((a, kw, (w, maps)),) = calls["planar_compositor_fwd_cuda"]
+        rw, rmaps = tck.planar_compositor_fwd_ref(*a, **kw)
+        err = max(float((w - rw).abs().max()),
+                  float((maps - rmaps).abs().max()))
+        kernel_errs["planar_compositor_fwd"] = err
+        print(f"eval interp: kernel planar_compositor_fwd on the planes "
+              f"route's inputs: max abs err {err:.3e} (tol {COMP_TOL})",
+              flush=True)
+        if not err <= COMP_TOL:
+            fail("eval interp: B3's forward disagrees with its plain version")
+        del calls, a, kw, got, want, w, maps, rw, rmaps
+        res_t = render_full_image(rep.render, params, rays, ts, chunk=CHUNK,
+                                  scan_chunks=True, **vis)
+        comp = make_render_fn(
+            render_config(cfg), output_transient=True,
+            output_transient_flow=("fw", "bw"), with_visibility=True,
+            keys=("rgb_fine", "depth_fine"))
+        reset_counts()
+        b1 = render_full_image(comp, params, rays, ts, chunk=CHUNK,
+                               scan_chunks=True, **vis)
+        if launch_counts()["planar_eval_comp"] == 0:
+            fail("eval interp: the composited route ran no B1")
+        err = max(float((res_t[k] - b1[k]).abs().max())
+                  for k in ("rgb_fine", "depth_fine"))
+        print(f"eval interp: the planes route (B2's forward + B3) against "
+              f"the composited route (B1) on frame 0's rays and weights: "
+              f"rgb / depth max abs err {err:.3e} (tol {FRAME_TOL})",
+              flush=True)
+        if not err <= FRAME_TOL:
+            fail("eval interp: the planes route disagrees with B1")
+        png = imageio.read_png("results/monocular/interp/000_000.png")
+        want = (255 * np.clip(res_t["rgb_fine"].reshape(
+            H_IMG, W_IMG, 3).cpu().numpy(), 0, 1)).astype(np.uint8)
+        if not np.array_equal(png, want):
+            fail("eval interp: the dt = 0 frame is not the t render")
+        vis["vis_poses"] = torch.as_tensor(data.poses[1:2],
+                                           dtype=torch.float32,
+                                           device="cuda")
+        res_tp1 = render_full_image(rep.render, params, rays, ts + 1,
+                                    chunk=CHUNK, scan_chunks=True, **vis)
+        Kc, c2w = data.Ks[item["cam_ids"]], item["c2w"]
+        frames = [interpolate(res_t, res_tp1, dt, Kc, c2w, (W_IMG, H_IMG))
+                  for dt in (0.5, 0.5, 0.25, 0.75)]
+        same = all(torch.equal(x, y) for x, y in zip(frames[0], frames[1]))
+        lo = min(float(f[0].min()) for f in frames)
+        hi = max(float(f[0].max()) for f in frames)
+        finite = all(bool(torch.isfinite(t).all()) for f in frames
+                     for t in f)
+        print(f"eval interp: the splat gives the same bits in two runs: "
+              f"{same}; interpolated rgb in [{lo:.6f}, {hi:.6f}], finite: "
+              f"{finite}", flush=True)
+        if not same:
+            fail("eval interp: the splat is not deterministic")
+        if not (finite and lo >= 0 and hi <= 1):
+            fail("eval interp: an interpolated frame outside [0, 1]")
+        pre = _interp_pre(
+            res_t["xyzs_fine"], res_t["transient_flows_fw"],
+            res_tp1["transient_flows_bw"],
+            torch.cat([res_t["transient_rgbs_fine"],
+                       res_t["transient_alphas_fine"][..., None]], -1),
+            torch.cat([res_tp1["transient_rgbs_fine"],
+                       res_tp1["transient_alphas_fine"][..., None]], -1),
+            0.5, Kc, c2w, w=W_IMG, h=H_IMG)
+        def splat():
+            return ss.softsplat_batched_planar(*pre, "average")
+
+        splat_ms = cuda_ms(torch, splat, iters=3)
+        shifts = splat()
+        max_terms = ss.MAX_SHIFT_TERMS
+        ss.MAX_SHIFT_TERMS = 0  # the sort-based scatter on these planes
+        try:
+            scatter = [splat() for _ in range(2)]
+            scatter_ms = cuda_ms(torch, splat, iters=3)
+        finally:
+            ss.MAX_SHIFT_TERMS = max_terms
+        same = torch.equal(scatter[0], scatter[1])
+        err = float((scatter[0] - shifts).abs().max())
+        print(f"eval interp: the splat's scatter form on the interpolation's "
+              f"planes gives the same bits in two runs: {same}; against the "
+              f"shift form max abs err {err:.3e} (tol {SPLAT_TOL}); "
+              f"{scatter_ms:.3f} ms per scatter call on {card}", flush=True)
+        if not same:
+            fail("eval interp: the scatter splat is not deterministic")
+        if not err <= SPLAT_TOL:
+            fail("eval interp: the splat's two forms disagree")
+        del shifts, scatter
+        interp_ms = cuda_ms(torch, lambda: interpolate(
+            res_t, res_tp1, 0.5, Kc, c2w, (W_IMG, H_IMG)), iters=3)
+        flow_px = max(float(pre[1].abs().max()), float(pre[2].abs().max()))
+        print(f"eval interp: {splat_ms:.3f} ms per splat call "
+              f"({pre[0].shape[0]} planes of 4 channels at {W_IMG}x{H_IMG}, "
+              f"largest flow {flow_px:.1f} px), {interp_ms:.3f} ms per "
+              f"interpolated frame on {card}", flush=True)
+        del pre, rep, res_t, res_tp1, b1, frames, comp
+        torch.cuda.empty_cache()
+
+        # ---- the test split on the packed evaluator (B5) ----
+        rep, ran, g = eval_split(
+            torch, np, card, "test --planar_eval off",
+            base + ["--split", "test", "--planar_eval", "off",
+                    "--scene_name", "packed"],
+            {"fused_nerf_eval": 1}, N_FRAMES)
+        add(ran)
+        print(f"eval test --planar_eval off: mean PSNR whole / dynamic "
+              f"{np.nanmean(rep.psnr, 0).tolist()} (the static tower)",
+              flush=True)
+        item = rep.dataset.test_item(0, targets=())
+        calls = kept_calls(
+            lambda: rep.render(rep.params, item["rays"][chunk_rows],
+                               item["ts"][chunk_rows]),
+            ((mk, "fused_nerf_eval_cuda"),))
+        ((a, kw, got),) = calls["fused_nerf_eval_cuda"]
+        want = mk.fused_nerf_eval_ref(*a, **kw)
+        if not bool(torch.isfinite(got).all()):
+            fail("eval: B5's output not finite")
+        err = (got - want).abs()
+        worst = float(err.max())
+        share = float((err.amax(-1) > 1e-5).float().mean())
+        r_mean, r_max = unrounded_ratios(
+            got, want, unrounded(torch, mk.fused_nerf_eval_ref, a, kw, 0),
+            (0, 1))
+        same = torch.equal(reversed_rays(
+            torch, mk.fused_nerf_eval_cuda, a, kw, 0), got)
+        kernel_errs["fused_nerf_eval"] = worst
+        print(f"eval test --planar_eval off: kernel fused_nerf_eval on the "
+              f"packed route's inputs ({a[1].shape[0]} rays x "
+              f"{a[1].shape[1]} samples, trained weights): max abs err "
+              f"{worst:.3e}, rows off by > 1e-5 {share:.4f} (tol "
+              f"{PACKED_SHARE}); its distance to the unrounded model over "
+              f"the plain version's: mean {r_mean:.3f}, largest "
+              f"{r_max:.3f} per column at worst (tol {EXACT_MEAN}, "
+              f"{EXACT_MAX}); the same bits with the rays reversed: {same}",
+              flush=True)
+        if share > PACKED_SHARE or r_mean > EXACT_MEAN or r_max > EXACT_MAX:
+            fail("eval: B5 disagrees with its plain version")
+        if not same:
+            fail("eval: B5 depends on a ray's place")
+        del calls, a, kw, got, want, err
+        b5 = render_full_image(rep.render, rep.params, item["rays"],
+                               item["ts"], chunk=CHUNK, scan_chunks=True)
+        planar = make_render_fn(render_config(cfg), output_transient=False,
+                                keys=("rgb_fine", "depth_fine"))
+        b1 = render_full_image(planar, rep.params, item["rays"], item["ts"],
+                               chunk=CHUNK)
+        err = max(float((b5[k] - b1[k]).abs().max())
+                  for k in ("rgb_fine", "depth_fine"))
+        print(f"eval test --planar_eval off: the B5 frame against the B1 "
+              f"frame max abs err {err:.3e} (tol {FRAME_TOL})", flush=True)
+        if not err <= FRAME_TOL:
+            fail("eval: the packed frame disagrees with the planar frame")
+    finally:
+        os.chdir(here)
+    return total, kernel_errs
+
+
 def main() -> int:
     import torch
 
@@ -1964,6 +2502,17 @@ def main() -> int:
             packed_records.items()):
         rec["launches"] += scene_ran[name]
     phase_s["scene training"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- eval (a main path) ----------------
+    eval_ran, eval_errs = eval_phase(torch, np, card)
+    record["launches"] += eval_ran.get("planar_eval_comp", 0)
+    for name, rec in list(train_records.items()) + list(
+            packed_records.items()):
+        rec["launches"] += eval_ran.get(name, 0)
+        # the worst error also covers the eval paths' inputs
+        rec["max_abs_err"] = max(rec["max_abs_err"], eval_errs.get(name, 0))
+    phase_s["eval"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---------------- agreement ----------------

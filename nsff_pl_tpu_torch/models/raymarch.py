@@ -1,9 +1,15 @@
 """Planar renderers (port of `nsff_pl_tpu/models/raymarch.py`).
 
-Test time (`render_test_planar`, the composited route): one dual-tower
-evaluation per sample at the stratified, unperturbed depths, composited
-inside the evaluator (`ops/raymarch_kernel.py::make_planar_nerf_eval_comp`),
-which writes one (N, M) maps row per ray.
+Test time (`render_test_planar`): one evaluation per sample at the
+stratified, unperturbed depths. A key filter within `comp_eval_keys`
+takes the composited route: the evaluator composites inside itself
+(`ops/raymarch_kernel.py::make_planar_nerf_eval_comp`) and writes one
+(N, M) maps row per ray. Any other request takes the planes route: the
+trainable evaluator's forward (`make_planar_nerf_train`, no gradient)
+writes dense (N, S) planes, the fused compositor
+(`ops/compositing_planar_kernel.py`, with the main planes in its warp
+slots and zero noises) or the plain composite weighs them, and the
+per-sample result keys are assembled at the end.
 
 Training (`render_train_planar`, the exact branch): the main dual-tower
 evaluation with both flow heads and two transient-only evaluations at
@@ -13,11 +19,9 @@ calls), composited together by the fused compositor
 dense (N, S) plane; sample positions never materialize.
 
 Not ported on these paths, each raising `NotImplementedError` naming its
-ROADMAP.md item: the test-time planes route (the packed path of
-`models/rendering.py::render_rays` serves per-sample keys with
-`planar_eval='off'`), coarse-to-fine (`N_importance > 0`),
-`warp_subsample=2` and `warp_importance > 0`. Unlike the TPU package
-there is no lane-width limit on `N_samples`.
+ROADMAP.md item: coarse-to-fine (`N_importance > 0`), `warp_subsample=2`
+and `warp_importance > 0`. Unlike the TPU package there is no lane-width
+limit on `N_samples`.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 
 from nsff_pl_tpu_torch.models import nerf as nerf_m
 from nsff_pl_tpu_torch.models.rendering import Z_FAR, RenderConfig
+from nsff_pl_tpu_torch.ops import compositing as cp
 from nsff_pl_tpu_torch.ops.compositing_planar_kernel import \
     make_planar_compositor
 from nsff_pl_tpu_torch.ops.posenc import posenc
@@ -65,7 +70,7 @@ def _visibility_planes(o, d, zs, K, img_wh, c2ws) -> torch.Tensor:
     C = c2ws.shape[0]
     c2w4 = torch.eye(4, device=zs.device).repeat(C, 1, 1)
     c2w4[:, :3] = c2ws
-    w2c = torch.linalg.inv(c2w4)
+    w2c = torch.linalg.inv_ex(c2w4)[0]  # no host check: graph-capturable
     R, t = w2c[:, :3, :3], w2c[:, :3, 3]
     vis = torch.zeros_like(zs)
     for c in range(C):
@@ -99,8 +104,18 @@ def render_test_planar(
     view_dir=None,
     keys=None,
 ) -> Dict[str, torch.Tensor]:
-    """Test-time (no-grad) render on the composited planar evaluator.
-    Same result keys and values as the JAX function's composited route."""
+    """Test-time (no-grad) render on the planar evaluators; the JAX
+    function's result keys and values on both of its routes.
+
+    A key filter within `comp_eval_keys` (and `planar_compositing` not
+    'off') takes the composited route. Otherwise the planes route
+    evaluates dense (N, S) planes and composites them: with
+    `output_transient=False` the single-field composite of the static
+    tower; else both towers with the flow heads, the visibility culling
+    of the transient sigma against `vis_poses` and the two-field
+    composite, in the fused compositor where `planar_compositing` is
+    'on', or 'auto' on a CUDA device (its warp slots carry the main
+    planes, its noises are zero), else in plain PyTorch."""
     if cfg.N_importance > 0:
         raise NotImplementedError(
             "coarse-to-fine test rendering is not ported yet (ROADMAP.md "
@@ -111,14 +126,6 @@ def render_test_planar(
     o, d = rays[:, 0:3], rays[:, 3:6]
     flow = (tuple(f for f in output_transient_flow if f in ("fw", "bw"))
             if output_transient else ())
-    if keys is None or not set(keys) <= comp_eval_keys(output_transient,
-                                                       flow):
-        raise NotImplementedError(
-            "the per-sample planes route of the planar test path is not "
-            "ported yet (ROADMAP.md queue A, 'test-time planes route'); "
-            "planar_eval='off' renders per-sample keys on the packed path, "
-            "or pass a key filter within "
-            f"{sorted(comp_eval_keys(output_transient, flow))}")
 
     dir_src = view_dir if view_dir is not None else d
     dir_emb = (posenc(dir_src, cfg.S_emb_dir, cfg.N_emb_dir)
@@ -128,16 +135,128 @@ def render_test_planar(
              if output_transient else None)
     encode_a = cfg.encode_a and "a" in embeddings and ts is not None
     a_emb = nerf_m.embedding_lookup(embeddings["a"], ts) if encode_a else None
+    kker = dict(n_emb_xyz=cfg.N_emb_xyz, s_emb_xyz=cfg.S_emb_xyz,
+                n_emb_dir=cfg.N_emb_dir, n_a=cfg.N_a, n_tau=cfg.N_tau,
+                flow_scale=cfg.flow_scale)
 
+    use_comp = (keys is not None and cfg.planar_compositing != "off"
+                and set(keys) <= comp_eval_keys(output_transient, flow))
+    if use_comp:
+        return _composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb,
+                           cfg, kker, output_transient=output_transient,
+                           flow=flow, encode_a=encode_a,
+                           vis_poses=vis_poses, vis_K=vis_K)
+
+    op = make_planar_nerf_train(
+        S, use_viewdir=cfg.use_viewdir, encode_a=encode_a,
+        encode_t=output_transient, output_flow=flow, **kker)
+    out = op(params_fine, o, d, zs, None, dir_emb, a_emb, t_emb)
+
+    res: Dict[str, torch.Tensor] = {"zs_fine": zs}
+    xyz = tuple(o[:, c:c + 1] + d[:, c:c + 1] * zs for c in range(3))
+    srgb = (out["srgb_r"], out["srgb_g"], out["srgb_b"])
+
+    if not output_transient:
+        # single-field composite: static_weights_fine = weights
+        d_s, _d_t = cp.deltas_from_zs(zs)
+        tau_s = d_s * cp.softplus(out["ssig"])
+        w = (1.0 - torch.exp(-tau_s)) * cp.transmittance_from_taus(tau_s)
+        res["rgb_fine"] = torch.stack([(w * c).sum(-1) for c in srgb], -1)
+        res["depth_fine"] = (w * zs).sum(-1)
+        res["xyzs_fine"] = torch.stack(xyz, -1)
+        res["static_rgbs_fine"] = torch.stack(srgb, -1)
+        res["static_sigmas_fine"] = cp.softplus(out["ssig"])
+        res["static_weights_fine"] = w
+        return res
+
+    tsig_raw = out["tsig"]
+    if vis_poses is not None:
+        vis = _visibility_planes(o, d, zs, vis_K, cfg.img_wh, vis_poses)
+        tsig_raw = torch.where(vis == 0, -10.0, tsig_raw)
+
+    d_s, d_t = cp.deltas_from_zs(zs)
+    tau_s = d_s * cp.softplus(out["ssig"])
+    tau_t = d_t * cp.softplus(tsig_raw)
+    static_alphas = 1.0 - torch.exp(-tau_s)
+    transient_alphas = 1.0 - torch.exp(-tau_t)
+
+    trgb = (out["trgb_r"], out["trgb_g"], out["trgb_b"])
+    use_ck = (cfg.planar_compositing == "on"
+              or (cfg.planar_compositing == "auto" and rays.is_cuda))
+    if use_ck:
+        zero = torch.zeros_like(tsig_raw)
+        comp_in = {"zs": zs.contiguous(), "ssig": out["ssig"],
+                   "tsig": tsig_raw, "tsig_w1": tsig_raw,
+                   "tsig_w2": tsig_raw,
+                   "ns": zero, "nt": zero, "nw1": zero, "nw2": zero}
+        for i, c in enumerate("rgb"):
+            comp_in[f"srgb_{c}"] = srgb[i]
+            comp_in[f"trgb_{c}"] = trgb[i]
+            comp_in[f"trgb_w1_{c}"] = trgb[i]
+            comp_in[f"trgb_w2_{c}"] = trgb[i]
+        ck = make_planar_compositor(S)(comp_in)
+        sw, tw, w = (ck["static_weights"], ck["transient_weights"],
+                     ck["weights"])
+        res["rgb_fine"] = ck["maps"][:, 0:3]
+        res["depth_fine"] = ck["maps"][:, 3]
+    else:
+        alphas = 1.0 - torch.exp(-(tau_s + tau_t))
+        trans = cp.transmittance_from_taus(tau_s + tau_t)
+        sw = static_alphas * trans
+        tw = transient_alphas * trans
+        w = alphas * trans
+        res["rgb_fine"] = torch.stack(
+            [(sw * sc + tw * tc).sum(-1) for sc, tc in zip(srgb, trgb)], -1)
+        res["depth_fine"] = (w * zs).sum(-1)
+    transient_rgb_map = torch.stack([(tw * c).sum(-1) for c in trgb], -1)
+    transient_alpha = tw.sum(-1)
+    res["transient_alpha_fine"] = transient_alpha
+    # gray background for the transient-only view
+    res["transient_rgb_fine"] = (transient_rgb_map
+                                 + 0.8 * (1.0 - transient_alpha[:, None]))
+    # static-only compositing with its own transmittance
+    _sw = static_alphas * cp.transmittance_from_taus(tau_s)
+    res["_static_rgb_fine"] = torch.stack([(_sw * c).sum(-1) for c in srgb],
+                                          -1)
+    res["_static_depth_fine"] = (_sw * zs).sum(-1)
+
+    if flow:
+        far = zs > Z_FAR  # flow is zeroed beyond z_far
+        ffw = tuple(torch.where(far, 0.0, out[f"ffw_{c}"]) for c in "xyz")
+        fbw = tuple(torch.where(far, 0.0, out[f"fbw_{c}"]) for c in "xyz")
+        res["xyz_fine"] = torch.stack([(w * x).sum(-1) for x in xyz], -1)
+        res["transient_flow_fw"] = torch.stack(
+            [(w * f).sum(-1) for f in ffw], -1)
+        res["xyz_fw"] = res["xyz_fine"] + res["transient_flow_fw"]
+        res["transient_flow_bw"] = torch.stack(
+            [(w * f).sum(-1) for f in fbw], -1)
+        res["xyz_bw"] = res["xyz_fine"] + res["transient_flow_bw"]
+        res["transient_flows_fw"] = torch.stack(ffw, -1)
+        res["transient_flows_bw"] = torch.stack(fbw, -1)
+    res["xyzs_fine"] = torch.stack(xyz, -1)
+    res["static_rgbs_fine"] = torch.stack(srgb, -1)
+    res["transient_rgbs_fine"] = torch.stack(trgb, -1)
+    res["static_sigmas_fine"] = cp.softplus(out["ssig"])
+    res["transient_sigmas_fine"] = cp.softplus(tsig_raw)
+    res["static_alphas_fine"] = static_alphas
+    res["transient_alphas_fine"] = transient_alphas
+    res["static_weights_fine"] = sw
+    res["transient_weights_fine"] = tw
+    res["weights_fine"] = w
+    return res
+
+
+def _composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb, cfg, kker, *,
+                output_transient, flow, encode_a, vis_poses, vis_K):
+    """The composited route of `render_test_planar`: one (N, M) maps row
+    per ray from the composited evaluator."""
     vis_pl = None
     if output_transient and vis_poses is not None:
         vis_pl = _visibility_planes(o, d, zs, vis_K, cfg.img_wh, vis_poses)
     comp_op = make_planar_nerf_eval_comp(
-        S, use_viewdir=cfg.use_viewdir, encode_a=encode_a,
+        zs.shape[1], use_viewdir=cfg.use_viewdir, encode_a=encode_a,
         encode_t=output_transient, output_flow=flow,
-        vis_in=vis_pl is not None, z_far=Z_FAR, n_emb_xyz=cfg.N_emb_xyz,
-        s_emb_xyz=cfg.S_emb_xyz, n_emb_dir=cfg.N_emb_dir, n_a=cfg.N_a,
-        n_tau=cfg.N_tau, flow_scale=cfg.flow_scale)
+        vis_in=vis_pl is not None, z_far=Z_FAR, **kker)
     maps = comp_op(params_fine, o, d, zs.contiguous(), vis_pl, dir_emb,
                    a_emb, t_emb)
     cols = comp_op.cols_map

@@ -17,6 +17,10 @@ compositor `ops/compositing_kernel.py`) and the plain f32 evaluators of
 `models/nerf.py`. Coarse-to-fine (`N_importance > 0`), `mesh` and the
 `'stub'` train backend are not ported; each raises `NotImplementedError`
 naming its ROADMAP.md item.
+
+`interpolate` (with `_interp_pre` / `_interp_post`) renders a time
+between two rendered frames from their per-sample planes: the eval CLI's
+space-time interpolation split.
 """
 from __future__ import annotations
 
@@ -68,9 +72,11 @@ class RenderConfig:
     # (ops/compositing_kernel.py) when the kernel train backend is active
     # on the packed path
     fused_compositing: bool = False
-    # the fused three-way compositor of the planar train path: 'auto' and
-    # 'on' use it (its plain version on CPU tensors); 'off' (compositing
-    # outside the kernel on that path) is not ported
+    # the fused three-way compositor of the planar paths: in training
+    # 'auto' and 'on' use it (its plain version on CPU tensors; 'off' is
+    # not ported there); on the test-time planes route 'on', or 'auto' on
+    # a CUDA device, composites in it, else in plain PyTorch, and 'off'
+    # also turns the composited route off
     planar_compositing: str = "auto"
     # planar train path: 'auto' = whenever the kernel train backend is
     # active and the configuration is in its envelope; 'on' forces it;
@@ -430,3 +436,118 @@ def render_rays(
     if keys is not None:
         results = {k: v for k, v in results.items() if k in keys}
     return results
+
+
+def _interp_pre(xyzs, flows_fw, flows_bw, rgba_t, rgba_tp1, dt: float, K,
+                c2w, *, w: int, h: int):
+    """Everything in `interpolate` upstream of the splat: the per-plane
+    projected optical flows and the stacked transient planes of both warp
+    directions, in planar layout: planes (2S, 4, h, w), flow components
+    (2S, h, w)."""
+    S = xyzs.shape[1]
+    dev = xyzs.device
+    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+    # projection matrix ("right up back" -> "right down forward")
+    c2w4 = torch.eye(4, device=dev)
+    c2w4[:3] = c2w
+    w2c = torch.linalg.inv_ex(c2w4)[0][:3]
+    w2c = w2c * torch.tensor([[1.0], [-1.0], [-1.0]], device=dev)
+    P = K @ w2c  # (3, 4)
+
+    def comps(a):  # (hw, S, C) -> C planar (S, h, w) components
+        return tuple(a.permute(2, 1, 0).reshape(a.shape[2], -1, h, w))
+
+    X, Y, Z = comps(xyzs)
+    kfx, kfy, kcx, kcy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    eps = 1e-6
+
+    def ndc2world_c(x, y, z):
+        """Componentwise `ops.rays.ndc2world`."""
+        rz = 2.0 / (z - 1 - eps)
+        return -rz * x * kcx / kfx, -rz * y * kcy / kfy, rz
+
+    def plane_flow(flows_3d, scale):
+        """3D scene flow -> per-plane 2D optical flow by projection, as
+        planar (S, h, w) components."""
+        fx3, fy3, fz3 = comps(flows_3d)
+        wx, wy, wz = ndc2world_c(X, Y, Z)
+        dx, dy, dz = ndc2world_c(X + fx3, Y + fy3, Z + fz3)
+        wx, wy, wz = (wx + scale * (dx - wx), wy + scale * (dy - wy),
+                      wz + scale * (dz - wz))
+        u = P[0, 0] * wx + P[0, 1] * wy + P[0, 2] * wz + P[0, 3]
+        v = P[1, 0] * wx + P[1, 1] * wy + P[1, 2] * wz + P[1, 3]
+        d = P[2, 0] * wx + P[2, 1] * wy + P[2, 2] * wz + P[2, 3]
+        fx = u / d - torch.arange(w, dtype=torch.float32,
+                                  device=dev)[None, None, :]
+        fy = v / d - torch.arange(h, dtype=torch.float32,
+                                  device=dev)[None, :, None]
+        return fx, fy
+
+    def planes(rgba):  # (hw, S, 4) -> (S, 4, h, w)
+        return rgba.permute(1, 2, 0).reshape(S, 4, h, w)
+
+    fx_t, fy_t = plane_flow(flows_fw, dt)
+    fx_p, fy_p = plane_flow(flows_bw, 1.0 - dt)
+    planes_cat = torch.cat([planes(rgba_t), planes(rgba_tp1)], 0)
+    return (planes_cat, torch.cat([fx_t, fx_p], 0),
+            torch.cat([fy_t, fy_p], 0))
+
+
+def _interp_post(warped, static_rgb_flat, static_a_flat, zs_flat,
+                 dt: float):
+    """Blend and front-to-back over-composite downstream of the splat
+    (planar layout, see `_interp_pre`): (rgb (h, w, 3), depth (h, w))."""
+    S2, _, h, w = warped.shape
+    S = S2 // 2
+    warped_fw, warped_bw = warped[:S], warped[S:]  # (S, 4, h, w)
+    static_rgb = static_rgb_flat.permute(1, 2, 0).reshape(S, 3, h, w)
+    static_a = static_a_flat.T.reshape(S, h, w)[:, None]
+
+    # per-plane blend
+    composed_rgb = (warped_fw[:, :3] * warped_fw[:, 3:] * (1 - dt)
+                    + warped_bw[:, :3] * warped_bw[:, 3:] * dt
+                    + static_rgb * static_a)
+    composed_a = 1.0 - (1.0 - (warped_fw[:, 3:] * (1 - dt)
+                               + warped_bw[:, 3:] * dt)) * (1.0 - static_a)
+    composed_a = composed_a[:, 0]  # (S, h, w)
+
+    # front-to-back over-compositing: one exclusive product over planes,
+    # by the device-side scan of the compositor (ops/compositing.py)
+    trans = cp.transmittance(composed_a.reshape(S, h * w).T).T.reshape(
+        S, h, w)
+    rgb = (trans[:, None] * composed_rgb).sum(0)  # (3, h, w)
+    zs = zs_flat.T.reshape(S, h, w)
+    depth = (trans * composed_a * zs).sum(0)
+    return rgb.permute(1, 2, 0), depth
+
+
+def interpolate(results_t, results_tp1, dt: float, K, c2w, img_wh):
+    """Space-time interpolation between two rendered frames t and t+1
+    (port of the JAX package's `interpolate`): each depth sample forms a
+    plane; frame t's transient planes are forward-warped by their
+    dt-scaled, camera-projected scene flow, frame t+1's by (1 - dt), both
+    in one average-mode splat (`ops/softsplat.py`); the blend is
+    over-composited front to back with frame t's static planes.
+
+    results_t / results_tp1: full-image render dicts (test time, both
+    flows) with (h*w, S, .) per-sample entries; K (3, 3) intrinsics; c2w
+    (3, 4) pose (the same for both frames); img_wh (w, h). Returns rgb
+    (h, w, 3) and depth (h, w) in NDC."""
+    from nsff_pl_tpu_torch.ops.softsplat import softsplat_batched_planar
+
+    w, h = img_wh
+    dt = float(torch.tensor(dt, dtype=torch.float32))  # as JAX's f32 dt
+
+    def rgba(res):
+        return torch.cat([res["transient_rgbs_fine"],
+                          res["transient_alphas_fine"][..., None]], -1)
+
+    planes_cat, fx_cat, fy_cat = _interp_pre(
+        results_t["xyzs_fine"], results_t["transient_flows_fw"],
+        results_tp1["transient_flows_bw"], rgba(results_t),
+        rgba(results_tp1), dt, K, c2w, w=w, h=h)
+    warped = softsplat_batched_planar(planes_cat, fx_cat, fy_cat, "average")
+    return _interp_post(warped, results_t["static_rgbs_fine"],
+                        results_t["static_alphas_fine"],
+                        results_t["zs_fine"], dt)

@@ -92,7 +92,9 @@ def compute_world_visibility(xyz_w: torch.Tensor, K, H: int, W: int,
     C = c2ws.shape[0]
     c2w4 = torch.eye(4, device=xyz_w.device).repeat(C, 1, 1)
     c2w4[:, :3] = c2ws
-    w2c = torch.linalg.inv(c2w4)
+    # inv_ex: no host check for a singular input, so a CUDA graph
+    # captures it
+    w2c = torch.linalg.inv_ex(c2w4)[0]
     R, t = w2c[:, :3, :3], w2c[:, :3, 3]
     xyz_cam = torch.einsum("cij,nj->cni", R, xyz_w) + t[:, None]
     in_front = xyz_cam[..., 2] < 0  # front is the negative z axis

@@ -23,7 +23,12 @@ def stratified_zs(n_rays: int, n_samples: int, perturb: float,
 
     Returns (zs, zs_mid) with shapes (n_rays, n_samples) and
     (n_rays, n_samples-1)."""
-    zs = torch.linspace(0.0, 1.0, n_samples, dtype=dtype, device=device)
+    # linspace as XLA computes the JAX package's: i * (1 / (S - 1)) in the
+    # dtype, the last one exactly 1 (torch.linspace differs by an ulp at
+    # some samples, which can move a point across a visibility border)
+    zs = torch.arange(n_samples, dtype=dtype, device=device) * (
+        1.0 / max(n_samples - 1, 1))
+    zs[-1:].fill_(1.0)  # a fill kernel: no host copy, graph-capturable
     zs = zs.expand(n_rays, n_samples)
     zs_mid = 0.5 * (zs[:, :-1] + zs[:, 1:])
     if perturb > 0:

@@ -24,6 +24,8 @@ scene applies, bit for bit where it works on integers:
   aligned, edges clamped, float weights).
 - `png_bytes` / `write_png`: PNG files of 8-bit grey and RGB and 16-bit
   grey, with a chosen row filter per row.
+- `gif_bytes` / `write_gif`: an animated GIF of RGB frames (the eval
+  CLI's video where no ffmpeg is installed), on a fixed 3-3-2 palette.
 
 The row filters of a decoded image are undone in one pass over its
 anti-diagonals: a pixel depends only on its left, upper and upper-left
@@ -395,3 +397,62 @@ def write_png(path: str, img: np.ndarray,
               filters: Optional[Sequence[int]] = None) -> None:
     with open(path, "wb") as f:
         f.write(png_bytes(img, filters))
+
+
+# the GIF's fixed palette: 3 bits of red, 3 of green, 2 of blue
+_GIF_PALETTE = np.stack(np.meshgrid(
+    np.round(np.arange(8) * 255 / 7), np.round(np.arange(8) * 255 / 7),
+    np.round(np.arange(4) * 255 / 3), indexing="ij"), -1).reshape(
+        256, 3).astype(np.uint8)
+# literal codes between two clear codes: the decoder's table then never
+# reaches 512 entries, so every code stays 9 bits wide
+_GIF_RUN = 250
+
+
+def _gif_lzw(index: np.ndarray) -> bytes:
+    """The LZW image data of one frame of 8-bit palette indices, without
+    compression: 9-bit literal codes, a clear code before every
+    `_GIF_RUN` of them, the end code last; packed least significant bit
+    first into sub-blocks of 255 bytes."""
+    px = index.reshape(-1).astype(np.uint16)
+    n_runs = -(-px.size // _GIF_RUN)
+    codes = np.full((n_runs, _GIF_RUN + 1), -1, np.int32)
+    codes[:, 0] = 256  # clear
+    flat = np.full(n_runs * _GIF_RUN, -1, np.int32)
+    flat[:px.size] = px
+    codes[:, 1:] = flat.reshape(n_runs, _GIF_RUN)
+    codes = np.append(codes[codes >= 0], 257).astype(np.uint16)  # end
+    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1).astype(
+        np.uint8).reshape(-1)
+    data = np.packbits(bits, bitorder="little").tobytes()
+    blocks = [bytes([len(data[i:i + 255])]) + data[i:i + 255]
+              for i in range(0, len(data), 255)]
+    return bytes([8]) + b"".join(blocks) + b"\x00"
+
+
+def gif_bytes(frames: Sequence[np.ndarray], fps: float = 10) -> bytes:
+    """Animated GIF file bytes of (h, w, 3) uint8 RGB frames, looping,
+    `fps` frames a second, each quantised to the 3-3-2 palette."""
+    h, w = frames[0].shape[:2]
+    delay = max(int(round(100 / fps)), 1)  # hundredths of a second
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0),
+           _GIF_PALETTE.tobytes(),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
+    for f in frames:
+        f = np.asarray(f)
+        if f.shape != (h, w, 3) or f.dtype != np.uint8:
+            raise ValueError(f"gif frames: (h, w, 3) uint8 of one size, got "
+                             f"{f.shape} {f.dtype}")
+        index = ((f[..., 0] >> 5).astype(np.uint8) << 5) \
+            | ((f[..., 1] >> 5).astype(np.uint8) << 2) | (f[..., 2] >> 6)
+        out.append(b"\x21\xf9\x04\x00" + struct.pack("<H", delay)
+                   + b"\x00\x00")
+        out.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0))
+        out.append(_gif_lzw(index))
+    out.append(b"\x3b")
+    return b"".join(out)
+
+
+def write_gif(path: str, frames: Sequence[np.ndarray], fps: float = 10) -> None:
+    with open(path, "wb") as f:
+        f.write(gif_bytes(frames, fps))

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import glob
 import os
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -261,9 +261,12 @@ class MonocularScene:
         return table
 
     # ------------------------------------------------------------------
-    def test_item(self, idx: int):
+    def test_item(self, idx: int,
+                  targets: Sequence[str] = ("rgbs", "disp", "mask", "flows")):
         """Full-image sample of the val / test splits: a dict of tensors
-        on the device (and `cam_ids` 0)."""
+        on the device (and `cam_ids` 0). Of the frame's files only
+        `targets` are read (the eval CLI reads the image and mask of the
+        test split and none else)."""
         if self.split == "val":
             c2w = self.poses[self.N_frames // 2]
             t = self.N_frames // 2
@@ -288,15 +291,19 @@ class MonocularScene:
             "cam_ids": 0,
         }
         if t < len(self.image_paths):
-            sample["rgbs"] = self._tensor(_imread_rgb(
-                self.image_paths[t], self.img_wh).reshape(-1, 3))
-            sample["disp"] = self._tensor(_imread_disp(
-                self.disp_paths[t], self.img_wh).reshape(-1))
-            sample["mask"] = self._tensor(_imread_gray(
-                self.mask_paths[t], self.img_wh).reshape(-1))
-            fw, bw = self._read_flow_pair(t)
-            sample["flow_fw"] = self._tensor(fw.reshape(h, w, 2))
-            sample["flow_bw"] = self._tensor(bw.reshape(h, w, 2))
+            if "rgbs" in targets:
+                sample["rgbs"] = self._tensor(_imread_rgb(
+                    self.image_paths[t], self.img_wh).reshape(-1, 3))
+            if "disp" in targets:
+                sample["disp"] = self._tensor(_imread_disp(
+                    self.disp_paths[t], self.img_wh).reshape(-1))
+            if "mask" in targets:
+                sample["mask"] = self._tensor(_imread_gray(
+                    self.mask_paths[t], self.img_wh).reshape(-1))
+            if "flows" in targets:
+                fw, bw = self._read_flow_pair(t)
+                sample["flow_fw"] = self._tensor(fw.reshape(h, w, 2))
+                sample["flow_bw"] = self._tensor(bw.reshape(h, w, 2))
         return sample
 
     def __len__(self):

@@ -14,9 +14,11 @@ replayed, so one dispatch issues no Python op per step (see
 `make_render_fn` returns a plain function under `torch.inference_mode()`.
 `render_full_image` is the host chunk loop; it pads the last chunk to the
 full chunk size by repeating the last ray, as the JAX loop does, so every
-chunk has one shape. The JAX package's `scan_chunks` has no counterpart
-(a CUDA graph of the chunk loop is later work); in place of the render's
-`rng` argument a `test_time=False` renderer takes a `generator`.
+chunk has one shape. With `scan_chunks=True` it splits a frame into equal
+chunks and, on a CUDA device, renders them all by one replay of a CUDA
+graph (`_ChunkGraph`), the counterpart of the JAX package's chunk loop in
+one `lax.scan` dispatch. In place of the render's `rng` argument a
+`test_time=False` renderer takes a `generator`.
 """
 from __future__ import annotations
 
@@ -425,6 +427,7 @@ def make_render_fn(
             view_dir=view_dir, keys=keys)
 
     render.device = dev
+    render.chunk_graphs = {}  # render_full_image's CUDA graphs
     return render
 
 
@@ -433,11 +436,114 @@ def _pad_last(x: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
 
 
+def equal_chunks(n: int, chunk: int) -> Tuple[int, int]:
+    """(count, size) of the equal chunks of an n-ray frame, as the JAX
+    package's `scan_chunks` sizes them: K = ceil(n / chunk) chunks of
+    ceil(n / K) rays rounded up to a multiple of 1024 (never above
+    `chunk`), so a frame that is K.5 chunks long pads a few rays rather
+    than half a chunk (512x288 at 32768: 5 x 29696, 1024 rays of
+    padding)."""
+    k = -(-n // chunk)
+    size = min(chunk, ((-(-n // k) + 1023) // 1024) * 1024)
+    return -(-n // size), size
+
+
+class _ChunkGraph:
+    """The equal chunks of one frame, rendered by one replay of a CUDA
+    graph.
+
+    The first call warms the chunk renders up once on a side stream
+    under `torch.cuda.set_sync_debug_mode("error")` (an operation that
+    waits on the host raises there), then captures all of them in one
+    `torch.cuda.CUDAGraph`, with each chunk's outputs copied into frame
+    buffers of the graph's pool. Every call copies the frame's inputs
+    (rays, ts, view directions, visibility poses and intrinsics) into the
+    graph's static buffers, replays it and returns copies of the frame
+    buffers trimmed to the frame: the next replay overwrites the pool,
+    the copies are the caller's. The graph reads the params at their
+    addresses. A capture that fails raises with the operation that broke
+    it; nothing falls back to the host loop. `graph_launches` holds the
+    kernel launches one capture recorded (`ops/launches.py`), `replays`
+    the replays since, `warmup_launches` what the warm-up launched and
+    `capture_seconds` the warm-up and capture's host seconds."""
+
+    def __init__(self, render_fn, params, inputs, n_chunks: int,
+                 chunk: int):
+        from nsff_pl_tpu_torch.ops import launches
+
+        self.n_chunks, self.chunk = n_chunks, chunk
+        dev = inputs["rays"].device
+        t0 = time.perf_counter()
+        self.bufs = {k: v.clone() for k, v in inputs.items()}
+        before = launches.counts()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _render_chunks(render_fn, params, self.bufs, n_chunks, chunk)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        mid = launches.counts()
+        self.warmup_launches = {k: mid[k] - before[k] for k in mid}
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = _render_chunks(render_fn, params, self.bufs,
+                                          n_chunks, chunk)
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA graph capture of the render chunks failed: {e}") from e
+        after = launches.counts()
+        self.graph_launches = {k: after[k] - mid[k] for k in after}
+        self.replays = 0
+        self.capture_seconds = time.perf_counter() - t0
+
+    def __call__(self, inputs, n: int) -> Dict[str, torch.Tensor]:
+        for k, v in inputs.items():
+            self.bufs[k].copy_(v)
+        self.graph.replay()
+        self.replays += 1
+        return {k: v[:n].clone() for k, v in self.out.items()}
+
+
+def _render_chunks(render_fn, params, inputs, n_chunks: int,
+                   chunk: int) -> Dict[str, torch.Tensor]:
+    """Render the `n_chunks` chunks of the padded per-ray `inputs` (rays,
+    and ts / view_dir where given; vis_poses and vis_K whole) into frame
+    buffers, one chunk's outputs alive at a time."""
+    b = inputs
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(n_chunks):
+        rows = slice(i * chunk, (i + 1) * chunk)
+        o = render_fn(params, b["rays"][rows],
+                      b["ts"][rows] if "ts" in b else None,
+                      b.get("vis_poses"), b.get("vis_K"),
+                      b["view_dir"][rows] if "view_dir" in b else None)
+        with torch.inference_mode():
+            for k, v in o.items():
+                if k not in out:
+                    out[k] = v.new_empty((n_chunks * chunk,)
+                                         + tuple(v.shape[1:]))
+                out[k][rows].copy_(v)
+        del o
+    return out
+
+
 def render_full_image(render_fn, params, rays, ts, chunk: int = 32768,
-                      vis_poses=None, vis_K=None,
-                      view_dir=None) -> Dict[str, torch.Tensor]:
+                      vis_poses=None, vis_K=None, view_dir=None,
+                      scan_chunks: bool = False) -> Dict[str, torch.Tensor]:
     """Render N rays in fixed-size chunks; the last chunk is padded to
-    `chunk` rays (repeating its last ray) and trimmed after rendering."""
+    `chunk` rays (repeating its last ray) and trimmed after rendering.
+
+    `scan_chunks=True` (with N > chunk) renders equal chunks instead
+    (`equal_chunks`), padded by repeating the last ray, ts and view
+    direction. On a CUDA device they run as one replay of a CUDA graph
+    (`_ChunkGraph`), captured once per frame size, chunk, input set and
+    params, and kept on `render_fn.chunk_graphs`; on the CPU the same
+    chunks run eagerly. The returned tensors are the caller's either
+    way."""
     dev = render_fn.device
     rays = torch.as_tensor(rays, dtype=torch.float32, device=dev)
     if ts is not None:
@@ -445,6 +551,27 @@ def render_full_image(render_fn, params, rays, ts, chunk: int = 32768,
     if view_dir is not None:
         view_dir = torch.as_tensor(view_dir, dtype=torch.float32, device=dev)
     n = rays.shape[0]
+    if scan_chunks and n > chunk:
+        n_chunks, chunk = equal_chunks(n, chunk)
+        pad = n_chunks * chunk - n
+        inputs = {"rays": rays, "ts": ts, "view_dir": view_dir}
+        inputs = {k: _pad_last(v, pad) if pad else v
+                  for k, v in inputs.items() if v is not None}
+        for k, v in (("vis_poses", vis_poses), ("vis_K", vis_K)):
+            if v is not None:
+                inputs[k] = torch.as_tensor(v, dtype=torch.float32,
+                                            device=dev)
+        if dev.type == "cuda":
+            graphs = render_fn.__dict__.setdefault("chunk_graphs", {})
+            key = (n, chunk, tuple(sorted(inputs)),
+                   tuple(tuple(v.shape) for _, v in sorted(inputs.items())),
+                   tuple(t.data_ptr() for t in _tensors(params)))
+            if key not in graphs:
+                graphs[key] = _ChunkGraph(render_fn, params, inputs,
+                                          n_chunks, chunk)
+            return graphs[key](inputs, n)
+        out = _render_chunks(render_fn, params, inputs, n_chunks, chunk)
+        return {k: v[:n].clone() for k, v in out.items()}
     outs = []
     for i in range(0, n, chunk):
         r = rays[i:i + chunk]

@@ -657,3 +657,65 @@ def test_graphed_steps_match_eager(path, hard):
     assert drawing.replays == 2
     assert all(bool(torch.isfinite(v).all()) for v in m2.values())
     assert not torch.equal(m1["col_l"], m2["col_l"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["composited", "planes"])
+def test_render_chunks_graph_matches_host_loop(route):
+    """`render_full_image(scan_chunks=True)` on the card: the equal chunks
+    of a 3000-ray frame (3 x 1024) captured as one CUDA graph and replayed
+    once a frame equal the host loop's frame within 1e-6 (the same
+    kernels; a ray's result does not depend on its chunk); the capture
+    holds one launch per chunk of the route's kernels (the serving
+    evaluator; or the planes route's forward and compositor); a second
+    frame leaves the first one's tensors as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.models import nerf as tn
+    from nsff_pl_tpu_torch.models.rendering import RenderConfig
+    from nsff_pl_tpu_torch.training import step as tstep
+
+    g = torch.Generator().manual_seed(0)
+    params = {"nerf_fine": tn.init_nerf_params(
+        g, "fine", use_viewdir=True, encode_transient=True, output_flow=True,
+        device="cuda"), "embedding_t": tn.init_embedding(g, 4, 48)}
+    n, chunk = 3000, 1024
+    keys = ("rgb_fine", "depth_fine") + (
+        ("transient_flows_fw", "static_alphas_fine") if route == "planes"
+        else ())
+    render = tstep.make_render_fn(
+        RenderConfig(use_viewdir=True, encode_t=True,
+                     compute_dtype="bfloat16", img_wh=(64, 48)),
+        output_transient=True, output_transient_flow=("fw", "bw"),
+        with_visibility=True, keys=keys)
+    K = torch.tensor([[50.0, 0, 32], [0, 50.0, 24], [0, 0, 1]])
+    poses = torch.zeros(1, 3, 4)
+    poses[0, :, :3] = torch.eye(3)
+
+    def frame(seed):
+        gg = torch.Generator().manual_seed(seed)
+        rays = torch.rand(n, 6, generator=gg)
+        rays[:, 0:2] = rays[:, 0:2] * 2 - 1
+        rays[:, 2] = -1
+        rays[:, 3:5] = (rays[:, 3:5] - 0.5) * 0.4
+        rays[:, 5] = 2
+        return rays.cuda(), torch.randint(0, 4, (n,), generator=gg).cuda()
+
+    rays, ts = frame(1)
+    kw = dict(chunk=chunk, vis_poses=poses.cuda(), vis_K=K.cuda())
+    got = tstep.render_full_image(render, params, rays, ts,
+                                  scan_chunks=True, **kw)
+    want = tstep.render_full_image(render, params, rays, ts, **kw)
+    for k in keys:
+        torch.testing.assert_close(got[k], want[k], atol=1e-6, rtol=0)
+    (graph,) = render.chunk_graphs.values()
+    assert graph.replays == 1 and graph.n_chunks == 3
+    runs = ({"planar_eval_comp": 3} if route == "composited" else
+            {"planar_nerf_train_fwd": 3, "planar_compositor_fwd": 3})
+    assert {k: v for k, v in graph.graph_launches.items() if v} == runs
+    first = {k: v.clone() for k, v in got.items()}
+    tstep.render_full_image(render, params, *frame(2), scan_chunks=True,
+                            **kw)
+    assert graph.replays == 2
+    for k in keys:
+        assert torch.equal(got[k], first[k]), k

@@ -75,6 +75,7 @@ def _entry_points():
     g = torch.Generator().manual_seed(0)
     train_cfg = NSFFConfig(encode_t=True, use_viewdir=True, N_importance=4,
                            batch_size=4, lr_scheduler="cosine")
+    from nsff_pl_tpu_torch.apps import evaluate as eval_app
     from nsff_pl_tpu_torch.apps import train as train_app
     from nsff_pl_tpu_torch.scene import MonocularScene
     from nsff_pl_tpu_torch.training.trainer import NSFFSystem
@@ -122,6 +123,9 @@ def _entry_points():
         "MonocularScene": lambda: MonocularScene("unused"),
         "NSFFSystem": lambda: NSFFSystem(train_cfg),
         "train_main": lambda: train_app.main(train_cfg),
+        # the eval CLI
+        "eval_main": lambda: eval_app.main(eval_app.get_opts(
+            ["--root_dir", "unused", "--ckpt_path", "unused"])),
     }
 
 
@@ -132,7 +136,7 @@ def _entry_points():
      "opt_state_from_jax", "build_params_static", "make_train_step_packed",
      "make_train_step_static", "make_render_fn_train_mode",
      "RenderService_packed_float32", "MonocularScene", "NSFFSystem",
-     "train_main"]))
+     "train_main", "eval_main"]))
 def test_entry_points_need_a_gpu_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

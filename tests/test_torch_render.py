@@ -171,10 +171,12 @@ def test_decision_reads_cuda_and_bfloat16():
 
 @pytest.mark.parametrize("route", ["planes", "coarse_to_fine", "packed"])
 def test_unported_routes_raise(route):
-    """The planar planes route, coarse-to-fine on either path and the
-    plain evaluators in bfloat16 raise, naming their ROADMAP items; the
-    packed path itself (`packed`: planar_eval='auto' on the CPU) renders,
-    see tests/test_torch_packed_render.py."""
+    """Coarse-to-fine on either path and on the planar planes route, and
+    the plain evaluators in bfloat16, raise, naming their ROADMAP items;
+    the planes route itself (`planes`: per-sample keys, held against JAX
+    in tests/test_torch_planes_route.py) and the packed path (`packed`:
+    planar_eval='auto' on the CPU, see tests/test_torch_packed_render.py)
+    render."""
     params = params_from_jax(jax.tree.map(np.asarray, _jax_params()), "cpu")
     rays, ts = _rays(4)
 
@@ -186,8 +188,11 @@ def test_unported_routes_raise(route):
                                        torch.from_numpy(ts), chunk=4)
 
     if route == "planes":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render(keys=("rgb_fine", "weights_fine"))
+        out = render(keys=("rgb_fine", "weights_fine"))
+        assert out["weights_fine"].shape == (4, S)
+        assert bool(torch.isfinite(out["rgb_fine"]).all())
+        with pytest.raises(NotImplementedError, match="coarse-to-fine"):
+            render(keys=("rgb_fine", "weights_fine"), N_importance=4)
     elif route == "coarse_to_fine":
         for planar_eval in ("on", "off"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):

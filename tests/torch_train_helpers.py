@@ -81,3 +81,18 @@ def grads_close(got, want):
         assert np.abs(g - w).max() <= GRAD_MAX * scale, name
         assert (np.linalg.norm(g - w) <= GRAD_FRO * np.linalg.norm(w)
                 + 1e-12), name
+
+
+def seeded_params(seed, n_frames, n_tau):
+    """(JAX tree, port dict) of one fine model with a view direction, the
+    transient tower and both flow heads, and its t embedding: the port's
+    initializer (the JAX package's distributions) drawn from a seeded CPU
+    generator, so no eager JAX op has to compile."""
+    from nsff_pl_tpu_torch.models import nerf as tn
+
+    g = torch.Generator().manual_seed(seed)
+    pt = {"nerf_fine": tn.init_nerf_params(
+              g, "fine", use_viewdir=True, encode_transient=True,
+              in_channels_t=n_tau, output_flow=True, device="cpu"),
+          "embedding_t": tn.init_embedding(g, n_frames, n_tau, device="cpu")}
+    return jax.tree.map(jax.numpy.asarray, tckpt.params_to_numpy(pt)), pt
