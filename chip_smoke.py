@@ -92,7 +92,31 @@ once), then:
    (PLANE_TOL / PLANE_SHARE, COMP_TOL, PACKED_TOL / PACKED_SHARE). Each
    run's launches: the wrappers' counts against its graph's warm-up and
    capture, one graph, one replay a frame;
-8. agreement: a small frame rendered on the card equals the plain CPU
+8. coarse-to-fine (main paths, `--N_importance 64`: the fine pass at
+   S = 256 in training and for both towers, 192 for the static tower):
+   B1 at 256 and 192 (on depths spaced as the fine pass spaces them),
+   B2's forward and both backward branches and B3's forward and adjoint
+   at 256 and 192, each against its plain version with the S = 128
+   tolerances (the warps' flow-plane cotangents, at every S, also no
+   farther from the unrounded model than the plain version: EXACT_MEAN /
+   EXACT_MAX), timed, with its bound; the training
+   recipe at N_importance 64 (eager, graphed within GRAPH_RTOL, launch
+   counts PER_STEP_C2F, a repeated batch, one step at batch 64 against
+   the CPU); a 512x288 `render_pose` frame of both towers; a train CLI
+   run at N_importance 64 on the scene's first 4 frames and the eval CLI
+   on its checkpoint: the test split of the static tower and with
+   `--output_transient`, and `test_fixview0_interp4`, every frame one
+   graph replay equal to the host loop within GRAPH_TOL, and B1 held
+   against its plain version on the inputs each test split gives it
+   (the unrounded model, as in 7). Launches are counted by sample count
+   (`ops/launches.py`: `<name>` at 128 samples, `<name>@256` at 256);
+9. reproducibility (ROADMAP C1): the train CLI at the flagship recipe
+   with hard sampling on the scene's first 4 frames (one epoch, 589
+   steps, a validation and hard-sampling refresh every 200 steps), twice
+   from one seed and once stopped by its time budget and resumed: the
+   params, Adam's moments, `tmp_rgb` and the sampling weights at the end
+   the same bits in all three;
+10. agreement: a small frame rendered on the card equals the plain CPU
    render of the same weights within `TOL`; one training step at batch
    64 on the card equals the plain CPU step from the same state, batch
    and draws (loss terms and Adam's first moments), on the planar and on
@@ -109,6 +133,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -408,14 +433,21 @@ def rel_errs(got, want):
     return err / scale, fro, err
 
 
-def train_kernel_phase(torch, np, rk, tck, params, rays, card):
+def at_samples(name, S):
+    """A kernel record's name: the kernel's, and its sample count where it
+    is not 128."""
+    return name if S == 128 else f"{name}@{S}"
+
+
+def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
     """The four training kernels against their plain versions at batch
-    512 on the main variant and both warps; returns their kernel records
-    (launches filled in by the training phase)."""
+    512 on the main variant and both warps, at S samples a ray; returns
+    their kernel records (launches filled in by the training phases). At
+    S = 128 it also times the weight packing and each backward's phases."""
     from nsff_pl_tpu_torch.ops.posenc import posenc
     from nsff_pl_tpu_torch.ops.sampling import stratified_zs
 
-    S, n = 128, BATCH
+    n = BATCH
     gen = torch.Generator(device="cuda").manual_seed(2)
     o, d = rays[:n, :3].contiguous(), rays[:n, 3:].contiguous()
     zs = stratified_zs(n, S, 1.0, torch.rand((n, S), generator=gen,
@@ -428,10 +460,11 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
     main_op = rk.make_planar_nerf_train(S, use_viewdir=True,
                                         output_flow=("fw", "bw"))
     pw = main_op.pack(fine)
-    # the weight packing runs once per step, for the three evaluations
-    pack_ms = cuda_ms(torch, lambda: main_op.pack(fine), iters=10)
-    print(f"weight packing (once per training step): {pack_ms:.3f} ms on "
-          f"{card}", flush=True)
+    if S == 128:
+        # the weight packing runs once per step, for the three evaluations
+        pack_ms = cuda_ms(torch, lambda: main_op.pack(fine), iters=10)
+        print(f"weight packing (once per training step): {pack_ms:.3f} ms "
+              f"on {card}", flush=True)
     records, planes = {}, {}
     src = "nsff_pl_tpu_torch/csrc/planar_nerf_train.cu"
     for label, static_branch, flow_in, flow in (
@@ -469,18 +502,19 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
         flops, nbytes = train_fwd_work(fine, static_branch, len(flow), n, S,
                                        pw, len(op.out_keys), flow_in)
         bms, bby = bound(flops, nbytes)
+        fwd_name = at_samples("planar_nerf_train_fwd", S)
         if label == "main":
             plain_ms = cuda_ms(torch, lambda: rk.planar_nerf_train_ref(
                 *args, **kw), iters=3)
             records["planar_nerf_train_fwd"] = {
-                "name": "planar_nerf_train_fwd", "route": "cuda",
+                "name": fwd_name, "route": "cuda",
                 "source": src,
                 "replaces": "nsff_pl_tpu/ops/raymarch_kernel.py:64",
                 "launches": None, "max_abs_err": float(worst.max()),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                 "bound_by": bby, "library_ms": None, "host_us": host_us,
                 "warp_ms_each": []}
-            print(f"kernel planar_nerf_train_fwd [main] n={n}: {ms:.3f} ms, "
+            print(f"kernel {fwd_name} [main] n={n}: {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
                   f"({flops / 1e12:.3f} TFLOP), host {host_us:.1f} us per "
                   f"call on {card}", flush=True)
@@ -492,7 +526,7 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
                 rec["warp_ms_each"])
             rec["warp_bound_ms"] = bms
             rec["warp_host_us"] = host_us
-            print(f"kernel planar_nerf_train_fwd [{label}] n={n}: {ms:.3f} "
+            print(f"kernel {fwd_name} [{label}] n={n}: {ms:.3f} "
                   f"ms, bound {bms:.3f} ms ({flops / 1e12:.3f} TFLOP), host "
                   f"{host_us:.1f} us per call on {card}", flush=True)
 
@@ -515,14 +549,43 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
                 if not bool(torch.isfinite(a).all()):
                     fail(f"train backward {name} not finite ({label})")
                 errs[name] = rel_errs(a, b)
-            w_max = max(errs, key=lambda k: errs[k][0])
+            # the flow-plane cotangents are per-sample point cotangents: a
+            # ReLU turned by a rounding flip shows whole in one sample
+            # (0.114 of the largest entry at 256 samples). At every S each
+            # plane stands no farther from the unrounded model than the
+            # plain version does (EXACT_MEAN on average, EXACT_MAX at its
+            # largest), within GRAD_FRO in Frobenius norm, and at 128
+            # samples also within GRAD_MAX as the summed leaves
+            per_sample = [k for k in errs if S != 128 and
+                          k.startswith("dflow")]
+            summed = [k for k in errs if k not in per_sample]
+            w_max = max(summed, key=lambda k: errs[k][0])
             w_fro = max(errs, key=lambda k: errs[k][1])
+            dx = max((errs[k][0] for k in per_sample), default=0.0)
             abs_err = max(e[2] for e in errs.values())
-            print(f"kernel planar_nerf_train_bwd_{branch} [{label}]: "
+            r_mean = r_max = p_far = 0.0
+            if "dflows" in want_b:
+                exact = unrounded_dflows(torch, args, kw, cot, op.out_keys)
+                for c in range(3):
+                    want_c = want_b["dflows"][c]
+                    rm, rx = unrounded_ratios(got_b["dflows"][c], want_c,
+                                              exact[c], (0, 1))
+                    r_mean, r_max = max(r_mean, rm), max(r_max, rx)
+                    p_far = max(p_far, rel_errs(want_c, exact[c])[0])
+            print(f"kernel {at_samples('planar_nerf_train_bwd_' + branch, S)} "
+                  f"[{label}]: "
                   f"{len(errs)} outputs, worst error/max {errs[w_max][0]:.2e} "
                   f"({w_max}), worst Frobenius {errs[w_fro][1]:.2e} "
-                  f"({w_fro}) (tol {GRAD_MAX}, {GRAD_FRO})", flush=True)
-            if errs[w_max][0] > GRAD_MAX or errs[w_fro][1] > GRAD_FRO:
+                  f"({w_fro}) (tol {GRAD_MAX}, {GRAD_FRO})"
+                  + (f"; dflow error/max {dx:.2e}" if per_sample else "")
+                  + (f"; dflow distance to the unrounded model over the "
+                     f"plain version's: mean {r_mean:.3f}, largest "
+                     f"{r_max:.3f} (tol {EXACT_MEAN}, {EXACT_MAX}); the "
+                     f"plain version's own largest distance to it "
+                     f"{p_far:.3f} of the plane's largest entry"
+                     if "dflows" in want_b else ""), flush=True)
+            if errs[w_max][0] > GRAD_MAX or errs[w_fro][1] > GRAD_FRO \
+                    or r_mean > EXACT_MEAN or r_max > EXACT_MAX:
                 fail(f"planar_nerf_train backward ({branch}, {label}) "
                      "disagrees with its plain version")
             name = f"planar_nerf_train_bwd_{branch}"
@@ -535,19 +598,21 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
                                                False)
                 bms, bby = bound(flops, nbytes)
                 records[name] = {
-                    "name": name, "route": "cuda", "source": src,
+                    "name": at_samples(name, S), "route": "cuda",
+                    "source": src,
                     "replaces": "nsff_pl_tpu/ops/raymarch_kernel.py:64",
                     "launches": None, "max_abs_err": abs_err,
                     "max_rel_err": errs[w_max][0], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
                     "library_ms": None}
-                print(f"kernel {name} [main] n={n}: {ms:.3f} ms, plain "
-                      f"{plain_ms:.3f} ms, bound {bms:.3f} ms "
+                print(f"kernel {at_samples(name, S)} [main] n={n}: {ms:.3f} "
+                      f"ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
                       f"({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
-                bwd_phases(torch, records[name],
-                           lambda: rk.planar_nerf_train_bwd_cuda(
-                               branch, *args, cot, **bkw),
-                           n, S, branch == "static", card)
+                if S == 128:
+                    bwd_phases(torch, records[name],
+                               lambda: rk.planar_nerf_train_bwd_cuda(
+                                   branch, *args, cot, **bkw),
+                               n, S, branch == "static", card)
             else:
                 _fold_errs(records[name], abs_err, errs[w_max][0])
         del got, want
@@ -577,7 +642,8 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
     bwd_errs = [rel_errs(dg[i], rdg[i]) for i in range(len(dg))]
     bwd_err = max(e[0] for e in bwd_errs)
     bwd_abs = max(e[2] for e in bwd_errs)
-    print(f"kernel planar_compositor: forward max abs err {fwd_err:.2e}, "
+    print(f"kernel {at_samples('planar_compositor', S)}: forward max abs err "
+          f"{fwd_err:.2e}, "
           f"adjoint worst error/max {bwd_err:.2e} (tol {COMP_TOL})",
           flush=True)
     if fwd_err > COMP_TOL or bwd_err > COMP_TOL:
@@ -594,16 +660,16 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card):
         bms, bby = bound(ops, nbytes, PEAK_F32_FLOPS)
         name = f"planar_compositor_{which}"
         records[name] = {
-            "name": name, "route": "cuda", "source": csrc,
+            "name": at_samples(name, S), "route": "cuda", "source": csrc,
             "replaces": "nsff_pl_tpu/ops/compositing_planar_kernel.py:110",
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
             "library_ms": None}
         if which == "bwd":
             records[name]["max_rel_err"] = bwd_err
-        print(f"kernel {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bms:.4f} ms ({nbytes / 1e6:.2f} MB) on {card}",
-              flush=True)
+        print(f"kernel {at_samples(name, S)} n={n}: {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({nbytes / 1e6:.2f} "
+              f"MB) on {card}", flush=True)
     return records
 
 
@@ -1010,6 +1076,17 @@ def train_setup(torch, cfg, params, device, batch, scan_steps=1,
     return TrainState(params, tx.init(params), 0), step
 
 
+def make_draws(torch, cfg, n, gen, lead=(), device="cuda"):
+    """The renderer's draws for n rays (`models/raymarch.py::draw_shapes`,
+    coarse-to-fine's too), with leading dimensions `lead`."""
+    from nsff_pl_tpu_torch.config import render_config
+    from nsff_pl_tpu_torch.models.raymarch import draw_shapes
+
+    return {k: (torch.rand if k.startswith("u") else torch.randn)(
+        tuple(lead) + shape, generator=gen, device=device)
+        for k, shape in draw_shapes(render_config(cfg), n).items()}
+
+
 def step_rows(torch, cfg, sched, gen, steps):
     """The frames and draws of `steps` steps, drawn up front on the card,
     so that the eager steps and the graphed dispatch read the same; a
@@ -1017,10 +1094,7 @@ def step_rows(torch, cfg, sched, gen, steps):
     ts = [sched.next() for _ in range(steps)]
     idx = torch.argsort(torch.rand((steps, H_IMG * W_IMG), generator=gen,
                                    device="cuda"), 1)[:, :BATCH]
-    draws = {k: (torch.rand if k == "u" else torch.randn)(
-        (steps, BATCH, cfg.N_samples), generator=gen, device="cuda")
-        for k in ("u", "ns", "nt", "nw1", "nw2")}
-    return ts, idx, draws
+    return ts, idx, make_draws(torch, cfg, BATCH, gen, (steps,))
 
 
 def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
@@ -1035,7 +1109,7 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
     from nsff_pl_tpu_torch.config import build_params
     from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
     from nsff_pl_tpu_torch.training.optim import param_leaves
-    from nsff_pl_tpu_torch.training.step import clone_state
+    from nsff_pl_tpu_torch.training.step import clone_state, write_tmp_rgb
 
     params = build_params(cfg, torch.Generator().manual_seed(0),
                           device="cuda")
@@ -1088,7 +1162,7 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
     eager = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
     eager_tmp = torch.zeros((N_FRAMES, H_IMG * W_IMG, 3), device="cuda")
     for t, aux in zip(ts, auxs):
-        eager_tmp[t, aux["rand_idx"]] = aux["rgb_fine"]
+        write_tmp_rgb(eager_tmp, t, aux["rand_idx"], aux["rgb_fine"])
     graph_counts, graph_ms = graphed_phase(
         torch, np, cfg, start, (batcher.table, batcher.weights, Ks, Ps, gen),
         ts, idx, draws, eager, eager_tmp, card, label=label,
@@ -1098,9 +1172,7 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
         t = sched.next()
         idx = torch.randint(0, H_IMG * W_IMG, (BATCH,), generator=gen,
                             device="cuda")
-        draws = {k: (torch.rand if k == "u" else torch.randn)(
-            (BATCH, cfg.N_samples), generator=gen, device="cuda")
-            for k in ("u", "ns", "nt", "nw1", "nw2")}
+        draws = make_draws(torch, cfg, BATCH, gen)
         losses = []
         for _ in range(steps):
             state, m, _ = step(state, *args, t, idx=idx, draws=draws)
@@ -1247,7 +1319,8 @@ def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager,
         busy = sum(_dev_us(e) for e in kernels) / 1e3
         seen = {}
         for name, sym in SYMBOLS.items():
-            want = multi.graph_launches[name] * replays
+            want = replays * sum(v for k, v in multi.graph_launches.items()
+                                 if k.split("@")[0] == name)
             seen.setdefault(sym, [0, sum(e.count for e in kernels
                                          if _symbol_count(e.key, sym))])
             seen[sym][0] += want
@@ -1401,9 +1474,7 @@ def train_agreement(torch, cfg, table, Ks, Ps, label):
     gen = torch.Generator().manual_seed(6)
     t = 11
     idx = torch.randint(0, H_IMG * W_IMG, (n,), generator=gen)
-    draws = {k: (torch.rand if k == "u" else torch.randn)(
-        (n, cfg.N_samples), generator=gen) for k in ("u", "ns", "nt", "nw1",
-                                                     "nw2")}
+    draws = make_draws(torch, cfg, n, gen, device="cpu")
     frame = table[t:t + 1].cpu()  # the frame of this step (channel 9 holds t)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -1586,12 +1657,14 @@ def jsonl_rows(exp):
     return rows
 
 
-def run_counts(system, counts, per_step, label):
+def run_counts(system, counts, per_step, label, val=None):
     """Check one CLI run's launches: the wrappers counted the capture's
     warm-up (`WARMUP` eager runs of the K steps on a copy of the state),
-    the capture, the single steps and the validations' frames; the card
-    ran capture x replays plus the single steps. Returns the launches the
+    the capture, the single steps and the validations' frames (`val`
+    launches a chunk, B1 once by default); the card ran capture x replays
+    plus the single steps and the validations. Returns the launches the
     card ran."""
+    val = val or {"planar_eval_comp": 1}
     multi = system.train_step
     K = multi.K
     if multi.captures != 1:
@@ -1601,9 +1674,11 @@ def run_counts(system, counts, per_step, label):
     n_val = len(system.val_seconds)
     n_chunks = -(-W_IMG * H_IMG // min(max(system.cfg.chunk // 4, 1024),
                                        W_IMG * H_IMG))
+    vals = {k: v * n_val * n_chunks for k, v in val.items()}
     want = {k: v * ((multi.WARMUP + 1) * K + singles)
             for k, v in per_step.items()}
-    want["planar_eval_comp"] = n_val * n_chunks
+    for k, v in vals.items():
+        want[k] = want.get(k, 0) + v
     for k, v in counts.items():
         if v != want.get(k, 0):
             fail(f"{label}: {k} counted {v} times, expected {want.get(k, 0)}")
@@ -1611,13 +1686,12 @@ def run_counts(system, counts, per_step, label):
             fail(f"{label}: the {K}-step graph holds "
                  f"{multi.graph_launches[k]} launches of {k}")
     ran = {k: multi.graph_launches[k] * multi.replays
-           + per_step.get(k, 0) * singles for k in counts}
-    ran["planar_eval_comp"] = counts["planar_eval_comp"]
+           + per_step.get(k, 0) * singles + vals.get(k, 0) for k in counts}
     steps = multi.replays * K + singles
     if steps != system.steps_run:
         fail(f"{label}: {steps} steps dispatched, {system.steps_run} run")
     for k, v in per_step.items():
-        if ran[k] != v * steps:
+        if ran[k] - vals.get(k, 0) != v * steps:
             fail(f"{label}: {k} ran {ran[k]} times over {steps} steps")
     print(f"{label}: {steps} steps ({multi.replays} replays of one "
           f"{K}-step graph, {singles} single steps), {n_val} validations of "
@@ -1827,14 +1901,12 @@ def plane_errs(got, want):
     return float(err.max()), float((err > 1e-5).float().mean())
 
 
-def unrounded(torch, fn, args, kw, ray_dim, rays=2048):
-    """`fn(*args, **kw)`, a plain version in `ops/raymarch_kernel.py` or
-    `ops/mlp_kernel.py`, without its bf16 roundings of activations and in
-    float64 (the weights stay the bf16 values the kernel reads): the
-    model that the kernel and its plain version both round. Their
-    rounding helpers `_bf16` and `_mm` are swapped for the call, which
-    runs `rays` rays at a time (the tensor arguments' first dimension),
-    joined on the output's `ray_dim`."""
+@contextlib.contextmanager
+def no_rounding():
+    """The plain versions in `ops/raymarch_kernel.py` and
+    `ops/mlp_kernel.py` without their bf16 roundings of activations and
+    in float64 (the weights stay the bf16 values the kernel reads): their
+    rounding helpers `_bf16` and `_mm` are swapped while it is open."""
     from nsff_pl_tpu_torch.ops import mlp_kernel as mk
     from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
 
@@ -1845,14 +1917,39 @@ def unrounded(torch, fn, args, kw, ray_dim, rays=2048):
     saved = [(m, m._bf16, m._mm) for m in (rk, mk)]
     for m, _, _ in saved:
         m._bf16, m._mm = (lambda x: x.double()), mm
-    n = next(x for x in args if torch.is_tensor(x)).shape[0]
     try:
-        return torch.cat([fn(*(x[i:i + rays].double() if torch.is_tensor(x)
-                               else x for x in args), **kw).float()
-                          for i in range(0, n, rays)], ray_dim)
+        yield
     finally:
         for m, bf16, mm_ in saved:
             m._bf16, m._mm = bf16, mm_
+
+
+def unrounded(torch, fn, args, kw, ray_dim, rays=2048):
+    """`fn(*args, **kw)`, a plain version, under `no_rounding`: the model
+    that the kernel and its plain version both round. It runs `rays` rays
+    at a time (the tensor arguments' first dimension), joined on the
+    output's `ray_dim`."""
+    n = next(x for x in args if torch.is_tensor(x)).shape[0]
+    with no_rounding():
+        return torch.cat([fn(*(x[i:i + rays].double() if torch.is_tensor(x)
+                               else x for x in args), **kw).float()
+                          for i in range(0, n, rays)], ray_dim)
+
+
+def unrounded_dflows(torch, args, kw, cot, out_keys):
+    """The flow-plane cotangents of the unrounded model: B2's plain
+    forward `planar_nerf_train_ref(*args, **kw)` under `no_rounding`,
+    differentiated by autograd in float64 against the cotangent planes
+    `cot` (keyed by `out_keys`)."""
+    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
+
+    a = [x.double() if torch.is_tensor(x) else x for x in args]
+    a[4] = flows = tuple(f.double().requires_grad_() for f in a[4])
+    with no_rounding(), torch.enable_grad():
+        planes = rk.planar_nerf_train_ref(*a, **kw)
+        loss = sum((planes[i] * cot[k].double()).sum()
+                   for i, k in enumerate(out_keys))
+        return [g.float() for g in torch.autograd.grad(loss, flows)]
 
 
 def reversed_rays(torch, fn, args, kw, ray_dim):
@@ -2281,6 +2378,401 @@ def eval_phase(torch, np, card):
     return total, kernel_errs
 
 
+# ---------------- coarse-to-fine (main paths) ----------------
+
+# the JAX package's coarse-to-fine recipe: --N_samples 128 --N_importance
+# 64; the fine pass runs 128 + 2 x 64 = 256 samples in training and in a
+# render of both towers, 128 + 64 = 192 for the static tower alone
+C2F_NI = 64
+C2F_FINE = 256
+# launches per coarse-to-fine training step: the coarse evaluation (S =
+# 128: a forward, both backward branches) and the fine pass (S = 256: the
+# main evaluation and two warps, the compositor); a kernel's name alone
+# counts its launches at 128 samples, name@256 those at 256
+PER_STEP_C2F = {"planar_nerf_train_fwd": 1, "planar_nerf_train_fwd@256": 3,
+                "planar_nerf_train_bwd_static": 1,
+                "planar_nerf_train_bwd_static@256": 1,
+                "planar_nerf_train_bwd_transient": 1,
+                "planar_nerf_train_bwd_transient@256": 3,
+                "planar_compositor_fwd@256": 1,
+                "planar_compositor_bwd@256": 1}
+# the reproducibility runs and the coarse-to-fine scene run train on the
+# scene's first frames: an epoch of 4 x 147456 / 1000 = 589 steps
+C1_FRAMES = 4
+# a validation, and with it a hard-sampling refresh, every so many steps
+C1_VAL_EVERY = 200
+# the interrupted run stops mid-epoch (~7.4 ms a step, ~1 s of capture
+# and ~1.5 s a validation: the epoch takes ~7 s)
+C1_BUDGET_S = 3.0
+# the coarse-to-fine scene run, whose checkpoint the c2f eval reads
+C2F_RUN_BUDGET_S = 12.0
+
+
+def c2f_eval_comp_phase(torch, np, rk, params, rays, ts_all, K, poses,
+                        card):
+    """B1 at the fine pass's sample counts against its plain version: 256
+    (both towers: the serving chunk, 4096 rays with visibility and flow
+    maps, a ragged count) and 192 (the static tower: the serving chunk, a
+    ragged count); a record per sample count (launches filled in by the
+    main paths). The depths are spaced as the fine pass spaces them: the
+    128 coarse depths and S - 128 random ones, sorted, so that no two
+    deltas are alike, across a tile border least of all."""
+    from nsff_pl_tpu_torch.models.raymarch import _visibility_planes
+    from nsff_pl_tpu_torch.ops.posenc import posenc
+
+    records = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for S, encode_t in ((C2F_FINE, True), (128 + C2F_NI, False)):
+        name = at_samples("planar_eval_comp", S)
+        cases = [("serving", CHUNK, (), False)]
+        if encode_t:
+            cases.append(("vis + flow maps", 4096, ("fw", "bw"), True))
+        cases.append(("ragged", RAGGED, (), False))
+        for label, n, flow, vis_in in cases:
+            r = rays[:n]
+            o, d = r[:, :3].contiguous(), r[:, 3:].contiguous()
+            zs = torch.sort(torch.cat([
+                torch.linspace(0, 1, 128, device="cuda").expand(n, 128),
+                torch.rand((n, S - 128), generator=gen, device="cuda")], 1),
+                1).values.contiguous()
+            vis = (_visibility_planes(o, d, zs, K, (W_IMG, H_IMG), poses[:1])
+                   if vis_in else None)
+            de = posenc(d, 3.0, 4).contiguous()
+            te = (params["embedding_t"][ts_all[:n].cuda()].contiguous()
+                  if encode_t else None)
+            fn = rk.make_planar_nerf_eval_comp(
+                S, use_viewdir=True, encode_t=encode_t, output_flow=flow,
+                vis_in=vis_in)
+            pw = fn.pack(params["nerf_fine"])
+            args = (pw, o, d, zs, vis, de, None, te)
+
+            def plain(args=args, kw=fn.kernel_kw):
+                return b1_plain(torch, rk, args, kw)
+
+            got = rk.planar_eval_comp_cuda(*args, **fn.kernel_kw)
+            torch.cuda.synchronize()
+            want = plain()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"{name} output not finite ({label})")
+            err = float((got - want).abs().max())
+            print(f"kernel {name} [{label}] n={n}: max abs err {err:.2e} "
+                  f"(tol {TOL})", flush=True)
+            if err > TOL:
+                fail(f"{name} disagrees with its plain version ({label})")
+            if name in records:
+                records[name]["max_abs_err"] = max(
+                    records[name]["max_abs_err"], err)
+                continue
+            ms = cuda_ms(torch, lambda: rk.planar_eval_comp_cuda(
+                *args, **fn.kernel_kw), iters=3)
+            plain_ms = cuda_ms(torch, plain, iters=1, warmup=0)
+            flops, nbytes = eval_comp_work(params["nerf_fine"], fn.kernel_kw,
+                                           n, S, pw)
+            records[name] = _record(
+                name, "nsff_pl_tpu_torch/csrc/planar_eval_comp.cu",
+                "nsff_pl_tpu/ops/raymarch_kernel.py:728", err, ms, plain_ms,
+                flops, nbytes)
+            print(f"kernel {name} n={n}: {ms:.3f} ms "
+                  f"({rate_line(flops, ms, records[name]['bound_ms'])}), "
+                  f"plain {plain_ms:.3f} ms, bound "
+                  f"{records[name]['bound_ms']:.3f} ms ({flops / 1e12:.2f} "
+                  f"TFLOP) on {card}", flush=True)
+            del want, got
+        torch.cuda.empty_cache()
+    return records
+
+
+def c2f_serving_phase(torch, np, cfg, K, poses, card):
+    """One request's frame at the coarse-to-fine recipe through a
+    `RenderService` (both towers: per chunk the coarse evaluation, B2's
+    forward at S = 128, then B1 at 256), after a first request that
+    builds nothing new. Returns the launches of both requests."""
+    from nsff_pl_tpu_torch.apps.serve import RenderService
+    from nsff_pl_tpu_torch.config import build_params
+
+    ccfg = cfg.replace(N_importance=C2F_NI)
+    params = build_params(ccfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+    svc = RenderService(params, K, poses, (W_IMG, H_IMG), ccfg, chunk=CHUNK,
+                        device="cuda")
+    n_chunks = -(-W_IMG * H_IMG // CHUNK)
+    torch.cuda.synchronize()
+    reset_counts()
+    svc.render_pose(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, depth = svc.render_pose(3)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"c2f serving: one {W_IMG}x{H_IMG} frame (N_importance "
+          f"{C2F_NI}, both towers) in {secs:.6f} s; launches over two "
+          "requests " + json.dumps({k: v for k, v in counts.items() if v})
+          + f" on {card}", flush=True)
+    check_counts(counts, {"planar_nerf_train_fwd": 1,
+                          f"planar_eval_comp@{C2F_FINE}": 1},
+                 2 * n_chunks, "c2f serving")
+    if rgb.shape != (H_IMG, W_IMG, 3) or depth.shape != (H_IMG, W_IMG) \
+            or not np.isfinite(depth).all():
+        fail("c2f serving: bad frame")
+    maps = svc.render_maps(3)
+    rgbf = maps["rgb_fine"]
+    if not bool(torch.isfinite(rgbf).all()) or float(rgbf.min()) < 0 \
+            or float(rgbf.max()) > 1:
+        fail("c2f serving: rgb_fine not finite or outside [0, 1]")
+    return counts
+
+
+def _train_state(torch, system):
+    """Copies of a system's params, Adam moments, hard-sampling buffer and
+    weights, on the card."""
+    from nsff_pl_tpu_torch.training.optim import param_leaves
+
+    opt = system.state.opt_state
+    return {"params": [p.detach().clone()
+                       for p in param_leaves(system.state.params)],
+            "moments": [t.clone() for t in opt.mu + opt.nu],
+            "tmp_rgb": [system.tmp_rgb.clone()],
+            "weights": [system.batcher.weights.clone()]}
+
+
+def _same_bits(torch, a, b):
+    """{group: (tensors that differ, largest abs difference)}."""
+    out = {}
+    for k in a:
+        diff = [float((x - y).abs().max()) for x, y in zip(a[k], b[k])
+                if not torch.equal(x, y)]
+        out[k] = (len(diff), max(diff, default=0.0))
+    return out
+
+
+def c1_phase(torch, np, card):
+    """Card training reproduces itself (ROADMAP C1): the train CLI at the
+    flagship recipe with hard sampling on the scene's first C1_FRAMES
+    frames, a validation and hard-sampling refresh every C1_VAL_EVERY
+    steps, one epoch, twice from the same seed, and a third time stopped
+    mid-epoch by its time budget and resumed from its checkpoint: the
+    params, Adam's moments, `tmp_rgb` and the sampling weights at the
+    end must be the same bits in all three."""
+    from nsff_pl_tpu_torch.apps.train import cli
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+
+    extra = ["--start_end", "0", str(C1_FRAMES), "--val_every_steps",
+             str(C1_VAL_EVERY), "--cache_dir", f"{SCENE_RUN_DIR}/cache_c1"]
+    ends, ran = {}, {}
+
+    def run(exp, more):
+        torch.cuda.synchronize()
+        reset_counts()
+        system = cli(scene_argv(exp, extra + more))
+        torch.cuda.synchronize()
+        for k, v in run_counts(system, launch_counts(), PER_STEP,
+                               f"C1 run {exp}").items():
+            ran[k] = ran.get(k, 0) + v
+        return system
+
+    for exp in ("c1a", "c1b"):
+        system = run(exp, [])
+        ends[exp] = _train_state(torch, system)
+        print(f"C1 run {exp}: {system.steps_run} steps, "
+              f"{len(system.val_seconds)} validations and refreshes, "
+              f"{cli_step_ms(system):.3f} ms per step through the CLI on "
+              f"{card}", flush=True)
+        del system
+    system = run("c1c", ["--time_budget_s", str(C1_BUDGET_S)])
+    stop, total = system.state.step, system.total_steps
+    del system
+    if not 0 < stop < total:
+        fail(f"C1: the interrupted run stopped at step {stop} of {total}")
+    ckpt = ckpt_lib.latest_checkpoint(f"{SCENE_RUN_DIR}/ckpts/c1c")
+    system = run("c1c", ["--ckpt_path", ckpt])
+    ends["c1c"] = _train_state(torch, system)
+    del system
+    torch.cuda.empty_cache()
+    for other, what in (("c1b", "a second run from the same seed"),
+                        ("c1c", f"a run stopped at step {stop} and resumed")):
+        diff = _same_bits(torch, ends["c1a"], ends[other])
+        print(f"C1: {what}, against the first run after {total} steps "
+              f"(tensors that differ, largest difference): "
+              + json.dumps(diff), flush=True)
+        if any(n for n, _ in diff.values()):
+            fail(f"C1: {what} ends elsewhere than the first run")
+    return ran
+
+
+def graphed_equals_loop(torch, np, render, params, data, frames, vis):
+    """Each frame rendered as one graph replay and by the host loop:
+    the largest difference over rgb and depth."""
+    from nsff_pl_tpu_torch.training.step import render_full_image
+
+    errs = []
+    for i in frames:
+        item = data.test_item(i, targets=())
+        kw = ({"vis_poses": torch.as_tensor(data.poses[i:i + 1],
+                                            dtype=torch.float32,
+                                            device="cuda"),
+               "vis_K": torch.as_tensor(data.K, device="cuda")}
+              if vis else {})
+        outs = [render_full_image(render, params, item["rays"], item["ts"],
+                                  chunk=CHUNK, scan_chunks=scan, **kw)
+                for scan in (True, False)]
+        for k in ("rgb_fine", "depth_fine"):
+            if not bool(torch.isfinite(outs[0][k]).all()):
+                fail(f"a coarse-to-fine frame's {k} is not finite")
+            errs.append(float((outs[0][k] - outs[1][k]).abs().max()))
+    return max(errs)
+
+
+def b1_plain(torch, rk, args, kw, rays=4096):
+    """B1's plain version, `rays` rays at a time (each ray's row is its
+    own; a whole chunk's activations at 256 samples would take ~50 GB)."""
+    n = args[1].shape[0]
+    return torch.cat([rk.planar_eval_comp_ref(*(
+        x[i:i + rays] if torch.is_tensor(x) and x.shape[0] == n else x
+        for x in args), **kw) for i in range(0, n, rays)])
+
+
+def b1_on_eval_path(torch, rep, label):
+    """B1 on the inputs a coarse-to-fine eval path gives it (the first
+    chunk of frame 0: the fine depths `sample_pdf` drew from the coarse
+    weights, trained weights) against its plain version, held as the eval
+    phase holds B2's forward on trained weights: per map, its distance to
+    the unrounded model at most EXACT_MEAN times the plain version's on
+    average and EXACT_MAX times at its largest, and the same bits with
+    the rays reversed. Returns its largest abs error."""
+    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
+    from nsff_pl_tpu_torch.training.step import equal_chunks
+
+    data, params = rep.dataset, rep.params
+    item = data.test_item(0, targets=())
+    rows = slice(0, equal_chunks(W_IMG * H_IMG, CHUNK)[1])
+    calls = kept_calls(
+        lambda: rep.render(params, item["rays"][rows], item["ts"][rows],
+                           torch.as_tensor(data.poses[0:1],
+                                           dtype=torch.float32,
+                                           device="cuda"),
+                           torch.as_tensor(data.K, device="cuda")),
+        ((rk, "planar_eval_comp_cuda"),))
+    ((a, kw, got),) = calls["planar_eval_comp_cuda"]
+    want = b1_plain(torch, rk, a, kw)
+    if not bool(torch.isfinite(got).all()):
+        fail(f"eval {label}: B1's output not finite")
+    err = float((got - want).abs().max())
+    r_mean, r_max = unrounded_ratios(
+        got, want, unrounded(torch, rk.planar_eval_comp_ref, a, kw, 0), 0)
+    same = torch.equal(reversed_rays(torch, rk.planar_eval_comp_cuda, a, kw,
+                                     0), got)
+    zs = a[3]
+    print(f"eval {label}: kernel planar_eval_comp on the path's inputs "
+          f"({zs.shape[0]} rays x {zs.shape[1]} samples, trained weights, "
+          f"depth steps from {float(zs.diff(dim=1).min()):.3e} to "
+          f"{float(zs.diff(dim=1).max()):.3e}): max abs err {err:.3e}; its "
+          f"distance to the unrounded model over the plain version's: mean "
+          f"{r_mean:.3f}, largest {r_max:.3f} per map at worst (tol "
+          f"{EXACT_MEAN}, {EXACT_MAX}); the same bits with the rays "
+          f"reversed: {same}", flush=True)
+    if r_mean > EXACT_MEAN or r_max > EXACT_MAX:
+        fail(f"eval {label}: B1 disagrees with its plain version")
+    if not same:
+        fail(f"eval {label}: B1 depends on a ray's place")
+    return err
+
+
+def c2f_scene_phase(torch, np, card):
+    """A coarse-to-fine run of the train CLI (`--N_importance 64`, the
+    scene's first C1_FRAMES frames, stopped by its time budget), then the
+    eval CLI on its checkpoint: the test split on the static tower (B1
+    at 192), with `--output_transient` (B1 at 256) and
+    test_fixview0_interp4 (the planes route: B2's forward and B3 at 256),
+    each after the coarse evaluation at 128; every frame of the test
+    splits, and frame 0 of the interpolation, rendered as one graph
+    replay equal to the host loop within GRAPH_TOL; B1 on each test
+    split's inputs against its plain version (`b1_on_eval_path`). Returns
+    the launches the card ran and B1's largest error by record name."""
+    import os
+
+    from nsff_pl_tpu_torch.apps.train import cli
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+
+    total, errs = {}, {}
+
+    def add(ran):
+        for k, v in ran.items():
+            total[k] = total.get(k, 0) + v
+
+    frames = ["--start_end", "0", str(C1_FRAMES), "--N_importance",
+              str(C2F_NI)]
+    torch.cuda.synchronize()
+    reset_counts()
+    system = cli(scene_argv("c2f", frames + [
+        "--val_every_steps", str(C1_VAL_EVERY), "--time_budget_s",
+        str(C2F_RUN_BUDGET_S), "--cache_dir", f"{SCENE_RUN_DIR}/cache_c1"]))
+    torch.cuda.synchronize()
+    add(run_counts(system, launch_counts(), PER_STEP_C2F, "c2f scene run",
+                   {f"planar_eval_comp@{C2F_FINE}": 1,
+                    "planar_nerf_train_fwd": 1}))
+    for step, log in system.val_history:
+        print(f"c2f scene run: validation at step {step} " + json.dumps(
+            {k: round(v, 4) for k, v in log.items()}), flush=True)
+    del system
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.abspath(ckpt_lib.latest_checkpoint(
+        f"{SCENE_RUN_DIR}/ckpts/c2f"))
+    base = ["--root_dir", os.path.abspath(SCENE_DIR), "--img_wh", str(W_IMG),
+            str(H_IMG), "--encode_t", "--use_viewdir", "--N_samples", "128",
+            "--dtype", "bfloat16", "--ckpt_path", ckpt] + frames
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    here = os.getcwd()
+    os.chdir(EVAL_DIR)
+    try:
+        for label, more, expected, vis in (
+                ("c2f test (static tower)", ["--scene_name", "c2f_static"],
+                 {f"planar_eval_comp@{128 + C2F_NI}": 1,
+                  "planar_nerf_train_fwd": 1}, False),
+                ("c2f test --output_transient",
+                 ["--output_transient", "--scene_name", "c2f_both"],
+                 {f"planar_eval_comp@{C2F_FINE}": 1,
+                  "planar_nerf_train_fwd": 1}, True)):
+            rep, ran, g = eval_split(
+                torch, np, card, label, base + ["--split", "test"] + more,
+                expected, C1_FRAMES)
+            add(ran)
+            err = graphed_equals_loop(torch, np, rep.render, rep.params,
+                                      rep.dataset, range(C1_FRAMES), vis)
+            print(f"eval {label}: mean PSNR whole / dynamic "
+                  f"{np.nanmean(rep.psnr, 0).tolist()}; graphed frames "
+                  f"against the host loop's max abs err {err:.3e} (tol "
+                  f"{GRAPH_TOL})", flush=True)
+            if err > GRAPH_TOL:
+                fail(f"eval {label}: graphed frames differ from the host "
+                     "loop's")
+            name = at_samples("planar_eval_comp",
+                              C2F_FINE if vis else 128 + C2F_NI)
+            errs[name] = b1_on_eval_path(torch, rep, label)
+            del rep
+        rep, ran, g = eval_split(
+            torch, np, card, "c2f test_fixview0_interp4",
+            base + ["--split", "test_fixview0_interp4", "--scene_name",
+                    "c2f_interp"],
+            {"planar_nerf_train_fwd": 1,
+             f"planar_nerf_train_fwd@{C2F_FINE}": 1,
+             f"planar_compositor_fwd@{C2F_FINE}": 1}, C1_FRAMES)
+        add(ran)
+        err = graphed_equals_loop(torch, np, rep.render, rep.params,
+                                  rep.dataset, (0,), True)
+        print(f"eval c2f test_fixview0_interp4: frame 0 graphed against the "
+              f"host loop max abs err {err:.3e} (tol {GRAPH_TOL})",
+              flush=True)
+        if err > GRAPH_TOL:
+            fail("eval c2f interp: the graphed frame differs from the host "
+                 "loop's")
+        del rep
+    finally:
+        os.chdir(here)
+    torch.cuda.empty_cache()
+    return total, errs
+
+
 def main() -> int:
     import torch
 
@@ -2389,6 +2881,15 @@ def main() -> int:
                                        card)
     packed_records = packed_kernel_phase(torch, np, params, rays, card)
     phase_s["kernels"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # B1, B2 and B3 at the coarse-to-fine fine pass's sample counts
+    c2f_records = c2f_eval_comp_phase(torch, np, rk, params, rays, ts_all,
+                                      K, poses, card)
+    c2f_train_records = {S: train_kernel_phase(torch, np, rk, tck, params,
+                                               rays, card, S=S)
+                         for S in (C2F_FINE, 128 + C2F_NI)}
+    torch.cuda.empty_cache()
+    phase_s["c2f kernels"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---------------- serving phase (a main path) ----------------
@@ -2515,6 +3016,59 @@ def main() -> int:
     phase_s["eval"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
+    # ---------------- coarse-to-fine (main paths) ----------------
+    # the training, serving, scene training and eval paths at
+    # N_importance 64 (the kernels at their sample counts: above)
+    c2f_ran = {}
+
+    def add_c2f(ran):
+        for k, v in ran.items():
+            c2f_ran[k] = c2f_ran.get(k, 0) + v
+
+    ccfg = tcfg.replace(N_importance=C2F_NI)
+    c2f_counts, c2f_graph_counts, c2f_ms, c2f_graph_ms = training_phase(
+        torch, np, ccfg, table, Ks, Ps, card, label="c2f training",
+        per_step=PER_STEP_C2F, planar=True)
+    add_c2f(c2f_counts)
+    add_c2f(c2f_graph_counts)
+    print(f"c2f training: {c2f_ms:.3f} ms per step eager, "
+          f"{c2f_graph_ms:.3f} ms graphed, against {planar_ms:.3f} / "
+          f"{planar_graph_ms:.3f} ms at N_importance 0 in this run",
+          flush=True)
+    train_agreement(torch, ccfg, table, Ks, Ps, "c2f training")
+    add_c2f(c2f_serving_phase(torch, np, cfg, K, poses, card))
+    phase_s["c2f training and serving"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    scene_c2f_ran, b1_errs = c2f_scene_phase(torch, np, card)
+    add_c2f(scene_c2f_ran)
+    for name, err in b1_errs.items():  # B1 on the c2f eval paths' inputs
+        c2f_records[name]["max_abs_err"] = max(
+            c2f_records[name]["max_abs_err"], err)
+    phase_s["c2f scene and eval"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # each record's launches: at its sample count; the coarse passes (S =
+    # 128) go to the S = 128 records
+    by_s = {128 + C2F_NI: {}, C2F_FINE: {}}
+    for S in by_s:
+        by_s[S] = {**c2f_train_records[S]}
+    by_s[C2F_FINE]["planar_eval_comp"] = c2f_records[
+        at_samples("planar_eval_comp", C2F_FINE)]
+    by_s[128 + C2F_NI]["planar_eval_comp"] = c2f_records[
+        at_samples("planar_eval_comp", 128 + C2F_NI)]
+    for name, rec in [("planar_eval_comp", record)] + list(
+            train_records.items()):
+        rec["launches"] += c2f_ran.get(name, 0)
+        for S in by_s:
+            by_s[S][name]["launches"] = c2f_ran.get(f"{name}@{S}", 0)
+
+    # ---------------- reproducibility across refreshes (C1) -------------
+    c1_ran = c1_phase(torch, np, card)
+    record["launches"] += c1_ran["planar_eval_comp"]
+    for name, rec in train_records.items():
+        rec["launches"] += c1_ran[name]
+    phase_s["C1"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # ---------------- agreement ----------------
     small_wh = (32, 18)
     small = {}
@@ -2537,7 +3091,9 @@ def main() -> int:
         {k: round(v, 3) for k, v in phase_s.items()}), flush=True)
 
     print(json.dumps({"kernels": [record] + list(train_records.values())
-                      + list(packed_records.values())}), flush=True)
+                      + list(packed_records.values())
+                      + [r for S in (C2F_FINE, 128 + C2F_NI)
+                         for r in by_s[S].values()]}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

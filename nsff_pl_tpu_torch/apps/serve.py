@@ -15,7 +15,8 @@ written by `training/checkpoint.py::save`:
 `--dtype bfloat16` (the default here) renders on the CUDA kernels: the
 planar composited evaluator, or with `--planar_eval off` the packed
 evaluator and compositing outside it. `--dtype float32` renders on the
-plain f32 evaluators. Coarse-to-fine (`--N_importance`) is not ported yet.
+plain f32 evaluators. `--N_importance` > 0 (coarse-to-fine: the
+parameters hold `nerf_coarse`) renders on the planar path only.
 
 Endpoints:
     GET  /health  -> {"status": "ok"}
@@ -50,6 +51,7 @@ def get_opts(argv=None):
     parser.add_argument("--img_wh", nargs="+", type=int, default=[512, 288])
     parser.add_argument("--use_viewdir", default=False, action="store_true")
     parser.add_argument("--N_samples", type=int, default=128)
+    parser.add_argument("--N_importance", type=int, default=0)
     parser.add_argument("--encode_a", default=False, action="store_true")
     parser.add_argument("--N_a", type=int, default=48)
     parser.add_argument("--encode_t", default=False, action="store_true")
@@ -181,9 +183,10 @@ def main(args):
     w, h = args.img_wh
     cfg = NSFFConfig(
         img_wh=(w, h), use_viewdir=args.use_viewdir,
-        N_samples=args.N_samples, encode_a=args.encode_a, N_a=args.N_a,
-        encode_t=args.encode_t, N_tau=args.N_tau, flow_scale=args.flow_scale,
-        dtype=args.dtype, planar_eval=args.planar_eval)
+        N_samples=args.N_samples, N_importance=args.N_importance,
+        encode_a=args.encode_a, N_a=args.N_a, encode_t=args.encode_t,
+        N_tau=args.N_tau, flow_scale=args.flow_scale, dtype=args.dtype,
+        planar_eval=args.planar_eval)
     service = RenderService(checkpoint.load(args.ckpt_path, args.device),
                             meta["K"], meta["poses"], (w, h), cfg,
                             chunk=args.chunk, device=args.device)

@@ -43,7 +43,7 @@ extern "C" size_t nsff_fused_train_bwd_scratch_bytes(int static_branch,
                                                      int n_rays,
                                                      int use_viewdir,
                                                      int encode_a) {
-  return bwd_scratch_bytes(static_branch != 0, n_rays, use_viewdir, encode_a);
+  return bwd_scratch_bytes(static_branch != 0, n_rays, S, use_viewdir, encode_a);
 }
 
 // g: (n_rays, S, 16) cotangent of the packed output, whose flow columns

@@ -2,7 +2,7 @@
 //
 // Replaces nsff_pl_tpu/ops/raymarch_kernel.py::make_planar_nerf_eval_comp
 // (the Pallas TPU kernel of the test-time render). For every ray: posenc of
-// xyz = o + d*z at its S = 128 samples, the static and transient 8x256 ReLU
+// xyz = o + d*z at its 64..256 samples, the static and transient 8x256 ReLU
 // towers (skip at layer 4; per-ray viewdir/appearance/time conditioning), the
 // sigma/rgb/flow heads, and the volume compositing; it writes one row of
 // n_map floats per ray. The layout of the maps row is comp_map_cols in
@@ -12,8 +12,12 @@
 // against ~1 KB of input per ray, so the tensor cores and not memory bound
 // it (10.2 ms per 32768-ray chunk at 989 TFLOP/s).
 //
-// Design (tower_wgmma.cuh): one CTA of three warpgroups per ray. Two
-// consumer warpgroups each own 64 of the ray's 128 samples and run every
+// Design (tower_wgmma.cuh): one CTA of three warpgroups per ray, which
+// runs the ray's tiles of 128 samples in turn (a ray of 192 or 256 samples
+// is two tiles; the rows past the last sample repeat it and are left out
+// of the composite), compositing each tile onto the transmittance prefix
+// and the map sums of the tiles before it. Two
+// consumer warpgroups each own 64 of a tile's 128 rows and run every
 // layer as wgmma m64n256k16 (bf16 in, f32 accumulators in registers) on the
 // ray's posenc tile and activation tile in shared memory; one producer
 // thread streams the ~2.4 MB of weight K-slabs per ray through TMA into a
@@ -26,8 +30,9 @@
 // that feeds them, so the features they read never go back to shared
 // memory. Rounding points are the TPU kernel's: bf16 matmul inputs, f32
 // accumulation, bf16 activations, f32 biases and compositing. Compositing
-// (exclusive cumsum of tau over the 128 samples) runs in one warp with
-// shuffles.
+// (exclusive cumsum of tau over a tile's 128 samples, plus the carried
+// prefix) runs in one warp with shuffles; a tile border's delta reads the
+// next tile's first depth. The producer streams the weights once a tile.
 // What bounds it now: the products wait for each layer's epilogue (the
 // next layer reads all of its columns), ~1/3 of a ray's time, and for
 // slabs still in flight from L2; the posenc tile and the compositing
@@ -57,7 +62,7 @@ struct Args {
   const float* dir; const float* a; const float* t;
   const bf16* W[NSLOT]; const float* B[NSLOT];
   float* out;
-  int n_rays, xyz_w, dir_w, n_a, n_tau, n_map;
+  int n_rays, n_samples, xyz_w, dir_w, n_a, n_tau, n_map;
   int use_viewdir, encode_a, vis_in;
   float z_far, flow_scale;
   float freqs[MAXF];
@@ -68,10 +73,17 @@ struct Params {
   Args a;
 };
 
-// warp 0 of the consumers: composite the ray's planes into its maps row
+constexpr int NM = 21;  // map columns a composite can fill
+
+// warp 0 of the consumers: composite tile `tile` of the ray (nv real
+// samples; zsh[S] holds the next tile's first depth unless `last`) onto
+// the prefixes of the tiles before it (carry: static-only, combined) and
+// the map sums macc, both in shared memory; the last tile writes the
+// maps row
 template <bool ENCODE_T, bool FLOW>
 __device__ void composite(const Args& A, const float* planes, const float* zsh,
-                          const float* vsh, const float* od, int ray) {
+                          const float* vsh, const float* od, float* macc, float* carry,
+                          int ray, int tile, int nv, bool last) {
   const int lane = threadIdx.x;
   constexpr int Q = S / 32;
   float z[Q], ts[Q], tt[Q], u[Q];
@@ -79,11 +91,12 @@ __device__ void composite(const Args& A, const float* planes, const float* zsh,
   for (int q = 0; q < Q; ++q) {
     const int s = lane * Q + q;
     z[q] = zsh[s];
-    const float dz = (s < S - 1) ? zsh[s + 1] - zsh[s] : 0.f;
-    const float ds = (s < S - 1) ? dz : 100.f;
-    const float dt = (s < S - 1) ? dz : 1e-3f;
-    ts[q] = ds * softplus(planes[P_SSIG * S + s]);
-    if (ENCODE_T) {
+    const bool end = last && s == nv - 1;  // the ray's last sample
+    const float dz = zsh[s + 1] - zsh[s];
+    const float ds = end ? 100.f : dz;
+    const float dt = end ? 1e-3f : dz;
+    ts[q] = s < nv ? ds * softplus(planes[P_SSIG * S + s]) : 0.f;
+    if (ENCODE_T && s < nv) {
       float sig = planes[P_TSIG * S + s];
       if (A.vis_in && vsh[s] == 0.f) sig = -10.f;
       tt[q] = dt * softplus(sig);
@@ -104,14 +117,20 @@ __device__ void composite(const Args& A, const float* planes, const float* zsh,
     if (lane >= off) { inc_s += vs; inc_u += vu; }
   }
   float cs = inc_s - loc_s, cu = inc_u - loc_u;
+  if (tile > 0) {
+    cs += carry[0];
+    cu += carry[1];
+  }
+  const float tot_s = __shfl_sync(0xffffffffu, inc_s, 31);
+  const float tot_u = __shfl_sync(0xffffffffu, inc_u, 31);
 
-  constexpr int NM = 21;
   float m[NM];
 #pragma unroll
   for (int i = 0; i < NM; ++i) m[i] = 0.f;
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int s = lane * Q + q;
+    if (s >= nv) continue;
     const float sr = planes[P_SR * S + s], sg = planes[P_SG * S + s],
                 sb = planes[P_SB * S + s];
     const float sw_only = (1.f - expf(-ts[q])) * expf(-cs);  // static-only
@@ -144,18 +163,28 @@ __device__ void composite(const Args& A, const float* planes, const float* zsh,
     cu += u[q];
   }
   const int n_used = ENCODE_T ? (FLOW ? 21 : 12) : 4;
-  float* orow = A.out + size_t(ray) * A.n_map;
 #pragma unroll
   for (int i = 0; i < NM; ++i) {
     if (i < n_used) {
       const float v = warp_sum(m[i]);
-      if (lane == 0) orow[i] = v;
+      if (lane == 0) macc[i] = tile == 0 ? v : macc[i] + v;
     }
   }
+  if (lane == 0) {
+    carry[0] = tile == 0 ? tot_s : carry[0] + tot_s;
+    carry[1] = tile == 0 ? tot_u : carry[1] + tot_u;
+  }
+  __syncwarp();
+  if (!last) return;
+  float* orow = A.out + size_t(ray) * A.n_map;
+  if (lane < n_used) orow[lane] = macc[lane];
   for (int i = n_used + lane; i < A.n_map; i += 32) orow[i] = 0.f;
 }
 
-template <bool ENCODE_T, bool FLOW>
+// NT: the ray's tiles; PAD: its last tile is half used (64 or 192
+// samples). Both are compile-time, so the tile loop unrolls and a
+// 128-sample ray gets the code of a single tile
+template <bool ENCODE_T, bool FLOW, int NT, bool PAD>
 __global__ void __launch_bounds__(wg::NTHR, 1)
 planar_eval_comp_kernel(const __grid_constant__ Params P) {
   // the dynamic shared memory starts 1024-byte aligned (the swizzle atoms
@@ -180,7 +209,7 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
     // warps stage the parameters and the ray's static_dir bias ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == wg::NCONS) {
-      wg::produce(P.maps, ring, bars, true, A.use_viewdir != 0, ENCODE_T);
+      wg::produce(P.maps, ring, bars, true, A.use_viewdir != 0, ENCODE_T, NT);
     } else if (tid >= wg::HELP0) {
       const int h = tid - wg::HELP0;
       wg::stage_params(st, A.W, A.B, FLOW ? 10 : 4, h);
@@ -198,33 +227,16 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   float* planes = reinterpret_cast<float*>(sm + wg::OFF_PLANES);
+  // per-ray inputs: a tile's depths (+ the next tile's first), visibility,
+  // o and d, the map sums and the prefixes carried across tiles
   float* zsh = reinterpret_cast<float*>(sm + wg::OFF_EXTRA);
-  float* vsh = zsh + S;
+  float* vsh = zsh + S + 4;
   float* od = vsh + S;
+  float* macc = od + 8;
+  float* carry = macc + NM;
+  static_assert((2 * S + 12 + NM + 2) * 4 <= wg::EXTRA_BYTES, "the ray's inputs fit");
   unsigned char* act = sm + wg::OFF_ACT;
   unsigned char* pe = sm + wg::OFF_PE;
-
-  if (tid < S) {
-    zsh[tid] = A.zs[size_t(ray) * S + tid];
-    vsh[tid] = A.vis_in ? A.vis[size_t(ray) * S + tid] : 1.f;
-  } else if (tid < S + 6) {
-    const int c = tid - S;
-    od[c] = c < 3 ? A.o[ray * 3 + c] : A.d[ray * 3 + c - 3];
-  }
-  wg::consumers_sync();
-  WG_STAMP(8);
-
-  // ---- posenc tile (+ time latent lanes for the transient tower; the
-  // static tower's padded weight rows there are zero) ----
-  wg::posenc_tile<wg::PE_RAY>(pe, A.freqs, A.xyz_w,
-                              ENCODE_T ? A.t + size_t(ray) * A.n_tau : nullptr, A.n_tau,
-                              nullptr, od, zsh);
-  WG_STAMP(9);
-  wg::fence_async_smem();
-  wg::consumers_sync();
-  wg::bar_sync(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
-  WG_STAMP(1);
-
   const int g = tid >> 7;
   const uint32_t pe_g = wg::saddr(pe) + g * wg::WG_ROWS_BYTES;
   const uint32_t act_g = wg::saddr(act) + g * wg::WG_ROWS_BYTES;
@@ -233,56 +245,108 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
   for (int i = 0; i < 128; ++i) d[i] = 0.f;
   wg::Pipe p;
 
-  // ---- static tower + sigma (layer 7's epilogue), final, dir, rgb ----
-  wg::tower<true>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(false),
-                      st.w_sig(), st.hb, planes + P_SSIG * S);
-  wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
-  if (A.use_viewdir) {
-    // static_xyz_final (linear), bf16-rounded, in place
-    wg::epilogue<false, true, 0>(d, st.tower_bias(false) + 8 * WID, act, g, nullptr,
-                                 nullptr, nullptr);
-    wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
-    wg::bar_sync(wg::BAR_DIR, wg::NCONS + wg::NHELP);
-    wg::epilogue<true, false, 3>(d, ray_b, act, g, st.w_rgb(), st.hb + 1,
-                                 planes + P_SR * S);
-  } else {
-    wg::epilogue<false, false, 3>(d, st.tower_bias(false) + 8 * WID, act, g,
-                                  st.w_rgb(), st.hb + 1, planes + P_SR * S);
-  }
+#pragma unroll
+  for (int tile = 0; tile < NT; ++tile) {
+    const int s0 = tile * S;
+    const bool last = tile == NT - 1;
+    const int nv = PAD && last ? A.n_samples - s0 : S;
+    const size_t zr = size_t(ray) * A.n_samples + s0;
+    if (tid < S) {
+      const size_t r = zr + min(tid, nv - 1);  // rows past the ray repeat its last
+      zsh[tid] = A.zs[r];
+      vsh[tid] = A.vis_in ? A.vis[r] : 1.f;
+    } else if (tid == S) {
+      zsh[S] = last ? 0.f : A.zs[zr + S];
+    } else if (tile == 0 && tid <= S + 6) {
+      const int c = tid - S - 1;
+      od[c] = c < 3 ? A.o[ray * 3 + c] : A.d[ray * 3 + c - 3];
+    }
+    wg::consumers_sync();
+    WG_STAMP(8);
 
-  WG_STAMP(2);
-  // ---- transient tower + packed heads [sigma, rgb(3), fw(3), bw(3)] ----
-  if (ENCODE_T) {
-    wg::tower<false>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(true),
-                         nullptr, nullptr, nullptr);
+    // ---- posenc tile (+ time latent lanes for the transient tower; the
+    // static tower's padded weight rows there are zero) ----
+    wg::posenc_tile<wg::PE_RAY>(pe, A.freqs, A.xyz_w,
+                                ENCODE_T ? A.t + size_t(ray) * A.n_tau : nullptr, A.n_tau,
+                                nullptr, od, zsh);
+    WG_STAMP(9);
+    wg::fence_async_smem();
+    wg::consumers_sync();
+    if (tile == 0) wg::bar_sync(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
+    WG_STAMP(1);
+
+    // ---- static tower + sigma (layer 7's epilogue), final, dir, rgb ----
+    wg::tower<true>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(false),
+                        st.w_sig(), st.hb, planes + P_SSIG * S);
     wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
-    wg::epilogue<false, false, FLOW ? 10 : 4>(d, st.tower_bias(true) + 8 * WID, act,
-                                               g, st.w_th(), st.hb + 4,
-                                               planes + P_TSIG * S);
-  }
-  wg::wg_sync(g);
-  WG_STAMP(3);
-  // head activations on this warpgroup's rows
-  const int t = tid & 127;
-  if (t < 64) {
-    const int s = 64 * g + t;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) planes[(P_SR + c) * S + s] = sigmoid(planes[(P_SR + c) * S + s]);
+    if (A.use_viewdir) {
+      // static_xyz_final (linear), bf16-rounded, in place
+      wg::epilogue<false, true, 0>(d, st.tower_bias(false) + 8 * WID, act, g, nullptr,
+                                   nullptr, nullptr);
+      wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+      if (tile == 0) wg::bar_sync(wg::BAR_DIR, wg::NCONS + wg::NHELP);
+      wg::epilogue<true, false, 3>(d, ray_b, act, g, st.w_rgb(), st.hb + 1,
+                                   planes + P_SR * S);
+    } else {
+      wg::epilogue<false, false, 3>(d, st.tower_bias(false) + 8 * WID, act, g,
+                                    st.w_rgb(), st.hb + 1, planes + P_SR * S);
+    }
+
+    WG_STAMP(2);
+    // ---- transient tower + packed heads [sigma, rgb(3), fw(3), bw(3)] ----
     if (ENCODE_T) {
+      wg::tower<false>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(true),
+                           nullptr, nullptr, nullptr);
+      wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+      wg::epilogue<false, false, FLOW ? 10 : 4>(d, st.tower_bias(true) + 8 * WID, act,
+                                                 g, st.w_th(), st.hb + 4,
+                                                 planes + P_TSIG * S);
+    }
+    wg::wg_sync(g);
+    WG_STAMP(3);
+    // head activations on this warpgroup's rows
+    const int t = tid & 127;
+    if (t < 64) {
+      const int s = 64 * g + t;
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        planes[(P_TR + c) * S + s] = sigmoid(planes[(P_TR + c) * S + s]);
-      if (FLOW) {
+      for (int c = 0; c < 3; ++c) planes[(P_SR + c) * S + s] = sigmoid(planes[(P_SR + c) * S + s]);
+      if (ENCODE_T) {
 #pragma unroll
-        for (int c = 0; c < 6; ++c)
-          planes[(P_FW0 + c) * S + s] = A.flow_scale * tanhf(planes[(P_FW0 + c) * S + s]);
+        for (int c = 0; c < 3; ++c)
+          planes[(P_TR + c) * S + s] = sigmoid(planes[(P_TR + c) * S + s]);
+        if (FLOW) {
+#pragma unroll
+          for (int c = 0; c < 6; ++c)
+            planes[(P_FW0 + c) * S + s] = A.flow_scale * tanhf(planes[(P_FW0 + c) * S + s]);
+        }
       }
     }
-  }
-  wg::consumers_sync();
+    wg::consumers_sync();
 
-  if (tid < 32) composite<ENCODE_T, FLOW>(A, planes, zsh, vsh, od, ray);
+    if (tid < 32)
+      composite<ENCODE_T, FLOW>(A, planes, zsh, vsh, od, macc, carry, ray, tile, nv, last);
+    if (!last) wg::consumers_sync();  // the tile's planes and depths are read
+  }
   WG_STAMP(4);
+}
+
+template <int NT, bool PAD>
+cudaError_t launch_variant(const Params& P, bool encode_t, bool flow, cudaStream_t s) {
+  const int n = P.a.n_rays;
+  if (!encode_t) return wg::launch(planar_eval_comp_kernel<false, false, NT, PAD>, P, n, s);
+  if (flow) return wg::launch(planar_eval_comp_kernel<true, true, NT, PAD>, P, n, s);
+  return wg::launch(planar_eval_comp_kernel<true, false, NT, PAD>, P, n, s);
+}
+
+// the kernel of the ray's sample count (samples_ok: 64, 128, 192, 256)
+int launch_tiles(const Params& P, bool encode_t, bool flow, int n_samples,
+                 cudaStream_t s) {
+  switch (n_samples) {
+    case 64: return int(launch_variant<1, true>(P, encode_t, flow, s));
+    case 128: return int(launch_variant<1, false>(P, encode_t, flow, s));
+    case 192: return int(launch_variant<2, true>(P, encode_t, flow, s));
+    default: return int(launch_variant<2, false>(P, encode_t, flow, s));
+  }
 }
 
 }  // namespace
@@ -295,7 +359,8 @@ extern "C" int nsff_planar_eval_comp(
     const float* freqs, int n_freqs,
     int encode_t, int flow, int use_viewdir, int encode_a, int vis_in,
     float z_far, float flow_scale, int n_tau, int n_map, void* stream) {
-  if (n_samples != S || n_freqs > MAXF || n_map < (encode_t ? (flow ? 21 : 12) : 4))
+  if (!samples_ok(n_samples) || n_freqs > MAXF ||
+      n_map < (encode_t ? (flow ? 21 : 12) : 4))
     return int(cudaErrorInvalidValue);
   Params P;
   memset(&P, 0, sizeof(P));
@@ -315,16 +380,15 @@ extern "C" int nsff_planar_eval_comp(
     for (int i = W_T0; i < NSLOT; ++i) A.W[i] = nullptr;  // no transient maps
   if (!use_viewdir) A.W[W_SDIR] = nullptr;
   A.out = static_cast<float*>(out);
-  A.n_rays = n_rays; A.xyz_w = xyz_w; A.dir_w = dir_w; A.n_a = n_a;
+  A.n_rays = n_rays; A.n_samples = n_samples;
+  A.xyz_w = xyz_w; A.dir_w = dir_w; A.n_a = n_a;
   A.n_tau = n_tau; A.n_map = n_map;
   A.use_viewdir = use_viewdir; A.encode_a = encode_a; A.vis_in = vis_in;
   A.z_far = z_far; A.flow_scale = flow_scale;
   for (int i = 0; i < MAXF; ++i) A.freqs[i] = i < n_freqs ? freqs[i] : 0.f;
   if (!wg::encode_maps(P.maps, A.W)) return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!encode_t) return int(wg::launch(planar_eval_comp_kernel<false, false>, P, n_rays, s));
-  if (flow) return int(wg::launch(planar_eval_comp_kernel<true, true>, P, n_rays, s));
-  return int(wg::launch(planar_eval_comp_kernel<true, false>, P, n_rays, s));
+  return launch_tiles(P, encode_t != 0, flow != 0, n_samples,
+                      static_cast<cudaStream_t>(stream));
 }
 
 #ifdef WG_PROFILE

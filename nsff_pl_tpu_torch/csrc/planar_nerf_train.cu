@@ -15,8 +15,8 @@
 // call, 0.16 ms at batch 512 and 989 TFLOP/s; a warp call about half of it).
 //
 // Forward design: the wgmma tower of tower_wgmma.cuh, as in
-// fused_nerf_eval.cu: one CTA per ray of two consumer warpgroups (64
-// samples each, wgmma m64n256k16 on the ray's tiles in shared memory,
+// fused_nerf_eval.cu: one CTA per (ray, tile of 128 samples) of two
+// consumer warpgroups (64 rows each, wgmma m64n256k16 on the tiles in shared memory,
 // epilogues in place from the accumulators, the narrow heads folded into
 // the epilogues that feed them) and a producer warpgroup (one thread
 // streams the weight K-slabs through TMA into a 6-stage ring, three warps
@@ -60,7 +60,10 @@ train_fwd_kernel(const __grid_constant__ FwdParams P) {
   extern __shared__ __align__(1024) unsigned char sm[];
   if ((wg::saddr(sm) & 1023u) != 0) __trap();
   const Common& A = P.c;
-  const int tid = threadIdx.x, ray = blockIdx.x;
+  // one CTA per (ray, tile): rows s0.. of the ray, nv of them real (the
+  // rest of a last tile repeats the ray's last sample and is not written)
+  const int tid = threadIdx.x, ray = blockIdx.x / A.n_tiles;
+  const int s0 = (blockIdx.x % A.n_tiles) * S, nv = min(S, A.n_samples - s0);
   if (tid == 0) wg::init_ring(wg::saddr(sm + wg::OFF_BAR));
   __syncthreads();
   const bool dir = STATIC && A.use_viewdir;
@@ -76,11 +79,12 @@ train_fwd_kernel(const __grid_constant__ FwdParams P) {
   float* fl = pl + S;      // (S, 3) flows
   float* od = pl + 4 * S;  // o, d
   const bool flow = A.flows[0] != nullptr;
-  const size_t row0 = size_t(ray) * S;
+  const size_t row0 = size_t(ray) * A.n_samples + s0;
   if (tid < S) {
-    zsh[tid] = A.zs[row0 + tid];
+    const size_t r = row0 + min(tid, nv - 1);
+    zsh[tid] = A.zs[r];
     if (flow)
-      for (int c = 0; c < 3; ++c) fl[tid * 3 + c] = A.flows[c][row0 + tid];
+      for (int c = 0; c < 3; ++c) fl[tid * 3 + c] = A.flows[c][r];
   } else if (tid < S + 6) {
     const int c = tid - S;
     od[c] = c < 3 ? A.o[ray * 3 + c] : A.d[ray * 3 + c - 3];
@@ -104,7 +108,7 @@ train_fwd_kernel(const __grid_constant__ FwdParams P) {
   for (int e = tid & 127; e < NPL * 64; e += 128) {
     const int k = e >> 6, s = 64 * g + (e & 63);  // k is warp-uniform
     float* dst = P.out[k];
-    if (dst == nullptr || (k < P_TR ? !STATIC : !TRANS)) continue;
+    if (dst == nullptr || (k < P_TR ? !STATIC : !TRANS) || s >= nv) continue;
     float v;
     if (k < P_SSIG)
       v = sigmoid(pl[(wg::PL_SRGB + k) * S + s]);
@@ -126,16 +130,21 @@ extern "C" int nsff_planar_train_fwd(
     const void* o, const void* d, const void* zs, const void* dir,
     const void* a, const void* t, const void* const* flows,
     const void* const* w, const void* const* b, void* const* outs,
-    int n_rays, int xyz_w, int dir_w, int n_a, const float* freqs,
-    int n_freqs, int static_branch, int encode_t, int use_viewdir,
-    int encode_a, float flow_scale, int n_tau, void* stream) {
-  if (n_freqs > MAXF || xyz_w + n_tau > SEG || (!static_branch && !encode_t))
+    int n_rays, int n_samples, int xyz_w, int dir_w, int n_a,
+    const float* freqs, int n_freqs, int static_branch, int encode_t,
+    int use_viewdir, int encode_a, float flow_scale, int n_tau,
+    void* stream) {
+  if (n_freqs > MAXF || xyz_w + n_tau > SEG || (!static_branch && !encode_t) ||
+      !samples_ok(n_samples))
     return int(cudaErrorInvalidValue);
   FwdParams P;
   memset(&P, 0, sizeof(P));
   fill_common(P.c, o, d, zs, nullptr, dir, a, t, flows, w, b, n_rays, xyz_w,
               dir_w, n_a, freqs, n_freqs, use_viewdir, encode_a, flow_scale,
               n_tau);
+  P.c.n_samples = n_samples;
+  P.c.n_tiles = tiles_of(n_samples);
+  const int n_ctas = n_rays * P.c.n_tiles;
   // only the evaluated branches get tensor maps and planes
   if (!static_branch)
     for (int i = W_S0; i < W_T0; ++i) P.c.W[i] = nullptr;
@@ -148,16 +157,17 @@ extern "C" int nsff_planar_train_fwd(
   if (!wg::encode_maps(P.maps, P.c.W)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (static_branch && encode_t)
-    return int(wg::launch(train_fwd_kernel<true, true>, P, n_rays, s));
-  if (static_branch) return int(wg::launch(train_fwd_kernel<true, false>, P, n_rays, s));
-  return int(wg::launch(train_fwd_kernel<false, true>, P, n_rays, s));
+    return int(wg::launch(train_fwd_kernel<true, true>, P, n_ctas, s));
+  if (static_branch) return int(wg::launch(train_fwd_kernel<true, false>, P, n_ctas, s));
+  return int(wg::launch(train_fwd_kernel<false, true>, P, n_ctas, s));
 }
 
 extern "C" size_t nsff_planar_train_bwd_scratch_bytes(int static_branch,
                                                       int n_rays,
+                                                      int n_samples,
                                                       int use_viewdir,
                                                       int encode_a) {
-  return bwd_scratch_bytes(static_branch != 0, n_rays, use_viewdir, encode_a);
+  return bwd_scratch_bytes(static_branch != 0, n_rays, n_samples, use_viewdir, encode_a);
 }
 
 extern "C" int nsff_planar_train_bwd(
@@ -165,16 +175,18 @@ extern "C" int nsff_planar_train_bwd(
     const void* dir, const void* a, const void* t, const void* const* flows,
     const void* const* w, const void* const* b, const void* const* g,
     void* const* dw, void* const* db, void* ddir, void* da, void* dt,
-    void* const* dflows, void* scratch, int n_rays, int xyz_w, int dir_w,
-    int n_a, const float* freqs, int n_freqs, int use_viewdir, int encode_a,
-    float flow_scale, int n_tau, void* stream) {
+    void* const* dflows, void* scratch, int n_rays, int n_samples, int xyz_w,
+    int dir_w, int n_a, const float* freqs, int n_freqs, int use_viewdir,
+    int encode_a, float flow_scale, int n_tau, void* stream) {
   const bool stat = static_branch != 0;
-  if (n_freqs > MAXF || xyz_w + n_tau > SEG || n_rays <= 0)
+  if (n_freqs > MAXF || xyz_w + n_tau > SEG || n_rays <= 0 || !samples_ok(n_samples))
     return int(cudaErrorInvalidValue);
   BwdArgs G;
   fill_common(G.c, o, d, zs, nullptr, dir, a, t, flows, w, b, n_rays, xyz_w,
               dir_w, n_a, freqs, n_freqs, stat && use_viewdir,
               stat && encode_a, flow_scale, n_tau);
+  G.c.n_samples = n_samples;
+  G.c.n_tiles = tiles_of(n_samples);
   const int ng = stat ? 4 : NHEAD;
   for (int k = 0; k < NHEAD; ++k)
     G.g[k] = k < ng ? static_cast<const float*>(g[k]) : nullptr;

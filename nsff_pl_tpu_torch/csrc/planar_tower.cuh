@@ -17,7 +17,7 @@ namespace planar {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int S = 128;        // samples per ray (rows of every matmul)
+constexpr int S = 128;        // rows of a tile: the M rows of every matmul
 constexpr int SEG = 128;      // padded posenc segment
 constexpr int WID = 256;      // tower width
 constexpr int DEPTH = 8;
@@ -102,6 +102,16 @@ __device__ __forceinline__ float posenc_xs_pt(const float* freqs,
   return __fmul_rn(x[r % 3], freqs[k]);
 }
 
+// tiles of S rows that hold n_samples samples
+__host__ __device__ __forceinline__ int tiles_of(int n_samples) {
+  return (n_samples + S - 1) / S;
+}
+
+// the sample counts the planar kernels take: 64, 128, 192 and 256
+inline bool samples_ok(int n_samples) {
+  return n_samples >= 64 && n_samples <= 256 && n_samples % 64 == 0;
+}
+
 struct Common {
   const float* o; const float* d; const float* zs;  // planar layout
   const float* xyz;  // packed layout: (n_rays, S, 3) points, else null
@@ -109,6 +119,10 @@ struct Common {
   const float* flows[3];
   const bf16* W[NSLOT]; const float* B[NSLOT];
   int n_rays, xyz_w, dir_w, n_a, n_tau;
+  // samples per ray, and the ray's tiles of S rows (planar layout: a ray
+  // of 64..256 samples is ceil(n_samples / S) tiles, the last one padded;
+  // the packed layout keeps S samples, one tile)
+  int n_samples, n_tiles;
   int use_viewdir, encode_a;
   float flow_scale;
   float freqs[MAXF];
@@ -137,6 +151,7 @@ inline void fill_common(Common& A, const void* o, const void* d, const void* zs,
   }
   A.n_rays = n_rays; A.xyz_w = xyz_w; A.dir_w = dir_w; A.n_a = n_a;
   A.n_tau = n_tau; A.use_viewdir = use_viewdir; A.encode_a = encode_a;
+  A.n_samples = S; A.n_tiles = 1;
   A.flow_scale = flow_scale;
   for (int i = 0; i < MAXF; ++i) A.freqs[i] = i < n_freqs ? freqs[i] : 0.f;
 }

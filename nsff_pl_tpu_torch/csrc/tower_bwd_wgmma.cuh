@@ -10,8 +10,10 @@
 // Hopper's CTAs run in parallel and 8 x (256 x 256) f32 of dW does not fit
 // one, so the work is two passes through a global scratch buffer
 // (activations and bf16 cotangents, ~0.7 GB per branch call at batch 512):
-//  1. train_bwd_chain_kernel, one CTA per ray, in the shape of
-//     tower_wgmma.cuh: two consumer warpgroups (samples 0-63 and 64-127)
+//  1. train_bwd_chain_kernel, one CTA per (ray, tile of 128 samples; a
+//     planar ray of 192 or 256 samples is two tiles, the last one padded
+//     with rows whose cotangent is zero), in the shape of
+//     tower_wgmma.cuh: two consumer warpgroups (rows 0-63 and 64-127)
 //     run every product as wgmma.mma_async (bf16 in, f32 accumulators);
 //     one producer thread streams weight K-slabs by TMA into a 5-stage
 //     mbarrier ring. The forward recompute reads W MN-major (transpose
@@ -27,7 +29,11 @@
 //     was 1.3-1.4x slower on the chain, PERF.md); the dir layer's mask is
 //     read from the tile, which still holds featb. Per-ray bias-gradient
 //     partials are the column sums of the f32 dz: 4-row partials (one
-//     shuffle), then the 32 partials in a fixed order. The narrow heads
+//     shuffle), then the 32 partials in a fixed order. The per-ray sums
+//     of a ray of several tiles (static_dir's dz for d(dir), d(a) and the
+//     dir rows of dW; the time lanes of the input cotangent for d(t)) are
+//     added over its tiles in tile order by ray_reduce_kernel, then
+//     rounded as a one-tile ray's. The narrow heads
 //     stay on CUDA cores: the forward heads from the bf16 tile after its
 //     epilogue (two rows a thread, paired weight loads), the head products
 //     of the backward inside the first backward epilogue, the sigmoid /
@@ -86,7 +92,8 @@ constexpr uint32_t SLOT = 16384;         // one ring slot
 constexpr uint32_t BLK = wg::BLK_BYTES;  // (128 rows, 64 cols) bf16 block
 constexpr uint32_t WGR = wg::WG_ROWS_BYTES;
 
-// scratch: NT (R, 256) bf16 tiles, R = n_rays * S rows each, in one array
+// scratch: NT (R, 256) bf16 tiles, R = U * S rows each (U = n_rays *
+// n_tiles (ray, tile) units), in one array
 enum {
   T_ACT = 0,       // T_ACT + i: output of tower layer i
   T_FA = 8,        // static feat0b / transient tfeatb
@@ -574,7 +581,8 @@ namespace planar {
 
 constexpr int LDG = 16;  // row pitch of the head-cotangent scratch
 
-// per-ray scratch of one branch (rows are ray-major, R = n_rays * S)
+// per-(ray, tile) scratch of one branch (rows are unit-major, R = U * S,
+// U = n_rays * n_tiles)
 struct Scratch {
   bf16* big;    // bw::n_tiles_of x (R, WID) bf16 tiles (bw::T_*)
   bf16* act0;   // (R, SEG): tower input
@@ -583,7 +591,8 @@ struct Scratch {
   bf16* dirb;   // (N, SEG): bf16 direction embedding, zero-padded
   bf16* ab;     // (N, SEG): bf16 appearance embedding, zero-padded
   bf16* dzrb;   // (N, WID): bf16 per-ray sums of static_dir's dz
-  float* dbp;   // NSLOT x (N, WID): per-ray bias-gradient partials
+  float* dbp;   // NSLOT x (U, WID): per-unit bias-gradient partials
+  float* dtp;   // (U, SEG): per-unit f32 sums of the input cotangent (rays of several tiles)
   float* part;  // dW partials of the row splits
 };
 
@@ -730,6 +739,50 @@ __device__ __forceinline__ void bwd_step(float (&d)[128], const uint4* mask, con
   if (threadIdx.x == 0) BW_ADD(22, clock64() - t0);
 }
 
+// d(dir) and d(a) of a ray from ray_b = bf16 of its sum of static_dir's
+// dz: warp per output, the row of Wdir read coalesced, a fixed order
+__device__ __forceinline__ void dir_grads(const Common& A, const BwdArgs& G,
+                                          const float* ray_b, int ray, int tid) {
+  const bf16* Wd = A.W[planar::W_SDIR];
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int j = warp; j < A.dir_w + (A.encode_a ? A.n_a : 0); j += NCONS / 32) {
+    const bool is_dir = j < A.dir_w;
+    const bf16* wr = Wd + size_t(is_dir ? WID + j : WID + SEG + j - A.dir_w) * WID;
+    float v = 0.f;
+    for (int c = lane; c < WID; c += 32) v += ray_b[c] * __bfloat162float(wr[c]);
+    v = planar::warp_sum(v);
+    if (lane == 0) {
+      if (is_dir) G.ddir[size_t(ray) * A.dir_w + j] = v;
+      else G.da[size_t(ray) * A.n_a + j - A.dir_w] = v;
+    }
+  }
+}
+
+// A ray of several tiles, one CTA of NCONS threads: its sums over the
+// tiles, in tile order, of static_dir's column sums (the bf16 dzrb row,
+// d(dir), d(a)) or of the time lanes of the input cotangent (d(t)),
+// rounded as the chain kernel rounds a one-tile ray's.
+__global__ void __launch_bounds__(NCONS) ray_reduce_kernel(const BwdArgs G) {
+  const Common& A = G.c;
+  const Scratch& X = G.sc;
+  const int ray = blockIdx.x, tid = threadIdx.x, nt = A.n_tiles;
+  const size_t U = size_t(A.n_rays) * nt, u0 = size_t(ray) * nt;
+  __shared__ float ray_b[WID];
+  if (X.dzrb != nullptr) {
+    float cs = 0.f;
+    for (int t = 0; t < nt; ++t) cs += X.dbp[(size_t(planar::W_SDIR) * U + u0 + t) * WID + tid];
+    X.dzrb[size_t(ray) * WID + tid] = __float2bfloat16_rn(cs);
+    ray_b[tid] = planar::bfr(cs);
+    __syncthreads();
+    dir_grads(A, G, ray_b, ray, tid);
+  }
+  if (X.dtp != nullptr && tid < A.n_tau) {
+    float v = 0.f;
+    for (int t = 0; t < nt; ++t) v += X.dtp[(u0 + t) * SEG + tid];
+    G.dt[size_t(ray) * A.n_tau + tid] = planar::bfr(v);
+  }
+}
+
 // STATIC: the static branch (else transient); VIEWDIR: the static_dir
 // layer; DTX: the input cotangent (always for the transient branch, for
 // the static one only when the point cotangent is asked for). Each is a
@@ -746,7 +799,12 @@ train_bwd_chain_kernel(const __grid_constant__ ChainParams P) {
   const Common& A = G.c;
   const Scratch& X = G.sc;
   const uint32_t ring = saddr(sm + OFF_RING), bars = saddr(sm + OFF_BAR);
-  const int tid = threadIdx.x, ray = blockIdx.x;
+  // unit (ray, tile): rows s0.. of the ray, nv of them real; a ray of one
+  // tile writes its per-ray sums itself (whole), else ray_reduce_kernel
+  const int tid = threadIdx.x, unit = blockIdx.x;
+  const int ray = unit / A.n_tiles, tile = unit % A.n_tiles;
+  const int s0 = tile * S, nv = min(S, A.n_samples - s0);
+  const bool whole = A.n_tiles == 1;
   constexpr bool viewdir = STATIC && VIEWDIR;
   constexpr bool need_dtx = DTX;
   const bool packed = A.xyz != nullptr;
@@ -788,24 +846,28 @@ train_bwd_chain_kernel(const __grid_constant__ ChainParams P) {
   float* hp = reinterpret_cast<float*>(pe + PE_H);
   const uint4* maskr = reinterpret_cast<const uint4*>(sm + OFF_MASK);
   uint4* maskw = reinterpret_cast<uint4*>(sm + OFF_MASK);
-  const size_t R = size_t(A.n_rays) * S, row0 = size_t(ray) * S;
+  // scratch rows row0.. of the unit; rows xrow0.. of the ray's planes
+  const size_t U = size_t(A.n_rays) * A.n_tiles;
+  const size_t R = U * S, row0 = size_t(unit) * S;
+  const size_t xrow0 = size_t(ray) * A.n_samples + s0;
   const int w0 = STATIC ? W_S0 : W_T0;
-  auto dbp = [&](int slot) { return X.dbp + (size_t(slot) * A.n_rays + ray) * WID; };
+  auto dbp = [&](int slot) { return X.dbp + (size_t(slot) * U + unit) * WID; };
 
   // ---- the ray's data and per-ray embeddings ----
   if (packed) {
     for (int e = tid; e < 3 * S; e += NCONS) fl[e] = A.xyz[size_t(ray) * S * 3 + e];
   } else {
     if (tid < S) {
-      zsh[tid] = A.zs[row0 + tid];
+      const size_t r = xrow0 + min(tid, nv - 1);
+      zsh[tid] = A.zs[r];
       if (with_flow)
-        for (int c = 0; c < 3; ++c) fl[tid * 3 + c] = A.flows[c][row0 + tid];
+        for (int c = 0; c < 3; ++c) fl[tid * 3 + c] = A.flows[c][r];
     } else if (tid < S + 6) {
       const int c = tid - S;
       od[c] = c < 3 ? A.o[ray * 3 + c] : A.d[ray * 3 + c - 3];
     }
   }
-  if (viewdir && tid < SEG) {
+  if (viewdir && tid < SEG && tile == 0) {
     X.dirb[size_t(ray) * SEG + tid] =
         __float2bfloat16_rn(tid < A.dir_w ? A.dir[size_t(ray) * A.dir_w + tid] : 0.f);
     if (A.encode_a)
@@ -874,7 +936,7 @@ train_bwd_chain_kernel(const __grid_constant__ ChainParams P) {
   const int ng = STATIC ? 4 : NHEAD;
   for (int e = tid; e < ng * S; e += NCONS) {
     const int k = e / S, s = e % S;
-    gp[e] = G.g[k] != nullptr ? G.g[k][(row0 + s) * G.g_stride] : 0.f;
+    gp[e] = G.g[k] != nullptr && s < nv ? G.g[k][(xrow0 + s) * G.g_stride] : 0.f;
   }
   consumers_sync();
   BW_STAMP(7);
@@ -943,22 +1005,11 @@ train_bwd_chain_kernel(const __grid_constant__ ChainParams P) {
       const float cs = col_total(part);
       BW_STAMP(10);
       dbp(W_SDIR)[tid] = cs;
-      X.dzrb[size_t(ray) * WID + tid] = __float2bfloat16_rn(cs);
-      ray_b[tid] = bfr(cs);
-      consumers_sync();
-      // warp per output: the row of Wdir read coalesced, a fixed order
-      const bf16* Wd = A.W[W_SDIR];
-      const int warp = tid >> 5, lane = tid & 31;
-      for (int j = warp; j < A.dir_w + (A.encode_a ? A.n_a : 0); j += NCONS / 32) {
-        const bool is_dir = j < A.dir_w;
-        const bf16* wr = Wd + size_t(is_dir ? WID + j : WID + SEG + j - A.dir_w) * WID;
-        float v = 0.f;
-        for (int c = lane; c < WID; c += 32) v += ray_b[c] * __bfloat162float(wr[c]);
-        v = warp_sum(v);
-        if (lane == 0) {
-          if (is_dir) G.ddir[size_t(ray) * A.dir_w + j] = v;
-          else G.da[size_t(ray) * A.n_a + j - A.dir_w] = v;
-        }
+      if (whole) {
+        X.dzrb[size_t(ray) * WID + tid] = __float2bfloat16_rn(cs);
+        ray_b[tid] = bfr(cs);
+        consumers_sync();
+        dir_grads(A, G, ray_b, ray, tid);
       }
       // dfeat0 = dz @ Wdir[:256]^T
       mma_layer<1>(d, p, ring, bars, 0, 0, act_g, WID);
@@ -1034,14 +1085,17 @@ train_bwd_chain_kernel(const __grid_constant__ ChainParams P) {
       float v = 0.f;
       for (int s = lane; s < S; s += 32) v += dtx[s * LDT + A.xyz_w + j];
       v = warp_sum(v);
-      if (lane == 0) G.dt[size_t(ray) * A.n_tau + j] = bfr(v);
+      if (lane == 0) {
+        if (whole) G.dt[size_t(ray) * A.n_tau + j] = bfr(v);
+        else X.dtp[size_t(unit) * SEG + j] = v;
+      }
     }
   }
   // dx_c = sum over the lanes j of channel c of dxs_j * f_j, with
   // dxs = dtx on identity lanes and dtx * cos(xs + phase) on sine lanes
   if (want_dx) {
     const int warp = tid >> 5, lane = tid & 31;
-    for (int s = warp; s < S; s += NCONS / 32) {
+    for (int s = warp; s < nv; s += NCONS / 32) {
       float acc3[3] = {0.f, 0.f, 0.f};
       for (int j = lane; j < A.xyz_w; j += 32) {
         bool id;
@@ -1058,7 +1112,7 @@ train_bwd_chain_kernel(const __grid_constant__ ChainParams P) {
       }
       for (int c = 0; c < 3; ++c) {
         const float v = warp_sum(acc3[c]);
-        if (lane == 0) G.dflows[c][(row0 + s) * G.dx_stride] = v;
+        if (lane == 0) G.dflows[c][(xrow0 + s) * G.dx_stride] = v;
       }
     }
   }
@@ -1257,20 +1311,20 @@ __global__ void dw_reduce_kernel(const Reds Z) {
   }
 }
 
-// db[slot][c] = sum over rays (in order) of the per-ray partials
+// db[slot][c] = sum over (ray, tile) units (in order) of their partials
 struct Biases {
   float* out[NSLOT];
   int width[NSLOT];
   const float* dbp;
-  int n_rays;
+  int n_units;
 };
 
 __global__ void db_reduce_kernel(const Biases Bz) {
   const int slot = blockIdx.x, c = threadIdx.x;
   if (Bz.out[slot] == nullptr || c >= Bz.width[slot]) return;
-  const float* p = Bz.dbp + size_t(slot) * Bz.n_rays * WID + c;
+  const float* p = Bz.dbp + size_t(slot) * Bz.n_units * WID + c;
   float v = 0.f;
-  for (int r = 0; r < Bz.n_rays; ++r) v += p[size_t(r) * WID];
+  for (int r = 0; r < Bz.n_units; ++r) v += p[size_t(r) * WID];
   Bz.out[slot][c] = v;
 }
 
@@ -1290,11 +1344,12 @@ inline bool encode2d(CUtensorMap* m, const void* p, int cols, size_t rows, int b
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The scratch layout of one branch (the dW partials last); with base ==
-// nullptr only the size without the partials.
-inline Scratch scratch_layout(unsigned char* base, bool stat, int n, int viewdir,
+// The scratch layout of one branch for n rays of nu (ray, tile) units (the
+// dW partials last); with base == nullptr only the size without the
+// partials.
+inline Scratch scratch_layout(unsigned char* base, bool stat, int n, int nu, int viewdir,
                               int encode_a, size_t* bytes) {
-  const size_t R = size_t(n) * S;
+  const size_t R = size_t(nu) * S;
   const bool dir = stat && viewdir;
   size_t off = 0;
   auto take = [&](size_t b) { size_t o = off; off += align256(b); return base + o; };
@@ -1306,7 +1361,8 @@ inline Scratch scratch_layout(unsigned char* base, bool stat, int n, int viewdir
   X.dirb = dir ? reinterpret_cast<bf16*>(take(size_t(n) * SEG * 2)) : nullptr;
   X.ab = dir && encode_a ? reinterpret_cast<bf16*>(take(size_t(n) * SEG * 2)) : nullptr;
   X.dzrb = dir ? reinterpret_cast<bf16*>(take(size_t(n) * WID * 2)) : nullptr;
-  X.dbp = reinterpret_cast<float*>(take(size_t(NSLOT) * n * WID * 4));
+  X.dbp = reinterpret_cast<float*>(take(size_t(NSLOT) * nu * WID * 4));
+  X.dtp = !stat && nu > n ? reinterpret_cast<float*>(take(size_t(nu) * SEG * 4)) : nullptr;
   X.part = reinterpret_cast<float*>(base + off);
   *bytes = off;
   return X;
@@ -1322,10 +1378,11 @@ inline int sm_count() {
 
 // The dW jobs of one branch (dw may be null when only sizing); returns the
 // floats of all partials. Wide splits: as many as fill the SMs once.
-inline size_t make_jobs(GemmParams& gp, NJobs& nj, Reds& rz, bool stat, int n, int viewdir,
-                        int encode_a, const Scratch& X, float* const* dw, int nsm) {
+inline size_t make_jobs(GemmParams& gp, NJobs& nj, Reds& rz, bool stat, int n, int nu,
+                        int viewdir, int encode_a, const Scratch& X, float* const* dw,
+                        int nsm) {
   using namespace planar;
-  const int R = n * S;
+  const int R = nu * S;
   const bool dir = stat && viewdir;
   const int w0 = stat ? W_S0 : W_T0;
   gp.n = 0;
@@ -1395,13 +1452,15 @@ inline size_t make_jobs(GemmParams& gp, NJobs& nj, Reds& rz, bool stat, int n, i
 
 namespace planar {
 
-inline size_t bwd_scratch_bytes(bool stat, int n_rays, int use_viewdir, int encode_a) {
+inline size_t bwd_scratch_bytes(bool stat, int n_rays, int n_samples, int use_viewdir,
+                                int encode_a) {
   size_t bytes = 0;
-  Scratch X = bw::scratch_layout(nullptr, stat, n_rays, use_viewdir, encode_a, &bytes);
+  const int nu = n_rays * tiles_of(n_samples);
+  Scratch X = bw::scratch_layout(nullptr, stat, n_rays, nu, use_viewdir, encode_a, &bytes);
   bw::GemmParams gp;
   bw::NJobs nj;
   bw::Reds rz;
-  const size_t part = bw::make_jobs(gp, nj, rz, stat, n_rays, use_viewdir, encode_a, X,
+  const size_t part = bw::make_jobs(gp, nj, rz, stat, n_rays, nu, use_viewdir, encode_a, X,
                                     nullptr, bw::sm_count());
   return bytes + part * 4;
 }
@@ -1413,12 +1472,12 @@ inline cudaError_t launch_branch_bwd(BwdArgs& G, bool stat, int use_viewdir, int
                                      void* scratch, void* const* dw, void* const* db,
                                      cudaStream_t s) {
   using namespace bw;
-  const int n = G.c.n_rays;
-  const size_t R = size_t(n) * S;
+  const int n = G.c.n_rays, nu = n * G.c.n_tiles;
+  const size_t R = size_t(nu) * S;
   const bool dir = stat && use_viewdir;
   size_t bytes = 0;
-  G.sc = scratch_layout(static_cast<unsigned char*>(scratch), stat, n, use_viewdir, encode_a,
-                        &bytes);
+  G.sc = scratch_layout(static_cast<unsigned char*>(scratch), stat, n, nu, use_viewdir,
+                        encode_a, &bytes);
   float* dwf[NSLOT];
   for (int i = 0; i < NSLOT; ++i) dwf[i] = static_cast<float*>(dw[i]);
 
@@ -1443,7 +1502,7 @@ inline cudaError_t launch_branch_bwd(BwdArgs& G, bool stat, int use_viewdir, int
   memset(gp, 0, sizeof(GemmParams));
   NJobs nj;
   Reds rz;
-  make_jobs(*gp, nj, rz, stat, n, use_viewdir, encode_a, G.sc, dwf, sm_count());
+  make_jobs(*gp, nj, rz, stat, n, nu, use_viewdir, encode_a, G.sc, dwf, sm_count());
   for (int i = 0; i < gp->n; ++i) ok = ok && gp->j[i].out != nullptr;
   for (int i = 0; i < nj.n; ++i) ok = ok && nj.j[i].out != nullptr;
   gp->maps[M_BIG] = cp->big;
@@ -1464,9 +1523,14 @@ inline cudaError_t launch_branch_bwd(BwdArgs& G, bool stat, int use_viewdir, int
                             : train_bwd_chain_kernel<true, false, false>);
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
     if (err == cudaSuccess) {
-      kern<<<n, NTHR, SMEM_BYTES, s>>>(*cp);
+      kern<<<nu, NTHR, SMEM_BYTES, s>>>(*cp);
       err = cudaGetLastError();
     }
+  }
+  if (err == cudaSuccess && nu > n && (dir || !stat)) {
+    // per-ray sums over a ray's tiles, before the GEMM reads dzrb
+    ray_reduce_kernel<<<n, NCONS, 0, s>>>(G);
+    err = cudaGetLastError();
   }
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(dw_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1485,7 +1549,7 @@ inline cudaError_t launch_branch_bwd(BwdArgs& G, bool stat, int use_viewdir, int
 
   Biases Bz;
   Bz.dbp = G.sc.dbp;
-  Bz.n_rays = n;
+  Bz.n_units = nu;
   for (int i = 0; i < NSLOT; ++i) {
     Bz.out[i] = nullptr;
     Bz.width[i] = 0;

@@ -1,7 +1,9 @@
 // Hopper tower of the port's forward evaluators (planar_eval_comp.cu,
-// fused_nerf_eval.cu and the forward of planar_nerf_train.cu): one ray per
-// CTA, its S = 128 samples the M rows of every product, computed by two
-// consumer warpgroups (warpgroup g owns samples 64g..64g+63) with
+// fused_nerf_eval.cu and the forward of planar_nerf_train.cu): a tile of
+// S = 128 samples of one ray per pass, the M rows of every product (a CTA
+// holds one ray, or one tile of a longer ray, or runs a ray's tiles in
+// turn), computed by two
+// consumer warpgroups (warpgroup g owns rows 64g..64g+63) with
 // wgmma.mma_async m64n256k16 (bf16 in, f32 accumulators in registers). In
 // the third (producer) warpgroup one thread streams the weight K-slabs of
 // every layer, in the fixed order of the towers, through TMA into a 6-stage
@@ -396,23 +398,26 @@ __device__ __forceinline__ void stream_layer(const CUtensorMap* map, int nslab,
 
 // Every K-slab of every layer, in the consumers' order: static tower,
 // static_xyz_final, static_dir rows 0..255; transient tower,
-// transient_xyz_final.
+// transient_xyz_final; all of it `reps` times (a CTA that runs a ray's
+// tiles one after another).
 __device__ void produce(const Maps& maps, uint32_t ring, uint32_t bars,
-                        bool stat, bool dir, bool trans) {
+                        bool stat, bool dir, bool trans, int reps = 1) {
   Pipe p;
   auto tower = [&](int m0) {
     for (int i = 0; i < planar::DEPTH; ++i)
       stream_layer(&maps.m[m0 + i], (i == 0 ? SEG : (i == planar::SKIP ? SEG + WID : WID)) / SLAB_K,
                        p, ring, bars);
   };
-  if (stat) {
-    tower(M_S0);
-    stream_layer(&maps.m[M_SFIN], WID / SLAB_K, p, ring, bars);
-    if (dir) stream_layer(&maps.m[M_SDIR], WID / SLAB_K, p, ring, bars);
-  }
-  if (trans) {
-    tower(M_T0);
-    stream_layer(&maps.m[M_TFIN], WID / SLAB_K, p, ring, bars);
+  for (int r = 0; r < reps; ++r) {
+    if (stat) {
+      tower(M_S0);
+      stream_layer(&maps.m[M_SFIN], WID / SLAB_K, p, ring, bars);
+      if (dir) stream_layer(&maps.m[M_SDIR], WID / SLAB_K, p, ring, bars);
+    }
+    if (trans) {
+      tower(M_T0);
+      stream_layer(&maps.m[M_TFIN], WID / SLAB_K, p, ring, bars);
+    }
   }
 }
 

@@ -1,7 +1,9 @@
 // Warp-per-ray building blocks shared by the port's compositor kernels
 // (planar_compositor.cu, fused_compositing.cu): one warp holds a ray's
-// S = 128 samples, four consecutive samples per lane (16-byte loads and
-// stores of (N, S) planes), and scans along the ray run as warp shuffles.
+// samples, Q consecutive samples per lane (S = 128: four, 16-byte loads
+// and stores of (N, S) planes; planar_compositor.cu also takes Q = 2, 6
+// and 8 for 64, 192 and 256 samples), and scans along the ray run as warp
+// shuffles. The row type RowT<Q> carries Q; Row is the 128-sample one.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,66 +29,94 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-struct Row { float v[Q]; };
+template <int QQ>
+struct RowT { float v[QQ]; };
+using Row = RowT<Q>;
 
-__device__ __forceinline__ Row load(const float* p, size_t base) {
-  Row r;
-  if (p == nullptr) {
+// a lane's QQ samples from base (QQ even: 16-byte accesses when QQ % 4 ==
+// 0, else 8-byte ones); RO: through the read-only data path (a plane the
+// kernel only reads and that is never null)
+template <int QQ, bool RO = false>
+__device__ __forceinline__ RowT<QQ> load_q(const float* p, size_t base) {
+  RowT<QQ> r;
+  if (!RO && p == nullptr) {
 #pragma unroll
-    for (int q = 0; q < Q; ++q) r.v[q] = 0.f;
+    for (int q = 0; q < QQ; ++q) r.v[q] = 0.f;
     return r;
   }
-  const float4 x = *reinterpret_cast<const float4*>(p + base);
-  r.v[0] = x.x; r.v[1] = x.y; r.v[2] = x.z; r.v[3] = x.w;
+  if constexpr (QQ % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < QQ; q += 4) {
+      const float4* a = reinterpret_cast<const float4*>(p + base + q);
+      const float4 x = RO ? __ldg(a) : *a;
+      r.v[q] = x.x; r.v[q + 1] = x.y; r.v[q + 2] = x.z; r.v[q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < QQ; q += 2) {
+      const float2* a = reinterpret_cast<const float2*>(p + base + q);
+      const float2 x = RO ? __ldg(a) : *a;
+      r.v[q] = x.x; r.v[q + 1] = x.y;
+    }
+  }
   return r;
 }
 
-// load of a plane the kernel only reads and that is never null, through
-// the read-only data path
+__device__ __forceinline__ Row load(const float* p, size_t base) { return load_q<Q>(p, base); }
+
 __device__ __forceinline__ Row load_ro(const float* p, size_t base) {
-  Row r;
-  const float4 x = __ldg(reinterpret_cast<const float4*>(p + base));
-  r.v[0] = x.x; r.v[1] = x.y; r.v[2] = x.z; r.v[3] = x.w;
-  return r;
+  return load_q<Q, true>(p, base);
 }
 
-__device__ __forceinline__ void store(float* p, size_t base, const Row& r) {
-  *reinterpret_cast<float4*>(p + base) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
+template <int QQ>
+__device__ __forceinline__ void store(float* p, size_t base, const RowT<QQ>& r) {
+  if constexpr (QQ % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < QQ; q += 4)
+      *reinterpret_cast<float4*>(p + base + q) =
+          make_float4(r.v[q], r.v[q + 1], r.v[q + 2], r.v[q + 3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < QQ; q += 2)
+      *reinterpret_cast<float2*>(p + base + q) = make_float2(r.v[q], r.v[q + 1]);
+  }
 }
 
-// exclusive prefix sum along the ray (lane l holds samples 4l..4l+3)
-__device__ __forceinline__ Row excl_cumsum(const Row& x, int lane) {
+// exclusive prefix sum along the ray (lane l holds samples QQ l..QQ l+QQ-1)
+template <int QQ>
+__device__ __forceinline__ RowT<QQ> excl_cumsum(const RowT<QQ>& x, int lane) {
   float loc = 0.f;
 #pragma unroll
-  for (int q = 0; q < Q; ++q) loc += x.v[q];
+  for (int q = 0; q < QQ; ++q) loc += x.v[q];
   float inc = loc;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const float y = __shfl_up_sync(0xffffffffu, inc, off);
     if (lane >= off) inc += y;
   }
-  Row r;
+  RowT<QQ> r;
   float c = inc - loc;
 #pragma unroll
-  for (int q = 0; q < Q; ++q) { r.v[q] = c; c += x.v[q]; }
+  for (int q = 0; q < QQ; ++q) { r.v[q] = c; c += x.v[q]; }
   return r;
 }
 
 // out[j] = sum_{i > j} x[i] along the ray
-__device__ __forceinline__ Row rev_excl_cumsum(const Row& x, int lane) {
+template <int QQ>
+__device__ __forceinline__ RowT<QQ> rev_excl_cumsum(const RowT<QQ>& x, int lane) {
   float loc = 0.f;
 #pragma unroll
-  for (int q = 0; q < Q; ++q) loc += x.v[q];
+  for (int q = 0; q < QQ; ++q) loc += x.v[q];
   float inc = loc;  // sum over lanes >= lane
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const float y = __shfl_down_sync(0xffffffffu, inc, off);
     if (lane + off < 32) inc += y;
   }
-  Row r;
+  RowT<QQ> r;
   float c = inc - loc;  // sum over lanes > lane
 #pragma unroll
-  for (int q = Q - 1; q >= 0; --q) { r.v[q] = c; c += x.v[q]; }
+  for (int q = QQ - 1; q >= 0; --q) { r.v[q] = c; c += x.v[q]; }
   return r;
 }
 
@@ -111,12 +141,14 @@ __device__ __forceinline__ Row excl_cumprod(const Row& x, int lane) {
 
 // the static and transient sample spacings of the lane's samples: the
 // difference to the next depth, and the far deltas at the last sample
-__device__ __forceinline__ void deltas(const Row& z, int lane, Row& ds, Row& dt) {
+template <int QQ>
+__device__ __forceinline__ void deltas(const RowT<QQ>& z, int lane, RowT<QQ>& ds,
+                                       RowT<QQ>& dt) {
   const float z_next = __shfl_down_sync(0xffffffffu, z.v[0], 1);
 #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const float nxt = q < Q - 1 ? z.v[q + 1] : z_next;
-    const bool far = lane == 31 && q == Q - 1;
+  for (int q = 0; q < QQ; ++q) {
+    const float nxt = q < QQ - 1 ? z.v[q + 1] : z_next;
+    const bool far = lane == 31 && q == QQ - 1;
     const float dz = nxt - z.v[q];
     ds.v[q] = far ? STATIC_FAR_DELTA : dz;
     dt.v[q] = far ? TRANSIENT_FAR_DELTA : dz;

@@ -90,6 +90,27 @@ class RayBatcher:
                              idx=idx, u=u)
 
 
+def blocked_cumsum(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum of a 1-D tensor, the same bits on every
+    run: within rows of 1024 (on a CUDA device one block a row, in a
+    fixed order), then plus each row's offset (a scan along the other
+    dimension of a two-column copy: one thread a column, in order). The
+    hard-sampling draw's CDF on the card: there torch.cumsum of a 1-D
+    tensor runs CUB's single-pass scan, whose look-back adds the partial
+    sums of earlier tiles in an order that depends on timing; float
+    addition does not associate, so once the weights are not integers
+    (after the first hard-sampling refresh) two runs drew other pixels
+    from the same uniforms (ROADMAP C1)."""
+    n, cols = w.shape[0], 1024
+    rows = -(-n // cols)
+    x = torch.nn.functional.pad(w, (0, rows * cols - n)).view(rows, cols)
+    within = torch.cumsum(x, 1)
+    tot = within[:, -1:]
+    inc = torch.cumsum(torch.cat([tot, tot], 1), 0)[:, 0]
+    off = torch.cat([inc.new_zeros(1), inc[:-1]])
+    return (within + off[:, None]).reshape(-1)[:n]
+
+
 def _sample_batch(table, weights, t, batch_size: int, hard_sampling: bool,
                   *, generator: Optional[torch.Generator] = None,
                   idx: Optional[torch.Tensor] = None,
@@ -103,7 +124,9 @@ def _sample_batch(table, weights, t, batch_size: int, hard_sampling: bool,
     if hard_sampling:
         w = weights[t] if not isinstance(t, torch.Tensor) else \
             weights.index_select(0, t.reshape(1))[0]
-        cw = torch.cumsum(torch.clamp(w, min=0.0), 0)
+        w = torch.clamp(w, min=0.0)
+        # the CPU keeps the sequential scan: the JAX package's bits
+        cw = blocked_cumsum(w) if w.is_cuda else torch.cumsum(w, 0)
         if u is None:
             u = torch.rand((batch_size,), generator=generator, device=dev)
         idx = torch.clamp(torch.searchsorted(cw, u.to(dev) * cw[-1],

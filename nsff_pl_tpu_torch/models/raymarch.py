@@ -18,10 +18,17 @@ calls), composited together by the fused compositor
 (`ops/compositing_planar_kernel.py`). Every per-sample quantity is a
 dense (N, S) plane; sample positions never materialize.
 
+Coarse-to-fine (`N_importance > 0`) on both: the coarse model's planar
+evaluation at the stratified depths and its own composite, then the
+static (and transient) importance draws of `ops/sampling.py::sample_pdf`
+from its weights, sorted with the stratified depths into the fine pass's
+(N, S_fine) plane: S_fine = N_samples + 2 N_importance in training and
+in a test render of both towers, N_samples + N_importance for the static
+tower alone. The kernels take S_fine in 64..256.
+
 Not ported on these paths, each raising `NotImplementedError` naming its
-ROADMAP.md item: coarse-to-fine (`N_importance > 0`), `warp_subsample=2`
-and `warp_importance > 0`. Unlike the TPU package there is no lane-width
-limit on `N_samples`.
+ROADMAP.md item: `warp_subsample=2` and `warp_importance > 0`. Unlike
+the TPU package there is no lane-width limit on `N_samples`.
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ from nsff_pl_tpu_torch.ops.compositing_planar_kernel import \
 from nsff_pl_tpu_torch.ops.posenc import posenc
 from nsff_pl_tpu_torch.ops.raymarch_kernel import (make_planar_nerf_eval_comp,
                                                    make_planar_nerf_train)
-from nsff_pl_tpu_torch.ops.sampling import stratified_zs
+from nsff_pl_tpu_torch.ops.sampling import sample_pdf, stratified_zs
 
 
 def comp_eval_keys(output_transient: bool, flow) -> frozenset:
@@ -97,6 +104,7 @@ def render_test_planar(
     ts: torch.Tensor,
     cfg: RenderConfig,
     *,
+    params_coarse: Optional[nerf_m.Params] = None,
     output_transient: bool = True,
     output_transient_flow=(),
     vis_poses=None,
@@ -115,12 +123,11 @@ def render_test_planar(
     of the transient sigma against `vis_poses` and the two-field
     composite, in the fused compositor where `planar_compositing` is
     'on', or 'auto' on a CUDA device (its warp slots carry the main
-    planes, its noises are zero), else in plain PyTorch."""
-    if cfg.N_importance > 0:
-        raise NotImplementedError(
-            "coarse-to-fine test rendering is not ported yet (ROADMAP.md "
-            "queue A, 'coarse-to-fine'; needs sample_pdf and the "
-            "make_planar_nerf_train forward for the coarse pass)")
+    planes, its noises are zero), else in plain PyTorch.
+
+    With `N_importance > 0` the coarse model `params_coarse` is evaluated
+    first (`_coarse_test`) and the fine pass runs at the sorted union of
+    the stratified depths and its deterministic importance draws."""
     n = rays.shape[0]
     S = cfg.N_samples
     o, d = rays[:, 0:3], rays[:, 3:6]
@@ -130,7 +137,7 @@ def render_test_planar(
     dir_src = view_dir if view_dir is not None else d
     dir_emb = (posenc(dir_src, cfg.S_emb_dir, cfg.N_emb_dir)
                if cfg.use_viewdir else None)
-    zs, _ = stratified_zs(n, S, 0.0, device=rays.device)  # perturb=0
+    zs, zs_mid = stratified_zs(n, S, 0.0, device=rays.device)  # perturb=0
     t_emb = (nerf_m.embedding_lookup(embeddings["t"], ts)
              if output_transient else None)
     encode_a = cfg.encode_a and "a" in embeddings and ts is not None
@@ -139,20 +146,28 @@ def render_test_planar(
                 n_emb_dir=cfg.N_emb_dir, n_a=cfg.N_a, n_tau=cfg.N_tau,
                 flow_scale=cfg.flow_scale)
 
+    res: Dict[str, torch.Tensor] = {}
+    if cfg.N_importance > 0:
+        zs = _coarse_test(res, params_coarse, o, d, zs, zs_mid, dir_emb,
+                          t_emb, cfg, kker, output_transient=output_transient,
+                          vis_poses=vis_poses, vis_K=vis_K)
+    Sf = zs.shape[1]  # the fine pass's sample count
+
     use_comp = (keys is not None and cfg.planar_compositing != "off"
                 and set(keys) <= comp_eval_keys(output_transient, flow))
     if use_comp:
-        return _composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb,
-                           cfg, kker, output_transient=output_transient,
-                           flow=flow, encode_a=encode_a,
-                           vis_poses=vis_poses, vis_K=vis_K)
+        res.update(_composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb,
+                               cfg, kker, output_transient=output_transient,
+                               flow=flow, encode_a=encode_a,
+                               vis_poses=vis_poses, vis_K=vis_K))
+        return res
 
     op = make_planar_nerf_train(
-        S, use_viewdir=cfg.use_viewdir, encode_a=encode_a,
+        Sf, use_viewdir=cfg.use_viewdir, encode_a=encode_a,
         encode_t=output_transient, output_flow=flow, **kker)
     out = op(params_fine, o, d, zs, None, dir_emb, a_emb, t_emb)
 
-    res: Dict[str, torch.Tensor] = {"zs_fine": zs}
+    res["zs_fine"] = zs
     xyz = tuple(o[:, c:c + 1] + d[:, c:c + 1] * zs for c in range(3))
     srgb = (out["srgb_r"], out["srgb_g"], out["srgb_b"])
 
@@ -194,7 +209,7 @@ def render_test_planar(
             comp_in[f"trgb_{c}"] = trgb[i]
             comp_in[f"trgb_w1_{c}"] = trgb[i]
             comp_in[f"trgb_w2_{c}"] = trgb[i]
-        ck = make_planar_compositor(S)(comp_in)
+        ck = make_planar_compositor(Sf)(comp_in)
         sw, tw, w = (ck["static_weights"], ck["transient_weights"],
                      ck["weights"])
         res["rgb_fine"] = ck["maps"][:, 0:3]
@@ -244,6 +259,76 @@ def render_test_planar(
     res["transient_weights_fine"] = tw
     res["weights_fine"] = w
     return res
+
+
+def _coarse_pass(params_coarse, o, d, zs, dir_emb, t_emb, cfg, kker, *,
+                 encode_t, ns=None, nt=None, vis=None):
+    """The coarse pass of coarse-to-fine: the coarse model (no appearance,
+    no flow heads) on the stratified depths `zs`, and its composite with
+    the sigma noises `ns` / `nt` (none at test time): both towers, with
+    the transient sigma culled where `vis` is 0, or without `encode_t`
+    the static tower alone. Returns the model's planes and {"sig_s",
+    "sig_t", "tau_s", "tau_t", "sw", "tw", "w"} (sigmas, optical depths,
+    static, transient and joint weights; the static tower alone has
+    sig_s, tau_s and sw = w)."""
+    if params_coarse is None:
+        raise ValueError(
+            "N_importance > 0 needs params_coarse (the coarse model)")
+    coarse_op = make_planar_nerf_train(
+        zs.shape[1], use_viewdir=cfg.use_viewdir, encode_a=False,
+        encode_t=encode_t, output_flow=(), **kker)
+    cout = coarse_op(params_coarse, o, d, zs, None, dir_emb, None, t_emb)
+    d_s, d_t = cp.deltas_from_zs(zs)
+    sig_s = cp.softplus(cout["ssig"] if ns is None else cout["ssig"] + ns)
+    tau_s = d_s * sig_s
+    if not encode_t:
+        sw = (1.0 - torch.exp(-tau_s)) * cp.transmittance_from_taus(tau_s)
+        return cout, {"sig_s": sig_s, "tau_s": tau_s, "sw": sw, "w": sw}
+    tsig = cout["tsig"]
+    if vis is not None:
+        tsig = torch.where(vis == 0, -10.0, tsig)
+    sig_t = cp.softplus(tsig if nt is None else tsig + nt)
+    tau_t = d_t * sig_t
+    trans = cp.transmittance_from_taus(tau_s + tau_t)
+    return cout, {"sig_s": sig_s, "sig_t": sig_t, "tau_s": tau_s,
+                  "tau_t": tau_t, "sw": (1.0 - torch.exp(-tau_s)) * trans,
+                  "tw": (1.0 - torch.exp(-tau_t)) * trans,
+                  "w": (1.0 - torch.exp(-(tau_s + tau_t))) * trans}
+
+
+def _coarse_test(res, params_coarse, o, d, zs, zs_mid, dir_emb, t_emb, cfg,
+                 kker, *, output_transient, vis_poses, vis_K):
+    """The coarse pass of a coarse-to-fine test render (`_coarse_pass`,
+    noise-free, with the visibility culling of the transient sigma when
+    `vis_poses` is given), the coarse result keys into `res`, and the
+    deterministic importance draws. Returns the fine pass's sorted
+    (N, S_fine) depths."""
+    vis = None
+    if output_transient and vis_poses is not None:
+        vis = _visibility_planes(o, d, zs, vis_K, cfg.img_wh, vis_poses)
+    _, c = _coarse_pass(params_coarse, o, d, zs, dir_emb, t_emb, cfg, kker,
+                        encode_t=output_transient, vis=vis)
+    res["zs_coarse"] = zs
+    res["xyzs_coarse"] = torch.stack(
+        [o[:, i:i + 1] + d[:, i:i + 1] * zs for i in range(3)], -1)
+    res["static_sigmas_coarse"] = c["sig_s"]
+    # the static tower alone: static_weights_coarse are the weights
+    res["static_weights_coarse"] = c["sw"]
+    if output_transient:
+        res["transient_sigmas_coarse"] = c["sig_t"]
+        res["static_alphas_coarse"] = 1.0 - torch.exp(-c["tau_s"])
+        res["transient_alphas_coarse"] = 1.0 - torch.exp(-c["tau_t"])
+        res["transient_weights_coarse"] = c["tw"]
+        res["weights_coarse"] = c["w"]
+    zs_list = [zs]
+    res["static_zs_fine"] = sample_pdf(zs_mid, c["sw"][:, 1:-1],
+                                       cfg.N_importance, det=True)
+    zs_list.append(res["static_zs_fine"])
+    if output_transient:
+        res["transient_zs_fine"] = sample_pdf(zs_mid, c["tw"][:, 1:-1],
+                                              cfg.N_importance, det=True)
+        zs_list.append(res["transient_zs_fine"])
+    return torch.sort(torch.cat(zs_list, -1), -1).values.contiguous()
 
 
 def _composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb, cfg, kker, *,
@@ -298,10 +383,6 @@ def planar_unapplicable_reasons(cfg: RenderConfig, output_transient: bool,
 
 def check_train_envelope(cfg: RenderConfig) -> None:
     """Raise for the train-path variants the port does not have yet."""
-    if cfg.N_importance > 0:
-        raise NotImplementedError(
-            "coarse-to-fine training (N_importance > 0) is not ported yet "
-            "(ROADMAP.md queue A, 'coarse-to-fine')")
     if cfg.warp_subsample != 1:
         raise NotImplementedError(
             f"warp_subsample={cfg.warp_subsample} is not ported yet "
@@ -321,6 +402,19 @@ def check_train_envelope(cfg: RenderConfig) -> None:
 DRAW_KEYS = ("u", "ns", "nt", "nw1", "nw2")
 
 
+def draw_shapes(cfg: RenderConfig, n: int) -> Dict[str, tuple]:
+    """The random draws of one `render_train_planar` call, in the order
+    it takes them from a generator: {key: shape}."""
+    S, ni = cfg.N_samples, cfg.N_importance
+    sf = S + 2 * ni if ni > 0 else S
+    shapes = {"u": (n, S)}
+    if ni > 0:
+        shapes.update(u_pdf_s=(n, ni), u_pdf_t=(n, ni), ncs=(n, S),
+                      nct=(n, S))
+    shapes.update({k: (n, sf) for k in DRAW_KEYS[1:]})
+    return shapes
+
+
 def render_train_planar(
     params_fine: nerf_m.Params,
     embeddings: Dict[str, torch.Tensor],
@@ -328,6 +422,7 @@ def render_train_planar(
     ts: torch.Tensor,
     cfg: RenderConfig,
     *,
+    params_coarse: Optional[nerf_m.Params] = None,
     generator: Optional[torch.Generator] = None,
     draws: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
@@ -336,22 +431,36 @@ def render_train_planar(
 
       - per-ray maps: rgb_fine (N,3), depth_fine (N,), rgb_fw/rgb_bw
         (N,3), xyz_fine/xyz_fw/xyz_bw (N,3), disocc_fw/disocc_bw (N,1)
+        (+ rgb_coarse (N,3) / depth_coarse (N,) when N_importance > 0)
       - dense planes (N,S): zs, static_weights/transient_weights/weights,
         disoccs_fw/disoccs_bw
       - component-plane 3-tuples of (N,S): xyzs, xyzs_fw, xyzs_bw,
         xyzs_fw_bw, xyzs_bw_fw
 
-    Random draws: `draws` may hold "u" ((N, S) perturb uniforms) and
-    "ns", "nt", "nw1", "nw2" ((N, S) standard normals, scaled by
-    `noise_std` here: the static, transient, fw-warp and bw-warp sigma
-    noises); what it lacks is drawn from `generator` on the rays' device
-    in that order. The JAX function draws them from its key `rng` as
+    S is N_samples, or S_fine = N_samples + 2 N_importance under
+    coarse-to-fine: the coarse model `params_coarse` runs at the
+    stratified depths, composites with its own noisy sigmas, and the
+    static and transient importance draws from its weights (without
+    gradient; deterministic when perturb is 0) join the stratified depths,
+    sorted, as the fine pass's depths.
+
+    Random draws (`draw_shapes` gives their shapes): `draws` may hold "u"
+    ((N, S) perturb uniforms), with coarse-to-fine "u_pdf_s", "u_pdf_t"
+    ((N, N_importance) importance uniforms) and "ncs", "nct" ((N, S)
+    coarse sigma noises), and "ns", "nt", "nw1", "nw2" ((N, S_fine)
+    standard normals: the static, transient, fw-warp and bw-warp sigma
+    noises); noises are scaled by `noise_std` here. What it lacks is
+    drawn from `generator` on the rays' device in `draw_shapes` order.
+    The JAX function draws them from its key `rng` as
 
         k_perturb, k_pdf_s, k_pdf_t, k_rest = split(rng, 4)
         u = uniform(k_perturb, (N, S))
+        u_pdf_s, u_pdf_t = (uniform(k, (N, NI)) for k in (k_pdf_s, k_pdf_t))
         k_coarse, k_fine = split(k_rest)
+        kc_noise_s, kc_noise_t, _, _ = split(k_coarse, 4)
+        ncs, nct = (normal(k, (N, S)) for k in (kc_noise_s, kc_noise_t))
         k_noise_s, k_noise_t, k_fw, k_bw = split(k_fine, 4)
-        ns, nt, nw1, nw2 = (normal(k, (N, S)) for k in
+        ns, nt, nw1, nw2 = (normal(k, (N, S_fine)) for k in
                             (k_noise_s, k_noise_t, k_fw, k_bw))
 
     so a test can rebuild them and pass them in."""
@@ -360,14 +469,14 @@ def render_train_planar(
     S = cfg.N_samples
     dev = rays.device
     draws = dict(draws or {})
-    for k in DRAW_KEYS:
+    for k, shape in draw_shapes(cfg, n).items():
         if k not in draws:
-            draws[k] = (torch.rand if k == "u" else torch.randn)(
-                (n, S), generator=generator, device=dev)
+            draws[k] = (torch.rand if k.startswith("u") else torch.randn)(
+                shape, generator=generator, device=dev)
     o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
     use_viewdir = cfg.use_viewdir
     dir_emb = posenc(d, cfg.S_emb_dir, cfg.N_emb_dir) if use_viewdir else None
-    zs, _ = stratified_zs(n, S, cfg.perturb, draws["u"], device=dev)
+    zs, zs_mid = stratified_zs(n, S, cfg.perturb, draws["u"], device=dev)
     zs = zs.contiguous()
     t_emb = nerf_m.embedding_lookup(embeddings["t"], ts)
     encode_a = cfg.encode_a and "a" in embeddings
@@ -375,12 +484,30 @@ def render_train_planar(
 
     def noise(k):
         if cfg.noise_std <= 0:
-            return torch.zeros((n, S), device=dev)
+            return torch.zeros(draws[k].shape, device=dev)
         return draws[k] * cfg.noise_std
 
     kker = dict(n_emb_xyz=cfg.N_emb_xyz, s_emb_xyz=cfg.S_emb_xyz,
                 n_emb_dir=cfg.N_emb_dir, n_a=cfg.N_a, n_tau=cfg.N_tau,
                 flow_scale=cfg.flow_scale)
+    res: Dict[str, torch.Tensor] = {}
+    if cfg.N_importance > 0:
+        cout, co = _coarse_pass(params_coarse, o, d, zs, dir_emb, t_emb, cfg,
+                                kker, encode_t=True, ns=noise("ncs"),
+                                nt=noise("nct"))
+        res["rgb_coarse"] = torch.stack(
+            [(co["sw"] * cout[f"srgb_{c}"] + co["tw"] * cout[f"trgb_{c}"])
+             .sum(-1) for c in "rgb"], -1)
+        res["depth_coarse"] = (co["w"] * zs).sum(-1)
+        det = cfg.perturb == 0
+        zs_static = sample_pdf(zs_mid, co["sw"][:, 1:-1].detach(),
+                               cfg.N_importance, det=det, u=draws["u_pdf_s"])
+        zs_transient = sample_pdf(zs_mid, co["tw"][:, 1:-1].detach(),
+                                  cfg.N_importance, det=det,
+                                  u=draws["u_pdf_t"])
+        zs = torch.sort(torch.cat([zs, zs_static, zs_transient], -1),
+                        -1).values.contiguous()
+    S = zs.shape[1]  # the fine pass's sample count
     main_op = make_planar_nerf_train(
         S, use_viewdir=use_viewdir, encode_a=encode_a, encode_t=True,
         output_flow=("fw", "bw"), **kker)
@@ -397,7 +524,7 @@ def render_train_planar(
     fbw = tuple(torch.where(far, 0.0, main[k])
                 for k in ("fbw_x", "fbw_y", "fbw_z"))
 
-    res: Dict[str, torch.Tensor] = {"zs": zs}
+    res["zs"] = zs
     xyz = tuple(o[:, c:c + 1] + d[:, c:c + 1] * zs for c in range(3))
     res["xyzs"] = xyz
     res["xyzs_fw"] = tuple(x + f for x, f in zip(xyz, ffw))

@@ -14,9 +14,11 @@ The field evaluation has two backends, as in the JAX package: the
 hand-written kernels (`ops/mlp_kernel.py` at test time,
 `ops/mlp_train_kernel.py` in training, optionally with the fused
 compositor `ops/compositing_kernel.py`) and the plain f32 evaluators of
-`models/nerf.py`. Coarse-to-fine (`N_importance > 0`), `mesh` and the
-`'stub'` train backend are not ported; each raises `NotImplementedError`
-naming its ROADMAP.md item.
+`models/nerf.py`. Coarse-to-fine (`N_importance > 0`) is ported on the
+planar paths (`models/raymarch.py`: at test time `render_rays` hands it the
+coarse model); on this packed path it, `mesh` and the `'stub'` train
+backend are not ported, and each raises `NotImplementedError` naming its
+ROADMAP.md item.
 
 `interpolate` (with `_interp_pre` / `_interp_post`) renders a time
 between two rendered frames from their per-sample planes: the eval CLI's
@@ -188,6 +190,7 @@ def render_rays(
 
         out = raymarch.render_test_planar(
             params["fine"], embeddings, rays, ts, cfg,
+            params_coarse=params.get("coarse"),
             output_transient=output_transient, output_transient_flow=flow,
             vis_poses=vis_poses, vis_K=vis_K, view_dir=view_dir, keys=keys)
         if keys is not None:
@@ -197,7 +200,9 @@ def render_rays(
     if cfg.N_importance > 0:
         raise NotImplementedError(
             "coarse-to-fine rendering (N_importance > 0) is not ported on "
-            "the packed path (ROADMAP.md queue A, 'coarse-to-fine')")
+            "the packed path (ROADMAP.md queue A, 'packed coarse-to-fine'); "
+            "the planar path renders it (planar_eval 'on', or 'auto' on a "
+            "CUDA device with bfloat16)")
     # the kernels compute in bf16; 'auto' selects them only when the caller
     # asked for bf16 compute, so a float32 render keeps its precision
     backend = _resolve_backend(cfg.mlp_backend, "mlp_backend", cfg, dev)

@@ -125,7 +125,8 @@ def _inputs(packed, zs, noise_s, noise_t):
     if S != KERNEL_SAMPLES:
         raise NotImplementedError(
             f"the CUDA compositor is built for S={KERNEL_SAMPLES}, got {S} "
-            "(other sample counts: ROADMAP.md queue A, coarse-to-fine)")
+            "(other sample counts: ROADMAP.md B-d, with the packed path's "
+            "coarse-to-fine)")
     dev = zs.device
     ptrs = [_checked(packed, "packed", (n, S, N_PACKED), dev)] + [
         _checked(t, k, (n, S), dev)

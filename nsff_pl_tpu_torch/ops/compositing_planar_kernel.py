@@ -20,14 +20,15 @@ CUDA tensors and run the plain versions for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Dict, Optional
 
 import torch
 
 from nsff_pl_tpu_torch.ops.compositing import (deltas_from_zs,
                                                exclusive_cumsum, softplus)
+from nsff_pl_tpu_torch.ops.raymarch_kernel import check_planar_samples
 
-KERNEL_SAMPLES = 128  # S the CUDA kernels are built for
 # input planes: zs + 4 raw sigmas + 4 noises + 12 rgb planes
 IN_KEYS = ("zs", "ssig", "tsig", "tsig_w1", "tsig_w2",
            "ns", "nt", "nw1", "nw2",
@@ -174,8 +175,8 @@ def _lib_fn(name, nargs_ptr_arrays):
 
     fn = getattr(cuda_build.load("planar_compositor"), name)
     P = ctypes.c_void_p
-    fn.argtypes = [ctypes.POINTER(P)] * nargs_ptr_arrays + [P, ctypes.c_int,
-                                                            P]
+    fn.argtypes = [ctypes.POINTER(P)] * nargs_ptr_arrays + [
+        P, ctypes.c_int, ctypes.c_int, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -183,16 +184,13 @@ def _lib_fn(name, nargs_ptr_arrays):
 def _shape_of(ins):
     zs = ins["zs"]
     n, S = zs.shape
-    if S != KERNEL_SAMPLES:
-        raise NotImplementedError(
-            f"the CUDA compositor is built for S={KERNEL_SAMPLES}, got {S} "
-            "(other sample counts: ROADMAP.md queue A, coarse-to-fine)")
+    check_planar_samples(S, "the CUDA compositor")
     return n, S, zs.device
 
 
 def planar_compositor_fwd_cuda(ins):
     """Launch the forward kernel (one warp per ray) on the current stream;
-    adds one to `planar_compositor_fwd_cuda.launches`."""
+    adds one to `planar_compositor_fwd_cuda.launches[S]`."""
     n, S, dev = _shape_of(ins)
     out = torch.empty((len(OUT_KEYS), n, S), dtype=torch.float32, device=dev)
     maps = torch.empty((n, N_MAP), dtype=torch.float32, device=dev)
@@ -201,20 +199,20 @@ def planar_compositor_fwd_cuda(ins):
     fn = _lib_fn("nsff_planar_comp_fwd", 2)
     rc = fn(_checked_ptrs(ins, IN_KEYS, n, S, dev),
             _checked_ptrs(dict(zip(OUT_KEYS, out)), OUT_KEYS, n, S, dev),
-            maps.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+            maps.data_ptr(), n, S, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"planar_compositor forward launch failed: "
                            f"cudaError {rc}")
-    planar_compositor_fwd_cuda.launches += 1
+    planar_compositor_fwd_cuda.launches[S] += 1
     return out, maps
 
 
-planar_compositor_fwd_cuda.launches = 0
+planar_compositor_fwd_cuda.launches = Counter()  # by sample count
 
 
 def planar_compositor_bwd_cuda(ins, g, gmap):
     """Launch the adjoint kernel (one warp per ray) on the current stream;
-    adds one to `planar_compositor_bwd_cuda.launches`."""
+    adds one to `planar_compositor_bwd_cuda.launches[S]`."""
     n, S, dev = _shape_of(ins)
     out = torch.empty((len(GRAD_KEYS), n, S), dtype=torch.float32, device=dev)
     if n == 0:
@@ -228,16 +226,16 @@ def planar_compositor_bwd_cuda(ins, g, gmap):
     rc = fn(_checked_ptrs(ins, IN_KEYS, n, S, dev),
             _checked_ptrs(g, OUT_KEYS, n, S, dev, allow_none=True),
             _checked_ptrs(dict(zip(GRAD_KEYS, out)), GRAD_KEYS, n, S, dev),
-            gmap.data_ptr() if gmap is not None else None, n,
+            gmap.data_ptr() if gmap is not None else None, n, S,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"planar_compositor backward launch failed: "
                            f"cudaError {rc}")
-    planar_compositor_bwd_cuda.launches += 1
+    planar_compositor_bwd_cuda.launches[S] += 1
     return out
 
 
-planar_compositor_bwd_cuda.launches = 0
+planar_compositor_bwd_cuda.launches = Counter()
 
 
 def planar_compositor_fwd(ins):

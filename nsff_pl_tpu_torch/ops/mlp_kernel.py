@@ -124,8 +124,8 @@ def packed_checks(xyz, dir_emb, a_emb, t_emb, *, freqs, use_viewdir,
     if S != KERNEL_SAMPLES:
         raise NotImplementedError(
             f"the CUDA kernels are built for S={KERNEL_SAMPLES} samples per "
-            f"ray, got {S} (other sample counts: ROADMAP.md queue A, "
-            "coarse-to-fine)")
+            f"ray, got {S} (other sample counts: ROADMAP.md B-d, with the "
+            "packed path's coarse-to-fine)")
     n_tau = t_emb.shape[-1] if encode_t and t_emb is not None else 0
     if len(freqs) > MAX_FREQS or 3 + 6 * len(freqs) + n_tau > SEG:
         raise ValueError("posenc + time latent must fit one 128-lane segment")

@@ -30,6 +30,7 @@ between them.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
@@ -42,8 +43,20 @@ from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
 
 SEG = 128  # row segment of the padded weights (the TPU's lane width)
 WIDTH = 256
-KERNEL_SAMPLES = 128  # S the CUDA kernel is built for
+KERNEL_SAMPLES = 128  # S the packed CUDA kernels are built for (B4, B5)
+# S the planar CUDA kernels take (B1, B2, B3): tiles of 128 samples, the
+# last one possibly half used
+PLANAR_SAMPLES = (64, 128, 192, 256)
 MAX_FREQS = 16
+
+
+def check_planar_samples(S: int, what: str) -> None:
+    """Raise NotImplementedError for a sample count outside
+    `PLANAR_SAMPLES` (an argument check, before any launch)."""
+    if S not in PLANAR_SAMPLES:
+        raise NotImplementedError(
+            f"{what} takes S in {PLANAR_SAMPLES}, got {S} (other sample "
+            "counts: ROADMAP.md B-d)")
 
 
 def _sin_poly(x: torch.Tensor) -> torch.Tensor:
@@ -358,16 +371,15 @@ def planar_eval_comp_cuda(pw, o, d, zs, vis, dir_emb, a_emb, t_emb, *,
                           use_viewdir: bool, encode_a: bool, z_far: float,
                           flow_scale: float, n_tau: int, n_map: int,
                           D: int = 8, skips=(4,)) -> torch.Tensor:
-    """Launch the hand-written Hopper kernel (one CTA per ray) on the
-    current stream; adds one to `planar_eval_comp_cuda.launches`."""
+    """Launch the hand-written Hopper kernel (one CTA per ray, which runs
+    the ray's tiles of 128 samples in turn) on the current stream; adds
+    one to `planar_eval_comp_cuda.launches[S]`."""
     from nsff_pl_tpu_torch.ops import cuda_build
 
     dev = o.device
     n, S = zs.shape
     xyz_w = 3 + 6 * len(freqs)
-    if S != KERNEL_SAMPLES:
-        raise NotImplementedError(
-            f"the CUDA kernel is built for S={KERNEL_SAMPLES}, got {S}")
+    check_planar_samples(S, "the CUDA kernel")
     if D != 8 or tuple(skips) != (4,):
         raise NotImplementedError("the CUDA kernel is built for D=8, skips=(4,)")
     if len(freqs) > MAX_FREQS or xyz_w + (n_tau if encode_t else 0) > SEG:
@@ -427,11 +439,11 @@ def planar_eval_comp_cuda(pw, o, d, zs, vis, dir_emb, a_emb, t_emb, *,
     if rc != 0:
         raise RuntimeError(f"planar_eval_comp kernel launch failed: "
                            f"cudaError {rc}")
-    planar_eval_comp_cuda.launches += 1
+    planar_eval_comp_cuda.launches[S] += 1
     return out
 
 
-planar_eval_comp_cuda.launches = 0
+planar_eval_comp_cuda.launches = Counter()  # by sample count
 
 
 def planar_eval_comp(pw, o, d, zs, vis, dir_emb, a_emb, t_emb, **kw):
@@ -811,10 +823,7 @@ def _train_checks(o, d, zs, flows, dir_emb, a_emb, t_emb, *, freqs,
     dev = o.device
     n, S = zs.shape
     f32 = torch.float32
-    if S != KERNEL_SAMPLES:
-        raise NotImplementedError(
-            f"the CUDA train kernels are built for S={KERNEL_SAMPLES}, got "
-            f"{S} (other sample counts: ROADMAP.md queue A, coarse-to-fine)")
+    check_planar_samples(S, "the CUDA train kernels")
     if len(freqs) > MAX_FREQS or 3 + 6 * len(freqs) + n_tau > SEG:
         raise ValueError("posenc + time latent must fit one 128-lane segment")
     _check(o, "o", (n, 3), f32, dev)
@@ -854,8 +863,9 @@ def planar_nerf_train_fwd_cuda(pw, o, d, zs, flows, dir_emb, a_emb, t_emb, *,
                                encode_a: bool, encode_t: bool, output_flow,
                                flow_scale: float, D: int = 8,
                                skips=(4,)) -> torch.Tensor:
-    """Launch `csrc/planar_nerf_train.cu`'s forward (one CTA per ray) on
-    the current stream; adds one to `planar_nerf_train_fwd_cuda.launches`."""
+    """Launch `csrc/planar_nerf_train.cu`'s forward (one CTA per ray and
+    tile of 128 samples) on the current stream; adds one to
+    `planar_nerf_train_fwd_cuda.launches[S]`."""
     from nsff_pl_tpu_torch.ops import cuda_build
 
     if D != 8 or tuple(skips) != (4,):
@@ -879,7 +889,7 @@ def planar_nerf_train_fwd_cuda(pw, o, d, zs, flows, dir_emb, a_emb, t_emb, *,
     fn = cuda_build.load("planar_nerf_train").nsff_planar_train_fwd
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([P] * 6 + [ctypes.POINTER(P)] * 4
-                   + [I] * 4 + [ctypes.POINTER(ctypes.c_float), I] + [I] * 4
+                   + [I] * 5 + [ctypes.POINTER(ctypes.c_float), I] + [I] * 4
                    + [ctypes.c_float, I, P])
     fn.restype = I
     fl = (P * 3)(*[_ptr(f) for f in flows]) if flows is not None else (P * 3)()
@@ -889,18 +899,18 @@ def planar_nerf_train_fwd_cuda(pw, o, d, zs, flows, dir_emb, a_emb, t_emb, *,
             _ptr(dir_emb) if use_viewdir else None,
             _ptr(a_emb) if use_viewdir and encode_a else None,
             _ptr(t_emb) if encode_t else None, fl, wp, bp, outs,
-            n, 3 + 6 * len(freqs), dir_w, n_a, cfreqs, len(freqs),
+            n, zs.shape[1], 3 + 6 * len(freqs), dir_w, n_a, cfreqs, len(freqs),
             int(static_branch), int(encode_t), int(use_viewdir),
             int(use_viewdir and encode_a), float(flow_scale), n_tau,
             torch.cuda.current_stream(o.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"planar_nerf_train forward launch failed: "
                            f"cudaError {rc}")
-    planar_nerf_train_fwd_cuda.launches += 1
+    planar_nerf_train_fwd_cuda.launches[zs.shape[1]] += 1
     return out
 
 
-planar_nerf_train_fwd_cuda.launches = 0
+planar_nerf_train_fwd_cuda.launches = Counter()  # by sample count
 
 
 def planar_nerf_train_bwd_cuda(branch: str, pw, o, d, zs, flows, dir_emb,
@@ -908,9 +918,9 @@ def planar_nerf_train_bwd_cuda(branch: str, pw, o, d, zs, flows, dir_emb,
                                encode_a: bool, flow_scale: float, D: int = 8,
                                skips=(4,)):
     """Launch `csrc/planar_nerf_train.cu`'s backward for one branch on the
-    current stream (a per-ray chain kernel, the dW kernel and the
-    fixed-order reduction); adds one to
-    `planar_nerf_train_bwd_cuda.launches[branch]`. Same contract as
+    current stream (a chain kernel per ray and tile, the dW kernel and the
+    fixed-order reductions); adds one to
+    `planar_nerf_train_bwd_cuda.launches[branch][S]`. Same contract as
     `planar_nerf_train_bwd_ref`."""
     from nsff_pl_tpu_torch.ops import cuda_build
 
@@ -955,9 +965,9 @@ def planar_nerf_train_bwd_cuda(branch: str, pw, o, d, zs, flows, dir_emb,
     lib = cuda_build.load("planar_nerf_train")
     P, I = ctypes.c_void_p, ctypes.c_int
     size_fn = lib.nsff_planar_train_bwd_scratch_bytes
-    size_fn.argtypes = [I] * 4
+    size_fn.argtypes = [I] * 5
     size_fn.restype = ctypes.c_size_t
-    scratch = torch.empty((int(size_fn(int(static), n, int(use_viewdir),
+    scratch = torch.empty((int(size_fn(int(static), n, S, int(use_viewdir),
                                        int(encode_a))),),
                           dtype=torch.uint8, device=dev)
     dwp = (P * len(_SLOTS))()
@@ -969,7 +979,7 @@ def planar_nerf_train_bwd_cuda(branch: str, pw, o, d, zs, flows, dir_emb,
     fn = lib.nsff_planar_train_bwd
     fn.argtypes = ([I] + [P] * 6 + [ctypes.POINTER(P)] * 6 + [P] * 3
                    + [ctypes.POINTER(P), P]
-                   + [I] * 4 + [ctypes.POINTER(ctypes.c_float), I] + [I] * 2
+                   + [I] * 5 + [ctypes.POINTER(ctypes.c_float), I] + [I] * 2
                    + [ctypes.c_float, I, P])
     fn.restype = I
     fl = (P * 3)(*[_ptr(f) for f in flows]) if flows is not None else (P * 3)()
@@ -982,18 +992,20 @@ def planar_nerf_train_bwd_cuda(branch: str, pw, o, d, zs, flows, dir_emb,
             _ptr(t_emb) if not static else None,
             fl, wp, bp, _plane_ptrs(g, gkeys), dwp, dbp,
             _ptr(out.get("ddir")), _ptr(out.get("da")), _ptr(out.get("dt")),
-            dflp, scratch.data_ptr(), n, 3 + 6 * len(freqs), dir_w, n_a,
+            dflp, scratch.data_ptr(), n, S, 3 + 6 * len(freqs), dir_w, n_a,
             cfreqs, len(freqs), int(use_viewdir), int(encode_a),
             float(flow_scale), n_tau,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"planar_nerf_train backward ({branch}) launch "
                            f"failed: cudaError {rc}")
-    planar_nerf_train_bwd_cuda.launches[branch] += 1
+    planar_nerf_train_bwd_cuda.launches[branch][S] += 1
     return out
 
 
-planar_nerf_train_bwd_cuda.launches = {"static": 0, "transient": 0}
+# by branch, then by sample count
+planar_nerf_train_bwd_cuda.launches = {"static": Counter(),
+                                       "transient": Counter()}
 
 
 def planar_nerf_train_fwd(pw, o, d, zs, flows, dir_emb, a_emb, t_emb, **kw):
@@ -1021,10 +1033,10 @@ class _PlanarNerfTrain(torch.autograd.Function):
     per-ray embeddings. The packed weights `pw` travel beside them."""
 
     @staticmethod
-    def forward(ctx, op, pw, o, d, zs, f0, f1, f2, dir_emb, a_emb, t_emb,
-                *leaves):
+    def forward(ctx, op, names, pw, o, d, zs, f0, f1, f2, dir_emb, a_emb,
+                t_emb, *leaves):
         flows = (f0, f1, f2) if f0 is not None else None
-        ctx.op, ctx.pw = op, pw
+        ctx.op, ctx.names, ctx.pw = op, names, pw
         ctx.save_for_backward(o, d, zs, f0, f1, f2, dir_emb, a_emb, t_emb)
         return planar_nerf_train_fwd(pw, o, d, zs, flows, dir_emb, a_emb,
                                      t_emb, **op.kernel_kw)
@@ -1047,8 +1059,9 @@ class _PlanarNerfTrain(torch.autograd.Function):
             ddir, da = r.get("ddir", ddir), r.get("da", da)
             dt, dfl = r.get("dt", dt), r.get("dflows", dfl)
         dparams = unpad_padded_grads(dws, op.weight_names, **op.unpad_kw)
-        grads = [dparams[name][part] for name, part in op.leaves]
-        return (None, None, None, None, None, *dfl, ddir, da, dt, *grads)
+        grads = [dparams[name][part] for name, part in ctx.names]
+        return (None, None, None, None, None, None, *dfl, ddir, da, dt,
+                *grads)
 
 
 def make_planar_nerf_train(
@@ -1119,9 +1132,11 @@ def make_planar_nerf_train(
             raise ValueError(f"flow_in={flow_in} but flows is "
                              f"{'given' if flows is not None else 'None'}")
         fl = tuple(f.contiguous() for f in flows) if flow_in else (None,) * 3
-        leaves = [params[name][part] for name, part in op.leaves]
+        # a model without flow heads (the coarse one) has no leaves there
+        names = [(n, part) for n, part in op.leaves if n in params]
+        leaves = [params[name][part] for name, part in names]
         planes = _PlanarNerfTrain.apply(
-            op, pack(params) if pw is None else pw, o.contiguous(),
+            op, names, pack(params) if pw is None else pw, o.contiguous(),
             d.contiguous(), zs.contiguous(), *fl,
             dir_emb.contiguous() if use_viewdir else None,
             a_emb.contiguous() if encode_a else None,

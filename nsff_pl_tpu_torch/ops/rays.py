@@ -69,6 +69,16 @@ def get_ndc_rays(K, near, shift_near, rays_o: torch.Tensor,
     return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)
 
 
+def world2ndc(xyz: torch.Tensor, K) -> torch.Tensor:
+    """World -> NDC coordinates of (..., 3) points, intrinsics (3, 3)."""
+    K = _k(K, xyz.device)
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    ndc_x = -fx / cx * xyz[..., 0] / xyz[..., 2]
+    ndc_y = -fy / cy * xyz[..., 1] / xyz[..., 2]
+    ndc_z = 1 + 2 / xyz[..., 2]
+    return torch.stack([ndc_x, ndc_y, ndc_z], -1)
+
+
 def ndc2world(xyz: torch.Tensor, K, eps: float = 1e-6) -> torch.Tensor:
     """NDC -> world coordinates. `K` is (3, 3), or (N, 3, 3) matched
     against an (N, ..., 3) `xyz`."""

@@ -220,15 +220,24 @@ def compute_losses_planar(
     weights: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """All loss terms as scalars (sum them with `total_loss`), for the
-    result dict of `models/raymarch.py::render_train_planar`."""
+    result dict of `models/raymarch.py::render_train_planar`; a
+    coarse-to-fine render adds 0.1 x its coarse colour error to `col_l`
+    and its coarse depth term to `disp_l`."""
     lambda_geo, cross_entropy_w = _epoch_weights(epoch, cfg)
 
     ret: Dict[str, torch.Tensor] = {}
     masks: Dict[str, torch.Tensor] = {}
     rgbs = batch["rgbs"]
-    ret["col_l"] = ((results["rgb_fine"] - rgbs) ** 2).mean(-1)
-    ret["disp_l"] = lambda_geo * shiftscale_invariant_depthloss(
+    col_l = ((results["rgb_fine"] - rgbs) ** 2).mean(-1)
+    if "rgb_coarse" in results:
+        col_l = col_l + 0.1 * ((results["rgb_coarse"] - rgbs) ** 2).mean(-1)
+    ret["col_l"] = col_l
+    disp_l = lambda_geo * shiftscale_invariant_depthloss(
         results["depth_fine"], batch["disps"])
+    if "depth_coarse" in results:
+        disp_l = disp_l + lambda_geo * shiftscale_invariant_depthloss(
+            results["depth_coarse"], batch["disps"])
+    ret["disp_l"] = disp_l
 
     tw = results["transient_weights"]  # (N, S)
     ret["entropy_l"] = cfg.lambda_ent * (-tw * torch.log(tw + 1e-8)).sum(-1)

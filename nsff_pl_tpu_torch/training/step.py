@@ -128,8 +128,9 @@ def make_train_step(
         check_train_envelope(render_cfg)
     elif render_cfg.N_importance > 0:
         raise NotImplementedError(
-            "coarse-to-fine training (N_importance > 0) is not ported yet "
-            "(ROADMAP.md queue A, 'coarse-to-fine')")
+            "coarse-to-fine training (N_importance > 0) is ported on the "
+            "planar path only, not on the packed path (ROADMAP.md queue A, "
+            "'packed coarse-to-fine')")
     flow = tuple(output_transient_flow)
 
     def step_body(params, opt, step, table, weights, Ks, Ps, generator, t,
@@ -143,7 +144,8 @@ def make_train_step(
         if use_planar:
             results = render_train_planar(
                 models["fine"], embeddings, batch["rays"], batch["ts"],
-                render_cfg, generator=generator, draws=draws)
+                render_cfg, params_coarse=models.get("coarse"),
+                generator=generator, draws=draws)
             loss_d = compute_losses_planar(results, batch, loss_cfg,
                                            epoch=epoch, Ks=Ks, Ps=Ps)
         else:
@@ -182,6 +184,26 @@ def make_train_step(
     fn.device = dev
     fn.use_planar = use_planar
     return fn
+
+
+def write_tmp_rgb(tmp_rgb: torch.Tensor, t, rand_idx: torch.Tensor,
+                  rgb: torch.Tensor) -> None:
+    """The hard-sampling buffer write `tmp_rgb[t, rand_idx] = rgb`, in
+    place, with a fixed winner: a pixel drawn more than once in the batch
+    (the batch is drawn with replacement) keeps the rgb of its last draw
+    in batch order, as XLA's scatter on the CPU keeps it in the JAX
+    package. The last position of each pixel is a `scatter_reduce`
+    (amax) of batch positions into a scratch index plane; every draw then
+    writes its pixel's winner, so the write's order no longer matters.
+    No host sync: it runs inside a captured graph."""
+    n = rand_idx.shape[0]
+    pos = torch.arange(n, device=rand_idx.device)
+    last = torch.full((tmp_rgb.shape[1],), -1, dtype=pos.dtype,
+                      device=rand_idx.device)
+    last.scatter_reduce_(0, rand_idx, pos, reduce="amax")
+    t_idx = (t.expand_as(rand_idx) if isinstance(t, torch.Tensor)
+             else torch.full_like(rand_idx, int(t)))
+    tmp_rgb.index_put_((t_idx, rand_idx), rgb[last[rand_idx]])
 
 
 def _clone_params(tree):
@@ -229,11 +251,14 @@ class _MultiStep:
 
     `ts` is the (K,) frame schedule (a long tensor on the device), each
     metric comes stacked to (K,), and with `hard_sampling` each step
-    writes `tmp_rgb[t, rand_idx] = rgb_fine`, in place (which of two draws
-    of one pixel in a batch lands is unspecified, as in JAX's scatter); a
-    dummy (1, 1, 3) passes through untouched otherwise. The optional
-    draws carry a leading K axis: `idx` / `batch_u` (K, B), `draws` a
-    dict of (K, B, S); what is not given is drawn from `generator`.
+    writes `tmp_rgb[t, rand_idx] = rgb_fine`, in place (`write_tmp_rgb`:
+    of two draws of one pixel in a batch the later one lands, on every
+    run); a dummy (1, 1, 3) passes through untouched otherwise. The
+    optional draws carry a leading K axis: `idx` / `batch_u` (K, B),
+    `draws` a dict of (K, B, ...) in the shapes of
+    `models/raymarch.py::draw_shapes` ((K, B, S), and with coarse-to-fine
+    (K, B, S_fine) and (K, B, N_importance)); what is not given is drawn
+    from `generator`.
     Per step this is exactly the single step: the same function, the
     same device state. The step counter, the frame t, the epoch and the
     lr are device values that every step reads and advances.
@@ -290,8 +315,7 @@ class _MultiStep:
             with torch.no_grad():
                 b.step += 1
                 if self.hard_sampling:
-                    b.tmp_rgb.index_put_((t.expand_as(rand_idx), rand_idx),
-                                         rgb)
+                    write_tmp_rgb(b.tmp_rgb, t, rand_idx, rgb)
                 self.metric_keys = list(metrics)
                 out.append(torch.stack([metrics[k] for k in metrics]))
         return torch.stack(out)

@@ -50,7 +50,8 @@ from nsff_pl_tpu_torch.training.optim import (make_lr_schedule,
                                               make_optimizer, param_leaves)
 from nsff_pl_tpu_torch.training.step import (TrainState, make_render_fn,
                                              make_train_step,
-                                             render_full_image)
+                                             render_full_image,
+                                             write_tmp_rgb)
 from nsff_pl_tpu_torch.utils import visualization as viz
 
 VAL_KEYS = ("rgb_fine", "depth_fine", "transient_alpha_fine",
@@ -377,7 +378,8 @@ class NSFFSystem:
                         self.Ks, self.Ps, self.generator, t)
                     if cfg.hard_sampling:
                         with torch.no_grad():
-                            self.tmp_rgb[t, aux["rand_idx"]] = aux["rgb_fine"]
+                            write_tmp_rgb(self.tmp_rgb, t, aux["rand_idx"],
+                                          aux["rgb_fine"])
                     pending.append((step + i, 1, metrics))
                 self.single_steps += g
             step += g

@@ -3,14 +3,18 @@
 of two versions of the kernels in one call.
 
     PYTHONPATH=<tree> python3 scripts/time_evaluators.py [--label L]
+        [--samples S] [--static] [--save PATH]
 
 Imports `nsff_pl_tpu_torch` from `<tree>` (the script's own directory
 holds no package, so PYTHONPATH decides), builds that tree's kernels and
 times, with CUDA events, `planar_eval_comp_cuda` (serving variant:
-encode_t, viewdir, no flow maps) and `fused_nerf_eval_cuda` (full variant)
-at the serving chunk, 32768 rays x 128 samples, on seeded random weights
-and rays. The results are checked by `chip_smoke.py`, not here. Prints
-one JSON line per kernel. Needs one CUDA card.
+encode_t, viewdir, no flow maps; `--static`: the static tower alone) and,
+at 128 samples, `fused_nerf_eval_cuda` (full variant) at the serving
+chunk, 32768 rays x S samples (sorted random depths), on seeded random
+weights and rays. `--save` writes B1's output there (`torch.save`), so
+that two trees' bits can be compared. The results are checked by
+`chip_smoke.py`, not here. Prints one JSON line per kernel. Needs one
+CUDA card.
 """
 import argparse
 import json
@@ -27,6 +31,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--samples", type=int, default=128)
+    ap.add_argument("--static", action="store_true")
+    ap.add_argument("--save", default="")
     args = ap.parse_args()
 
     from nsff_pl_tpu_torch.models import nerf as tn
@@ -37,8 +44,10 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    cuda_build.build(["planar_eval_comp", "fused_nerf_eval"])
-    n, s = 32768, 128
+    s = args.samples
+    cuda_build.build(["planar_eval_comp"] + (["fused_nerf_eval"] if s == 128
+                                             else []))
+    n = 32768
     g = torch.Generator().manual_seed(0)
     params = tn.init_nerf_params(g, "fine", use_viewdir=True,
                                  encode_transient=True, output_flow=True,
@@ -53,16 +62,21 @@ def main() -> int:
     o, d, zs, dirs, t = (x.cuda().contiguous() for x in (o, d, zs, dirs, t))
     xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
 
-    fb = rk.make_planar_nerf_eval_comp(s, use_viewdir=True, encode_t=True)
-    b1_args = (fb.pack(params), o, d, zs, None, dirs, None, t)
-    fp = mk.make_fused_nerf_eval(s, use_viewdir=True, encode_a=False,
-                                 encode_t=True, output_flow=("fw", "bw"))
-    b5_args = (fp.pack(params), xyz, dirs, None, t)
+    fb = rk.make_planar_nerf_eval_comp(s, use_viewdir=True,
+                                       encode_t=not args.static)
+    b1_args = (fb.pack(params), o, d, zs, None, dirs, None,
+               None if args.static else t)
     kernels = {
         "planar_eval_comp": lambda: rk.planar_eval_comp_cuda(
-            *b1_args, **fb.kernel_kw),
-        "fused_nerf_eval": lambda: mk.fused_nerf_eval_cuda(
-            *b5_args, **fp.kernel_kw)}
+            *b1_args, **fb.kernel_kw)}
+    if s == 128:
+        fp = mk.make_fused_nerf_eval(s, use_viewdir=True, encode_a=False,
+                                     encode_t=True, output_flow=("fw", "bw"))
+        b5_args = (fp.pack(params), xyz, dirs, None, t)
+        kernels["fused_nerf_eval"] = lambda: mk.fused_nerf_eval_cuda(
+            *b5_args, **fp.kernel_kw)
+    if args.save:
+        torch.save(kernels["planar_eval_comp"]().cpu(), args.save)
     for name, fn in kernels.items():
         fn()
         torch.cuda.synchronize()
@@ -74,6 +88,7 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         print(json.dumps({"label": args.label, "kernel": name, "n_rays": n,
+                          "samples": s, "static": args.static,
                           "ms": start.elapsed_time(end) / args.iters,
                           "card": card}), flush=True)
     return 0

@@ -294,3 +294,37 @@ def test_png_bytes_is_a_valid_png():
     raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
     np.testing.assert_array_equal(raw.reshape(5, 22)[:, 1:].reshape(5, 7, 3),
                                   rgb)
+
+
+@pytest.mark.parametrize("s", [32, 96, 160, 320])
+def test_planar_kernel_wrappers_check_the_sample_count(s):
+    """The CUDA wrappers of the planar kernels (B1, B2's forward and
+    backward, B3's forward and adjoint) refuse a sample count outside
+    `PLANAR_SAMPLES` (64, 128, 192, 256) in their argument checks, before
+    any launch and without a card, naming ROADMAP B-d; the counts in it
+    pass the check."""
+    from nsff_pl_tpu_torch.ops import compositing_planar_kernel as cpk
+    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
+
+    n = 2
+    o, zs = torch.zeros(n, 3), torch.zeros(n, s)
+    kw = dict(freqs=(1.0,) * 10, use_viewdir=False, encode_a=False,
+              flow_scale=0.2)
+    calls = {
+        "planar_eval_comp": lambda: rk.planar_eval_comp_cuda(
+            None, o, o, zs, None, None, None, None, encode_t=False,
+            flow_maps=False, z_far=0.95, n_tau=0, n_map=4, **kw),
+        "train_fwd": lambda: rk.planar_nerf_train_fwd_cuda(
+            None, o, o, zs, None, None, None, None, static_branch=True,
+            encode_t=False, output_flow=(), **kw),
+        "train_bwd": lambda: rk.planar_nerf_train_bwd_cuda(
+            "static", None, o, o, zs, None, None, None, None, {}, **kw),
+        "comp_fwd": lambda: cpk.planar_compositor_fwd_cuda({"zs": zs}),
+        "comp_bwd": lambda: cpk.planar_compositor_bwd_cuda({"zs": zs}, {},
+                                                           None)}
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match="B-d"):
+            call()
+    assert rk.PLANAR_SAMPLES == (64, 128, 192, 256)
+    for ok in rk.PLANAR_SAMPLES:
+        rk.check_planar_samples(ok, "the CUDA kernels")

@@ -65,6 +65,16 @@ TERM_TOL = 2e-6
 KEY0 = {"flagship": 21, "fused_compositing": 21, "static_only": 51}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's steps are thousands of small ops; with the test workers'
+    threads already on every core, torch's own pool only waits on them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _results(rng, static_only):
     """A synthetic train-mode result dict with the renderer's shapes."""
     rays = make_rays(rng, N)

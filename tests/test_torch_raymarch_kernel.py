@@ -21,6 +21,7 @@ from nsff_pl_tpu.models import nerf as jn
 from nsff_pl_tpu.ops import mlp_kernel as jmlp
 from nsff_pl_tpu.ops import mlp_train_kernel as jtrain
 from nsff_pl_tpu.ops import raymarch_kernel as jrk
+from nsff_pl_tpu_torch.ops import launches
 from nsff_pl_tpu_torch.ops import raymarch_kernel as trk
 from nsff_pl_tpu_torch.training.checkpoint import params_from_jax
 
@@ -173,10 +174,10 @@ def test_cpu_tensors_take_the_plain_version():
     params = params_from_jax(jax.tree.map(np.asarray, _params()), "cpu")
     o, d, zs, _, dirs, _, t = _inputs(n=3)
     T = torch.from_numpy
-    before = trk.planar_eval_comp_cuda.launches
+    before = launches.counts()
     fn = trk.make_planar_nerf_eval_comp(S, use_viewdir=True, n_tau=N_TAU)
     out = fn(params, T(o), T(d), T(zs), None, T(dirs), None, T(t))
-    assert trk.planar_eval_comp_cuda.launches == before
+    assert launches.counts() == before
     ref = trk.planar_eval_comp_ref(fn.pack(params), T(o), T(d), T(zs), None,
                                    T(dirs), None, T(t), **fn.kernel_kw)
     assert torch.equal(out, ref)

@@ -24,6 +24,16 @@ from tests.torch_train_helpers import (COMMON, FRAMES, LOSS_RTOL, N,
                                        jax_params, to_torch)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's render is thousands of small ops; with the test workers'
+    threads already on every core, torch's own pool only waits on them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("case", ["flagship", "corners"])
 def test_render_loss_and_grads_match_jax(case):
     """`corners`: perturb=0, noise_std=0, no viewdir, thickness 3, epoch
@@ -53,7 +63,9 @@ def test_render_loss_and_grads_match_jax(case):
 
     skip = 1.0 if case == "corners" else 0.0
     jparams = jax_params()
-    (_, jld), jg = jax.value_and_grad(jloss_fn, has_aux=True)(jparams)
+    # under one jit: an eager call runs the interpreted kernels op by op
+    (_, jld), jg = jax.jit(jax.value_and_grad(jloss_fn, has_aux=True))(
+        jparams)
 
     params = to_torch(jparams)
     for leaf in toptim.param_leaves(params):

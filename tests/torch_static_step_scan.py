@@ -192,9 +192,13 @@ def toggle_analysis(jp, xyz, dirs, g):
     Returns {"rows": [(row, error, (layer, unit, |z|) or None)],
     "before": worst_errs, "after": worst_errs, "left": rows still off}."""
     jfn = jmt.make_fused_nerf_train(S, **KERNEL_KW)
-    _, vjp = jax.vjp(jfn, jp["nerf_fine"], jnp.asarray(xyz.numpy()),
-                     jnp.asarray(dirs.numpy()), None, None)
-    jg = vjp(jnp.asarray(g.numpy()))
+
+    @jax.jit  # an eager call runs the interpreted kernel op by op
+    def jvjp(p, x, dr, cot):
+        return jax.vjp(jfn, p, x, dr, None, None)[1](cot)
+
+    jg = jvjp(jp["nerf_fine"], jnp.asarray(xyz.numpy()),
+              jnp.asarray(dirs.numpy()), jnp.asarray(g.numpy()))
     want = jax.tree.map(np.asarray, jg[0])
     jdx = np.asarray(jg[1]).reshape(-1, 3)
     scale = np.abs(jdx).max()

@@ -72,13 +72,13 @@ def to_torch(tree):
     return tckpt.params_from_jax(jax.tree.map(np.asarray, tree), "cpu")
 
 
-def grads_close(got, want):
+def grads_close(got, want, max_rel=GRAD_MAX):
     for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(want),
                             jax.tree.leaves(got)):
         name = jax.tree_util.keystr(path)
         w, g = np.asarray(w, np.float64), np.asarray(g, np.float64)
         scale = max(np.abs(w).max(), 1e-12)
-        assert np.abs(g - w).max() <= GRAD_MAX * scale, name
+        assert np.abs(g - w).max() <= max_rel * scale, name
         assert (np.linalg.norm(g - w) <= GRAD_FRO * np.linalg.norm(w)
                 + 1e-12), name
 
