@@ -91,7 +91,10 @@ once), then:
    inputs their path gives them on the first 29696-ray chunk of frame 0
    (PLANE_TOL / PLANE_SHARE, COMP_TOL, PACKED_TOL / PACKED_SHARE). Each
    run's launches: the wrappers' counts against its graph's warm-up and
-   capture, one graph, one replay a frame;
+   capture, one graph, one replay a frame. A measurement for ROADMAP C:
+   three test frames of both towers in bfloat16 (B1) and float32 against
+   the float64 render (`against_f64`: per-pixel errors, visibility counts
+   at the worst pixels);
 8. coarse-to-fine (main paths, `--N_importance 64`: the fine pass at
    S = 256 in training and for both towers, 192 for the static tower):
    B1 at 256 and 192 (on depths spaced as the fine pass spaces them),
@@ -109,7 +112,19 @@ once), then:
    graph replay equal to the host loop within GRAPH_TOL, and B1 held
    against its plain version on the inputs each test split gives it
    (the unrounded model, as in 7). Launches are counted by sample count
-   (`ops/launches.py`: `<name>` at 128 samples, `<name>@256` at 256);
+   (`ops/launches.py`: `<name>` at 128 samples, `<name>@256` at 256).
+   The packed path's coarse-to-fine (`fused_train="off"` /
+   `planar_eval="off"`, the coarse pass on the bf16 plain evaluators):
+   B4, B5 and B6 at 256 and 192 against their plain versions with the
+   S = 128 tolerances on sorted fine-pass depths (B5's plain version 4096
+   rays at a time), the training recipe with the fused compositor
+   (eager; graphed equal to it bit for bit; launches PER_STEP_PACKED_C2F;
+   a repeated batch; one step at batch 64 against the CPU), three steps
+   of the static-only model (B4 / B5 at 192) and of float32 (no kernel),
+   a 512x288 `render_pose` frame of each of the three, and the eval CLI's
+   two c2f test splits again with `--planar_eval off` (B5 at 192 / 256 on
+   their inputs against the unrounded model; each split's mean PSNR
+   within PSNR_C2F_TOL of the planar route's);
 9. reproducibility (ROADMAP C1): the train CLI at the flagship recipe
    with hard sampling on the scene's first 4 frames (one epoch, 589
    steps, a validation and hard-sampling refresh every 200 steps), twice
@@ -694,33 +709,63 @@ def rate_line(flops, ms, bound_ms):
             f"{100 * bound_ms / ms:.1f}% of the bound")
 
 
-def packed_kernel_phase(torch, np, params, rays, card):
-    """The packed-boundary kernels against their plain versions: the
-    evaluator at the serving chunk (full, static only, transient only),
-    its backward at batch 512 (static; transient with and without the xyz
-    cotangent) and the compositor at batch 512. Returns their kernel
-    records (launches filled in by the packed phases)."""
+def plain_by_rays(torch, fn, args, kw, rays=4096):
+    """A kernel's plain version `fn(*args, **kw)`, `rays` rays at a time
+    (the tensor arguments whose first dimension is the ray count; each
+    ray's output is its own): a whole chunk's activations at 192 or 256
+    samples would take tens of GB."""
+    n = next(x for x in args if torch.is_tensor(x)).shape[0]
+    return torch.cat([fn(*(
+        x[i:i + rays] if torch.is_tensor(x) and x.shape[0] == n else x
+        for x in args), **kw) for i in range(0, n, rays)])
+
+
+def packed_plain_eval(torch, mk, args, kw, S):
+    """B5's plain version, off 128 samples by `plain_by_rays`."""
+    if S == 128:
+        return mk.fused_nerf_eval_ref(*args, **kw)
+    return plain_by_rays(torch, mk.fused_nerf_eval_ref, args, kw)
+
+
+def packed_kernel_phase(torch, np, params, rays, card, S=128,
+                        main_case="full"):
+    """The packed-boundary kernels against their plain versions at S
+    samples a ray: the evaluator at the serving chunk (full, static only,
+    transient only) and at a ragged count, its backward at batch 512
+    (static; transient with and without the xyz cotangent) and the
+    compositor at batch 512 (at 128 samples also at 8192 rays, beside the
+    launch floor, and the backward's phases). Off 128 samples the depths
+    are spaced as the c2f fine pass spaces them: the 128 stratified ones
+    and S - 128 random ones, sorted. The evaluator's record is timed on
+    `main_case`, the variant the main paths run at S (its error covers
+    every variant). Returns the kernel records, named by `at_samples`
+    (launches filled in by the packed phases)."""
     from nsff_pl_tpu_torch.ops import compositing_kernel as fck
     from nsff_pl_tpu_torch.ops import mlp_kernel as mk
     from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
     from nsff_pl_tpu_torch.ops.posenc import posenc
     from nsff_pl_tpu_torch.ops.sampling import stratified_zs
 
-    S = 128
     fine = params["nerf_fine"]
-    gen = torch.Generator(device="cuda").manual_seed(4)
+    gen = torch.Generator(device="cuda").manual_seed(4 + S)
 
     def inputs(n):
         o, d = rays[:n, :3], rays[:n, 3:]
-        zs = stratified_zs(n, S, 1.0, torch.rand((n, S), generator=gen,
-                                                 device="cuda"),
-                           device="cuda")[0].contiguous()
+        zs = stratified_zs(n, 128, 1.0, torch.rand((n, 128), generator=gen,
+                                                   device="cuda"),
+                           device="cuda")[0]
+        if S != 128:
+            zs = torch.sort(torch.cat([zs, torch.rand(
+                (n, S - 128), generator=gen, device="cuda")], 1), 1).values
+        zs = zs.contiguous()
         xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
         t_emb = params["embedding_t"][torch.randint(
             0, N_FRAMES, (n,), generator=gen, device="cuda")].contiguous()
         return xyz, zs, posenc(d, 3.0, 4).contiguous(), t_emb
 
     records = {}
+    ename = at_samples("fused_nerf_eval", S)
+    eval_err = 0.0
     # ---- the evaluator at the serving chunk
     n = CHUNK
     xyz, _, de, te = inputs(n)
@@ -739,49 +784,45 @@ def packed_kernel_phase(torch, np, params, rays, card):
         kw = fn.kernel_kw
         got = mk.fused_nerf_eval_cuda(*args, **kw)
         torch.cuda.synchronize()
-        want = mk.fused_nerf_eval_ref(*args, **kw)
+        want = packed_plain_eval(torch, mk, args, kw, S)
         if not bool(torch.isfinite(got).all()):
             fail(f"packed evaluator output not finite ({label})")
         err = (got - want).abs()
         worst = err.amax((0, 1)).cpu().numpy()
         share = float((err.amax(-1) > 1e-5).float().mean())
         del err, want
-        print(f"kernel fused_nerf_eval [{label}] n={n} S={S}: max abs err "
+        print(f"kernel {ename} [{label}] n={n} S={S}: max abs err "
               f"per column {np.array2string(worst, precision=2)}, rows off "
               f"by > 1e-5 {share:.4f} (tol {PACKED_TOL}, {PACKED_SHARE})",
               flush=True)
         if float(worst.max()) > PACKED_TOL or share > PACKED_SHARE:
-            fail(f"fused_nerf_eval disagrees with its plain version ({label})")
+            fail(f"{ename} disagrees with its plain version ({label})")
         zero_cols = ([] if static_branch else [0, 1, 2, 3]) + list(
             range(8 + 3 * len(flow) if encode_t else 4, 16))
         if bool(got[..., zero_cols].any()):
-            fail(f"fused_nerf_eval wrote unused columns ({label})")
+            fail(f"{ename} wrote unused columns ({label})")
         del got
         err = float(worst.max())
+        eval_err = max(eval_err, err)
         if label == "full, ragged":
-            records["fused_nerf_eval"]["max_abs_err"] = max(
-                records["fused_nerf_eval"]["max_abs_err"], err)
             continue
         flops, nbytes = train_fwd_work(fine, static_branch, len(flow), n, S,
                                        pw, 16, False, encode_t=encode_t,
                                        packed=True)
         ms = cuda_ms(torch, lambda: mk.fused_nerf_eval_cuda(*args, **kw),
                      iters=3)
-        plain_ms = cuda_ms(torch, lambda: mk.fused_nerf_eval_ref(*args, **kw),
-                           iters=1, warmup=0)
+        plain_ms = cuda_ms(torch, lambda: packed_plain_eval(
+            torch, mk, args, kw, S), iters=1, warmup=0)
         bms = bound(flops, nbytes)[0]
-        if label == "full":
-            records["fused_nerf_eval"] = _record(
-                "fused_nerf_eval", src,
-                "nsff_pl_tpu/ops/mlp_kernel.py:121", err, ms,
+        if label == main_case:
+            records[ename] = _record(
+                ename, src, "nsff_pl_tpu/ops/mlp_kernel.py:121", err, ms,
                 plain_ms, flops, nbytes)
-        else:
-            rec = records["fused_nerf_eval"]
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        print(f"kernel fused_nerf_eval [{label}] n={n}: {ms:.3f} ms "
+        print(f"kernel {ename} [{label}] n={n}: {ms:.3f} ms "
               f"({rate_line(flops, ms, bms)}), plain "
               f"{plain_ms:.3f} ms, bound {bms:.3f} ms "
               f"({flops / 1e12:.2f} TFLOP) on {card}", flush=True)
+    records[ename]["max_abs_err"] = eval_err
     del xyz, de, te
 
     # ---- the backward at the training batch
@@ -822,7 +863,8 @@ def packed_kernel_phase(torch, np, params, rays, card):
             errs[name] = rel_errs(a, b)
         w_max = max(errs, key=lambda k: errs[k][0])
         w_fro = max(errs, key=lambda k: errs[k][1])
-        line = (f"kernel fused_nerf_train_bwd_{branch} [{label}]: "
+        line = (f"kernel {at_samples(f'fused_nerf_train_bwd_{branch}', S)} "
+                f"[{label}]: "
                 f"{len(errs)} outputs, worst error/max {errs[w_max][0]:.2e} "
                 f"({w_max}), worst Frobenius {errs[w_fro][1]:.2e} ({w_fro}) "
                 f"(tol {GRAD_MAX}, {GRAD_FRO})")
@@ -838,14 +880,14 @@ def packed_kernel_phase(torch, np, params, rays, card):
             abs_err, rel_err = max(abs_err, dx[2]), max(rel_err, dx[0])
         print(line, flush=True)
         if bad:
-            fail(f"fused_nerf_train backward ({branch}, {label}) disagrees "
-                 "with its plain version")
+            fail(f"fused_nerf_train backward ({branch}, {label}, S={S}) "
+                 "disagrees with its plain version")
         ms = cuda_ms(torch, lambda: mtk.fused_nerf_train_bwd_cuda(
             *args, need_dxyz=need_dxyz, **bkw), iters=5, graph=True)
         flops, nbytes = train_bwd_work(fine, branch, len(flow), n, S, pw,
                                        False, packed=True,
                                        need_dxyz=need_dxyz)
-        name = f"fused_nerf_train_bwd_{branch}"
+        name = at_samples(f"fused_nerf_train_bwd_{branch}", S)
         if label == "main":
             plain_ms = cuda_ms(torch, lambda: mtk.fused_nerf_train_bwd_ref(
                 *args, need_dxyz=need_dxyz, **bkw), iters=2)
@@ -856,10 +898,11 @@ def packed_kernel_phase(torch, np, params, rays, card):
             print(f"kernel {name} [main] n={n}: {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms, bound {bound(flops, nbytes)[0]:.3f} "
                   f"ms ({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
-            bwd_phases(torch, records[name],
-                       lambda: mtk.fused_nerf_train_bwd_cuda(
-                           *args, need_dxyz=need_dxyz, **bkw),
-                       n, S, branch == "static", card)
+            if S == 128:
+                bwd_phases(torch, records[name],
+                           lambda: mtk.fused_nerf_train_bwd_cuda(
+                               *args, need_dxyz=need_dxyz, **bkw),
+                           n, S, branch == "static", card)
         else:
             _fold_errs(records[name], abs_err, rel_err)
             print(f"kernel {name} [{label}] n={n}: {ms:.3f} ms, bound "
@@ -882,13 +925,14 @@ def packed_kernel_phase(torch, np, params, rays, card):
     bwd_errs = [rel_errs(dp[..., c], rdp[..., c]) for c in range(8)]
     bwd_err = max(e[0] for e in bwd_errs)
     bwd_abs = max(e[2] for e in bwd_errs)
-    print(f"kernel fused_compositing: forward max abs err {fwd_err:.2e}, "
-          f"adjoint worst error/max per column {bwd_err:.2e} (tol "
-          f"{COMP_TOL})", flush=True)
+    print(f"kernel {at_samples('fused_compositing', S)}: forward max abs "
+          f"err {fwd_err:.2e}, adjoint worst error/max per column "
+          f"{bwd_err:.2e} (tol {COMP_TOL})", flush=True)
     if not bool(torch.isfinite(dp).all()) or bool(dp[..., 8:].any()):
-        fail("fused_compositing adjoint not finite or columns 8-15 not zero")
+        fail(f"fused_compositing adjoint not finite or columns 8-15 not "
+             f"zero (S={S})")
     if fwd_err > COMP_TOL or bwd_err > COMP_TOL:
-        fail("fused_compositing disagrees with its plain version")
+        fail(f"fused_compositing disagrees with its plain version (S={S})")
     csrc = "nsff_pl_tpu_torch/csrc/fused_compositing.cu"
     for which, fn, ref, err in (
             ("fwd", lambda: fck.fused_compositing_fwd_cuda(*cargs),
@@ -899,7 +943,7 @@ def packed_kernel_phase(torch, np, params, rays, card):
         ms = cuda_ms(torch, fn, iters=100, graph=True)
         plain_ms = cuda_ms(torch, ref, iters=10, graph=True)
         ops, nbytes = packed_comp_work(which, n, S)
-        name = f"fused_compositing_{which}"
+        name = at_samples(f"fused_compositing_{which}", S)
         records[name] = _record(
             name, csrc, "nsff_pl_tpu/ops/compositing_kernel.py:100", err, ms,
             plain_ms, ops, nbytes, PEAK_F32_FLOPS)
@@ -908,7 +952,8 @@ def packed_kernel_phase(torch, np, params, rays, card):
         print(f"kernel {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
               f"bound {records[name]['bound_ms']:.4f} ms "
               f"({nbytes / 1e6:.2f} MB) on {card}", flush=True)
-    packed_comp_large(torch, fck, records, card)
+    if S == 128:
+        packed_comp_large(torch, fck, records, card)
     return records
 
 
@@ -1077,14 +1122,16 @@ def train_setup(torch, cfg, params, device, batch, scan_steps=1,
 
 
 def make_draws(torch, cfg, n, gen, lead=(), device="cuda"):
-    """The renderer's draws for n rays (`models/raymarch.py::draw_shapes`,
-    coarse-to-fine's too), with leading dimensions `lead`."""
+    """The renderer's draws for n rays (`models/rendering.py::draw_shapes`,
+    coarse-to-fine's too; on the planar path the same keys and shapes),
+    with leading dimensions `lead`."""
     from nsff_pl_tpu_torch.config import render_config
-    from nsff_pl_tpu_torch.models.raymarch import draw_shapes
+    from nsff_pl_tpu_torch.models.rendering import draw_shapes
 
     return {k: (torch.rand if k.startswith("u") else torch.randn)(
         tuple(lead) + shape, generator=gen, device=device)
-        for k, shape in draw_shapes(render_config(cfg), n).items()}
+        for k, shape in draw_shapes(render_config(cfg), n,
+                                    output_transient=cfg.encode_t).items()}
 
 
 def step_rows(torch, cfg, sched, gen, steps):
@@ -1098,12 +1145,14 @@ def step_rows(torch, cfg, sched, gen, steps):
 
 
 def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
-                   planar, steps=TRAIN_STEPS, repeat=True, profile=False):
+                   planar, steps=TRAIN_STEPS, repeat=True, profile=False,
+                   exact=False):
     """A main training path: warm-up, `steps` timed eager steps with the
     launch counts set to 0 just before and read just after them, then the
     same steps as one graphed dispatch (`graphed_phase`) from a copy of
     the state taken before them, on the same frames and draws; then
     (`repeat`) `steps` steps on one repeated batch, whose loss must fall.
+    With `exact` the graphed steps must equal the eager ones bit for bit.
     Returns the eager counts, the graphed counts and the device ms per
     step of both."""
     from nsff_pl_tpu_torch.config import build_params
@@ -1166,7 +1215,7 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
     graph_counts, graph_ms = graphed_phase(
         torch, np, cfg, start, (batcher.table, batcher.weights, Ks, Ps, gen),
         ts, idx, draws, eager, eager_tmp, card, label=label,
-        per_step=per_step, profile=profile)
+        per_step=per_step, profile=profile, exact=exact)
 
     if repeat:  # one repeated batch and draws: the loss must fall
         t = sched.next()
@@ -1218,7 +1267,7 @@ def cdf_uniforms(torch, weights, ts, idx):
 
 
 def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager,
-                  eager_tmp, card, *, label, per_step, profile):
+                  eager_tmp, card, *, label, per_step, profile, exact=False):
     """The same steps as one K-step dispatch (`make_train_step(scan_steps=
     K)`, one CUDA graph) from `state`, with hard sampling on, so that the
     graph also holds the weighted draw and the `tmp_rgb[t, rand_idx] =
@@ -1229,6 +1278,7 @@ def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager,
     ray ids (`eager_tmp`) within the same; a second dispatch is
     timed with the launch counts set to 0 just before it and read just
     after, counted as the capture's launches times the replays; with
+    `exact`, the loss terms and `tmp_rgb` must be the eager bits; with
     `profile`, torch.profiler over a third dispatch counts the kernels
     the replays ran against the same. Returns the counts and the device
     ms per step."""
@@ -1260,16 +1310,20 @@ def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager,
           flush=True)
     if not worst <= GRAPH_RTOL:
         fail(f"{label}: the graphed steps disagree with the eager steps")
+    same = all(bool(torch.equal(m[k], v)) for k, v in eager.items())
     written = int((tmp != 0).any(-1).sum())
     want = int((eager_tmp != 0).any(-1).sum())
     tmp_err = float((tmp - eager_tmp).abs().max())
     print(f"{label} [graphed]: tmp_rgb (hard sampling) against the eager "
           f"steps' rgb at their ray ids: {written} pixels written "
           f"({want} by the eager steps), worst abs error {tmp_err:.2e} (tol "
-          f"{GRAPH_RTOL})", flush=True)
+          f"{GRAPH_RTOL}); loss terms and tmp_rgb the eager bits: "
+          f"{same and tmp_err == 0}", flush=True)
     if written != want or not tmp_err <= GRAPH_RTOL:
         fail(f"{label}: the graphed tmp_rgb writes disagree with the eager "
              "steps")
+    if exact and not (same and tmp_err == 0):
+        fail(f"{label}: the graphed steps are not the eager steps' bits")
     for i in range(K):
         print(f"{label} [graphed]: step {i + 1} " + json.dumps(
             {k: float(v[i]) for k, v in m.items()}), flush=True)
@@ -2021,6 +2075,98 @@ def eval_split(torch, np, card, label, argv, expected, frames):
     return rep, ran, g
 
 
+def against_f64(torch, np, card, data, params, cfg):
+    """ROADMAP C's item, on the trained checkpoint: frames F32_FRAMES of
+    both towers as the eval CLI's `--output_transient` renders them
+    (visibility culling against the frame's own camera) in bfloat16 (B1)
+    and in float32 (the plain evaluators), each against the same render
+    in float64 (the plain evaluators on float64 rays: no bf16 rounding
+    and no float32 one). Per frame: the largest per-pixel error of each
+    on the frame's first row and column, where the frustum test of a
+    sample against the frame's own camera is decided by the last bits
+    of its projection, and inside them; the samples whose visibility
+    differs from float64's, by B1's planes (`_visibility_planes`, float32)
+    and by the float32 points of the packed path, on the border and
+    inside. Holds the inside of the bfloat16 frame to float32 within
+    F32_TOL."""
+    from nsff_pl_tpu_torch.config import render_config
+    from nsff_pl_tpu_torch.models.raymarch import _visibility_planes
+    from nsff_pl_tpu_torch.models.rendering import render_rays
+    from nsff_pl_tpu_torch.ops import rays as ray_ops
+    from nsff_pl_tpu_torch.ops.sampling import stratified_zs
+    from nsff_pl_tpu_torch.training.step import (make_render_fn,
+                                                 render_full_image)
+
+    keys = ("rgb_fine", "depth_fine")
+    b16, f32 = (make_render_fn(render_config(cfg.replace(dtype=dt)),
+                               output_transient=True, with_visibility=True,
+                               keys=keys) for dt in ("bfloat16", "float32"))
+    rc32 = render_config(cfg.replace(dtype="float32"))
+    models = {"fine": params["nerf_fine"]}
+    emb64 = {"t": params["embedding_t"].double()}
+    K = torch.as_tensor(data.K, dtype=torch.float32, device="cuda")
+    S = cfg.N_samples
+    yy, xx = torch.meshgrid(torch.arange(H_IMG, device="cuda"),
+                            torch.arange(W_IMG, device="cuda"),
+                            indexing="ij")
+    border = ((yy == 0) | (xx == 0)).reshape(-1)
+    rows = []
+    for i in F32_FRAMES:
+        item = data.test_item(i, targets=())
+        rays, ts = item["rays"], item["ts"]
+        pose = torch.as_tensor(data.poses[i:i + 1], dtype=torch.float32,
+                               device="cuda")
+        vis = {"vis_poses": pose, "vis_K": K}
+        out = {name: render_full_image(fn, params, rays, ts, chunk=CHUNK,
+                                       **vis)["rgb_fine"]
+               for name, fn in (("bfloat16", b16), ("float32", f32))}
+        with torch.inference_mode():
+            out["float64"] = torch.cat([render_rays(
+                models, emb64, rays[j:j + 4096].double(), ts[j:j + 4096],
+                rc32, output_transient=True, vis_poses=pose.double(),
+                vis_K=K.double(), keys=("rgb_fine",))["rgb_fine"]
+                for j in range(0, rays.shape[0], 4096)])
+        if not bool(torch.isfinite(out["float64"]).all()):
+            fail(f"against float64: frame {i}'s float64 render not finite")
+        px = {name: (out[name].double() - out["float64"]).abs().amax(-1)
+              for name in ("bfloat16", "float32")}
+        inside = (out["bfloat16"] - out["float32"]).abs().amax(-1)[~border]
+        o, d = rays[:, :3].contiguous(), rays[:, 3:].contiguous()
+        zs = stratified_zs(rays.shape[0], S, 0.0, device="cuda")[0]
+        seen = {"B1 planes": _visibility_planes(o, d, zs.contiguous(), K,
+                                                (W_IMG, H_IMG), pose) > 0}
+        for name, dt in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+            xyz = (o.to(dt)[:, None] + d.to(dt)[:, None]
+                   * zs.to(dt)[..., None]).reshape(-1, 3)
+            seen[name] = ray_ops.compute_world_visibility(
+                ray_ops.ndc2world(xyz, K.to(dt)), K.to(dt), H_IMG, W_IMG,
+                pose.to(dt)).reshape(-1, S) > 0
+        flips = {name: {"border": int((seen[name] != seen["float64"])
+                                      [border].sum()),
+                        "inside": int((seen[name] != seen["float64"])
+                                      [~border].sum())}
+                 for name in ("B1 planes", "float32")}
+        row = {"frame": i}
+        for name in ("bfloat16", "float32"):
+            row[name] = {"border_max": float(px[name][border].max()),
+                         "inside_max": float(px[name][~border].max()),
+                         "mean": float(px[name].mean())}
+        row.update(bf16_vs_f32_inside=float(inside.max()),
+                   bf16_vs_f32_border=float(
+                       (out["bfloat16"] - out["float32"]).abs().amax(-1)
+                       [border].max()),
+                   visibility_flips_vs_f64=flips,
+                   visible_samples={k: int(v.sum()) for k, v in seen.items()})
+        rows.append(row)
+        print("against float64: " + json.dumps(row) + f" on {card}",
+              flush=True)
+        if not float(inside.max()) <= F32_TOL:
+            fail(f"against float64: frame {i} of both towers, inside the "
+                 "border, in bfloat16 disagrees with float32")
+    return rows
+
+
 def eval_phase(torch, np, card):
     """The eval CLI (`apps.evaluate`, in process) on the scene and the
     trained checkpoint of the scene training phase: the test split (30
@@ -2039,7 +2185,6 @@ def eval_phase(torch, np, card):
                                           render_config)
     from nsff_pl_tpu_torch.models.rendering import _interp_pre, interpolate
     from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
-    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
     from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
     from nsff_pl_tpu_torch.ops import softsplat as ss
     from nsff_pl_tpu_torch.scene import imageio
@@ -2159,7 +2304,9 @@ def eval_phase(torch, np, card):
               f"err {err32:.3e} (tol {F32_TOL})", flush=True)
         if not err32 <= F32_TOL:
             fail("eval test: float32 frames disagree with bfloat16")
-        del fresh, b16, f32, rep
+        del fresh, b16, f32
+        against_f64(torch, np, card, data, params, cfg)
+        del rep
         torch.cuda.empty_cache()
 
         # ---- spiral, and a few frames with a fixed view direction ----
@@ -2329,38 +2476,9 @@ def eval_phase(torch, np, card):
         print(f"eval test --planar_eval off: mean PSNR whole / dynamic "
               f"{np.nanmean(rep.psnr, 0).tolist()} (the static tower)",
               flush=True)
+        kernel_errs["fused_nerf_eval"] = b5_on_eval_path(
+            torch, rep, "test --planar_eval off", False)
         item = rep.dataset.test_item(0, targets=())
-        calls = kept_calls(
-            lambda: rep.render(rep.params, item["rays"][chunk_rows],
-                               item["ts"][chunk_rows]),
-            ((mk, "fused_nerf_eval_cuda"),))
-        ((a, kw, got),) = calls["fused_nerf_eval_cuda"]
-        want = mk.fused_nerf_eval_ref(*a, **kw)
-        if not bool(torch.isfinite(got).all()):
-            fail("eval: B5's output not finite")
-        err = (got - want).abs()
-        worst = float(err.max())
-        share = float((err.amax(-1) > 1e-5).float().mean())
-        r_mean, r_max = unrounded_ratios(
-            got, want, unrounded(torch, mk.fused_nerf_eval_ref, a, kw, 0),
-            (0, 1))
-        same = torch.equal(reversed_rays(
-            torch, mk.fused_nerf_eval_cuda, a, kw, 0), got)
-        kernel_errs["fused_nerf_eval"] = worst
-        print(f"eval test --planar_eval off: kernel fused_nerf_eval on the "
-              f"packed route's inputs ({a[1].shape[0]} rays x "
-              f"{a[1].shape[1]} samples, trained weights): max abs err "
-              f"{worst:.3e}, rows off by > 1e-5 {share:.4f} (tol "
-              f"{PACKED_SHARE}); its distance to the unrounded model over "
-              f"the plain version's: mean {r_mean:.3f}, largest "
-              f"{r_max:.3f} per column at worst (tol {EXACT_MEAN}, "
-              f"{EXACT_MAX}); the same bits with the rays reversed: {same}",
-              flush=True)
-        if share > PACKED_SHARE or r_mean > EXACT_MEAN or r_max > EXACT_MAX:
-            fail("eval: B5 disagrees with its plain version")
-        if not same:
-            fail("eval: B5 depends on a ray's place")
-        del calls, a, kw, got, want, err
         b5 = render_full_image(rep.render, rep.params, item["rays"],
                                item["ts"], chunk=CHUNK, scan_chunks=True)
         planar = make_render_fn(render_config(cfg), output_transient=False,
@@ -2396,6 +2514,29 @@ PER_STEP_C2F = {"planar_nerf_train_fwd": 1, "planar_nerf_train_fwd@256": 3,
                 "planar_nerf_train_bwd_transient@256": 3,
                 "planar_compositor_fwd@256": 1,
                 "planar_compositor_bwd@256": 1}
+# the packed path's coarse-to-fine (`fused_train="off"`,
+# `fused_compositing`): the coarse pass on the bf16 plain evaluators (no
+# kernel), the fine pass at 256: three evaluator forwards, the backward's
+# static branch once and transient branch three times, the compositor;
+# the static-only model: the fine pass at 192, one forward, one backward
+PER_STEP_PACKED_C2F = {f"fused_nerf_eval@{C2F_FINE}": 3,
+                       f"fused_nerf_train_bwd_static@{C2F_FINE}": 1,
+                       f"fused_nerf_train_bwd_transient@{C2F_FINE}": 3,
+                       f"fused_compositing_fwd@{C2F_FINE}": 1,
+                       f"fused_compositing_bwd@{C2F_FINE}": 1}
+PER_STEP_STATIC_C2F = {f"fused_nerf_eval@{128 + C2F_NI}": 1,
+                       f"fused_nerf_train_bwd_static@{128 + C2F_NI}": 1}
+# the packed kernels the packed c2f paths run at each sample count
+PACKED_C2F_KERNELS = {
+    C2F_FINE: ("fused_nerf_eval", "fused_nerf_train_bwd_static",
+               "fused_nerf_train_bwd_transient", "fused_compositing_fwd",
+               "fused_compositing_bwd"),
+    128 + C2F_NI: ("fused_nerf_eval", "fused_nerf_train_bwd_static")}
+# the eval CLI's mean test PSNR with `--planar_eval off` against the
+# planar route's, on the c2f checkpoint: the two coarse passes (the bf16
+# plain evaluators, B2's forward) part by bf16 roundings, which move
+# importance draws, but the frames must score alike
+PSNR_C2F_TOL = 0.2
 # the reproducibility runs and the coarse-to-fine scene run train on the
 # scene's first frames: an epoch of 4 x 147456 / 1000 = 589 steps
 C1_FRAMES = 4
@@ -2447,7 +2588,8 @@ def c2f_eval_comp_phase(torch, np, rk, params, rays, ts_all, K, poses,
             args = (pw, o, d, zs, vis, de, None, te)
 
             def plain(args=args, kw=fn.kernel_kw):
-                return b1_plain(torch, rk, args, kw)
+                return plain_by_rays(torch, rk.planar_eval_comp_ref, args,
+                                     kw)
 
             got = rk.planar_eval_comp_cuda(*args, **fn.kernel_kw)
             torch.cuda.synchronize()
@@ -2520,6 +2662,141 @@ def c2f_serving_phase(torch, np, cfg, K, poses, card):
             or float(rgbf.max()) > 1:
         fail("c2f serving: rgb_fine not finite or outside [0, 1]")
     return counts
+
+
+def packed_c2f_phase(torch, np, tcfg, cfg, table, Ks, Ps, K, poses, card):
+    """The packed path's coarse-to-fine (main paths, `--N_importance 64`
+    with `fused_train="off"` / `planar_eval="off"`, the coarse pass on the
+    bf16 plain evaluators): the training recipe with the fused compositor
+    (the fine pass on B4, B5 and B6 at 256), TRAIN_STEPS eager steps and
+    the same steps as one graphed dispatch with hard sampling, equal bit
+    for bit, a repeated batch, one step at batch 64 against the CPU;
+    STATIC_STEPS steps of the static-only model (B4 and B5 at 192) and in
+    float32 (the plain evaluators, no kernel); a 512x288 `render_pose`
+    frame of both towers (B5 at 256), of the static-only model (B5 at
+    192) and in float32. Returns the launches of its runs and the ms per
+    step (eager, graphed)."""
+    from nsff_pl_tpu_torch.apps.serve import RenderService
+    from nsff_pl_tpu_torch.config import build_params
+
+    ran = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            ran[k] = ran.get(k, 0) + v
+
+    pcfg = tcfg.replace(N_importance=C2F_NI, fused_train="off",
+                        fused_compositing=True)
+    counts, graph_counts, ms, graph_ms = training_phase(
+        torch, np, pcfg, table, Ks, Ps, card, label="packed c2f training",
+        per_step=PER_STEP_PACKED_C2F, planar=False, exact=True)
+    add(counts)
+    add(graph_counts)
+    train_agreement(torch, pcfg, table, Ks, Ps, "packed c2f training")
+    for label, scfg, per_step in (
+            ("static-only c2f training", pcfg.replace(encode_t=False),
+             PER_STEP_STATIC_C2F),
+            ("float32 c2f training", pcfg.replace(dtype="float32"), {})):
+        counts, graph_counts, _, _ = training_phase(
+            torch, np, scfg, table, Ks, Ps, card, label=label,
+            per_step=per_step, planar=False, steps=STATIC_STEPS,
+            repeat=False)
+        add(counts)
+        add(graph_counts)
+
+    n_chunks = -(-W_IMG * H_IMG // CHUNK)
+    ccfg = cfg.replace(N_importance=C2F_NI, planar_eval="off")
+    frames = {}
+    for label, scfg, expected in (
+            ("both towers", ccfg, {f"fused_nerf_eval@{C2F_FINE}": 1}),
+            ("static-only", ccfg.replace(encode_t=False),
+             {f"fused_nerf_eval@{128 + C2F_NI}": 1}),
+            ("float32", ccfg.replace(dtype="float32"), {})):
+        params = build_params(scfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+        svc = RenderService(params, K, poses, (W_IMG, H_IMG), scfg,
+                            chunk=CHUNK, device="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rgb, depth = svc.render_pose(3)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        add(counts)
+        print(f"packed c2f serving [{label}]: one {W_IMG}x{H_IMG} frame "
+              f"(N_importance {C2F_NI}) in {secs:.6f} s, launches "
+              + json.dumps({k: v for k, v in counts.items() if v})
+              + f" on {card}", flush=True)
+        check_counts(counts, expected, n_chunks, f"packed c2f serving "
+                     f"[{label}]")
+        if rgb.shape != (H_IMG, W_IMG, 3) or depth.shape != (H_IMG, W_IMG) \
+                or not np.isfinite(depth).all():
+            fail(f"packed c2f serving [{label}]: bad frame")
+        maps = svc.render_maps(3)
+        rgbf = maps["rgb_fine"]
+        if not bool(torch.isfinite(rgbf).all()) or float(rgbf.min()) < 0 \
+                or float(rgbf.max()) > 1:
+            fail(f"packed c2f serving [{label}]: rgb_fine not finite or "
+                 "outside [0, 1]")
+        frames[label] = maps
+        del svc, params
+    err = max(float((frames["float32"][k] - frames["both towers"][k])
+                    .abs().max()) for k in ("rgb_fine", "depth_fine"))
+    print(f"packed c2f serving: the float32 frame against the bfloat16 "
+          f"frame of the same seeded weights: rgb / depth max abs err "
+          f"{err:.3e} (tol {F32_TOL})", flush=True)
+    if not err <= F32_TOL:
+        fail("packed c2f serving: float32 disagrees with bfloat16")
+    torch.cuda.empty_cache()
+    return ran, ms, graph_ms
+
+
+def b5_on_eval_path(torch, rep, label, vis):
+    """B5 on the inputs an eval path gives it (the first chunk of frame 0,
+    trained weights; `vis`: with the frame's visibility culling) against
+    its plain version, held as B2's forward: at most PACKED_SHARE of the
+    rows off by more than 1e-5, per column its distance to the unrounded
+    model at most EXACT_MEAN times the plain version's on average and
+    EXACT_MAX times at its largest, the same bits with the rays reversed.
+    Returns its largest abs error."""
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.training.step import equal_chunks
+
+    data, params = rep.dataset, rep.params
+    item = data.test_item(0, targets=())
+    rows = slice(0, equal_chunks(W_IMG * H_IMG, CHUNK)[1])
+    extra = ((torch.as_tensor(data.poses[0:1], dtype=torch.float32,
+                              device="cuda"),
+              torch.as_tensor(data.K, device="cuda")) if vis else ())
+    calls = kept_calls(
+        lambda: rep.render(params, item["rays"][rows], item["ts"][rows],
+                           *extra), ((mk, "fused_nerf_eval_cuda"),))
+    ((a, kw, got),) = calls["fused_nerf_eval_cuda"]
+    S = a[1].shape[1]
+    want = packed_plain_eval(torch, mk, a, kw, S)
+    if not bool(torch.isfinite(got).all()):
+        fail(f"eval {label}: B5's output not finite")
+    err = (got - want).abs()
+    worst = float(err.max())
+    share = float((err.amax(-1) > 1e-5).float().mean())
+    del err
+    r_mean, r_max = unrounded_ratios(
+        got, want, unrounded(torch, mk.fused_nerf_eval_ref, a, kw, 0),
+        (0, 1))
+    same = torch.equal(reversed_rays(torch, mk.fused_nerf_eval_cuda, a, kw,
+                                     0), got)
+    print(f"eval {label}: kernel fused_nerf_eval on the packed route's "
+          f"inputs ({a[1].shape[0]} rays x {S} samples, trained weights): "
+          f"max abs err {worst:.3e}, rows off by > 1e-5 {share:.4f} (tol "
+          f"{PACKED_SHARE}); its distance to the unrounded model over the "
+          f"plain version's: mean {r_mean:.3f}, largest {r_max:.3f} per "
+          f"column at worst (tol {EXACT_MEAN}, {EXACT_MAX}); the same bits "
+          f"with the rays reversed: {same}", flush=True)
+    if share > PACKED_SHARE or r_mean > EXACT_MEAN or r_max > EXACT_MAX:
+        fail(f"eval {label}: B5 disagrees with its plain version")
+    if not same:
+        fail(f"eval {label}: B5 depends on a ray's place")
+    return worst
 
 
 def _train_state(torch, system):
@@ -2600,9 +2877,15 @@ def c1_phase(torch, np, card):
 
 
 def graphed_equals_loop(torch, np, render, params, data, frames, vis):
-    """Each frame rendered as one graph replay and by the host loop:
-    the largest difference over rgb and depth."""
-    from nsff_pl_tpu_torch.training.step import render_full_image
+    """Each frame rendered as one graph replay and by the host loop at
+    the graph's equal chunk size: the largest difference over rgb and
+    depth. (The packed route's coarse pass runs cuBLAS GEMMs, whose bits
+    depend on their row count: the host loop's default 32768-ray chunks
+    give other bits than the graph's 29696-ray ones.)"""
+    from nsff_pl_tpu_torch.training.step import (equal_chunks,
+                                                 render_full_image)
+
+    chunk = equal_chunks(W_IMG * H_IMG, CHUNK)[1]
 
     errs = []
     for i in frames:
@@ -2613,22 +2896,14 @@ def graphed_equals_loop(torch, np, render, params, data, frames, vis):
                "vis_K": torch.as_tensor(data.K, device="cuda")}
               if vis else {})
         outs = [render_full_image(render, params, item["rays"], item["ts"],
-                                  chunk=CHUNK, scan_chunks=scan, **kw)
+                                  chunk=CHUNK if scan else chunk,
+                                  scan_chunks=scan, **kw)
                 for scan in (True, False)]
         for k in ("rgb_fine", "depth_fine"):
             if not bool(torch.isfinite(outs[0][k]).all()):
                 fail(f"a coarse-to-fine frame's {k} is not finite")
             errs.append(float((outs[0][k] - outs[1][k]).abs().max()))
     return max(errs)
-
-
-def b1_plain(torch, rk, args, kw, rays=4096):
-    """B1's plain version, `rays` rays at a time (each ray's row is its
-    own; a whole chunk's activations at 256 samples would take ~50 GB)."""
-    n = args[1].shape[0]
-    return torch.cat([rk.planar_eval_comp_ref(*(
-        x[i:i + rays] if torch.is_tensor(x) and x.shape[0] == n else x
-        for x in args), **kw) for i in range(0, n, rays)])
 
 
 def b1_on_eval_path(torch, rep, label):
@@ -2653,7 +2928,7 @@ def b1_on_eval_path(torch, rep, label):
                            torch.as_tensor(data.K, device="cuda")),
         ((rk, "planar_eval_comp_cuda"),))
     ((a, kw, got),) = calls["planar_eval_comp_cuda"]
-    want = b1_plain(torch, rk, a, kw)
+    want = plain_by_rays(torch, rk.planar_eval_comp_ref, a, kw)
     if not bool(torch.isfinite(got).all()):
         fail(f"eval {label}: B1's output not finite")
     err = float((got - want).abs().max())
@@ -2683,11 +2958,15 @@ def c2f_scene_phase(torch, np, card):
     eval CLI on its checkpoint: the test split on the static tower (B1
     at 192), with `--output_transient` (B1 at 256) and
     test_fixview0_interp4 (the planes route: B2's forward and B3 at 256),
-    each after the coarse evaluation at 128; every frame of the test
+    each after the coarse evaluation at 128; the two test splits again
+    with `--planar_eval off` (the coarse pass on the bf16 plain
+    evaluators, B5 at 192 and 256), each split's mean PSNR within
+    PSNR_C2F_TOL of the planar route's; every frame of the test
     splits, and frame 0 of the interpolation, rendered as one graph
-    replay equal to the host loop within GRAPH_TOL; B1 on each test
-    split's inputs against its plain version (`b1_on_eval_path`). Returns
-    the launches the card ran and B1's largest error by record name."""
+    replay equal to the host loop within GRAPH_TOL; B1 and B5 on each
+    test split's inputs against their plain versions (`b1_on_eval_path`,
+    `b5_on_eval_path`). Returns the launches the card ran and each
+    kernel's largest error by record name."""
     import os
 
     from nsff_pl_tpu_torch.apps.train import cli
@@ -2724,6 +3003,7 @@ def c2f_scene_phase(torch, np, card):
     os.makedirs(EVAL_DIR, exist_ok=True)
     here = os.getcwd()
     os.chdir(EVAL_DIR)
+    psnr = {}
     try:
         for label, more, expected, vis in (
                 ("c2f test (static tower)", ["--scene_name", "c2f_static"],
@@ -2732,7 +3012,14 @@ def c2f_scene_phase(torch, np, card):
                 ("c2f test --output_transient",
                  ["--output_transient", "--scene_name", "c2f_both"],
                  {f"planar_eval_comp@{C2F_FINE}": 1,
-                  "planar_nerf_train_fwd": 1}, True)):
+                  "planar_nerf_train_fwd": 1}, True),
+                ("c2f test --planar_eval off (static tower)",
+                 ["--planar_eval", "off", "--scene_name", "c2f_static_packed"],
+                 {f"fused_nerf_eval@{128 + C2F_NI}": 1}, False),
+                ("c2f test --planar_eval off --output_transient",
+                 ["--planar_eval", "off", "--output_transient",
+                  "--scene_name", "c2f_both_packed"],
+                 {f"fused_nerf_eval@{C2F_FINE}": 1}, True)):
             rep, ran, g = eval_split(
                 torch, np, card, label, base + ["--split", "test"] + more,
                 expected, C1_FRAMES)
@@ -2746,9 +3033,22 @@ def c2f_scene_phase(torch, np, card):
             if err > GRAPH_TOL:
                 fail(f"eval {label}: graphed frames differ from the host "
                      "loop's")
-            name = at_samples("planar_eval_comp",
-                              C2F_FINE if vis else 128 + C2F_NI)
-            errs[name] = b1_on_eval_path(torch, rep, label)
+            S = C2F_FINE if vis else 128 + C2F_NI
+            psnr[label] = float(np.nanmean(rep.psnr[:, 0]))
+            if "--planar_eval off" in label:
+                errs[at_samples("fused_nerf_eval", S)] = b5_on_eval_path(
+                    torch, rep, label, vis)
+                planar = label.replace(" --planar_eval off", "")
+                gap = psnr[label] - psnr[planar]
+                print(f"eval {label}: mean PSNR {psnr[label]:.4f} dB "
+                      f"against the planar route's {psnr[planar]:.4f} dB: "
+                      f"{gap:+.4f} dB (tol {PSNR_C2F_TOL})", flush=True)
+                if not abs(gap) <= PSNR_C2F_TOL:
+                    fail(f"eval {label}: the packed route's PSNR parts from "
+                         "the planar route's")
+            else:
+                errs[at_samples("planar_eval_comp", S)] = b1_on_eval_path(
+                    torch, rep, label)
             del rep
         rep, ran, g = eval_split(
             torch, np, card, "c2f test_fixview0_interp4",
@@ -2888,6 +3188,13 @@ def main() -> int:
     c2f_train_records = {S: train_kernel_phase(torch, np, rk, tck, params,
                                                rays, card, S=S)
                          for S in (C2F_FINE, 128 + C2F_NI)}
+    torch.cuda.empty_cache()
+    # B4, B5 and B6 at the packed c2f fine pass's sample counts
+    # (at 192 the main paths run the static tower alone)
+    packed_c2f_records = {S: packed_kernel_phase(
+        torch, np, params, rays, card, S=S,
+        main_case="full" if S == C2F_FINE else "static only")
+        for S in (C2F_FINE, 128 + C2F_NI)}
     torch.cuda.empty_cache()
     phase_s["c2f kernels"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -3039,12 +3346,36 @@ def main() -> int:
     add_c2f(c2f_serving_phase(torch, np, cfg, K, poses, card))
     phase_s["c2f training and serving"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    scene_c2f_ran, b1_errs = c2f_scene_phase(torch, np, card)
+    scene_c2f_ran, path_errs = c2f_scene_phase(torch, np, card)
     add_c2f(scene_c2f_ran)
-    for name, err in b1_errs.items():  # B1 on the c2f eval paths' inputs
-        c2f_records[name]["max_abs_err"] = max(
-            c2f_records[name]["max_abs_err"], err)
+    for name, err in path_errs.items():  # B1 / B5 on the c2f eval inputs
+        rec = (c2f_records.get(name) or packed_c2f_records[
+            int(name.split("@")[1])][name])
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
     phase_s["c2f scene and eval"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- packed coarse-to-fine (main paths) ----------------
+    packed_c2f_ran, pc2f_ms, pc2f_graph_ms = packed_c2f_phase(
+        torch, np, tcfg, cfg, table, Ks, Ps, K, poses, card)
+    add_c2f(packed_c2f_ran)
+    print(f"packed c2f training: {pc2f_ms:.3f} ms per step eager, "
+          f"{pc2f_graph_ms:.3f} ms graphed, against {c2f_ms:.3f} / "
+          f"{c2f_graph_ms:.3f} ms on the planar c2f path in this run",
+          flush=True)
+    # the packed c2f paths' records: the kernels those paths run at each
+    # sample count, each launched by them
+    packed_c2f_line = []
+    for S, names in PACKED_C2F_KERNELS.items():
+        for name in names:
+            rec = packed_c2f_records[S][at_samples(name, S)]
+            rec["launches"] = c2f_ran.get(rec["name"], 0)
+            if rec["launches"] == 0:
+                fail(f"{rec['name']}: no launch on the packed c2f paths")
+            packed_c2f_line.append(rec)
+    for name, rec in packed_records.items():
+        rec["launches"] += c2f_ran.get(name, 0)
+    phase_s["packed c2f"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     # each record's launches: at its sample count; the coarse passes (S =
     # 128) go to the S = 128 records
@@ -3093,7 +3424,8 @@ def main() -> int:
     print(json.dumps({"kernels": [record] + list(train_records.values())
                       + list(packed_records.values())
                       + [r for S in (C2F_FINE, 128 + C2F_NI)
-                         for r in by_s[S].values()]}), flush=True)
+                         for r in by_s[S].values()]
+                      + packed_c2f_line}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

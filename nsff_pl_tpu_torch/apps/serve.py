@@ -16,7 +16,9 @@ written by `training/checkpoint.py::save`:
 planar composited evaluator, or with `--planar_eval off` the packed
 evaluator and compositing outside it. `--dtype float32` renders on the
 plain f32 evaluators. `--N_importance` > 0 (coarse-to-fine: the
-parameters hold `nerf_coarse`) renders on the planar path only.
+parameters hold `nerf_coarse`) renders on either path, its coarse pass on
+the planar evaluator's forward or, on the packed path, on the plain
+evaluators in the compute dtype.
 
 Endpoints:
     GET  /health  -> {"status": "ok"}

@@ -21,14 +21,16 @@
 // Bound: bytes (a few dozen flops per sample; it reads 32 of each packed
 // row's 64 bytes, three planes, and writes seven planes, or reads seven
 // more and writes the 64-byte cotangent rows). At the training batch (512
-// rays) the whole call moves ~5 MB, so it is a latency problem: four warps
-// per ray, one sample per thread (2048 warps at 512 rays, ~16 per SM,
-// where one warp per ray gave four), two rays per CTA (256 threads:
-// measured on an H100 against one and four rays a CTA, it was the fastest
-// by the stopwatch of a graph replay at 512 rays and no slower at 8192),
-// every global load issued before any arithmetic (one memory round trip), and
-// the scans as warp shuffles joined across a ray's four warps through
-// shared memory:
+// rays) the whole call moves ~5 MB (S = 128), so it is a latency problem:
+// NS / 32 warps per ray for NS = 64, 128, 192 or 256 samples (a template
+// argument), one sample per thread (2048 warps at 512 rays and 128
+// samples, ~16 per SM, where one warp per ray gave four), two rays per CTA
+// (four at 64 samples; at most 512 threads; at 128 samples two rays, 256
+// threads, were measured on an H100 against one and four rays a CTA the
+// fastest by the stopwatch of a graph replay at 512 rays and no slower at
+// 8192), every global load issued before any arithmetic (one memory round
+// trip), and the scans as warp shuffles joined across a ray's warps
+// through shared memory:
 //   - products (transmittance): inclusive Hillis-Steele within the warp,
 //     exclusive by a shift, times the product of the earlier warps'
 //     totals taken in warp order;
@@ -52,10 +54,17 @@ namespace {
 
 constexpr int NCOL = 16;   // columns of a packed row
 constexpr int NPLANE = 7;  // output planes
-constexpr int NWARP = S / 32;  // warps per ray (one sample per thread)
-constexpr int RAYS = 2;        // rays per CTA
-constexpr int NTHR = RAYS * S;
 constexpr unsigned FULL = 0xffffffffu;
+
+// the launch geometry of NS samples a ray: NS / 32 warps a ray (one
+// sample per thread), RAYS rays a CTA
+template <int NS>
+struct Geo {
+  static constexpr int NWARP = NS / 32;
+  static constexpr int RAYS = NS <= 64 ? 4 : 2;
+  static constexpr int NTHR = RAYS * NS;
+  static_assert(NS % 32 == 0 && NTHR <= 512, "NS: 64, 128, 192 or 256");
+};
 constexpr float TINY = 1e-37f;
 
 // output planes / their cotangents
@@ -75,7 +84,9 @@ __device__ __forceinline__ float ld(const float* p, size_t i) {
   return p != nullptr ? __ldg(p + i) : 0.f;
 }
 
-// prod_{i < s} x_i over the ray; `tot` holds NWARP floats of shared memory
+// prod_{i < s} x_i over the ray; `tot` holds the ray's NWARP floats of
+// shared memory
+template <int NWARP>
 __device__ __forceinline__ float block_excl_cumprod(float x, int lane, int w,
                                                     float* tot) {
   float inc = x;
@@ -94,6 +105,7 @@ __device__ __forceinline__ float block_excl_cumprod(float x, int lane, int w,
 }
 
 // sum_{i > s} x_i over the ray, directly; `tot` as above
+template <int NWARP>
 __device__ __forceinline__ float block_rev_excl_cumsum(float x, int lane,
                                                        int w, float* tot) {
   float inc = __shfl_down_sync(FULL, x, 1);
@@ -117,20 +129,21 @@ struct Sample {
 };
 
 // the ray's sample s: every load is issued before the first use
+template <int NS>
 __device__ __forceinline__ Sample load_sample(const Args& A, int ray, int s) {
   // a CTA's rays past the last load the last one's and store nothing
   Sample k;
-  const size_t i = size_t(ray) * S + s;
+  const size_t i = size_t(ray) * NS + s;
   const float4* row = reinterpret_cast<const float4*>(A.packed + i * NCOL);
   k.c0 = __ldg(row);
   k.c1 = __ldg(row + 1);
   k.z = __ldg(A.zs + i);
-  const float zn = s < S - 1 ? __ldg(A.zs + i + 1) : 0.f;
+  const float zn = s < NS - 1 ? __ldg(A.zs + i + 1) : 0.f;
   k.ns = __ldg(A.ns + i);
   k.nt = __ldg(A.nt + i);
   const float dz = zn - k.z;
-  k.ds = s == S - 1 ? STATIC_FAR_DELTA : dz;
-  k.dt = s == S - 1 ? TRANSIENT_FAR_DELTA : dz;
+  k.ds = s == NS - 1 ? STATIC_FAR_DELTA : dz;
+  k.dt = s == NS - 1 ? TRANSIENT_FAR_DELTA : dz;
   return k;
 }
 
@@ -148,26 +161,29 @@ struct Slot {
   bool on;
 };
 
+template <int NS>
 __device__ __forceinline__ Slot slot(int n_rays) {
   Slot t;
-  t.r = threadIdx.x / S;
-  t.s = threadIdx.x % S;
+  t.r = threadIdx.x / NS;
+  t.s = threadIdx.x % NS;
   t.lane = t.s & 31;
   t.w = t.s >> 5;
-  t.ray = blockIdx.x * RAYS + t.r;
+  t.ray = blockIdx.x * Geo<NS>::RAYS + t.r;
   t.on = t.ray < n_rays;
   if (!t.on) t.ray = n_rays - 1;
   return t;
 }
 
-__global__ void __launch_bounds__(NTHR) fused_comp_fwd_kernel(const Args A,
-                                                              int n_rays) {
+template <int NS>
+__global__ void __launch_bounds__(Geo<NS>::NTHR) fused_comp_fwd_kernel(const Args A,
+                                                                      int n_rays) {
+  constexpr int RAYS = Geo<NS>::RAYS, NWARP = Geo<NS>::NWARP;
   __shared__ float tot[RAYS][NWARP];
   __shared__ float part[RAYS][NWARP][4];
-  const Slot t = slot(n_rays);
-  Sample k = load_sample(A, t.ray, t.s);
+  const Slot t = slot<NS>(n_rays);
+  Sample k = load_sample<NS>(A, t.ray, t.s);
   alphas(k);
-  k.T = block_excl_cumprod(1.f - k.alpha, t.lane, t.w, tot[t.r]);
+  k.T = block_excl_cumprod<NWARP>(1.f - k.alpha, t.lane, t.w, tot[t.r]);
   const float w_s = k.a_s * k.T, w_t = k.a_t * k.T, wgt = k.alpha * k.T;
   float m[4] = {w_s * k.c0.x + w_t * k.c1.x, w_s * k.c0.y + w_t * k.c1.y,
                 w_s * k.c0.z + w_t * k.c1.z, wgt * k.z};
@@ -177,7 +193,7 @@ __global__ void __launch_bounds__(NTHR) fused_comp_fwd_kernel(const Args A,
     if (t.lane == 0) part[t.r][t.w][c] = m[c];
   }
   if (t.on) {
-    const size_t i = size_t(t.ray) * S + t.s;
+    const size_t i = size_t(t.ray) * NS + t.s;
     A.out[O_SS][i] = k.s_s;
     A.out[O_ST][i] = k.s_t;
     A.out[O_AS][i] = k.a_s;
@@ -194,21 +210,23 @@ __global__ void __launch_bounds__(NTHR) fused_comp_fwd_kernel(const Args A,
   }
 }
 
-__global__ void __launch_bounds__(NTHR) fused_comp_bwd_kernel(const Args A,
-                                                              int n_rays) {
+template <int NS>
+__global__ void __launch_bounds__(Geo<NS>::NTHR) fused_comp_bwd_kernel(const Args A,
+                                                                      int n_rays) {
+  constexpr int RAYS = Geo<NS>::RAYS, NWARP = Geo<NS>::NWARP;
   __shared__ float tot[RAYS][NWARP];
   __shared__ float tot2[RAYS][NWARP];
   __shared__ __align__(16) float4 stage[RAYS * NWARP][64];
-  const Slot t = slot(n_rays);
-  const size_t i = size_t(t.ray) * S + t.s;
-  Sample k = load_sample(A, t.ray, t.s);
+  const Slot t = slot<NS>(n_rays);
+  const size_t i = size_t(t.ray) * NS + t.s;
+  Sample k = load_sample<NS>(A, t.ray, t.s);
   float g[NPLANE], gm[4];
 #pragma unroll
   for (int p = 0; p < NPLANE; ++p) g[p] = ld(A.g[p], i);
 #pragma unroll
   for (int c = 0; c < 4; ++c) gm[c] = ld(A.gmap, size_t(t.ray) * 4 + c);
   alphas(k);
-  k.T = block_excl_cumprod(1.f - k.alpha, t.lane, t.w, tot[t.r]);
+  k.T = block_excl_cumprod<NWARP>(1.f - k.alpha, t.lane, t.w, tot[t.r]);
 
   // the rgb and depth map adjoints fold into the weight cotangents
   const float sr[3] = {k.c0.x, k.c0.y, k.c0.z};
@@ -221,8 +239,8 @@ __global__ void __launch_bounds__(NTHR) fused_comp_bwd_kernel(const Args A,
   }
   const float g_w = g[O_W] + gm[3] * k.z;
   const float g_T = g_ws * k.a_s + g_wt * k.a_t + g_w * k.alpha;
-  const float trail = block_rev_excl_cumsum(g_T * k.T, t.lane, t.w,
-                                            tot2[t.r]);
+  const float trail = block_rev_excl_cumsum<NWARP>(g_T * k.T, t.lane, t.w,
+                                                   tot2[t.r]);
   const float g_alpha = g_w * k.T - trail / fmaxf(1.f - k.alpha, TINY);
   const float g_as = g_ws * k.T + g_alpha * (1.f - k.a_t) + g[O_AS];
   const float g_at = g_wt * k.T + g_alpha * (1.f - k.a_s) + g[O_AT];
@@ -239,11 +257,33 @@ __global__ void __launch_bounds__(NTHR) fused_comp_bwd_kernel(const Args A,
   __syncwarp();
   if (!t.on) return;
   float4* rows = reinterpret_cast<float4*>(
-      A.dpacked + (size_t(t.ray) * S + t.w * 32) * NCOL);
+      A.dpacked + (size_t(t.ray) * NS + t.w * 32) * NCOL);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int q = j * 32 + t.lane, row = q >> 2, c4 = q & 3;
     rows[q] = c4 < 2 ? tile[2 * row + c4] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// one launch of the forward (fwd) or adjoint kernel at NS samples a ray
+template <int NS>
+cudaError_t launch(bool fwd, const Args& A, int n_rays, cudaStream_t s) {
+  const int grid = (n_rays + Geo<NS>::RAYS - 1) / Geo<NS>::RAYS;
+  if (fwd)
+    fused_comp_fwd_kernel<NS><<<grid, Geo<NS>::NTHR, 0, s>>>(A, n_rays);
+  else
+    fused_comp_bwd_kernel<NS><<<grid, Geo<NS>::NTHR, 0, s>>>(A, n_rays);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_s(bool fwd, const Args& A, int n_rays, int n_samples,
+                     cudaStream_t s) {
+  switch (n_samples) {
+    case 64: return launch<64>(fwd, A, n_rays, s);
+    case 128: return launch<128>(fwd, A, n_rays, s);
+    case 192: return launch<192>(fwd, A, n_rays, s);
+    case 256: return launch<256>(fwd, A, n_rays, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -262,24 +302,21 @@ Args make_args(const void* packed, const void* zs, const void* ns,
 extern "C" int nsff_fused_comp_fwd(const void* packed, const void* zs,
                                    const void* ns, const void* nt,
                                    void* const* outs, void* maps, int n_rays,
-                                   void* stream) {
+                                   int n_samples, void* stream) {
   Args A = make_args(packed, zs, ns, nt);
   for (int i = 0; i < NPLANE; ++i) A.out[i] = static_cast<float*>(outs[i]);
   A.maps = static_cast<float*>(maps);
-  fused_comp_fwd_kernel<<<(n_rays + RAYS - 1) / RAYS, NTHR, 0,
-                          static_cast<cudaStream_t>(stream)>>>(A, n_rays);
-  return int(cudaGetLastError());
+  return int(launch_s(true, A, n_rays, n_samples, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int nsff_fused_comp_bwd(const void* packed, const void* zs,
                                    const void* ns, const void* nt,
                                    const void* const* g, const void* gmap,
-                                   void* dpacked, int n_rays, void* stream) {
+                                   void* dpacked, int n_rays, int n_samples,
+                                   void* stream) {
   Args A = make_args(packed, zs, ns, nt);
   for (int i = 0; i < NPLANE; ++i) A.g[i] = static_cast<const float*>(g[i]);
   A.gmap = static_cast<const float*>(gmap);
   A.dpacked = static_cast<float*>(dpacked);
-  fused_comp_bwd_kernel<<<(n_rays + RAYS - 1) / RAYS, NTHR, 0,
-                          static_cast<cudaStream_t>(stream)>>>(A, n_rays);
-  return int(cudaGetLastError());
+  return int(launch_s(false, A, n_rays, n_samples, static_cast<cudaStream_t>(stream)));
 }

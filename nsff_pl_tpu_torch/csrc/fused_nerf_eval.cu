@@ -19,17 +19,23 @@
 // in f32.
 //
 // Bound: operations (about 1.2 M MACs, 2.4 MFLOP, per sample against 12
-// input and 64 output bytes; 10.2 ms per 32768-ray chunk at 989 TFLOP/s).
+// input and 64 output bytes; 10.2 ms per 32768-ray chunk of 128 samples at
+// 989 TFLOP/s).
 //
 // Design: the wgmma tower of tower_wgmma.cuh, as in planar_eval_comp.cu:
-// one CTA of two consumer warpgroups (64 samples each, wgmma m64n256k16 on
-// the ray's tiles in shared memory, epilogues in place from the
-// accumulators, the narrow heads folded into the epilogues that feed them)
-// and a producer warpgroup (one thread streams the weight K-slabs through
-// TMA into a 6-stage ring, three warps stage the parameters and the
-// static_dir bias). The ray's 128 points are staged in shared memory for
-// the posenc tile; each warpgroup writes its 64 rows of the (128, 16)
-// tile, 4 KB contiguous, with coalesced stores, zeros included. The
+// one CTA per (ray, tile of 128 samples) of two consumer warpgroups (64
+// samples each, wgmma m64n256k16 on the tile in shared memory, epilogues
+// in place from the accumulators, the narrow heads folded into the
+// epilogues that feed them) and a producer warpgroup (one thread streams
+// the weight K-slabs through TMA into a 6-stage ring, three warps stage
+// the parameters and the ray's static_dir bias, recomputed for each of
+// its tiles). A ray of S = 64, 128, 192 or 256 samples is ceil(S / 128)
+// tiles; the rows past S of a half-used last tile repeat the ray's last
+// point, are computed by both warpgroups (an idle warpgroup was measured
+// slower in B1) and are not written. The tile's points are staged in
+// shared memory for the posenc tile; each warpgroup writes its rows of
+// the (128, 16) tile, up to 4 KB contiguous, with coalesced stores, zeros
+// included. The
 // transient heads matrix is always 10 wide [sigma, rgb, fw, bw]; has_fw /
 // has_bw choose the columns written.
 // What bounds it now: as planar_eval_comp.cu, the epilogues that the
@@ -73,7 +79,10 @@ fused_eval_kernel(const __grid_constant__ Params P) {
   if (tid == 0) wg::init_ring(wg::saddr(sm + wg::OFF_BAR));
   __syncthreads();
 
-  const int ray = blockIdx.x;
+  // one CTA per (ray, tile): rows s0.. of the ray, nv of them real
+  const int ray = blockIdx.x / A.n_tiles;
+  const int s0 = (blockIdx.x % A.n_tiles) * S, nv = min(S, A.n_samples - s0);
+  const size_t row0 = size_t(ray) * A.n_samples + s0;
   const bool dir = STATIC && A.use_viewdir;
   if (tid >= wg::NCONS) {
     // producer warpgroup: the weight slabs, the parameters, the dir bias
@@ -87,7 +96,8 @@ fused_eval_kernel(const __grid_constant__ Params P) {
   const float* s_sig = pl + wg::PL_SSIG * S;
   float* pts = reinterpret_cast<float*>(sm + wg::OFF_EXTRA);  // (S, 3)
 
-  for (int e = tid; e < 3 * S; e += wg::NCONS) pts[e] = A.xyz[size_t(ray) * S * 3 + e];
+  for (int e = tid; e < 3 * S; e += wg::NCONS)
+    pts[e] = A.xyz[(row0 + min(e / 3, nv - 1)) * 3 + e % 3];
   wg::consumers_sync();
   // posenc tile (+ the time latent for the transient tower)
   wg::posenc_tile<wg::PE_PTS>(sm + wg::OFF_PE, A.freqs, A.xyz_w,
@@ -98,13 +108,14 @@ fused_eval_kernel(const __grid_constant__ Params P) {
   wg::run_towers<STATIC, TRANS>(sm, dir);
   const int g = tid >> 7;
 
-  // ---- this warpgroup's 64 rows of the packed tile ----
+  // ---- this warpgroup's real rows (of its 64) of the packed tile ----
   {
     // head column behind each flow slot of the packed row (-1: none)
     const int flow0 = F.has_fw ? 4 : (F.has_bw ? 7 : -1);
     const int flow1 = (F.has_fw && F.has_bw) ? 7 : -1;
-    float* out = F.out + (size_t(ray) * S + 64 * g) * NCOL;
-    for (int e = tid & 127; e < 64 * NCOL; e += 128) {
+    const int nrow = max(0, min(64, nv - 64 * g));
+    float* out = F.out + (row0 + 64 * g) * NCOL;
+    for (int e = tid & 127; e < nrow * NCOL; e += 128) {
       const int s = 64 * g + e / NCOL, c = e % NCOL;
       float v = 0.f;
       if (c < 4) {
@@ -129,11 +140,11 @@ fused_eval_kernel(const __grid_constant__ Params P) {
 extern "C" int nsff_fused_eval(
     const void* xyz, const void* dir, const void* a, const void* t,
     const void* const* w, const void* const* b, void* out, int n_rays,
-    int xyz_w, int dir_w, int n_a, const float* freqs, int n_freqs,
+    int n_samples, int xyz_w, int dir_w, int n_a, const float* freqs, int n_freqs,
     int static_branch, int encode_t, int use_viewdir, int encode_a,
     int has_fw, int has_bw, float flow_scale, int n_tau, void* stream) {
   if (n_freqs > MAXF || xyz_w + n_tau > SEG || (!static_branch && !encode_t) ||
-      xyz == nullptr)
+      xyz == nullptr || !samples_ok(n_samples))
     return int(cudaErrorInvalidValue);
   Params P;
   memset(&P, 0, sizeof(P));
@@ -141,6 +152,9 @@ extern "C" int nsff_fused_eval(
   fill_common(F.c, nullptr, nullptr, nullptr, xyz, dir, a, t, nullptr, w, b,
               n_rays, xyz_w, dir_w, n_a, freqs, n_freqs, use_viewdir, encode_a,
               flow_scale, n_tau);
+  F.c.n_samples = n_samples;
+  F.c.n_tiles = tiles_of(n_samples);
+  const int n_ctas = n_rays * F.c.n_tiles;
   // only the evaluated branches get tensor maps
   if (!static_branch)
     for (int i = W_S0; i < W_T0; ++i) F.c.W[i] = nullptr;
@@ -153,7 +167,7 @@ extern "C" int nsff_fused_eval(
   if (!wg::encode_maps(P.maps, F.c.W)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (static_branch && encode_t)
-    return int(wg::launch(fused_eval_kernel<true, true>, P, n_rays, s));
-  if (static_branch) return int(wg::launch(fused_eval_kernel<true, false>, P, n_rays, s));
-  return int(wg::launch(fused_eval_kernel<false, true>, P, n_rays, s));
+    return int(wg::launch(fused_eval_kernel<true, true>, P, n_ctas, s));
+  if (static_branch) return int(wg::launch(fused_eval_kernel<true, false>, P, n_ctas, s));
+  return int(wg::launch(fused_eval_kernel<false, true>, P, n_ctas, s));
 }

@@ -23,9 +23,14 @@
 // Bound: operations (recompute, data gradient and weight gradient of every
 // layer: about 3.6 MFLOP per sample). Design: csrc/tower_bwd_wgmma.cuh,
 // shared with planar_nerf_train.cu: a wgmma + TMA chain kernel with one CTA
-// per ray (activations and cotangents through a global scratch buffer), a
-// wgmma split-K dW GEMM and fixed-order reductions, so the gradients are
-// the same bits on every run (no atomics). The packed cotangent is read
+// per (ray, tile of 128 samples) (activations and cotangents through a
+// global scratch buffer), a wgmma split-K dW GEMM over the units' rows and
+// fixed-order reductions, so the gradients are the same bits on every run
+// (no atomics). A ray of S = 64, 128, 192 or 256 samples is ceil(S / 128)
+// units; the rows past S of a half-used last tile repeat the ray's last
+// point and get zero cotangent; a ray of several tiles has its d(dir),
+// d(a) and d(t) summed over its tiles in tile order by ray_reduce_kernel,
+// while dxyz stays per sample. The packed cotangent is read
 // column by column with stride 16; a transient call whose output lacks a
 // flow passes no cotangent for that head's columns, which leaves exact
 // zeros in its weight gradient. Without `dxyz` the input-cotangent
@@ -41,29 +46,33 @@ using namespace planar;
 
 extern "C" size_t nsff_fused_train_bwd_scratch_bytes(int static_branch,
                                                      int n_rays,
+                                                     int n_samples,
                                                      int use_viewdir,
                                                      int encode_a) {
-  return bwd_scratch_bytes(static_branch != 0, n_rays, S, use_viewdir, encode_a);
+  return bwd_scratch_bytes(static_branch != 0, n_rays, n_samples, use_viewdir,
+                           encode_a);
 }
 
-// g: (n_rays, S, 16) cotangent of the packed output, whose flow columns
-// 8-10 / 11-13 belong to the heads has_fw / has_bw name (fw first);
-// dxyz: (n_rays, S, 3) or null.
+// g: (n_rays, n_samples, 16) cotangent of the packed output, whose flow
+// columns 8-10 / 11-13 belong to the heads has_fw / has_bw name (fw
+// first); dxyz: (n_rays, n_samples, 3) or null.
 extern "C" int nsff_fused_train_bwd(
     int static_branch, const void* xyz, const void* dir, const void* a,
     const void* t, const void* const* w, const void* const* b, const void* g,
     int has_fw, int has_bw, void* const* dw, void* const* db, void* ddir,
-    void* da, void* dt, void* dxyz, void* scratch, int n_rays, int xyz_w,
+    void* da, void* dt, void* dxyz, void* scratch, int n_rays, int n_samples, int xyz_w,
     int dir_w, int n_a, const float* freqs, int n_freqs, int use_viewdir,
     int encode_a, float flow_scale, int n_tau, void* stream) {
   const bool stat = static_branch != 0;
   if (n_freqs > MAXF || xyz_w + n_tau > SEG || n_rays <= 0 || xyz == nullptr ||
-      g == nullptr)
+      g == nullptr || !samples_ok(n_samples))
     return int(cudaErrorInvalidValue);
   BwdArgs G;
   fill_common(G.c, nullptr, nullptr, nullptr, xyz, dir, a, t, nullptr, w, b,
               n_rays, xyz_w, dir_w, n_a, freqs, n_freqs, stat && use_viewdir,
               stat && encode_a, flow_scale, n_tau);
+  G.c.n_samples = n_samples;
+  G.c.n_tiles = tiles_of(n_samples);
   const float* gp = static_cast<const float*>(g);
   for (int k = 0; k < NHEAD; ++k) G.g[k] = nullptr;
   if (stat) {

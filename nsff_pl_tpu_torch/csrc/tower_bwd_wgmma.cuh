@@ -855,7 +855,8 @@ train_bwd_chain_kernel(const __grid_constant__ ChainParams P) {
 
   // ---- the ray's data and per-ray embeddings ----
   if (packed) {
-    for (int e = tid; e < 3 * S; e += NCONS) fl[e] = A.xyz[size_t(ray) * S * 3 + e];
+    for (int e = tid; e < 3 * S; e += NCONS)
+      fl[e] = A.xyz[(xrow0 + min(e / 3, nv - 1)) * 3 + e % 3];
   } else {
     if (tid < S) {
       const size_t r = xrow0 + min(tid, nv - 1);

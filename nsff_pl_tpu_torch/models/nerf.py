@@ -7,6 +7,12 @@ layer is `x @ w + b` and a JAX params pytree carries over without a
 transpose (`training/checkpoint.py::params_from_jax`). A torch
 `nn.Linear` stores the transpose; this port does not use it.
 
+The towers compute in `compute_dtype` (float32 or bfloat16) with the
+JAX package's casts: the inputs and every tower and feature layer in the
+compute dtype, the sigma / rgb / flow heads in float32 on the features
+cast back (`h.astype(float32)`). On the card the bfloat16 layers are
+`torch.matmul` in bf16, where the JAX package leaves them to XLA.
+
 Topology: static branch D=8, W=256 with the xyz embedding re-concatenated
 at layer 4, sigma from the 8th ReLU feature, rgb from a final linear
 (+ optional viewdir/appearance conditioning); transient branch of the
@@ -37,8 +43,20 @@ def _linear_init(gen: torch.Generator, fan_in: int, fan_out: int):
     return {"w": w, "b": b}
 
 
-def _linear(p, x):
-    return x @ p["w"] + p["b"]
+def _linear(p, x, f32_out: bool = False):
+    """`x @ w + b` in x's dtype, the f32 weights cast to it as the JAX
+    package casts its params to the compute dtype. In bfloat16 the
+    products accumulate in f32 and round once to bf16 (cuBLAS's bf16 GEMM
+    on the card; on the CPU torch's bf16 matmul rounds otherwise, so
+    there the product runs in f32 on the bf16 values and is rounded), then
+    the bf16 bias is added. `f32_out`: the sum is cast to f32 at once, and
+    XLA then adds the bias in f32 without rounding (measured on the CPU
+    against the JAX package's bf16 transient feature)."""
+    w, b = p["w"].to(x.dtype), p["b"].to(x.dtype)
+    if x.dtype != torch.bfloat16:
+        return x @ w + b
+    z = x @ w if x.is_cuda else (x.float() @ w.float()).to(x.dtype)
+    return z.float() + b.float() if f32_out else z + b
 
 
 def init_nerf_params(
@@ -91,6 +109,12 @@ def init_nerf_params(
     return {k: {n: t.to(dev) for n, t in v.items()} for k, v in p.items()}
 
 
+def _wide(h):
+    """A head's input: bf16 features cast to float32, as the JAX package's
+    `h.astype(float32)` (float32 or float64 stay as they are)."""
+    return h.float() if h.dtype == torch.bfloat16 else h
+
+
 def _tower(params: Params, prefix: str, inp, D: int, skips: Sequence[int]):
     """The D-layer ReLU tower with skip re-concatenation."""
     h = inp
@@ -103,20 +127,21 @@ def _tower(params: Params, prefix: str, inp, D: int, skips: Sequence[int]):
 
 def static_forward(params: Params, xyz_emb, dir_emb=None, a_emb=None,
                    sigma_only: bool = False, use_viewdir: bool = True,
-                   D: int = DEFAULT_D, skips: Sequence[int] = DEFAULT_SKIPS):
-    """Static branch in f32. Returns (rgb, sigma_raw), or sigma_raw if
-    `sigma_only`."""
-    h = _tower(params, "static_xyz", xyz_emb, D, skips)
-    sigma = _linear(params["static_sigma"], h)[..., 0]
+                   D: int = DEFAULT_D, skips: Sequence[int] = DEFAULT_SKIPS,
+                   compute_dtype=torch.float32):
+    """Static branch. Returns (rgb, sigma_raw), or sigma_raw if
+    `sigma_only`; both float32 (float64 in a float64 compute dtype)."""
+    h = _tower(params, "static_xyz", xyz_emb.to(compute_dtype), D, skips)
+    sigma = _linear(params["static_sigma"], _wide(h))[..., 0]
     if sigma_only:
         return sigma
     feat = _linear(params["static_xyz_final"], h)
     if use_viewdir:
-        parts = [feat, dir_emb]
+        parts = [feat, dir_emb.to(compute_dtype)]
         if a_emb is not None:
-            parts.append(a_emb)
+            parts.append(a_emb.to(compute_dtype))
         feat = torch.relu(_linear(params["static_dir"], torch.cat(parts, -1)))
-    rgb = torch.sigmoid(_linear(params["static_rgb"], feat))
+    rgb = torch.sigmoid(_linear(params["static_rgb"], _wide(feat)))
     return rgb, sigma
 
 
@@ -124,12 +149,14 @@ def transient_forward(params: Params, xyz_emb, t_emb,
                       output_flow: Tuple[str, ...] = (),
                       sigma_only: bool = False, flow_scale: float = 0.2,
                       D: int = DEFAULT_D,
-                      skips: Sequence[int] = DEFAULT_SKIPS):
-    """Transient branch in f32. Returns a dict with 'sigma' (raw) and,
-    unless `sigma_only`, 'rgb' and the requested 'flow_fw'/'flow_bw'."""
-    h = _tower(params, "transient_xyz", torch.cat([xyz_emb, t_emb], -1),
-               D, skips)
-    feat = _linear(params["transient_xyz_final"], h)
+                      skips: Sequence[int] = DEFAULT_SKIPS,
+                      compute_dtype=torch.float32):
+    """Transient branch. Returns a dict with 'sigma' (raw) and, unless
+    `sigma_only`, 'rgb' and the requested 'flow_fw'/'flow_bw', all
+    float32 (float64 in a float64 compute dtype)."""
+    inp = torch.cat([xyz_emb, t_emb], -1).to(compute_dtype)
+    h = _tower(params, "transient_xyz", inp, D, skips)
+    feat = _linear(params["transient_xyz_final"], h, f32_out=True)
     out = {"sigma": _linear(params["transient_sigma"], feat)[..., 0]}
     if sigma_only:
         return out

@@ -13,10 +13,13 @@ decides so.
 The field evaluation has two backends, as in the JAX package: the
 hand-written kernels (`ops/mlp_kernel.py` at test time,
 `ops/mlp_train_kernel.py` in training, optionally with the fused
-compositor `ops/compositing_kernel.py`) and the plain f32 evaluators of
-`models/nerf.py`. Coarse-to-fine (`N_importance > 0`) is ported on the
-planar paths (`models/raymarch.py`: at test time `render_rays` hands it the
-coarse model); on this packed path it, `mesh` and the `'stub'` train
+compositor `ops/compositing_kernel.py`) and the plain evaluators of
+`models/nerf.py` in the compute dtype (float32 or bfloat16).
+Coarse-to-fine (`N_importance > 0`) runs one `inference` pass of the
+coarse model on the plain evaluators and one of the fine model at the
+sorted union of the stratified depths and the importance draws (the
+planar paths, `models/raymarch.py`, render it too: at test time
+`render_rays` hands it the coarse model). `mesh` and the `'stub'` train
 backend are not ported, and each raises `NotImplementedError` naming its
 ROADMAP.md item.
 
@@ -35,10 +38,11 @@ from nsff_pl_tpu_torch.models import nerf as nerf_m
 from nsff_pl_tpu_torch.ops import compositing as cp
 from nsff_pl_tpu_torch.ops import rays as ray_ops
 from nsff_pl_tpu_torch.ops.posenc import posenc
-from nsff_pl_tpu_torch.ops.sampling import stratified_zs
+from nsff_pl_tpu_torch.ops.sampling import sample_pdf, stratified_zs
 
 Z_FAR = 0.95  # flow is zeroed beyond this NDC depth
-DRAW_KEYS = ("u", "ns", "nt", "nw1", "nw2")
+# sample rows of one plain evaluation in a test render (`_plain_fields`)
+PLAIN_ROWS = 1 << 21
 
 
 @dataclass(frozen=True)
@@ -135,6 +139,81 @@ def _expand(v: torch.Tensor, n_samples: int) -> torch.Tensor:
     return v[:, None, :].expand(v.shape[0], n_samples, v.shape[1])
 
 
+def draw_shapes(cfg: RenderConfig, n: int, *, test_time: bool = False,
+                output_transient: bool = True) -> Dict[str, tuple]:
+    """The random draws of one `render_rays` call, in the order it takes
+    them from a generator: {key: shape}. `output_transient` is the
+    effective one (the model's transient branch evaluated)."""
+    S, ni = cfg.N_samples, cfg.N_importance
+    perturb = 0.0 if test_time else cfg.perturb
+    noise_std = 0.0 if test_time else cfg.noise_std
+    sf = S + (2 if output_transient else 1) * ni if ni > 0 else S
+    shapes = {}
+    if perturb > 0:
+        shapes["u"] = (n, S)
+        if ni > 0:  # the importance draws; evenly spaced when perturb is 0
+            shapes["u_pdf_s"] = (n, ni)
+            if output_transient:
+                shapes["u_pdf_t"] = (n, ni)
+    if noise_std > 0:
+        if ni > 0:
+            shapes.update(ncs=(n, S), nct=(n, S))
+        shapes.update({k: (n, sf) for k in ("ns", "nt", "nw1", "nw2")})
+    return shapes
+
+
+def _plain_block(model, xyz, dir_emb, a_emb, t_emb, cfg: RenderConfig,
+                 flow, sigma_only: bool, dtype) -> Dict[str, torch.Tensor]:
+    """The plain evaluators of `models/nerf.py` at the points xyz
+    (N, S, 3) in the compute dtype: static_rgbs (unless `sigma_only`),
+    static_sigmas_raw and, with `t_emb`, transient_rgbs (unless
+    `sigma_only`), transient_sigmas_raw and flow_<f> for f in `flow`."""
+    S = xyz.shape[1]
+    xyz_emb = posenc(xyz, cfg.S_emb_xyz, cfg.N_emb_xyz)
+    out = {}
+    if sigma_only:
+        out["static_sigmas_raw"] = nerf_m.static_forward(
+            model, xyz_emb, sigma_only=True, use_viewdir=cfg.use_viewdir,
+            compute_dtype=dtype)
+    else:
+        out["static_rgbs"], out["static_sigmas_raw"] = nerf_m.static_forward(
+            model, xyz_emb, _expand(dir_emb, S),
+            _expand(a_emb, S) if a_emb is not None else None,
+            use_viewdir=cfg.use_viewdir, compute_dtype=dtype)
+    if t_emb is not None:
+        tr = nerf_m.transient_forward(
+            model, xyz_emb, _expand(t_emb, S), output_flow=flow,
+            sigma_only=sigma_only, flow_scale=cfg.flow_scale,
+            compute_dtype=dtype)
+        out["transient_sigmas_raw"] = tr["sigma"]
+        if not sigma_only:
+            out["transient_rgbs"] = tr["rgb"]
+            for f in flow:
+                out[f"flow_{f}"] = tr[f"flow_{f}"]
+    return out
+
+
+def _plain_fields(model, xyz, dir_emb, a_emb, t_emb, cfg, flow, sigma_only,
+                  dtype) -> Dict[str, torch.Tensor]:
+    """`_plain_block` over all rays. Without gradient (a test render) it
+    runs PLAIN_ROWS sample rows at a time, so that a chunk's activations
+    stay small: one (N S, 256) f32 activation of a 32768-ray chunk at
+    S = 256 is 8.6 GB."""
+    n, S = xyz.shape[0], xyz.shape[1]
+    if torch.is_grad_enabled() or n * S <= PLAIN_ROWS:
+        return _plain_block(model, xyz, dir_emb, a_emb, t_emb, cfg, flow,
+                            sigma_only, dtype)
+    step = max(1, PLAIN_ROWS // S)
+
+    def part(v, i):
+        return v[i:i + step] if v is not None else None
+
+    parts = [_plain_block(model, xyz[i:i + step], part(dir_emb, i),
+                          part(a_emb, i), part(t_emb, i), cfg, flow,
+                          sigma_only, dtype) for i in range(0, n, step)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
 def render_rays(
     params: Dict[str, Dict],
     embeddings: Dict[str, torch.Tensor],
@@ -156,24 +235,41 @@ def render_rays(
     """Render a batch of (N, 6) NDC rays at frame indices `ts`; the result
     dict has the JAX function's keys.
 
-    params: {'fine': ...}; embeddings: {'a'?, 't'?} (N_frames, C) tables;
-    vis_poses ((C, 3, 4)) / vis_K enable the test-time visibility culling
-    of the transient sigma; `view_dir` overrides the (N, 3) directions of
-    the view embedding; `keys` filters the result (and, on the planar test
-    path, picks the composited route).
+    params: {'fine': ..., 'coarse'?: ...}; embeddings: {'a'?, 't'?}
+    (N_frames, C) tables; vis_poses ((C, 3, 4)) / vis_K enable the
+    test-time visibility culling of the transient sigma; `view_dir`
+    overrides the (N, 3) directions of the view embedding; `keys` filters
+    the result (and, on the planar test path, picks the composited
+    route).
+
+    With `N_importance > 0` the coarse model runs first at the stratified
+    depths, always on the plain evaluators in the compute dtype (sigma
+    only at test time), and composites; the static (and transient)
+    importance draws of `sample_pdf` from its weights (without gradient;
+    evenly spaced when the effective perturb is 0) join the stratified
+    depths, sorted, as the fine pass's S_fine = N_samples + N_importance
+    (static tower alone) or N_samples + 2 N_importance depths. The coarse
+    keys (`*_coarse`, and at test time `static_zs_fine` /
+    `transient_zs_fine`) join the result.
 
     Random draws (training only: perturb and sigma noise are 0 at test
-    time): `draws` may hold "u" ((N, S) perturb uniforms) and "ns", "nt",
-    "nw1", "nw2" ((N, S) standard normals, scaled by `noise_std` here: the
-    static, transient, fw-warp and bw-warp sigma noises); what it lacks is
-    drawn from `generator` on the rays' device in that order. The JAX
-    function draws them from its key `rng` as
+    time): `draws` may hold the keys `draw_shapes` lists, "u" ((N, S)
+    perturb uniforms), "u_pdf_s", "u_pdf_t" ((N, N_importance)
+    importance uniforms), "ncs", "nct" ((N, S) coarse sigma noises) and
+    "ns", "nt", "nw1", "nw2" ((N, S_fine) standard normals: the static,
+    transient, fw-warp and bw-warp sigma noises), noises scaled by
+    `noise_std` here; what it lacks is drawn from `generator` on the
+    rays' device in `draw_shapes` order. The JAX function draws them from
+    its key `rng` as
 
         k_perturb, k_pdf_s, k_pdf_t, k_rest = split(rng, 4)
         u = uniform(k_perturb, (N, S))
+        u_pdf_s, u_pdf_t = (uniform(k, (N, NI)) for k in (k_pdf_s, k_pdf_t))
         k_coarse, k_fine = split(k_rest)
+        kc_noise_s, kc_noise_t, _, _ = split(k_coarse, 4)
+        ncs, nct = (normal(k, (N, S)) for k in (kc_noise_s, kc_noise_t))
         k_noise_s, k_noise_t, k_fw, k_bw = split(k_fine, 4)
-        ns, nt, nw1, nw2 = (normal(k, (N, S)) for k in
+        ns, nt, nw1, nw2 = (normal(k, (N, S_fine)) for k in
                             (k_noise_s, k_noise_t, k_fw, k_bw))
 
     so a test can rebuild them and pass them in."""
@@ -197,36 +293,28 @@ def render_rays(
             out = {k: v for k, v in out.items() if k in keys}
         return out
 
-    if cfg.N_importance > 0:
-        raise NotImplementedError(
-            "coarse-to-fine rendering (N_importance > 0) is not ported on "
-            "the packed path (ROADMAP.md queue A, 'packed coarse-to-fine'); "
-            "the planar path renders it (planar_eval 'on', or 'auto' on a "
-            "CUDA device with bfloat16)")
+    if cfg.N_importance > 0 and params.get("coarse") is None:
+        raise ValueError(
+            "N_importance > 0 needs params['coarse'] (the coarse model)")
     # the kernels compute in bf16; 'auto' selects them only when the caller
     # asked for bf16 compute, so a float32 render keeps its precision
     backend = _resolve_backend(cfg.mlp_backend, "mlp_backend", cfg, dev)
     tbackend = _resolve_backend(cfg.train_backend, "train_backend", cfg, dev)
     use_kernel_eval = backend == "pallas" and test_time
     use_kernel_train = tbackend == "pallas" and not test_time
-    if not (use_kernel_eval or use_kernel_train) \
-            and cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"the plain evaluators compute in float32 only; compute_dtype="
-            f"{cfg.compute_dtype!r} is served by the kernel backend "
-            "('pallas', or 'auto' on a CUDA device) (ROADMAP.md queue A, "
-            "'bf16 plain evaluators')")
+    # float32 computes in the rays' dtype (float64 rays: a float64 render)
+    cdtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+              else rays.dtype)
 
     n_rays, S = rays.shape[0], cfg.N_samples
     perturb = 0.0 if test_time else cfg.perturb
     noise_std = 0.0 if test_time else cfg.noise_std
     draws = dict(draws or {})
-    needed = (["u"] if perturb > 0 else []) + (
-        list(DRAW_KEYS[1:]) if noise_std > 0 else [])
-    for k in needed:
+    for k, shape in draw_shapes(cfg, n_rays, test_time=test_time,
+                                output_transient=output_transient).items():
         if k not in draws:
-            draws[k] = (torch.rand if k == "u" else torch.randn)(
-                (n_rays, S), generator=generator, device=dev)
+            draws[k] = (torch.rand if k.startswith("u") else torch.randn)(
+                shape, generator=generator, device=dev)
 
     def noise(k):
         return draws[k] * noise_std if noise_std > 0 else None
@@ -234,210 +322,255 @@ def render_rays(
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     dir_embedded = posenc(view_dir if view_dir is not None else rays_d,
                           cfg.S_emb_dir, cfg.N_emb_dir)
-    zs, _ = stratified_zs(n_rays, S, perturb, draws.get("u"), device=dev)
+    zs, zs_mid = stratified_zs(n_rays, S, perturb, draws.get("u"), device=dev)
     t_embedded = (nerf_m.embedding_lookup(embeddings["t"], ts)
                   if output_transient else None)
     has_a = cfg.encode_a and ts is not None
     a_embedded = (nerf_m.embedding_lookup(embeddings["a"], ts)
                   if has_a else None)
-    model = params["fine"]
-    xyz = rays_o[:, None] + rays_d[:, None] * zs[..., None]
-    this_flow = tuple(f for f in flow if f in ("fw", "bw"))
     kker = dict(n_emb_xyz=cfg.N_emb_xyz, s_emb_xyz=cfg.S_emb_xyz,
                 n_emb_dir=cfg.N_emb_dir, n_a=cfg.N_a, n_tau=cfg.N_tau,
                 flow_scale=cfg.flow_scale)
+    results: Dict[str, torch.Tensor] = {}
 
-    results: Dict[str, torch.Tensor] = {"zs_fine": zs, "xyzs_fine": xyz}
-    packed = pw = None
-    if use_kernel_eval or use_kernel_train:
-        from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    def inference(model, typ, xyz, zs, flow, nkeys):
+        """One field evaluation and compositing pass; its keys go into
+        `results` with the suffix `typ`. The fine pass runs on the
+        kernels where their backend is active, the coarse pass on the
+        plain evaluators (sigma only at test time)."""
+        Sx = xyz.shape[1]
+        fine = typ == "fine"
+        sigma_only = test_time and not fine
+        this_flow = tuple(f for f in flow if f in ("fw", "bw"))
+        kernel_train = use_kernel_train and fine
+        has_a_ = has_a and fine
+        results[f"zs_{typ}"] = zs
+        results[f"xyzs_{typ}"] = xyz
+        packed = pw = static_rgbs = transient_rgbs = None
+        if (use_kernel_eval and fine) or kernel_train:
+            from nsff_pl_tpu_torch.ops import mlp_kernel as mk
 
-        if use_kernel_train:
-            from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
+            if kernel_train:
+                from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
 
-            # need_dxyz=False: the main evaluation's points are ray-derived
-            # (no parameter dependence), so their cotangent is dead
-            field = mtk.make_fused_nerf_train(
-                S, use_viewdir=cfg.use_viewdir, encode_a=has_a,
-                encode_t=output_transient, output_flow=this_flow,
-                need_dxyz=False, **kker)
-        else:
-            field = mk.make_fused_nerf_eval(
-                S, use_viewdir=cfg.use_viewdir, encode_a=has_a,
-                encode_t=output_transient, output_flow=this_flow, **kker)
-        # one weight packing serves the main and both warped evaluations
-        pw = field.pack(model)
-        packed = field(model, xyz, dir_embedded if cfg.use_viewdir else None,
-                       a_embedded, t_embedded, pw=pw)
-        un = mk.unpack_fused(packed, encode_t=output_transient,
-                             output_flow=this_flow)
-        static_rgbs = un["static_rgbs"]
-        static_sigmas_raw = un["static_sigmas_raw"]
-        if output_transient:
-            transient_rgbs = un["transient_rgbs"]
-            transient_sigmas_raw = un["transient_sigmas_raw"]
-            raw_flows = {f: un[f"transient_flows_{f}"] for f in this_flow}
-    else:
-        xyz_emb = posenc(xyz, cfg.S_emb_xyz, cfg.N_emb_xyz)
-        static_rgbs, static_sigmas_raw = nerf_m.static_forward(
-            model, xyz_emb, _expand(dir_embedded, S),
-            _expand(a_embedded, S) if has_a else None,
-            use_viewdir=cfg.use_viewdir)
-        if output_transient:
-            tr = nerf_m.transient_forward(
-                model, xyz_emb, _expand(t_embedded, S),
-                output_flow=this_flow, flow_scale=cfg.flow_scale)
-            transient_rgbs, transient_sigmas_raw = tr["rgb"], tr["sigma"]
-            raw_flows = {f: tr[f"flow_{f}"] for f in this_flow}
-    results["static_rgbs_fine"] = static_rgbs
-    if output_transient:
-        results["transient_rgbs_fine"] = transient_rgbs
-        if "fw" in this_flow:
-            far_mask = (zs > Z_FAR)[..., None]
-            transient_flows_fw = torch.where(far_mask, 0.0, raw_flows["fw"])
-            transient_flows_bw = torch.where(far_mask, 0.0, raw_flows["bw"])
-            results["transient_flows_fw"] = transient_flows_fw
-            results["transient_flows_bw"] = transient_flows_bw
-
-    # test-time visibility culling of the transient sigma
-    if test_time and output_transient and vis_poses is not None:
-        w_img, h_img = cfg.img_wh
-        xyz_w = ray_ops.ndc2world(xyz.reshape(-1, 3), vis_K)
-        vis = ray_ops.compute_world_visibility(xyz_w, vis_K, h_img, w_img,
-                                               vis_poses)
-        transient_sigmas_raw = torch.where(
-            vis.reshape(transient_sigmas_raw.shape) == 0, -10.0,
-            transient_sigmas_raw)
-
-    static_deltas, transient_deltas = cp.deltas_from_zs(zs)
-    # fused compositing: the sigma -> alpha -> transmittance -> weights ->
-    # maps chain in one kernel pair on the evaluator's packed output
-    comp = None
-    if use_kernel_train and output_transient and cfg.fused_compositing:
-        from nsff_pl_tpu_torch.ops.compositing_kernel import \
-            make_fused_compositing
-
-        zero = torch.zeros((n_rays, S), device=dev)
-        comp = make_fused_compositing(S)(
-            packed, zs, zero if noise_std <= 0 else noise("ns"),
-            zero if noise_std <= 0 else noise("nt"))
-        static_sigmas = comp["static_sigmas"]
-        transient_sigmas = comp["transient_sigmas"]
-        static_alphas = comp["static_alphas"]
-        transient_alphas = comp["transient_alphas"]
-    else:
-        ns = noise("ns")
-        static_sigmas = cp.softplus(
-            static_sigmas_raw + ns if ns is not None else static_sigmas_raw)
-        static_alphas = 1.0 - torch.exp(-static_deltas * static_sigmas)
-        if output_transient:
-            nt = noise("nt")
-            transient_sigmas = cp.softplus(
-                transient_sigmas_raw + nt if nt is not None
-                else transient_sigmas_raw)
-            transient_alphas = 1.0 - torch.exp(
-                -transient_deltas * transient_sigmas)
-    results["static_sigmas_fine"] = static_sigmas
-    if output_transient:
-        results["transient_sigmas_fine"] = transient_sigmas
-
-    if output_transient and not test_time and "fw" in flow:
-        def warp(xyz_w_pts, t_shift, which_flow, noise_key):
-            """The transient field at the warped points and time,
-            composited against the current static field."""
-            ts_shift = torch.clamp(ts + t_shift, 0, cfg.max_t)
-            t_emb_ray = nerf_m.embedding_lookup(embeddings["t"], ts_shift)
-            if use_kernel_train:
-                ft_w = mtk.make_fused_nerf_train(
-                    S, use_viewdir=cfg.use_viewdir, encode_a=False,
-                    encode_t=True, output_flow=(which_flow,),
-                    static_branch=False, **kker)
-                pk = ft_w(model, xyz_w_pts, None, None, t_emb_ray, pw=pw)
-                tr_w = {"rgb": pk[..., 4:7], "sigma": pk[..., 7],
-                        f"flow_{which_flow}": pk[..., 8:11]}
+                # need_dxyz=False: the main evaluation's points are
+                # ray-derived (no parameter dependence), so their
+                # cotangent is dead
+                field = mtk.make_fused_nerf_train(
+                    Sx, use_viewdir=cfg.use_viewdir, encode_a=has_a_,
+                    encode_t=output_transient, output_flow=this_flow,
+                    need_dxyz=False, **kker)
             else:
-                tr_w = nerf_m.transient_forward(
-                    model, posenc(xyz_w_pts, cfg.S_emb_xyz, cfg.N_emb_xyz),
-                    _expand(t_emb_ray, S), output_flow=(which_flow,),
-                    flow_scale=cfg.flow_scale)
-            flows_w = torch.where((zs > Z_FAR)[..., None], 0.0,
-                                  tr_w[f"flow_{which_flow}"])
-            tr_alphas_w = cp.sigma2alpha(tr_w["sigma"], transient_deltas,
-                                         noise(noise_key))
-            static_w_w, transient_w_w, _, _ = cp.composite_two_fields(
-                static_alphas, tr_alphas_w)
-            rgb_map_w = (cp.weighted_sum(static_w_w, static_rgbs)
-                         + cp.weighted_sum(transient_w_w, tr_w["rgb"]))
-            return rgb_map_w, flows_w, transient_w_w
-
-        xyz_fw = xyz + transient_flows_fw
-        results["xyzs_fw"] = xyz_fw
-        results["rgb_fw"], tr_flows_fw_bw, transient_weights_fw = warp(
-            xyz_fw, +1, "bw", "nw1")
-        xyz_bw = xyz + transient_flows_bw
-        results["xyzs_bw"] = xyz_bw
-        results["rgb_bw"], tr_flows_bw_fw, transient_weights_bw = warp(
-            xyz_bw, -1, "fw", "nw2")
-        results["xyzs_fw_bw"] = xyz_fw + tr_flows_fw_bw
-        results["xyzs_bw_fw"] = xyz_bw + tr_flows_bw_fw
-
-    if comp is not None:
-        static_weights = comp["static_weights"]
-        transient_weights = comp["transient_weights"]
-        weights = comp["weights"]
-    elif output_transient:
-        static_weights, transient_weights, weights, _ = \
-            cp.composite_two_fields(static_alphas, transient_alphas)
-    else:
-        static_weights = weights = cp.composite_one_field(static_alphas)
-    results["static_weights_fine"] = static_weights
-    if output_transient:
-        results["transient_weights_fine"] = transient_weights
-        results["weights_fine"] = weights
-        if test_time:
-            results["static_alphas_fine"] = static_alphas
-            results["transient_alphas_fine"] = transient_alphas
-
-    results["depth_fine"] = (comp["depth"] if comp is not None
-                             else cp.weighted_sum(weights, zs))
-    if output_transient:
-        transient_rgb_map = cp.weighted_sum(transient_weights, transient_rgbs)
-        if comp is not None:
-            results["rgb_fine"] = comp["rgb"]
+                field = mk.make_fused_nerf_eval(
+                    Sx, use_viewdir=cfg.use_viewdir, encode_a=has_a_,
+                    encode_t=output_transient, output_flow=this_flow, **kker)
+            # one weight packing serves the main and both warped evaluations
+            pw = field.pack(model)
+            packed = field(model, xyz,
+                           dir_embedded if cfg.use_viewdir else None,
+                           a_embedded, t_embedded, pw=pw)
+            un = mk.unpack_fused(packed, encode_t=output_transient,
+                                 output_flow=this_flow)
+            static_rgbs = un["static_rgbs"]
+            static_sigmas_raw = un["static_sigmas_raw"]
+            if output_transient:
+                transient_rgbs = un["transient_rgbs"]
+                transient_sigmas_raw = un["transient_sigmas_raw"]
+                raw_flows = {f: un[f"transient_flows_{f}"]
+                             for f in this_flow}
         else:
-            results["rgb_fine"] = cp.weighted_sum(
+            pf = _plain_fields(model, xyz, dir_embedded,
+                               a_embedded if has_a_ else None, t_embedded,
+                               cfg, this_flow, sigma_only, cdtype)
+            static_rgbs = pf.get("static_rgbs")
+            static_sigmas_raw = pf["static_sigmas_raw"]
+            if output_transient:
+                transient_rgbs = pf.get("transient_rgbs")
+                transient_sigmas_raw = pf["transient_sigmas_raw"]
+                raw_flows = {f: pf[f"flow_{f}"] for f in this_flow}
+        if static_rgbs is not None:
+            results[f"static_rgbs_{typ}"] = static_rgbs
+        if output_transient:
+            if transient_rgbs is not None:
+                results[f"transient_rgbs_{typ}"] = transient_rgbs
+            if "fw" in this_flow:
+                far_mask = (zs > Z_FAR)[..., None]
+                transient_flows_fw = torch.where(far_mask, 0.0,
+                                                 raw_flows["fw"])
+                transient_flows_bw = torch.where(far_mask, 0.0,
+                                                 raw_flows["bw"])
+                results["transient_flows_fw"] = transient_flows_fw
+                results["transient_flows_bw"] = transient_flows_bw
+
+        # test-time visibility culling of the transient sigma
+        if test_time and output_transient and vis_poses is not None:
+            w_img, h_img = cfg.img_wh
+            xyz_w = ray_ops.ndc2world(xyz.reshape(-1, 3), vis_K)
+            vis = ray_ops.compute_world_visibility(xyz_w, vis_K, h_img,
+                                                   w_img, vis_poses)
+            transient_sigmas_raw = torch.where(
+                vis.reshape(transient_sigmas_raw.shape) == 0, -10.0,
+                transient_sigmas_raw)
+
+        static_deltas, transient_deltas = cp.deltas_from_zs(zs)
+        # fused compositing: the sigma -> alpha -> transmittance ->
+        # weights -> maps chain in one kernel pair on the evaluator's
+        # packed output
+        comp = None
+        if kernel_train and output_transient and cfg.fused_compositing:
+            from nsff_pl_tpu_torch.ops.compositing_kernel import \
+                make_fused_compositing
+
+            zero = torch.zeros((n_rays, Sx), device=dev)
+            comp = make_fused_compositing(Sx)(
+                packed, zs, zero if noise_std <= 0 else noise(nkeys[0]),
+                zero if noise_std <= 0 else noise(nkeys[1]))
+            static_sigmas = comp["static_sigmas"]
+            transient_sigmas = comp["transient_sigmas"]
+            static_alphas = comp["static_alphas"]
+            transient_alphas = comp["transient_alphas"]
+        else:
+            ns = noise(nkeys[0])
+            static_sigmas = cp.softplus(
+                static_sigmas_raw + ns if ns is not None
+                else static_sigmas_raw)
+            static_alphas = 1.0 - torch.exp(-static_deltas * static_sigmas)
+            if output_transient:
+                nt = noise(nkeys[1])
+                transient_sigmas = cp.softplus(
+                    transient_sigmas_raw + nt if nt is not None
+                    else transient_sigmas_raw)
+                transient_alphas = 1.0 - torch.exp(
+                    -transient_deltas * transient_sigmas)
+        results[f"static_sigmas_{typ}"] = static_sigmas
+        if output_transient:
+            results[f"transient_sigmas_{typ}"] = transient_sigmas
+
+        if output_transient and not test_time and "fw" in flow:
+            def warp(xyz_w_pts, t_shift, which_flow, noise_key):
+                """The transient field at the warped points and time,
+                composited against the current static field."""
+                ts_shift = torch.clamp(ts + t_shift, 0, cfg.max_t)
+                t_emb_ray = nerf_m.embedding_lookup(embeddings["t"],
+                                                    ts_shift)
+                if kernel_train:
+                    ft_w = mtk.make_fused_nerf_train(
+                        Sx, use_viewdir=cfg.use_viewdir, encode_a=False,
+                        encode_t=True, output_flow=(which_flow,),
+                        static_branch=False, **kker)
+                    pk = ft_w(model, xyz_w_pts, None, None, t_emb_ray, pw=pw)
+                    tr_w = {"rgb": pk[..., 4:7], "sigma": pk[..., 7],
+                            f"flow_{which_flow}": pk[..., 8:11]}
+                else:
+                    tr_w = nerf_m.transient_forward(
+                        model,
+                        posenc(xyz_w_pts, cfg.S_emb_xyz, cfg.N_emb_xyz),
+                        _expand(t_emb_ray, Sx), output_flow=(which_flow,),
+                        flow_scale=cfg.flow_scale, compute_dtype=cdtype)
+                flows_w = torch.where((zs > Z_FAR)[..., None], 0.0,
+                                      tr_w[f"flow_{which_flow}"])
+                tr_alphas_w = cp.sigma2alpha(tr_w["sigma"], transient_deltas,
+                                             noise(noise_key))
+                static_w_w, transient_w_w, _, _ = cp.composite_two_fields(
+                    static_alphas, tr_alphas_w)
+                rgb_map_w = (cp.weighted_sum(static_w_w, static_rgbs)
+                             + cp.weighted_sum(transient_w_w, tr_w["rgb"]))
+                return rgb_map_w, flows_w, transient_w_w
+
+            xyz_fw = xyz + transient_flows_fw
+            results["xyzs_fw"] = xyz_fw
+            results["rgb_fw"], tr_flows_fw_bw, transient_weights_fw = warp(
+                xyz_fw, +1, "bw", nkeys[2])
+            xyz_bw = xyz + transient_flows_bw
+            results["xyzs_bw"] = xyz_bw
+            results["rgb_bw"], tr_flows_bw_fw, transient_weights_bw = warp(
+                xyz_bw, -1, "fw", nkeys[3])
+            results["xyzs_fw_bw"] = xyz_fw + tr_flows_fw_bw
+            results["xyzs_bw_fw"] = xyz_bw + tr_flows_bw_fw
+
+        if comp is not None:
+            static_weights = comp["static_weights"]
+            transient_weights = comp["transient_weights"]
+            weights = comp["weights"]
+        elif output_transient:
+            static_weights, transient_weights, weights, _ = \
+                cp.composite_two_fields(static_alphas, transient_alphas)
+        else:
+            static_weights = weights = cp.composite_one_field(static_alphas)
+        results[f"static_weights_{typ}"] = static_weights
+        if output_transient:
+            results[f"transient_weights_{typ}"] = transient_weights
+            results[f"weights_{typ}"] = weights
+            if test_time:
+                results[f"static_alphas_{typ}"] = static_alphas
+                results[f"transient_alphas_{typ}"] = transient_alphas
+        if sigma_only:
+            return  # the coarse pass at test time ends with its weights
+
+        results[f"depth_{typ}"] = (comp["depth"] if comp is not None
+                                   else cp.weighted_sum(weights, zs))
+        if not output_transient:
+            results[f"rgb_{typ}"] = cp.weighted_sum(weights, static_rgbs)
+            return
+        transient_rgb_map = cp.weighted_sum(transient_weights,
+                                            transient_rgbs)
+        if comp is not None:
+            results[f"rgb_{typ}"] = comp["rgb"]
+        else:
+            results[f"rgb_{typ}"] = cp.weighted_sum(
                 static_weights, static_rgbs) + transient_rgb_map
         transient_alpha = transient_weights.sum(-1)
-        results["transient_alpha_fine"] = transient_alpha
+        results[f"transient_alpha_{typ}"] = transient_alpha
         # gray background for the transient-only view
-        results["transient_rgb_fine"] = (
+        results[f"transient_rgb_{typ}"] = (
             transient_rgb_map + 0.8 * (1.0 - transient_alpha[:, None]))
         # static-only compositing with its own transmittance
         _static_weights = cp.composite_one_field(static_alphas)
-        results["_static_rgb_fine"] = cp.weighted_sum(_static_weights,
-                                                      static_rgbs)
-        results["_static_depth_fine"] = cp.weighted_sum(_static_weights, zs)
+        results[f"_static_rgb_{typ}"] = cp.weighted_sum(_static_weights,
+                                                        static_rgbs)
+        results[f"_static_depth_{typ}"] = cp.weighted_sum(_static_weights,
+                                                          zs)
+        if not flow:
+            return
+        results["xyz_fine"] = cp.weighted_sum(weights, xyz)
+        results["transient_flow_fw"] = cp.weighted_sum(weights,
+                                                       transient_flows_fw)
+        results["xyz_fw"] = results["xyz_fine"] + results["transient_flow_fw"]
+        results["transient_flow_bw"] = cp.weighted_sum(weights,
+                                                       transient_flows_bw)
+        results["xyz_bw"] = results["xyz_fine"] + results["transient_flow_bw"]
+        if not test_time and "disocc" in flow:
+            # disocclusion = 1 - |sum(warped_w - w)|, without gradient
+            occ_fw = (transient_weights_fw - transient_weights).detach()
+            occ_bw = (transient_weights_bw - transient_weights).detach()
+            results["disocc_fw"] = 1.0 - occ_fw.sum(-1, keepdim=True).abs()
+            results["disoccs_fw"] = 1.0 - occ_fw[..., None].abs()
+            results["disocc_bw"] = 1.0 - occ_bw.sum(-1, keepdim=True).abs()
+            results["disoccs_bw"] = 1.0 - occ_bw[..., None].abs()
 
-        if flow:
-            results["xyz_fine"] = cp.weighted_sum(weights, xyz)
-            results["transient_flow_fw"] = cp.weighted_sum(
-                weights, transient_flows_fw)
-            results["xyz_fw"] = (results["xyz_fine"]
-                                 + results["transient_flow_fw"])
-            results["transient_flow_bw"] = cp.weighted_sum(
-                weights, transient_flows_bw)
-            results["xyz_bw"] = (results["xyz_fine"]
-                                 + results["transient_flow_bw"])
-            if not test_time and "disocc" in flow:
-                # disocclusion = 1 - |sum(warped_w - w)|, without gradient
-                occ_fw = (transient_weights_fw - transient_weights).detach()
-                occ_bw = (transient_weights_bw - transient_weights).detach()
-                results["disocc_fw"] = 1.0 - occ_fw.sum(-1, keepdim=True).abs()
-                results["disoccs_fw"] = 1.0 - occ_fw[..., None].abs()
-                results["disocc_bw"] = 1.0 - occ_bw.sum(-1, keepdim=True).abs()
-                results["disoccs_bw"] = 1.0 - occ_bw[..., None].abs()
-    else:
-        results["rgb_fine"] = cp.weighted_sum(weights, static_rgbs)
+    if cfg.N_importance > 0:
+        xyz_coarse = rays_o[:, None] + rays_d[:, None] * zs[..., None]
+        inference(params["coarse"], "coarse", xyz_coarse, zs, (),
+                  ("ncs", "nct"))
+        # the reference keys det off the effective perturb: 0 at test time
+        det = perturb == 0
+        zs_static = sample_pdf(
+            zs_mid, results["static_weights_coarse"][:, 1:-1].detach(),
+            cfg.N_importance, det=det, u=draws.get("u_pdf_s"))
+        zs_list = [zs, zs_static]
+        if test_time:
+            results["static_zs_fine"] = zs_static
+        if output_transient:
+            zs_transient = sample_pdf(
+                zs_mid, results["transient_weights_coarse"][:, 1:-1].detach(),
+                cfg.N_importance, det=det, u=draws.get("u_pdf_t"))
+            zs_list.append(zs_transient)
+            if test_time:
+                results["transient_zs_fine"] = zs_transient
+        zs = torch.sort(torch.cat(zs_list, -1), -1).values
+    xyz = rays_o[:, None] + rays_d[:, None] * zs[..., None]
+    inference(params["fine"], "fine", xyz, zs, flow,
+              ("ns", "nt", "nw1", "nw2"))
     if keys is not None:
         results = {k: v for k, v in results.items() if k in keys}
     return results

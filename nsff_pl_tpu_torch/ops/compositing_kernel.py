@@ -25,11 +25,13 @@ and the map sums in the CUDA kernels' order (`ops/compositing.py`:
 
 `fused_compositing_fwd` / `_bwd` launch `csrc/fused_compositing.cu` for
 CUDA tensors and run the plain versions for CPU tensors. The CUDA
-kernels are built for S = 128 samples per ray and raise for another S.
+kernels take S in `PLANAR_SAMPLES` (64, 128, 192, 256; S / 32 warps a
+ray) and raise for another S.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Dict, Optional
 
 import torch
@@ -38,8 +40,8 @@ from nsff_pl_tpu_torch.ops.compositing import (block_excl_cumprod,
                                                block_rev_excl_cumsum,
                                                block_sum, deltas_from_zs,
                                                softplus)
+from nsff_pl_tpu_torch.ops.raymarch_kernel import check_planar_samples
 
-KERNEL_SAMPLES = 128  # S the CUDA kernels are built for
 N_PACKED = 16
 TINY = 1e-37
 # output planes, each (N, S); rgb (N, 3) and depth (N,) come as maps (N, 4)
@@ -122,11 +124,7 @@ def _checked(t, name, shape, dev):
 
 def _inputs(packed, zs, noise_s, noise_t):
     n, S = zs.shape
-    if S != KERNEL_SAMPLES:
-        raise NotImplementedError(
-            f"the CUDA compositor is built for S={KERNEL_SAMPLES}, got {S} "
-            "(other sample counts: ROADMAP.md B-d, with the packed path's "
-            "coarse-to-fine)")
+    check_planar_samples(S, "the packed CUDA compositor (B6)")
     dev = zs.device
     ptrs = [_checked(packed, "packed", (n, S, N_PACKED), dev)] + [
         _checked(t, k, (n, S), dev)
@@ -144,8 +142,8 @@ def _lib_fn(name, argtypes):
 
 
 def fused_compositing_fwd_cuda(packed, zs, noise_s, noise_t):
-    """Launch the forward kernel (four warps a ray, two rays a CTA) on the
-    current stream; adds one to `fused_compositing_fwd_cuda.launches`."""
+    """Launch the forward kernel (S / 32 warps a ray) on the current
+    stream; adds one to `fused_compositing_fwd_cuda.launches[S]`."""
     n, S, dev, ptrs = _inputs(packed, zs, noise_s, noise_t)
     out = torch.empty((len(OUT_KEYS), n, S), dtype=torch.float32, device=dev)
     maps = torch.empty((n, 4), dtype=torch.float32, device=dev)
@@ -153,23 +151,23 @@ def fused_compositing_fwd_cuda(packed, zs, noise_s, noise_t):
         return out, maps
     P = ctypes.c_void_p
     fn = _lib_fn("nsff_fused_comp_fwd",
-                 [P] * 4 + [ctypes.POINTER(P), P, ctypes.c_int, P])
+                 [P] * 4 + [ctypes.POINTER(P), P] + [ctypes.c_int] * 2 + [P])
     outs = (P * len(OUT_KEYS))(*[o.data_ptr() for o in out])
-    rc = fn(*ptrs, outs, maps.data_ptr(), n,
+    rc = fn(*ptrs, outs, maps.data_ptr(), n, S,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_compositing forward launch failed: "
                            f"cudaError {rc}")
-    fused_compositing_fwd_cuda.launches += 1
+    fused_compositing_fwd_cuda.launches[S] += 1
     return out, maps
 
 
-fused_compositing_fwd_cuda.launches = 0
+fused_compositing_fwd_cuda.launches = Counter()  # by sample count
 
 
 def fused_compositing_bwd_cuda(packed, zs, noise_s, noise_t, g, gmap):
-    """Launch the adjoint kernel (four warps a ray, two rays a CTA) on the
-    current stream; adds one to `fused_compositing_bwd_cuda.launches`."""
+    """Launch the adjoint kernel (S / 32 warps a ray) on the current
+    stream; adds one to `fused_compositing_bwd_cuda.launches[S]`."""
     n, S, dev, ptrs = _inputs(packed, zs, noise_s, noise_t)
     dp = torch.empty((n, S, N_PACKED), dtype=torch.float32, device=dev)
     if n == 0:
@@ -180,18 +178,19 @@ def fused_compositing_bwd_cuda(packed, zs, noise_s, noise_t, g, gmap):
         if g.get(k) is not None:
             gp[i] = _checked(g[k], f"g[{k}]", (n, S), dev)
     fn = _lib_fn("nsff_fused_comp_bwd",
-                 [P] * 4 + [ctypes.POINTER(P), P, P, ctypes.c_int, P])
+                 [P] * 4 + [ctypes.POINTER(P), P, P] + [ctypes.c_int] * 2
+                 + [P])
     rc = fn(*ptrs, gp,
             _checked(gmap, "gmap", (n, 4), dev) if gmap is not None else None,
-            dp.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+            dp.data_ptr(), n, S, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_compositing backward launch failed: "
                            f"cudaError {rc}")
-    fused_compositing_bwd_cuda.launches += 1
+    fused_compositing_bwd_cuda.launches[S] += 1
     return dp
 
 
-fused_compositing_bwd_cuda.launches = 0
+fused_compositing_bwd_cuda.launches = Counter()  # by sample count
 
 
 def fused_compositing_fwd(packed, zs, noise_s, noise_t):

@@ -26,21 +26,24 @@ packing serves every evaluation of a step.
 
 `fused_nerf_eval` launches `csrc/fused_nerf_eval.cu` for CUDA tensors and
 runs `fused_nerf_eval_ref` for CPU tensors; nothing else chooses between
-them. The CUDA kernel is built for S = 128 samples per ray (one CTA per
-ray) and raises for another S.
+them. The CUDA kernel takes S in `PLANAR_SAMPLES` (64, 128, 192, 256:
+one CTA per (ray, tile of 128 samples), the rows past S of a half-used
+last tile computed and not written) and raises for another S.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Dict, Tuple
 
 import torch
 
 from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
 from nsff_pl_tpu_torch.ops.raymarch_kernel import (
-    _HEAD_COL, _SLOTS, KERNEL_SAMPLES, MAX_FREQS, SEG, TRAIN_HEADS, WIDTH,
-    _bcast, _bf16, _check, _mm, _posenc_tables, _ptr, _sin_poly, _slot_ptrs,
-    _t_lanes, _tower_ref, branch_weight_names, pack_padded_weights)
+    _HEAD_COL, MAX_FREQS, SEG, TRAIN_HEADS, WIDTH, _bcast, _bf16,
+    _check, _mm, _posenc_tables, _ptr, _sin_poly, _slot_ptrs, _t_lanes,
+    _tower_ref, branch_weight_names, check_planar_samples,
+    pack_padded_weights)
 
 N_PACKED = 16  # columns of the packed output
 
@@ -121,11 +124,7 @@ def packed_checks(xyz, dir_emb, a_emb, t_emb, *, freqs, use_viewdir,
     if xyz.ndim != 3 or xyz.shape[2] != 3:
         raise ValueError(f"xyz: shape {tuple(xyz.shape)} is not (N, S, 3)")
     n, S = xyz.shape[0], xyz.shape[1]
-    if S != KERNEL_SAMPLES:
-        raise NotImplementedError(
-            f"the CUDA kernels are built for S={KERNEL_SAMPLES} samples per "
-            f"ray, got {S} (other sample counts: ROADMAP.md B-d, with the "
-            "packed path's coarse-to-fine)")
+    check_planar_samples(S, "the packed CUDA kernels (B4, B5)")
     n_tau = t_emb.shape[-1] if encode_t and t_emb is not None else 0
     if len(freqs) > MAX_FREQS or 3 + 6 * len(freqs) + n_tau > SEG:
         raise ValueError("posenc + time latent must fit one 128-lane segment")
@@ -149,8 +148,8 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
                          encode_a: bool, encode_t: bool, output_flow,
                          flow_scale: float, D: int = 8,
                          skips=(4,)) -> torch.Tensor:
-    """Launch `csrc/fused_nerf_eval.cu` (one CTA per ray) on the current
-    stream; adds one to `fused_nerf_eval_cuda.launches`."""
+    """Launch `csrc/fused_nerf_eval.cu` (one CTA per (ray, tile)) on the
+    current stream; adds one to `fused_nerf_eval_cuda.launches[S]`."""
     from nsff_pl_tpu_torch.ops import cuda_build
 
     if D != 8 or tuple(skips) != (4,):
@@ -173,7 +172,7 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
                         len(TRAIN_HEADS) * 3 + 4, encode_a)
     fn = cuda_build.load("fused_nerf_eval").nsff_fused_eval
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([P] * 4 + [ctypes.POINTER(P)] * 2 + [P] + [I] * 4
+    fn.argtypes = ([P] * 4 + [ctypes.POINTER(P)] * 2 + [P] + [I] * 5
                    + [ctypes.POINTER(ctypes.c_float), I] + [I] * 6
                    + [ctypes.c_float, I, P])
     fn.restype = I
@@ -181,7 +180,8 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
     rc = fn(_ptr(xyz), _ptr(dir_emb) if use_viewdir else None,
             _ptr(a_emb) if encode_a else None,
             _ptr(t_emb) if encode_t else None, wp, bp, out.data_ptr(),
-            n, 3 + 6 * len(freqs), dir_w, n_a, cfreqs, len(freqs),
+            n, xyz.shape[1], 3 + 6 * len(freqs), dir_w, n_a, cfreqs,
+            len(freqs),
             int(static_branch), int(encode_t), int(use_viewdir),
             int(encode_a), int(encode_t and "fw" in output_flow),
             int(encode_t and "bw" in output_flow), float(flow_scale), n_tau,
@@ -189,11 +189,11 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
     if rc != 0:
         raise RuntimeError(f"fused_nerf_eval kernel launch failed: "
                            f"cudaError {rc}")
-    fused_nerf_eval_cuda.launches += 1
+    fused_nerf_eval_cuda.launches[xyz.shape[1]] += 1
     return out
 
 
-fused_nerf_eval_cuda.launches = 0
+fused_nerf_eval_cuda.launches = Counter()  # by sample count
 
 
 def fused_nerf_eval(pw, xyz, dir_emb, a_emb, t_emb, **kw):

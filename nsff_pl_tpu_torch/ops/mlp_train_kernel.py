@@ -24,6 +24,7 @@ tensors and runs `fused_nerf_train_bwd_ref` for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from types import SimpleNamespace
 from typing import Dict, Tuple
 
@@ -85,7 +86,8 @@ def fused_nerf_train_bwd_cuda(branch: str, pw, xyz, dir_emb, a_emb, t_emb, g,
                               D: int = 8, skips=(4,)):
     """Launch `csrc/fused_nerf_train.cu` for one branch on the current
     stream (a per-ray chain kernel, the dW kernel and the fixed-order
-    reductions); adds one to `fused_nerf_train_bwd_cuda.launches[branch]`.
+    reductions); adds one to
+    `fused_nerf_train_bwd_cuda.launches[branch][S]`.
     Same contract as `fused_nerf_train_bwd_ref`."""
     from nsff_pl_tpu_torch.ops import cuda_build
 
@@ -124,9 +126,9 @@ def fused_nerf_train_bwd_cuda(branch: str, pw, xyz, dir_emb, a_emb, t_emb, g,
     lib = cuda_build.load("fused_nerf_train")
     P, I = ctypes.c_void_p, ctypes.c_int
     size_fn = lib.nsff_fused_train_bwd_scratch_bytes
-    size_fn.argtypes = [I] * 4
+    size_fn.argtypes = [I] * 5
     size_fn.restype = ctypes.c_size_t
-    scratch = torch.empty((int(size_fn(int(static), n, int(use_viewdir),
+    scratch = torch.empty((int(size_fn(int(static), n, S, int(use_viewdir),
                                        int(encode_a))),),
                           dtype=torch.uint8, device=dev)
     dwp = (P * len(_SLOTS))()
@@ -137,7 +139,7 @@ def fused_nerf_train_bwd_cuda(branch: str, pw, xyz, dir_emb, a_emb, t_emb, g,
             dbp[i] = dws[name]["b"].data_ptr()
     fn = lib.nsff_fused_train_bwd
     fn.argtypes = ([I] + [P] * 4 + [ctypes.POINTER(P)] * 2 + [P] + [I] * 2
-                   + [ctypes.POINTER(P)] * 2 + [P] * 5 + [I] * 4
+                   + [ctypes.POINTER(P)] * 2 + [P] * 5 + [I] * 5
                    + [ctypes.POINTER(ctypes.c_float), I] + [I] * 2
                    + [ctypes.c_float, I, P])
     fn.restype = I
@@ -147,18 +149,20 @@ def fused_nerf_train_bwd_cuda(branch: str, pw, xyz, dir_emb, a_emb, t_emb, g,
             _ptr(t_emb) if not static else None, wp, bp, g.data_ptr(),
             int("fw" in output_flow), int("bw" in output_flow), dwp, dbp,
             _ptr(out.get("ddir")), _ptr(out.get("da")), _ptr(out.get("dt")),
-            _ptr(out.get("dxyz")), scratch.data_ptr(), n,
+            _ptr(out.get("dxyz")), scratch.data_ptr(), n, S,
             3 + 6 * len(freqs), dir_w, n_a, cfreqs, len(freqs),
             int(use_viewdir), int(encode_a), float(flow_scale), n_tau,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_nerf_train backward ({branch}) launch "
                            f"failed: cudaError {rc}")
-    fused_nerf_train_bwd_cuda.launches[branch] += 1
+    fused_nerf_train_bwd_cuda.launches[branch][S] += 1
     return out
 
 
-fused_nerf_train_bwd_cuda.launches = {"static": 0, "transient": 0}
+# by branch and sample count
+fused_nerf_train_bwd_cuda.launches = {"static": Counter(),
+                                      "transient": Counter()}
 
 
 def fused_nerf_train_bwd(branch, pw, xyz, dir_emb, a_emb, t_emb, g, **kw):

@@ -43,9 +43,9 @@ from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
 
 SEG = 128  # row segment of the padded weights (the TPU's lane width)
 WIDTH = 256
-KERNEL_SAMPLES = 128  # S the packed CUDA kernels are built for (B4, B5)
-# S the planar CUDA kernels take (B1, B2, B3): tiles of 128 samples, the
-# last one possibly half used
+# S the tower and compositor CUDA kernels take (the planar B1, B2, B3 and
+# the packed B4, B5, B6): tiles of 128 samples, the last one possibly half
+# used (B6: S / 32 warps a ray)
 PLANAR_SAMPLES = (64, 128, 192, 256)
 MAX_FREQS = 16
 

@@ -97,10 +97,11 @@ def compute_world_visibility(xyz_w: torch.Tensor, K, H: int, W: int,
     """How many of the cameras `c2ws` ((C, 3, 4) camera-to-world poses,
     intrinsics `K`, H x W images) see each of the (N, 3) world points:
     (N,) float counts, 0 for a point inside no frustum."""
-    K = _k(K, xyz_w.device)
-    c2ws = torch.as_tensor(c2ws, dtype=torch.float32, device=xyz_w.device)
+    dt = xyz_w.dtype  # float32 (float64 points: in float64)
+    K = _k(K, xyz_w.device).to(dt)
+    c2ws = torch.as_tensor(c2ws, dtype=dt, device=xyz_w.device)
     C = c2ws.shape[0]
-    c2w4 = torch.eye(4, device=xyz_w.device).repeat(C, 1, 1)
+    c2w4 = torch.eye(4, dtype=dt, device=xyz_w.device).repeat(C, 1, 1)
     c2w4[:, :3] = c2ws
     # inv_ex: no host check for a singular input, so a CUDA graph
     # captures it
@@ -108,8 +109,9 @@ def compute_world_visibility(xyz_w: torch.Tensor, K, H: int, W: int,
     R, t = w2c[:, :3, :3], w2c[:, :3, 3]
     xyz_cam = torch.einsum("cij,nj->cni", R, xyz_w) + t[:, None]
     in_front = xyz_cam[..., 2] < 0  # front is the negative z axis
-    # flip to "right down front" for the projection
-    xyz_proj = xyz_cam * torch.tensor([1.0, -1.0, -1.0], device=xyz_w.device)
+    # flip to "right down front" for the projection (no host-made
+    # constant: graph-capturable)
+    xyz_proj = torch.cat([xyz_cam[..., :1], -xyz_cam[..., 1:]], -1)
     uvd = torch.einsum("ij,cnj->cni", K, xyz_proj)
     d = uvd[..., 2]
     denom = torch.where(d.abs() < 1e-8, torch.sign(d) * 1e-8 + 1e-12, d)

@@ -139,6 +139,21 @@ def _finalize_terms(ret, masks, weights, cfg):
     return out
 
 
+def _colour_depth_terms(results, batch, lambda_geo):
+    """The per-ray colour and depth terms; a coarse-to-fine render adds
+    0.1 x its coarse colour error and its coarse depth term."""
+    rgbs = batch["rgbs"]
+    col_l = ((results["rgb_fine"] - rgbs) ** 2).mean(-1)
+    if "rgb_coarse" in results:
+        col_l = col_l + 0.1 * ((results["rgb_coarse"] - rgbs) ** 2).mean(-1)
+    disp_l = lambda_geo * shiftscale_invariant_depthloss(
+        results["depth_fine"], batch["disps"])
+    if "depth_coarse" in results:
+        disp_l = disp_l + lambda_geo * shiftscale_invariant_depthloss(
+            results["depth_coarse"], batch["disps"])
+    return col_l, disp_l
+
+
 def compute_losses(
     results: Dict[str, torch.Tensor],
     batch: Dict[str, torch.Tensor],
@@ -159,9 +174,8 @@ def compute_losses(
     ret: Dict[str, torch.Tensor] = {}
     masks: Dict[str, torch.Tensor] = {}
     rgbs = batch["rgbs"]
-    ret["col_l"] = ((results["rgb_fine"] - rgbs) ** 2).mean(-1)
-    ret["disp_l"] = lambda_geo * shiftscale_invariant_depthloss(
-        results["depth_fine"], batch["disps"])
+    ret["col_l"], ret["disp_l"] = _colour_depth_terms(results, batch,
+                                                      lambda_geo)
 
     if output_transient_flow:
         tw = results["transient_weights_fine"]  # (N, S)
@@ -228,16 +242,8 @@ def compute_losses_planar(
     ret: Dict[str, torch.Tensor] = {}
     masks: Dict[str, torch.Tensor] = {}
     rgbs = batch["rgbs"]
-    col_l = ((results["rgb_fine"] - rgbs) ** 2).mean(-1)
-    if "rgb_coarse" in results:
-        col_l = col_l + 0.1 * ((results["rgb_coarse"] - rgbs) ** 2).mean(-1)
-    ret["col_l"] = col_l
-    disp_l = lambda_geo * shiftscale_invariant_depthloss(
-        results["depth_fine"], batch["disps"])
-    if "depth_coarse" in results:
-        disp_l = disp_l + lambda_geo * shiftscale_invariant_depthloss(
-            results["depth_coarse"], batch["disps"])
-    ret["disp_l"] = disp_l
+    ret["col_l"], ret["disp_l"] = _colour_depth_terms(results, batch,
+                                                      lambda_geo)
 
     tw = results["transient_weights"]  # (N, S)
     ret["entropy_l"] = cfg.lambda_ent * (-tw * torch.log(tw + 1e-8)).sum(-1)

@@ -74,7 +74,7 @@ def make_train_step(
     distribution, `t` the scheduler's frame; random draws come from the
     device `generator` unless given: `idx` (uniform pixel indices),
     `batch_u` (hard-sampling uniforms), `draws` (the renderer's, see
-    `render_train_planar`; `render_rays` takes the same). The params are
+    `render_train_planar` and `render_rays`). The params are
     updated in place and returned in the new state; metrics hold the
     per-term losses, `loss` and `psnr` (device scalars), aux the rendered
     rgb, the ray ids and t.
@@ -126,11 +126,6 @@ def make_train_step(
                     "train backend)"))
     if use_planar:
         check_train_envelope(render_cfg)
-    elif render_cfg.N_importance > 0:
-        raise NotImplementedError(
-            "coarse-to-fine training (N_importance > 0) is ported on the "
-            "planar path only, not on the packed path (ROADMAP.md queue A, "
-            "'packed coarse-to-fine')")
     flow = tuple(output_transient_flow)
 
     def step_body(params, opt, step, table, weights, Ks, Ps, generator, t,
@@ -256,9 +251,10 @@ class _MultiStep:
     run); a dummy (1, 1, 3) passes through untouched otherwise. The
     optional draws carry a leading K axis: `idx` / `batch_u` (K, B),
     `draws` a dict of (K, B, ...) in the shapes of
-    `models/raymarch.py::draw_shapes` ((K, B, S), and with coarse-to-fine
-    (K, B, S_fine) and (K, B, N_importance)); what is not given is drawn
-    from `generator`.
+    `models/raymarch.py::draw_shapes` (the packed path:
+    `models/rendering.py::draw_shapes`; (K, B, S), and with
+    coarse-to-fine (K, B, S_fine) and (K, B, N_importance)); what is not
+    given is drawn from `generator`.
     Per step this is exactly the single step: the same function, the
     same device state. The step counter, the frame t, the epoch and the
     lr are device values that every step reads and advances.

@@ -500,13 +500,13 @@ def _check_compositor(n, s):
         assert _rel_err(d[i], rd[i]) <= 1e-4, k
 
 
-def _packed_inputs(n, seed=0):
+def _packed_inputs(n, seed=0, s=128):
     g = torch.Generator().manual_seed(seed)
     o = torch.rand(n, 3, generator=g) * 2 - 1
     o[:, 2] = -1
     d = (torch.rand(n, 3, generator=g) - 0.5) * 0.4
     d[:, 2] = 2
-    zs = torch.sort(torch.rand(n, 128, generator=g), 1).values
+    zs = torch.sort(torch.rand(n, s, generator=g), 1).values
     xyz = o[:, None] + d[:, None] * zs[..., None]
     dirs = torch.rand(n, 27, generator=g) * 2 - 1
     a = torch.randn(n, 48, generator=g)
@@ -524,10 +524,13 @@ PACKED_VARIANTS = {"full": (True, True, False, ("fw", "bw")),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 128, 192, 256])
 @pytest.mark.parametrize("n", [1, 37, 4096])
 @pytest.mark.parametrize("variant", sorted(PACKED_VARIANTS))
-def test_packed_kernels_match_plain(variant, n):
-    """fused_nerf_eval at S=128, 8x256 towers, N_tau=48, for one ray, an
+def test_packed_kernels_match_plain(variant, n, s):
+    """fused_nerf_eval at S = 64, 128, 192 and 256 (one CTA per ray and
+    tile of 128 samples, a half-used last tile at 64 and 192; sorted
+    random depths), 8x256 towers, N_tau=48, for one ray, an
     odd ray count and 4096 rays, and both
     branches of the fused_nerf_train backward (with and without the xyz
     cotangent) at one ray and the odd count. Packed rows: at most 1e-3 abs and at most
@@ -536,7 +539,8 @@ def test_packed_kernels_match_plain(variant, n):
     zero; gradients: every leaf within 0.1 of its largest entry and 5e-2
     in Frobenius norm, the per-sample xyz cotangent within 0.25 of its
     largest entry (a flipped ReLU mask shows whole in one sample's entry),
-    as in chip_smoke.py."""
+    as in chip_smoke.py; at every S the same bounds (a multi-tile ray's
+    d(dir), d(a), d(t) are sums over its tiles)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from nsff_pl_tpu_torch.models import nerf as tn
@@ -548,17 +552,17 @@ def test_packed_kernels_match_plain(variant, n):
                                  use_viewdir=True, encode_appearance=encode_a,
                                  encode_transient=True, output_flow=True,
                                  device="cuda")
-    xyz, _, dirs, a, t, g = _packed_inputs(n)
-    op = mtk.make_fused_nerf_train(128, use_viewdir=True, encode_a=encode_a,
+    xyz, _, dirs, a, t, g = _packed_inputs(n, s=s)
+    op = mtk.make_fused_nerf_train(s, use_viewdir=True, encode_a=encode_a,
                                    encode_t=encode_t, output_flow=flow,
                                    static_branch=static_branch)
     pw, kw = op.pack(params), op.kernel_kw
     args = (pw, xyz, dirs if static_branch else None,
             a if encode_a else None, t if encode_t else None)
-    before = mk.fused_nerf_eval_cuda.launches
+    before = mk.fused_nerf_eval_cuda.launches[s]
     got = mk.fused_nerf_eval(*args, **kw)
     torch.cuda.synchronize()
-    assert mk.fused_nerf_eval_cuda.launches == before + 1
+    assert mk.fused_nerf_eval_cuda.launches[s] == before + 1
     want = mk.fused_nerf_eval_ref(*args, **kw)
     err = (got - want).abs()
     assert float(err.max()) <= 1e-3
@@ -569,17 +573,18 @@ def test_packed_kernels_match_plain(variant, n):
     if n > 37:  # the backward at one ray and the odd count
         return
 
-    cot = torch.randn(n, 128, 16, generator=g).cuda()
+    cot = torch.randn(n, s, 16, generator=g).cuda()
     bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
                               "output_flow", "flow_scale", "D", "skips")}
     for branch in (["static"] if static_branch else []) + (
             ["transient"] if encode_t else []):
         for need_dxyz in (False, True):
-            b0 = mtk.fused_nerf_train_bwd_cuda.launches[branch]
+            b0 = mtk.fused_nerf_train_bwd_cuda.launches[branch][s]
             got = mtk.fused_nerf_train_bwd(branch, *args, cot,
                                            need_dxyz=need_dxyz, **bkw)
             torch.cuda.synchronize()
-            assert mtk.fused_nerf_train_bwd_cuda.launches[branch] == b0 + 1
+            assert mtk.fused_nerf_train_bwd_cuda.launches[branch][s] == \
+                b0 + 1
             want = mtk.fused_nerf_train_bwd_ref(branch, *args, cot,
                                                 need_dxyz=need_dxyz, **bkw)
             assert ("dxyz" in got) == need_dxyz
@@ -598,35 +603,36 @@ def test_packed_kernels_match_plain(variant, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 128, 192, 256])
 @pytest.mark.parametrize("n", [1, 37, 512, 8192])
-def test_packed_compositing_kernels_match_plain(n):
+def test_packed_compositing_kernels_match_plain(n, s):
     """fused_compositing forward (1e-5 abs) and adjoint (1e-4 of each
-    column's largest cotangent; columns 8-15 exactly zero), with sigmas
-    that drive 1 - alpha to underflow at some samples and raw sigmas of
-    exactly zero at others."""
+    column's largest cotangent; columns 8-15 exactly zero) at S / 32 warps
+    a ray, with sigmas that drive 1 - alpha to underflow at some samples
+    and raw sigmas of exactly zero at others."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from nsff_pl_tpu_torch.ops import compositing_kernel as fck
 
     g = torch.Generator().manual_seed(n)
-    packed = torch.randn(n, 128, 16, generator=g)
-    packed[..., [0, 1, 2, 4, 5, 6]] = torch.rand(n, 128, 6, generator=g)
+    packed = torch.randn(n, s, 16, generator=g)
+    packed[..., [0, 1, 2, 4, 5, 6]] = torch.rand(n, s, 6, generator=g)
     packed[..., [3, 7]] *= 3
     packed[::3, 40, 3] = 2000.0  # opaque sample: 1 - alpha underflows
     packed[1::3, ::7, 3] = 0.0
-    zs = torch.sort(torch.rand(n, 128, generator=g), 1).values
-    ns, nt = (torch.randn(n, 128, generator=g) for _ in range(2))
+    zs = torch.sort(torch.rand(n, s, generator=g), 1).values
+    ns, nt = (torch.randn(n, s, generator=g) for _ in range(2))
     ns[1::3, ::7] = 0.0
     packed, zs, ns, nt = (x.cuda().contiguous() for x in (packed, zs, ns, nt))
-    cot = {k: torch.randn(n, 128, generator=g).cuda() for k in fck.OUT_KEYS}
+    cot = {k: torch.randn(n, s, generator=g).cuda() for k in fck.OUT_KEYS}
     gmap = torch.randn(n, 4, generator=g).cuda()
-    f0 = fck.fused_compositing_fwd_cuda.launches
-    b0 = fck.fused_compositing_bwd_cuda.launches
+    f0 = fck.fused_compositing_fwd_cuda.launches[s]
+    b0 = fck.fused_compositing_bwd_cuda.launches[s]
     planes, maps = fck.fused_compositing_fwd(packed, zs, ns, nt)
     dp = fck.fused_compositing_bwd(packed, zs, ns, nt, cot, gmap)
     torch.cuda.synchronize()
-    assert fck.fused_compositing_fwd_cuda.launches == f0 + 1
-    assert fck.fused_compositing_bwd_cuda.launches == b0 + 1
+    assert fck.fused_compositing_fwd_cuda.launches[s] == f0 + 1
+    assert fck.fused_compositing_bwd_cuda.launches[s] == b0 + 1
     rplanes, rmaps = fck.fused_compositing_fwd_ref(packed, zs, ns, nt)
     rdp = fck.fused_compositing_bwd_ref(packed, zs, ns, nt, cot, gmap)
     torch.testing.assert_close(planes, rplanes, atol=1e-5, rtol=0)

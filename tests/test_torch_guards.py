@@ -206,16 +206,16 @@ def test_packed_entry_points_run_on_cpu_when_asked():
     table[..., 9] = np.arange(2, dtype=np.float32)[:, None]
     K = np.array([[7.0, 0, 4], [0, 7.0, 3], [0, 0, 1]], np.float32)
     eye = np.eye(4, dtype=np.float32)[None, :3]
-    before = mlp_kernel.fused_nerf_eval_cuda.launches
+    before = dict(mlp_kernel.fused_nerf_eval_cuda.launches)
     state, metrics, _ = step(
         TrainState(params, tx.init(params), 0), torch.from_numpy(table),
         torch.ones(2, 48), torch.from_numpy(K[None]),
         torch.from_numpy(K[None] @ eye), torch.Generator().manual_seed(1), 1)
     assert state.step == 1 and np.isfinite(float(metrics["loss"]))
     # CPU tensors take the plain versions: no launch is counted
-    assert mlp_kernel.fused_nerf_eval_cuda.launches == before
-    assert mlp_train_kernel.fused_nerf_train_bwd_cuda.launches == {
-        "static": 0, "transient": 0}
+    assert dict(mlp_kernel.fused_nerf_eval_cuda.launches) == before
+    assert not any(mlp_train_kernel.fused_nerf_train_bwd_cuda.launches[b]
+                   for b in ("static", "transient"))
 
     poses = np.tile(eye, (2, 1, 1))
     svc = RenderService(params, K, poses, (8, 6),

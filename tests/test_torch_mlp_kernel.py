@@ -127,8 +127,9 @@ def test_wrapper_checks():
         fn(tp, xyz[:, :8], dirs, None, t)
     with pytest.raises(ValueError, match="n_tau"):
         fn(tp, xyz, dirs, None, t[:, :8])
-    # the CUDA wrapper's checks run before anything touches the card
-    with pytest.raises(NotImplementedError, match="S=128"):
+    # the CUDA wrapper's checks run before anything touches the card: S
+    # outside 64, 128, 192, 256 raises
+    with pytest.raises(NotImplementedError, match="got 16"):
         tmk.packed_checks(xyz, dirs, None, t, freqs=fn.kernel_kw["freqs"],
                           use_viewdir=True, encode_a=False, encode_t=True)
     with pytest.raises(ValueError, match="neither branch"):

@@ -178,9 +178,7 @@ def test_draws_from_a_generator_and_key_filter():
 
 
 @pytest.mark.parametrize("bad,match", [
-    (dict(N_importance=4), "coarse-to-fine"),
     (dict(train_backend="stub"), "stub"),
-    (dict(train_backend="xla"), "bf16 plain"),
     (dict(mesh=object()), "multi-GPU")])
 def test_unported_options_name_their_roadmap_items(bad, match):
     tparams = to_torch(jax_params())

@@ -171,11 +171,12 @@ def test_decision_reads_cuda_and_bfloat16():
 
 @pytest.mark.parametrize("route", ["planes", "coarse_to_fine", "packed"])
 def test_unported_routes_raise(route):
-    """Coarse-to-fine on the packed path, and the plain evaluators in
-    bfloat16, raise, naming their ROADMAP items; coarse-to-fine on the
-    planar path renders (on both routes, held against JAX in
-    tests/test_torch_c2f.py) and without the coarse model raises a
-    ValueError; the planes route itself (`planes`: per-sample keys, held
+    """Coarse-to-fine renders on the planar path (on both routes, held
+    against JAX in tests/test_torch_c2f.py) and on the packed path
+    (`planar_eval='off'`, held against JAX in
+    tests/test_torch_packed_c2f.py), and without the coarse model raises
+    a ValueError; the plain evaluators render in bfloat16 too; the planes
+    route itself (`planes`: per-sample keys, held
     against JAX in tests/test_torch_planes_route.py) and the packed path
     (`packed`: planar_eval='auto' on the CPU, see
     tests/test_torch_packed_render.py) render."""
@@ -196,22 +197,24 @@ def test_unported_routes_raise(route):
         with pytest.raises(ValueError, match="params_coarse"):
             render(keys=("rgb_fine", "weights_fine"), N_importance=4)
     elif route == "coarse_to_fine":
-        with pytest.raises(NotImplementedError, match="packed coarse-to-fine"):
+        with pytest.raises(ValueError, match="coarse model"):
             render(N_importance=4, planar_eval="off")
         params["nerf_coarse"] = params_from_jax(jax.tree.map(
             np.asarray, jn.init_nerf_params(
                 jax.random.PRNGKey(3), "coarse", use_viewdir=True,
                 encode_transient=True, in_channels_t=N_TAU)), "cpu")
         for keys in (SERVE_KEYS, ("rgb_fine", "weights_fine")):
-            out = render(keys=keys, N_importance=4)
-            assert set(out) == set(keys)
-            assert bool(torch.isfinite(out["rgb_fine"]).all())
+            for over in ({}, {"planar_eval": "off"}):
+                out = render(keys=keys, N_importance=4, **over)
+                assert set(out) == set(keys)
+                assert bool(torch.isfinite(out["rgb_fine"]).all())
     else:
         out = render(planar_eval="auto")
         assert set(out) == set(SERVE_KEYS)
         assert bool(torch.isfinite(out["rgb_fine"]).all())
-        with pytest.raises(NotImplementedError, match="bf16 plain"):
-            render(planar_eval="auto", compute_dtype="bfloat16")
+        out = render(planar_eval="auto", compute_dtype="bfloat16")
+        assert set(out) == set(SERVE_KEYS)
+        assert bool(torch.isfinite(out["rgb_fine"]).all())
 
 
 def _http(url, body=None):

@@ -218,10 +218,10 @@ def test_make_train_step_decisions():
             tstep.make_train_step(
                 dataclasses.replace(on, fused_train="off", **bad), lcfg, tx,
                 **kw)
-    with pytest.raises(NotImplementedError, match="coarse-to-fine"):
-        tstep.make_train_step(
-            dataclasses.replace(on, fused_train="off", N_importance=8), lcfg,
-            tx, **kw)
+    # coarse-to-fine on the packed path (tests/test_torch_packed_c2f.py)
+    assert not tstep.make_train_step(
+        dataclasses.replace(on, fused_train="off", N_importance=8), lcfg,
+        tx, **kw).use_planar
     assert tstep.make_train_step(dataclasses.replace(on, N_importance=8),
                                  lcfg, tx, **kw).use_planar
     for bad, match in ((dict(warp_subsample=2), "warp_subsample"),
