@@ -135,7 +135,24 @@ once), then:
    render of the same weights within `TOL`; one training step at batch
    64 on the card equals the plain CPU step from the same state, batch
    and draws (loss terms and Adam's first moments), on the planar and on
-   the packed path.
+   the packed path;
+11. the train-path variants (main paths; after the training phase and,
+   through the CLI, after the scene training phase): B2's stacked warp
+   call (the transient tower with both flow heads and flow in) forward
+   and backward against its plain version at 512 rows and S = 128 / 256,
+   and B3 at the 256 gathered rows of `warp_importance 0.5`; the
+   flagship recipe with `warp_subsample 2`, with `warp_importance 0.5`
+   and with `planar_compositing off` (10 eager steps and the same 10
+   graphed, equal bit for bit, launch counts PER_STEP_WS2 / _WI /
+   _OFF; wi also twice graphed from one seed with the same bits, a
+   torch.profiler breakdown and one step at batch 64 against the CPU);
+   `warp_subsample 2` under coarse-to-fine (5 steps, graphed equal to
+   eager); sgd, radam and ranger (graphed equal to eager) and the
+   'stub' train backend (no kernel); through the train CLI with
+   `--warp_importance 0.5`: ranger on 4 frames, uninterrupted and
+   stopped by its time budget and resumed (the resumed state equal to
+   the checkpoint file, the ends the same bits), and Adam on all frames
+   for WI_RUN_BUDGET_S, its validation PSNR up by PSNR_GAIN_DB.
 
 The training phases end with a torch.profiler trace of 5 more steps
 (device time by kernel, the device's busy share and the backward's
@@ -1097,9 +1114,11 @@ def check_counts(counts, expected, n, what):
 
 
 def train_setup(torch, cfg, params, device, batch, scan_steps=1,
-                hard_sampling=False):
+                hard_sampling=False, render_kw=None):
     """Optimizer, state and train step of the recipe `cfg` on `device`
-    (`scan_steps` > 1: the K-step dispatch)."""
+    (`scan_steps` > 1: the K-step dispatch); `render_kw` overrides fields
+    of its render config that the CLI has no flag for
+    (`planar_compositing`)."""
     import dataclasses
 
     from nsff_pl_tpu_torch.config import loss_config, render_config
@@ -1108,7 +1127,7 @@ def train_setup(torch, cfg, params, device, batch, scan_steps=1,
 
     spe = N_FRAMES * H_IMG * W_IMG // 1000  # the scene's steps per epoch
     tx = make_optimizer(cfg, spe)
-    rc = render_config(cfg)
+    rc = dataclasses.replace(render_config(cfg), **(render_kw or {}))
     if device == "cpu":  # the kernels' plain versions
         rc = dataclasses.replace(rc, train_backend="pallas")
     step = make_train_step(rc, loss_config(cfg), tx,
@@ -1126,12 +1145,18 @@ def make_draws(torch, cfg, n, gen, lead=(), device="cuda"):
     coarse-to-fine's too; on the planar path the same keys and shapes),
     with leading dimensions `lead`."""
     from nsff_pl_tpu_torch.config import render_config
+    from nsff_pl_tpu_torch.models import raymarch
     from nsff_pl_tpu_torch.models.rendering import draw_shapes
 
+    rc = render_config(cfg)
+    if rc.warp_subsample > 1 or rc.warp_importance:
+        # K-row warp noises and the selection's uniform (planar path only)
+        shapes = raymarch.draw_shapes(rc, n)
+    else:
+        shapes = draw_shapes(rc, n, output_transient=cfg.encode_t)
     return {k: (torch.rand if k.startswith("u") else torch.randn)(
         tuple(lead) + shape, generator=gen, device=device)
-        for k, shape in draw_shapes(render_config(cfg), n,
-                                    output_transient=cfg.encode_t).items()}
+        for k, shape in shapes.items()}
 
 
 def step_rows(torch, cfg, sched, gen, steps):
@@ -1146,15 +1171,15 @@ def step_rows(torch, cfg, sched, gen, steps):
 
 def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
                    planar, steps=TRAIN_STEPS, repeat=True, profile=False,
-                   exact=False):
+                   exact=False, render_kw=None):
     """A main training path: warm-up, `steps` timed eager steps with the
     launch counts set to 0 just before and read just after them, then the
     same steps as one graphed dispatch (`graphed_phase`) from a copy of
     the state taken before them, on the same frames and draws; then
     (`repeat`) `steps` steps on one repeated batch, whose loss must fall.
     With `exact` the graphed steps must equal the eager ones bit for bit.
-    Returns the eager counts, the graphed counts and the device ms per
-    step of both."""
+    `render_kw`: as `train_setup`'s. Returns the eager counts, the
+    graphed counts and the device ms per step of both."""
     from nsff_pl_tpu_torch.config import build_params
     from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
     from nsff_pl_tpu_torch.training.optim import param_leaves
@@ -1162,7 +1187,8 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
 
     params = build_params(cfg, torch.Generator().manual_seed(0),
                           device="cuda")
-    state, step = train_setup(torch, cfg, params, "cuda", BATCH)
+    state, step = train_setup(torch, cfg, params, "cuda", BATCH,
+                              render_kw=render_kw)
     if step.use_planar != planar:
         fail(f"{label}: planar path taken: {step.use_planar}, expected "
              f"{planar}")
@@ -1215,7 +1241,7 @@ def training_phase(torch, np, cfg, table, Ks, Ps, card, *, label, per_step,
     graph_counts, graph_ms = graphed_phase(
         torch, np, cfg, start, (batcher.table, batcher.weights, Ks, Ps, gen),
         ts, idx, draws, eager, eager_tmp, card, label=label,
-        per_step=per_step, profile=profile, exact=exact)
+        per_step=per_step, profile=profile, exact=exact, render_kw=render_kw)
 
     if repeat:  # one repeated batch and draws: the loss must fall
         t = sched.next()
@@ -1267,7 +1293,8 @@ def cdf_uniforms(torch, weights, ts, idx):
 
 
 def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager,
-                  eager_tmp, card, *, label, per_step, profile, exact=False):
+                  eager_tmp, card, *, label, per_step, profile, exact=False,
+                  render_kw=None):
     """The same steps as one K-step dispatch (`make_train_step(scan_steps=
     K)`, one CUDA graph) from `state`, with hard sampling on, so that the
     graph also holds the weighted draw and the `tmp_rgb[t, rand_idx] =
@@ -1284,7 +1311,8 @@ def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager,
     ms per step."""
     K = len(ts)
     multi = train_setup(torch, cfg, state.params, "cuda", BATCH,
-                        scan_steps=K, hard_sampling=True)[1]
+                        scan_steps=K, hard_sampling=True,
+                        render_kw=render_kw)[1]
     table, weights, Ks, Ps, gen = args
     tmp = torch.zeros_like(eager_tmp)
     ts_dev = torch.tensor(ts, device="cuda")
@@ -1508,6 +1536,12 @@ def profile_steps(torch, step, state, args, sched, card, label, n_steps=5):
     for e in top:
         print(f"profile ({label}): {dev_us(e) / 1e3 / n_steps:9.3f} ms/step "
               f"{e.count // n_steps:5d} calls/step  {e.key[:90]}", flush=True)
+    # autograd's gathers and scatters (the sort-based `index_put` of an
+    # indexing backward, sorts, scatter / gather kernels)
+    index_ms = sum(dev_us(e) for e in kernels if any(
+        k in e.key.lower() for k in ("index", "sort", "scatter", "gather")))
+    print(f"profile ({label}): indexing, sort, scatter and gather kernels "
+          f"{index_ms / 1e3 / n_steps:.3f} ms per step on {card}", flush=True)
     print(f"profile ({label}): backward phases per step " + json.dumps(
         {k: round(v, 4) for k, v in phase_ms(torch, avgs, n_steps).items()})
         + f" ms; device busy {total / n_steps:.3f} ms per step on {card}",
@@ -1767,7 +1801,8 @@ def scene_training_phase(torch, np, card, graph_ms):
     a run stopped by its time budget, its resume to the end of the epoch
     and a packed run (B4-B6); `graph_ms` holds the graphed step's ms of
     the training phases ("planar", "packed"), printed beside the CLI's.
-    Returns the launches the card ran."""
+    Returns the launches the card ran and the fresh system's validation
+    PSNR."""
     import os
     import shutil
 
@@ -1889,7 +1924,7 @@ def scene_training_phase(torch, np, card, graph_ms):
         fail(f"validation PSNR gained {gain:.3f} dB, not {PSNR_GAIN_DB}")
     ran = {k: fresh_counts[k] + sum(c[k] for _, c in runs.values())
            for k in fresh_counts}
-    return ran
+    return ran, base["psnr"]
 
 
 # ---------------- eval (a main path) ----------------
@@ -2800,14 +2835,15 @@ def b5_on_eval_path(torch, rep, label, vis):
 
 
 def _train_state(torch, system):
-    """Copies of a system's params, Adam moments, hard-sampling buffer and
-    weights, on the card."""
+    """Copies of a system's params, optimizer state (counts, moments, and
+    ranger's slow weights), hard-sampling buffer and weights, on the
+    card."""
     from nsff_pl_tpu_torch.training.optim import param_leaves
 
     opt = system.state.opt_state
     return {"params": [p.detach().clone()
                        for p in param_leaves(system.state.params)],
-            "moments": [t.clone() for t in opt.mu + opt.nu],
+            "optimizer state": [t.clone() for t in opt.tensors()],
             "tmp_rgb": [system.tmp_rgb.clone()],
             "weights": [system.batcher.weights.clone()]}
 
@@ -3073,6 +3109,450 @@ def c2f_scene_phase(torch, np, card):
     return total, errs
 
 
+# ---------------- the train-path variants (ROADMAP A8) ----------------
+
+# kernel launches per step of the warp variants at the flagship recipe:
+# warp_subsample 2 and warp_importance run the main evaluation and one
+# stacked warp call carrying both flow heads (backward: the static branch
+# once, the transient branch twice); warp_importance composites a second
+# time, on the K gathered rays; the plain composite runs no compositor
+PER_STEP_WS2 = {"planar_nerf_train_fwd": 2, "planar_nerf_train_bwd_static": 1,
+                "planar_nerf_train_bwd_transient": 2,
+                "planar_compositor_fwd": 1, "planar_compositor_bwd": 1}
+PER_STEP_WI = {**PER_STEP_WS2, "planar_compositor_fwd": 2,
+               "planar_compositor_bwd": 2}
+PER_STEP_OFF = {"planar_nerf_train_fwd": 3, "planar_nerf_train_bwd_static": 1,
+                "planar_nerf_train_bwd_transient": 3}
+# warp_subsample 2 under coarse-to-fine: the coarse pass at 128, the
+# main and the stacked call at 256
+PER_STEP_WS2_C2F = {**PER_STEP_C2F, f"planar_nerf_train_fwd@{C2F_FINE}": 2,
+                    f"planar_nerf_train_bwd_transient@{C2F_FINE}": 2}
+# (label, CLI fields, render config fields the CLI has no flag for,
+# launches a step)
+WARP_VARIANTS = (("ws2", dict(warp_subsample=2), None, PER_STEP_WS2),
+                 ("wi", dict(warp_importance=0.5), None, PER_STEP_WI),
+                 ("off", {}, dict(planar_compositing="off"), PER_STEP_OFF))
+# the rays warp_importance 0.5 keeps of a batch
+K_GATHER = BATCH // 2
+# the wi + ranger CLI run stops mid-epoch on the scene's first C1_FRAMES
+# frames; the wi + Adam run trains on all frames for WI_RUN_BUDGET_S
+# (the exact run's validations read +16 dB by step 4000, ~7 ms a step)
+WI_RANGER_BUDGET_S = 3.0
+WI_RUN_BUDGET_S = 40.0
+
+
+def stacked_warp_kernels(torch, np, rk, tck, params, rays, card, S):
+    """B2's stacked warp call (`static_branch=False, flow_in=True`, both
+    flow heads) against its plain version at batch 512 and S samples:
+    forward planes (PLANE_TOL / PLANE_SHARE) and the transient backward
+    with cotangents on both heads and on the flow planes (the summed
+    leaves GRAD_MAX / GRAD_FRO, the flow-plane cotangents by the
+    unrounded-model rule EXACT_MEAN / EXACT_MAX); at S = 128 also B3 at
+    the K_GATHER rows warp_importance composites a second time. Returns
+    their records (launches filled in by the main paths), each with a
+    bound from the shapes."""
+    from nsff_pl_tpu_torch.ops.posenc import posenc
+    from nsff_pl_tpu_torch.ops.sampling import stratified_zs
+
+    n = BATCH
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    o, d = rays[:n, :3].contiguous(), rays[:n, 3:].contiguous()
+    zs = stratified_zs(n, 128, 1.0, torch.rand((n, 128), generator=gen,
+                                               device="cuda"),
+                       device="cuda")[0]
+    if S != 128:  # spaced as the fine pass spaces them
+        zs = torch.sort(torch.cat([zs, torch.rand((n, S - 128), generator=gen,
+                                                  device="cuda")], 1),
+                        1).values
+    zs = zs.contiguous()
+    t_emb = params["embedding_t"][torch.randint(
+        0, N_FRAMES, (n,), generator=gen, device="cuda")].contiguous()
+    fine = params["nerf_fine"]
+    op = rk.make_planar_nerf_train(S, static_branch=False, flow_in=True,
+                                   output_flow=("fw", "bw"))
+    pw = op.pack(fine)
+    flows = tuple((0.05 * torch.randn((n, S), generator=gen,
+                                      device="cuda")).contiguous()
+                  for _ in range(3))
+    args = (pw, o, d, zs, flows, None, None, t_emb)
+    kw = op.kernel_kw
+    got = rk.planar_nerf_train_fwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = rk.planar_nerf_train_ref(*args, **kw)
+    if not bool(torch.isfinite(got).all()):
+        fail("stacked warp forward output not finite")
+    err = (got - want).abs()
+    worst = err.amax((1, 2)).cpu().numpy()
+    share = float((err > 1e-5).float().mean())
+    heads = {k: float(got[i].abs().max()) for i, k in enumerate(op.out_keys)
+             if k.startswith("f")}
+    src = "nsff_pl_tpu_torch/csrc/planar_nerf_train.cu"
+    print(f"kernel planar_nerf_train_fwd [stacked warp, both heads] n={n} "
+          f"S={S}: planes {list(op.out_keys)}, max abs err per plane "
+          f"{np.array2string(worst, precision=2)}, share > 1e-5 "
+          f"{share:.3f} (tol {PLANE_TOL}, {PLANE_SHARE}); largest flow "
+          "entry per head " + json.dumps({k: round(v, 4)
+                                           for k, v in heads.items()}),
+          flush=True)
+    if float(worst.max()) > PLANE_TOL or share > PLANE_SHARE \
+            or min(heads.values()) == 0.0:
+        fail(f"the stacked warp forward disagrees at S = {S}")
+    ms = cuda_ms(torch, lambda: rk.planar_nerf_train_fwd_cuda(*args, **kw),
+                 iters=10, graph=True)
+    plain_ms = cuda_ms(torch, lambda: rk.planar_nerf_train_ref(*args, **kw),
+                       iters=3)
+    flops, nbytes = train_fwd_work(fine, False, 2, n, S, pw,
+                                   len(op.out_keys), True)
+    records = {"planar_nerf_train_fwd_both": _record(
+        at_samples("planar_nerf_train_fwd_both", S), src,
+        "nsff_pl_tpu/ops/raymarch_kernel.py:64", float(worst.max()), ms,
+        plain_ms, flops, nbytes)}
+    print(f"kernel {records['planar_nerf_train_fwd_both']['name']} n={n}: "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{records['planar_nerf_train_fwd_both']['bound_ms']:.3f} ms "
+          f"({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
+
+    cot = {k: torch.randn((n, S), generator=gen, device="cuda")
+           for k in op.out_keys}
+    bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                              "flow_scale", "D", "skips")}
+    got_b = rk.planar_nerf_train_bwd_cuda("transient", *args, cot, **bkw)
+    torch.cuda.synchronize()
+    want_b = rk.planar_nerf_train_bwd_ref("transient", *args, cot, **bkw)
+    errs = {f"{k}.{p}": rel_errs(got_b["dws"][k][p], want_b["dws"][k][p])
+            for k in want_b["dws"] for p in ("w", "b")}
+    errs["dt"] = rel_errs(got_b["dt"], want_b["dt"])
+    outs = [t for g in got_b["dws"].values() for t in g.values()]
+    if not all(bool(torch.isfinite(t).all())
+               for t in outs + [got_b["dt"], *got_b["dflows"]]):
+        fail(f"stacked warp backward not finite at S = {S}")
+    # both heads' weight gradients must be there (each head's cotangent
+    # reaches its own rows of the packed head weight)
+    dh = got_b["dws"]["transient_heads"]["w"]
+    exact = unrounded_dflows(torch, args, kw, cot, op.out_keys)
+    r_mean = r_max = 0.0
+    for c in range(3):
+        errs[f"dflow{c}"] = rel_errs(got_b["dflows"][c], want_b["dflows"][c])
+        rm, rx = unrounded_ratios(got_b["dflows"][c], want_b["dflows"][c],
+                                  exact[c], (0, 1))
+        r_mean, r_max = max(r_mean, rm), max(r_max, rx)
+    summed = [k for k in errs if not k.startswith("dflow") or S == 128]
+    w_max = max(summed, key=lambda k: errs[k][0])
+    w_fro = max(errs, key=lambda k: errs[k][1])
+    abs_err = max(e[2] for e in errs.values())
+    print(f"kernel planar_nerf_train_bwd_transient [stacked warp, both "
+          f"heads] S={S}: {len(errs)} outputs, worst error/max "
+          f"{errs[w_max][0]:.2e} ({w_max}), worst Frobenius "
+          f"{errs[w_fro][1]:.2e} ({w_fro}) (tol {GRAD_MAX}, {GRAD_FRO}); "
+          f"dflow distance to the unrounded model over the plain "
+          f"version's: mean {r_mean:.3f}, largest {r_max:.3f} (tol "
+          f"{EXACT_MEAN}, {EXACT_MAX}); head weight gradient norm "
+          f"{float(dh.norm()):.3e}", flush=True)
+    if errs[w_max][0] > GRAD_MAX or errs[w_fro][1] > GRAD_FRO \
+            or r_mean > EXACT_MEAN or r_max > EXACT_MAX \
+            or not float(dh.norm()) > 0:
+        fail(f"the stacked warp backward disagrees at S = {S}")
+    ms = cuda_ms(torch, lambda: rk.planar_nerf_train_bwd_cuda(
+        "transient", *args, cot, **bkw), iters=5, graph=True)
+    plain_ms = cuda_ms(torch, lambda: rk.planar_nerf_train_bwd_ref(
+        "transient", *args, cot, **bkw), iters=2)
+    flops, nbytes = train_bwd_work(fine, "transient", 2, n, S, pw, True)
+    rec = _record(at_samples("planar_nerf_train_bwd_transient_both", S), src,
+                  "nsff_pl_tpu/ops/raymarch_kernel.py:64", abs_err, ms,
+                  plain_ms, flops, nbytes)
+    rec["max_rel_err"] = errs[w_max][0]
+    records["planar_nerf_train_bwd_transient_both"] = rec
+    print(f"kernel {rec['name']} n={n}: {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {rec['bound_ms']:.3f} ms ({flops / 1e12:.3f} TFLOP) "
+          f"on {card}", flush=True)
+    if S != 128:
+        return records
+
+    # B3 on the K gathered rows of warp_importance: the main planes of
+    # the first K rays, the stacked call's fw rows and bw rows
+    k = K_GATHER
+    main_op = rk.make_planar_nerf_train(S, use_viewdir=True,
+                                        output_flow=("fw", "bw"))
+    de = posenc(d, 3.0, 4).contiguous()
+    main = dict(zip(main_op.out_keys, rk.planar_nerf_train_fwd_cuda(
+        main_op.pack(fine), o[:k].contiguous(), d[:k].contiguous(),
+        zs[:k].contiguous(), None, de[:k].contiguous(), None,
+        t_emb[:k].contiguous(), **main_op.kernel_kw)))
+    wplanes = dict(zip(op.out_keys, got))
+    ins = {"zs": zs[:k], "ssig": main["ssig"], "tsig": main["tsig"],
+           "tsig_w1": wplanes["tsig"][:k], "tsig_w2": wplanes["tsig"][k:]}
+    for key in ("ns", "nt", "nw1", "nw2"):
+        ins[key] = torch.randn((k, S), generator=gen, device="cuda")
+    for c in "rgb":
+        ins[f"srgb_{c}"] = main[f"srgb_{c}"]
+        ins[f"trgb_{c}"] = main[f"trgb_{c}"]
+        ins[f"trgb_w1_{c}"] = wplanes[f"trgb_{c}"][:k]
+        ins[f"trgb_w2_{c}"] = wplanes[f"trgb_{c}"][k:]
+    ins = {key: v.contiguous() for key, v in ins.items()}
+    ccot = {key: torch.randn((k, S), generator=gen, device="cuda")
+            for key in tck.OUT_KEYS}
+    gmap = torch.randn((k, tck.N_MAP), generator=gen, device="cuda")
+    w, maps = tck.planar_compositor_fwd_cuda(ins)
+    dg = tck.planar_compositor_bwd_cuda(ins, ccot, gmap)
+    torch.cuda.synchronize()
+    rw, rmaps = tck.planar_compositor_fwd_ref(ins)
+    rdg = tck.planar_compositor_bwd_ref(ins, ccot, gmap)
+    fwd_err = max(float((w - rw).abs().max()),
+                  float((maps - rmaps).abs().max()))
+    bwd_errs = [rel_errs(dg[i], rdg[i]) for i in range(len(dg))]
+    bwd_err = max(e[0] for e in bwd_errs)
+    print(f"kernel planar_compositor at the {k} gathered rows: forward max "
+          f"abs err {fwd_err:.2e}, adjoint worst error/max {bwd_err:.2e} "
+          f"(tol {COMP_TOL})", flush=True)
+    if fwd_err > COMP_TOL or bwd_err > COMP_TOL:
+        fail("planar_compositor disagrees with its plain version at the "
+             "gathered rows")
+    csrc = "nsff_pl_tpu_torch/csrc/planar_compositor.cu"
+    for which, fn, ref, err in (
+            ("fwd", lambda: tck.planar_compositor_fwd_cuda(ins),
+             lambda: tck.planar_compositor_fwd_ref(ins), fwd_err),
+            ("bwd", lambda: tck.planar_compositor_bwd_cuda(ins, ccot, gmap),
+             lambda: tck.planar_compositor_bwd_ref(ins, ccot, gmap),
+             max(e[2] for e in bwd_errs))):
+        ms = cuda_ms(torch, fn, iters=100, graph=True)
+        plain_ms = cuda_ms(torch, ref, iters=10, graph=True)
+        ops, nbytes = comp_work(which, k, S)
+        name = f"planar_compositor_{which}_gathered"
+        records[name] = _record(
+            f"{name}[K={k}]", csrc,
+            "nsff_pl_tpu/ops/compositing_planar_kernel.py:110", err, ms,
+            plain_ms, ops, nbytes, PEAK_F32_FLOPS)
+        print(f"kernel {records[name]['name']} n={k}: {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {records[name]['bound_ms']:.4f} ms "
+              f"on {card}", flush=True)
+    return records
+
+
+def repeat_graphed(torch, np, cfg, table, Ks, Ps, label):
+    """Two graphed dispatches of TRAIN_STEPS steps from one seed (the same
+    params, the generator drawing every draw inside the graph, hard
+    sampling on): the params, the optimizer's state, `tmp_rgb` and the
+    loss terms must be the same bits. Returns the launches the card
+    ran."""
+    from nsff_pl_tpu_torch.config import build_params
+    from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
+    from nsff_pl_tpu_torch.training.optim import param_leaves
+
+    ends, ran = [], {}
+    for _ in range(2):
+        params = build_params(cfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+        state, multi = train_setup(torch, cfg, params, "cuda", BATCH,
+                                   scan_steps=TRAIN_STEPS, hard_sampling=True)
+        batcher = RayBatcher(table, BATCH, hard_sampling=True, device="cuda")
+        sched = FrameScheduler(N_FRAMES, seed=cfg.seed)
+        gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+        tmp = torch.zeros((N_FRAMES, H_IMG * W_IMG, 3), device="cuda")
+        ts = torch.tensor([sched.next() for _ in range(TRAIN_STEPS)],
+                          device="cuda")
+        reset_counts()
+        state, tmp, m = multi(state, tmp, batcher.table, batcher.weights, Ks,
+                              Ps, gen, ts)
+        torch.cuda.synchronize()
+        for key, v in multi.graph_launches.items():
+            ran[key] = ran.get(key, 0) + v * multi.replays
+        ends.append([p.detach().clone() for p in param_leaves(state.params)]
+                    + [t.clone() for t in state.opt_state.tensors()]
+                    + [tmp, torch.stack(list(m.values()))])
+        del multi, state, batcher
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(*ends))
+    print(f"{label} [graphed, twice from one seed]: {same} of "
+          f"{len(ends[0])} tensors (params, optimizer state, tmp_rgb, loss "
+          f"terms) the same bits after {TRAIN_STEPS} steps", flush=True)
+    if same != len(ends[0]):
+        fail(f"{label}: two graphed runs from one seed part")
+    torch.cuda.empty_cache()
+    return ran
+
+
+def variants_phase(torch, np, tcfg, table, Ks, Ps, card, exact_ms):
+    """The train-path variants at the flagship recipe, each a main path:
+    warp_subsample 2, warp_importance 0.5 and the plain composite
+    (`training_phase`: 10 eager steps, the same 10 as one graphed
+    dispatch equal to them bit for bit, launch counts; wi with the
+    profile), two graphed wi runs from one seed (`repeat_graphed`), the
+    wi step at batch 64 against the CPU, warp_subsample 2 under
+    coarse-to-fine; sgd, radam and ranger (graphed equal to eager bit
+    for bit) and the stub train backend (no kernel). `exact_ms` holds the
+    exact step's (eager, graphed) ms of this run, printed beside each.
+    Returns the launches the card ran, the steps that ran the stacked
+    warp call by its sample count and the steps that composited K_GATHER
+    gathered rays, and the ms per step by label."""
+    ran, stacked, ms = {}, {128: 0, C2F_FINE: 0}, {}
+    gathered = 0
+
+    def add(counts, S=128):
+        """Sum the launches; the steps at S samples (one static backward
+        a step)."""
+        for k, v in counts.items():
+            ran[k] = ran.get(k, 0) + v
+        return counts.get(at_samples("planar_nerf_train_bwd_static", S), 0)
+
+    for name, extra, render_kw, per_step in WARP_VARIANTS:
+        cfg = tcfg.replace(**extra)
+        eager, graph, e_ms, g_ms = training_phase(
+            torch, np, cfg, table, Ks, Ps, card, label=f"{name} training",
+            per_step=per_step, planar=True, repeat=False,
+            profile=name == "wi", exact=True, render_kw=render_kw)
+        ms[name] = (e_ms, g_ms)
+        steps = add(eager) + add(graph)
+        if name == "wi":
+            steps += add(repeat_graphed(torch, np, cfg, table, Ks, Ps,
+                                        f"{name} training"))
+            gathered += steps
+            train_agreement(torch, cfg, table, Ks, Ps, "wi training")
+        if name != "off":
+            stacked[128] += steps
+        print(f"{name} training: {e_ms:.3f} ms per step eager, {g_ms:.3f} "
+              f"ms graphed, against the exact step's {exact_ms[0]:.3f} / "
+              f"{exact_ms[1]:.3f} ms in this run on {card}", flush=True)
+        torch.cuda.empty_cache()
+
+    ccfg = tcfg.replace(N_importance=C2F_NI, warp_subsample=2)
+    eager, graph, e_ms, g_ms = training_phase(
+        torch, np, ccfg, table, Ks, Ps, card, label="ws2 c2f training",
+        per_step=PER_STEP_WS2_C2F, planar=True, steps=5, repeat=False,
+        exact=True)
+    ms["ws2 c2f"] = (e_ms, g_ms)
+    stacked[C2F_FINE] += add(eager, C2F_FINE) + add(graph, C2F_FINE)
+    print(f"ws2 c2f training: {e_ms:.3f} ms per step eager, {g_ms:.3f} ms "
+          f"graphed on {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    for opt in ("sgd", "radam", "ranger"):
+        eager, graph, e_ms, g_ms = training_phase(
+            torch, np, tcfg.replace(optimizer=opt), table, Ks, Ps, card,
+            label=f"{opt} training", per_step=PER_STEP, planar=True,
+            repeat=opt == "ranger", exact=True)
+        ms[opt] = (e_ms, g_ms)
+        add(eager)
+        add(graph)
+        print(f"{opt} training: {e_ms:.3f} ms per step eager, {g_ms:.3f} ms "
+              f"graphed, against Adam's {exact_ms[0]:.3f} / "
+              f"{exact_ms[1]:.3f} ms in this run on {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    _, _, e_ms, g_ms = training_phase(
+        torch, np, tcfg.replace(train_backend="stub"), table, Ks, Ps, card,
+        label="stub training", per_step={}, planar=False, steps=5,
+        repeat=False, profile=True, exact=True)
+    ms["stub"] = (e_ms, g_ms)
+    print(f"stub training (the field replaced, no kernel): {e_ms:.3f} ms "
+          f"per step eager, {g_ms:.3f} ms graphed: the step's glue, against "
+          f"the exact step's {exact_ms[0]:.3f} / {exact_ms[1]:.3f} ms on "
+          f"{card}", flush=True)
+    torch.cuda.empty_cache()
+    return ran, stacked, gathered, ms
+
+
+def variants_cli_phase(torch, np, card, base_psnr):
+    """The train CLI with the variants, on the scene the scene phase
+    wrote: warp_importance 0.5 with ranger on the first C1_FRAMES frames,
+    once through the epoch and once stopped by its time budget and
+    resumed (the resumed state equal to the checkpoint file, slow weights
+    and lookahead count included, and both runs' ends the same bits);
+    warp_importance 0.5 with Adam on all frames for WI_RUN_BUDGET_S, its
+    last validation's PSNR above the fresh system's (`base_psnr`) by
+    PSNR_GAIN_DB, as the exact run must. Returns the launches the card
+    ran, the stacked-call runs' launches (all of them here) alike."""
+    from nsff_pl_tpu_torch.apps.train import cli
+    from nsff_pl_tpu_torch.config import get_opts
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+    from nsff_pl_tpu_torch.training.optim import param_leaves
+    from nsff_pl_tpu_torch.training.trainer import NSFFSystem
+
+    wi = ["--warp_importance", "0.5"]
+    c1 = ["--start_end", "0", str(C1_FRAMES), "--val_every_steps",
+          str(C1_VAL_EVERY), "--cache_dir", f"{SCENE_RUN_DIR}/cache_c1"]
+    ran, ends = {}, {}
+
+    def run(label, exp, more):
+        torch.cuda.synchronize()
+        reset_counts()
+        system = cli(scene_argv(exp, wi + more))
+        torch.cuda.synchronize()
+        for k, v in run_counts(system, launch_counts(), PER_STEP_WI,
+                               label).items():
+            ran[k] = ran.get(k, 0) + v
+        bad = [s for s, r in jsonl_rows(exp).items()
+               if not all(np.isfinite(v) for v in r.values())]
+        if bad:
+            fail(f"{label}: loss rows not finite at steps {bad[:5]}")
+        return system
+
+    ranger = c1 + ["--optimizer", "ranger"]
+    system = run("wi ranger run", "wi_ranger_a", ranger)
+    ends["a"] = _train_state(torch, system)
+    print(f"wi ranger run: {system.steps_run} steps, "
+          f"{cli_step_ms(system):.3f} ms per step through the CLI on {card}",
+          flush=True)
+    del system
+    system = run("wi ranger run (cut)", "wi_ranger_c",
+                 ranger + ["--time_budget_s", str(WI_RANGER_BUDGET_S)])
+    stop, total = system.state.step, system.total_steps
+    del system
+    if not 0 < stop < total:
+        fail(f"wi ranger run: the cut run stopped at step {stop} of {total}")
+    ckpt = ckpt_lib.latest_checkpoint(f"{SCENE_RUN_DIR}/ckpts/wi_ranger_c")
+    tree = ckpt_lib.restore_checkpoint(ckpt)
+    again = NSFFSystem(get_opts(scene_argv("wi_ranger_c", wi + ranger + [
+        "--ckpt_path", ckpt])))
+    opt = again.state.opt_state
+    saved = tree["opt_state"]
+    exact = (again.state.step == int(tree["step"]) == stop
+             and set(saved) == set(opt.fields())
+             and all(int(getattr(opt, k)) == int(saved[k])
+                     for k in opt.COUNTS)
+             and all(torch.equal(a.cpu(), b) for a, b in zip(
+                 param_leaves(again.state.params),
+                 param_leaves(tree["params"])))
+             and all(torch.equal(a.cpu(), b) for k in opt.LISTS
+                     for a, b in zip(getattr(opt, k),
+                                     param_leaves(saved[k]))))
+    print(f"wi ranger run: resumed at step {stop} of {total}, params and "
+          f"the ranger state ({sorted(opt.fields())}, lookahead count "
+          f"{int(opt.lookahead_count)}) equal to the file bit for bit: "
+          f"{exact}", flush=True)
+    if not exact:
+        fail("wi ranger run: the resumed state differs from the checkpoint")
+    del again, tree
+    system = run("wi ranger run (resumed)", "wi_ranger_c",
+                 ranger + ["--ckpt_path", ckpt])
+    ends["c"] = _train_state(torch, system)
+    del system
+    diff = _same_bits(torch, ends["a"], ends["c"])
+    print(f"wi ranger run: stopped at step {stop} and resumed, against the "
+          f"uninterrupted run after {total} steps (tensors that differ, "
+          f"largest difference): " + json.dumps(diff), flush=True)
+    if any(n for n, _ in diff.values()):
+        fail("wi ranger run: the resumed run ends elsewhere")
+    torch.cuda.empty_cache()
+
+    system = run("wi run", "wi_adam",
+                 ["--time_budget_s", str(WI_RUN_BUDGET_S)])
+    for step, log in system.val_history:
+        print(f"wi run: validation at step {step} " + json.dumps(
+            {k: round(v, 4) for k, v in log.items()}), flush=True)
+    last_step, last = system.val_history[-1]
+    gain = last["psnr"] - base_psnr
+    print(f"wi run: {system.steps_run} steps, {cli_step_ms(system):.3f} ms "
+          f"per step through the CLI; validation PSNR {base_psnr:.3f} dB "
+          f"before any step, {last['psnr']:.3f} dB at step {last_step}: "
+          f"+{gain:.3f} dB (must exceed {PSNR_GAIN_DB} dB) on {card}",
+          flush=True)
+    if not gain > PSNR_GAIN_DB:
+        fail(f"wi run: validation PSNR gained {gain:.3f} dB, not "
+             f"{PSNR_GAIN_DB}")
+    del system
+    torch.cuda.empty_cache()
+    return ran
+
+
 def main() -> int:
     import torch
 
@@ -3179,6 +3659,9 @@ def main() -> int:
 
     train_records = train_kernel_phase(torch, np, rk, tck, params, rays,
                                        card)
+    # B2's stacked warp call and B3 at the gathered rows (the variants)
+    stacked_records = {128: stacked_warp_kernels(torch, np, rk, tck, params,
+                                                 rays, card, 128)}
     packed_records = packed_kernel_phase(torch, np, params, rays, card)
     phase_s["kernels"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -3188,6 +3671,8 @@ def main() -> int:
     c2f_train_records = {S: train_kernel_phase(torch, np, rk, tck, params,
                                                rays, card, S=S)
                          for S in (C2F_FINE, 128 + C2F_NI)}
+    stacked_records[C2F_FINE] = stacked_warp_kernels(
+        torch, np, rk, tck, params, rays, card, C2F_FINE)
     torch.cuda.empty_cache()
     # B4, B5 and B6 at the packed c2f fine pass's sample counts
     # (at 192 the main paths run the static tower alone)
@@ -3273,6 +3758,16 @@ def main() -> int:
     phase_s["training"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
+    # ---------------- the train-path variants (main paths) ----------------
+    var_ran, stacked_steps, gathered_steps, var_ms = variants_phase(
+        torch, np, tcfg, table, Ks, Ps, card, (planar_ms, planar_graph_ms))
+    print("variants: ms per step (eager, graphed) " + json.dumps(
+        {k: [round(v, 4) for v in t] for k, t in var_ms.items()})
+        + f", the exact Adam step {planar_ms:.4f} / {planar_graph_ms:.4f} "
+        f"ms, on {card}", flush=True)
+    phase_s["variants"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # ---------------- packed serving phase (a main path) ----------------
     packed_serve_counts = packed_serving_phase(torch, np, cfg, params, K,
                                                poses, maps, card)
@@ -3302,7 +3797,7 @@ def main() -> int:
     t_phase = time.perf_counter()
 
     # ---------------- scene training (a main path) ----------------
-    scene_ran = scene_training_phase(
+    scene_ran, base_psnr = scene_training_phase(
         torch, np, card, {"planar": planar_graph_ms,
                           "packed": packed_graph_ms})
     record["launches"] += scene_ran["planar_eval_comp"]
@@ -3310,6 +3805,11 @@ def main() -> int:
             packed_records.items()):
         rec["launches"] += scene_ran[name]
     phase_s["scene training"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- the variants through the train CLI ----------------
+    cli_ran = variants_cli_phase(torch, np, card, base_psnr)
+    phase_s["variants CLI"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---------------- eval (a main path) ----------------
@@ -3418,6 +3918,33 @@ def main() -> int:
     train_agreement(torch, tcfg, table, Ks, Ps, "planar training")
     train_agreement(torch, pcfg, table, Ks, Ps, "packed training")
     phase_s["agreement"] = time.perf_counter() - t_phase
+    # the variants' launches: the stacked warp calls and the gathered
+    # composites to their records, the rest to each kernel's record at its
+    # sample count (the wi CLI runs: one stacked call and one gathered
+    # composite a step)
+    cli_steps = cli_ran.get("planar_nerf_train_bwd_static", 0)
+    stacked_steps[128] += cli_steps
+    gathered_steps += cli_steps
+    stacked_line = []
+    for S, recs in stacked_records.items():
+        for name, rec in recs.items():
+            rec["launches"] = (gathered_steps if "gathered" in name
+                               else stacked_steps[S])
+            if rec["launches"] == 0:
+                fail(f"{rec['name']}: no launch on the variants' paths")
+            stacked_line.append(rec)
+    for S in (128, C2F_FINE):
+        recs = train_records if S == 128 else by_s[S]
+        for name, rec in recs.items():
+            extra = (var_ran.get(at_samples(name, S), 0)
+                     + (cli_ran.get(name, 0) if S == 128 else 0))
+            if name in ("planar_nerf_train_fwd",
+                        "planar_nerf_train_bwd_transient"):
+                extra -= stacked_steps[S]
+            elif name.startswith("planar_compositor") and S == 128:
+                extra -= gathered_steps
+            rec["launches"] += extra
+
     print("phase seconds " + json.dumps(
         {k: round(v, 3) for k, v in phase_s.items()}), flush=True)
 
@@ -3425,7 +3952,7 @@ def main() -> int:
                       + list(packed_records.values())
                       + [r for S in (C2F_FINE, 128 + C2F_NI)
                          for r in by_s[S].values()]
-                      + packed_c2f_line}), flush=True)
+                      + packed_c2f_line + stacked_line}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -91,7 +91,8 @@ class NSFFConfig:
     # 'auto' = whenever the kernel eval backend is active and the config
     # fits the planar envelope; 'off' = packed eval kernel path
     planar_eval: str = "auto"
-    # train backend: 'auto' | 'xla' | 'pallas' | 'stub' ('stub' raises)
+    # train backend: 'auto' | 'xla' | 'pallas' | 'stub' (a profiling
+    # stand-in of the field on the packed path, models/rendering.py)
     train_backend: str = "auto"
     # planar fused train path (dense (N,S) kernel boundaries,
     # models/raymarch.py): 'auto' | 'on' | 'off'
@@ -315,8 +316,9 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                              "force the planar kernel; 'off': packed path")
     parser.add_argument("--train_backend", type=str, default="auto",
                         choices=["auto", "xla", "pallas", "stub"],
-                        help="training MLP backend ('stub', a profiling "
-                             "stand-in, is not ported)")
+                        help="training MLP backend ('stub': a profiling "
+                             "stand-in of the field on the packed path, "
+                             "not a model)")
     parser.add_argument("--fused_train", type=str, default="auto",
                         choices=["auto", "on", "off"],
                         help="planar fused train path (dense-boundary "

@@ -11,12 +11,19 @@ writes dense (N, S) planes, the fused compositor
 slots and zero noises) or the plain composite weighs them, and the
 per-sample result keys are assembled at the end.
 
-Training (`render_train_planar`, the exact branch): the main dual-tower
-evaluation with both flow heads and two transient-only evaluations at
-the flowed positions and times t+-1 (`make_planar_nerf_train`, three
-calls), composited together by the fused compositor
-(`ops/compositing_planar_kernel.py`). Every per-sample quantity is a
-dense (N, S) plane; sample positions never materialize.
+Training (`render_train_planar`): the main dual-tower evaluation with
+both flow heads and the transient-only evaluations at the flowed
+positions and times t+-1 (`make_planar_nerf_train`), composited together
+by the fused compositor (`ops/compositing_planar_kernel.py`), or in plain
+PyTorch with `planar_compositing='off'`. The warps take one of three
+forms (`warp_plan`): two calls, one per direction (the exact branch);
+`warp_subsample=2`, one call of N rows carrying both flow heads, the
+first half warped forward and the second backward; `warp_importance`,
+K rays drawn by a Horvitz-Thompson selection (`_importance_select`)
+from the composited transient weights, both directions evaluated on them
+in one call of 2K rows and composited in a second compositor call on the
+K gathered rows. Every per-sample quantity is a dense (N, S) plane;
+sample positions never materialize.
 
 Coarse-to-fine (`N_importance > 0`) on both: the coarse model's planar
 evaluation at the stratified depths and its own composite, then the
@@ -24,15 +31,12 @@ static (and transient) importance draws of `ops/sampling.py::sample_pdf`
 from its weights, sorted with the stratified depths into the fine pass's
 (N, S_fine) plane: S_fine = N_samples + 2 N_importance in training and
 in a test render of both towers, N_samples + N_importance for the static
-tower alone. The kernels take S_fine in 64..256.
-
-Not ported on these paths, each raising `NotImplementedError` naming its
-ROADMAP.md item: `warp_subsample=2` and `warp_importance > 0`. Unlike
-the TPU package there is no lane-width limit on `N_samples`.
+tower alone. The kernels take S_fine in 64..256. Unlike the TPU package
+there is no lane-width limit on `N_samples`.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -381,38 +385,131 @@ def planar_unapplicable_reasons(cfg: RenderConfig, output_transient: bool,
     return reasons
 
 
-def check_train_envelope(cfg: RenderConfig) -> None:
-    """Raise for the train-path variants the port does not have yet."""
-    if cfg.warp_subsample != 1:
-        raise NotImplementedError(
-            f"warp_subsample={cfg.warp_subsample} is not ported yet "
-            "(ROADMAP.md queue A, 'warp_subsample 2')")
-    if cfg.warp_importance:
-        raise NotImplementedError(
-            f"warp_importance={cfg.warp_importance} is not ported yet "
-            "(ROADMAP.md queue A, 'warp_importance')")
-    if cfg.planar_compositing not in ("auto", "on"):
-        raise NotImplementedError(
-            f"planar_compositing={cfg.planar_compositing!r}: the planar "
-            "train path composites in its fused compositor only (ROADMAP.md "
-            "queue A, 'planar_compositing off'); fused_train='off' "
-            "composites outside a kernel")
 
 
-DRAW_KEYS = ("u", "ns", "nt", "nw1", "nw2")
+def warp_plan(cfg: RenderConfig, n: int) -> Tuple[int, float, int]:
+    """How a training batch of n rays evaluates its warps: (warp_subsample,
+    warp_importance, K), K the rays the importance selection keeps (0
+    without it). Raises the JAX package's ValueErrors for the
+    combinations it refuses."""
+    ws, wi = cfg.warp_subsample, float(cfg.warp_importance)
+    if ws not in (1, 2):
+        raise ValueError(f"warp_subsample must be 1 or 2, got {ws}")
+    if ws == 2 and n % 2:
+        raise ValueError("warp_subsample=2 needs an even ray batch")
+    if wi and ws != 1:
+        raise ValueError(
+            "warp_importance and warp_subsample=2 are mutually exclusive")
+    if not 0.0 <= wi <= 1.0:
+        raise ValueError(f"warp_importance must be in [0, 1], got {wi}")
+    if cfg.planar_compositing not in ("auto", "on", "off"):
+        raise ValueError(
+            f"unknown planar_compositing {cfg.planar_compositing!r}")
+    return ws, wi, (max(int(round(wi * n)), 1) if wi else 0)
 
 
 def draw_shapes(cfg: RenderConfig, n: int) -> Dict[str, tuple]:
     """The random draws of one `render_train_planar` call, in the order
-    it takes them from a generator: {key: shape}."""
+    it takes them from a generator: {key: shape}. The warp noises have
+    one row per warped ray: n, or K under `warp_importance`; with
+    `warp_subsample=2` one plane carries both directions."""
     S, ni = cfg.N_samples, cfg.N_importance
     sf = S + 2 * ni if ni > 0 else S
     shapes = {"u": (n, S)}
     if ni > 0:
         shapes.update(u_pdf_s=(n, ni), u_pdf_t=(n, ni), ncs=(n, S),
                       nct=(n, S))
-    shapes.update({k: (n, sf) for k in DRAW_KEYS[1:]})
+    shapes.update(ns=(n, sf), nt=(n, sf))
+    ws, wi, K = warp_plan(cfg, n)
+    if wi:
+        shapes.update(nw1=(K, sf), nw2=(K, sf))
+        if K < n:
+            shapes["u_sel"] = ()
+    elif ws == 2:
+        shapes["nw1"] = (n, sf)
+    else:
+        shapes.update(nw1=(n, sf), nw2=(n, sf))
     return shapes
+
+
+def _importance_select(scores: torch.Tensor, K: int, u: torch.Tensor):
+    """Horvitz-Thompson selection of K ray slots (`warp_importance`), the
+    JAX function's: inclusion intensities pi_i ~ K * scores_i /
+    sum(scores), four rounds of moving the capped mass onto the rays
+    below 1, a support floor of 0.5 / n, then a systematic draw over the
+    cumulative pi at offsets (k + u) * scale for the uniform `u` (0-d).
+    Returns (idx, v), v = scale / pi[idx], so that sum_k v_k f(idx_k) is
+    an unbiased estimate of sum_i f(i). A ray with pi > 1 is drawn more
+    than once. K >= n gives the identity with unit weights.
+
+    No gradient, and nothing read on the host; the cumulative sum is
+    `data/pipeline.py::blocked_cumsum`, the same bits on every run."""
+    from nsff_pl_tpu_torch.data.pipeline import blocked_cumsum
+
+    n, dev = scores.shape[0], scores.device
+    if K >= n:
+        return (torch.arange(n, device=dev),
+                torch.ones((n,), dtype=torch.float32, device=dev))
+    s = scores.detach().clamp(min=1e-12)
+    pi = K * s / s.sum()
+    for _ in range(4):
+        capped = (pi >= 1.0).float()
+        free_K = K - capped.sum()
+        denom = (s * (1.0 - capped)).sum().clamp(min=1e-12)
+        pi = torch.where(capped > 0, 1.0, s * free_K / denom)
+    pi = pi.clamp(min=0.5 / n)  # every ray stays reachable
+    cum = blocked_cumsum(pi)
+    scale = cum[-1] / K  # 1 up to the support floor
+    pos = (torch.arange(K, dtype=torch.float32, device=dev) + u) * scale
+    idx = torch.searchsorted(cum, pos, right=True).clamp(0, n - 1)
+    return idx, scale / pi[idx]
+
+
+def _plain_composite(zs, ssig, tsig, ns, nt, srgb, trgb):
+    """The main evaluation's composite in plain PyTorch (the fused
+    compositor's work without its warp slots): {"d_t", "tau_s",
+    "static_alphas", "sw", "tw", "w", "rgb", "depth"}."""
+    d_s, d_t = cp.deltas_from_zs(zs)
+    tau_s = d_s * cp.softplus(ssig + ns)
+    tau_t = d_t * cp.softplus(tsig + nt)
+    static_alphas = 1.0 - torch.exp(-tau_s)
+    transient_alphas = 1.0 - torch.exp(-tau_t)
+    # alpha = 1 - (1 - a_s)(1 - a_t) = 1 - exp(-(tau_s + tau_t))
+    alphas = 1.0 - torch.exp(-(tau_s + tau_t))
+    trans = cp.transmittance_from_taus(tau_s + tau_t)
+    sw, tw = static_alphas * trans, transient_alphas * trans
+    w = alphas * trans
+    return {"d_t": d_t, "tau_s": tau_s, "static_alphas": static_alphas,
+            "sw": sw, "tw": tw, "w": w,
+            "rgb": torch.stack([(sw * sc + tw * tc).sum(-1)
+                                for sc, tc in zip(srgb, trgb)], -1),
+            "depth": (w * zs).sum(-1)}
+
+
+def _plain_warp_composite(c, tsig_w, trgb_w, nw, srgb):
+    """A warped evaluation composited in plain PyTorch against the static
+    field of the main composite `c` (`_plain_composite`): (rgb, its
+    transient weights)."""
+    tau_w = c["d_t"] * cp.softplus(tsig_w + nw)
+    ta_w = 1.0 - torch.exp(-tau_w)
+    trans_w = cp.transmittance_from_taus(c["tau_s"] + tau_w)
+    sw_w, tw_w = c["static_alphas"] * trans_w, ta_w * trans_w
+    return torch.stack([(sw_w * sc + tw_w * tc).sum(-1)
+                        for sc, tc in zip(srgb, trgb_w)], -1), tw_w
+
+
+def _comp_inputs(zs, main, ns, nt, w1, w2, nw1, nw2):
+    """The fused compositor's 21 planes: the main evaluation `main` (a
+    dict of planes) and the warp slots' (tsig, (r, g, b)) pairs."""
+    ins = {"zs": zs, "ssig": main["ssig"], "tsig": main["tsig"],
+           "tsig_w1": w1[0], "tsig_w2": w2[0], "ns": ns, "nt": nt,
+           "nw1": nw1, "nw2": nw2}
+    for i, c in enumerate("rgb"):
+        ins[f"srgb_{c}"] = main[f"srgb_{c}"]
+        ins[f"trgb_{c}"] = main[f"trgb_{c}"]
+        ins[f"trgb_w1_{c}"] = w1[1][i]
+        ins[f"trgb_w2_{c}"] = w2[1][i]
+    return ins
 
 
 def render_train_planar(
@@ -427,31 +524,46 @@ def render_train_planar(
     draws: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render a training batch with planar layouts; the result dict has
-    the JAX function's keys and values on its exact branch:
+    the JAX function's keys and values:
 
-      - per-ray maps: rgb_fine (N,3), depth_fine (N,), rgb_fw/rgb_bw
-        (N,3), xyz_fine/xyz_fw/xyz_bw (N,3), disocc_fw/disocc_bw (N,1)
-        (+ rgb_coarse (N,3) / depth_coarse (N,) when N_importance > 0)
-      - dense planes (N,S): zs, static_weights/transient_weights/weights,
-        disoccs_fw/disoccs_bw
-      - component-plane 3-tuples of (N,S): xyzs, xyzs_fw, xyzs_bw,
-        xyzs_fw_bw, xyzs_bw_fw
+      - per-ray maps: rgb_fine (N,3), depth_fine (N,), xyz_fine/xyz_fw/
+        xyz_bw (N,3) (+ rgb_coarse (N,3) / depth_coarse (N,) when
+        N_importance > 0)
+      - dense planes (N,S): zs, static_weights/transient_weights/weights
+      - component-plane 3-tuples of (N,S): xyzs, xyzs_fw, xyzs_bw
+      - the warp terms' inputs, by warp variant (`warp_plan`):
+        exact: rgb_fw/rgb_bw (N,3), disocc_fw/disocc_bw (N,1),
+        disoccs_fw/disoccs_bw (N,S), xyzs_fw_bw/xyzs_bw_fw;
+        `warp_subsample=2` (rows [0, N/2) warp forward to t+1, rows
+        [N/2, N) backward to t-1, in one evaluation carrying both flow
+        heads): rgb_w (N,3), disocc_w (N,1), disoccs_w (N,S), xyzs_wb;
+        `warp_importance` (K = round(wi N) rays drawn by
+        `_importance_select` from the composited transient weights, both
+        directions evaluated on them in one 2K-row evaluation):
+        warp_idx / warp_v (K,), rgb_fw_g/rgb_bw_g (K,3),
+        disocc_fw_g/disocc_bw_g (K,1), disoccs_fw_g/disoccs_bw_g (K,S),
+        xyzs_g, xyzs_fw_bw_g, xyzs_bw_fw_g.
 
     S is N_samples, or S_fine = N_samples + 2 N_importance under
     coarse-to-fine: the coarse model `params_coarse` runs at the
     stratified depths, composites with its own noisy sigmas, and the
     static and transient importance draws from its weights (without
     gradient; deterministic when perturb is 0) join the stratified depths,
-    sorted, as the fine pass's depths.
+    sorted, as the fine pass's depths. The composite runs in the fused
+    compositor (`planar_compositing` 'auto' or 'on'; its plain version on
+    CPU tensors) or in plain PyTorch ('off').
 
     Random draws (`draw_shapes` gives their shapes): `draws` may hold "u"
     ((N, S) perturb uniforms), with coarse-to-fine "u_pdf_s", "u_pdf_t"
     ((N, N_importance) importance uniforms) and "ncs", "nct" ((N, S)
-    coarse sigma noises), and "ns", "nt", "nw1", "nw2" ((N, S_fine)
-    standard normals: the static, transient, fw-warp and bw-warp sigma
-    noises); noises are scaled by `noise_std` here. What it lacks is
-    drawn from `generator` on the rays' device in `draw_shapes` order.
-    The JAX function draws them from its key `rng` as
+    coarse sigma noises), "ns", "nt" ((N, S_fine) static and transient
+    sigma noises), "nw1", "nw2" (the fw-warp and bw-warp sigma noises:
+    (N, S_fine), under `warp_importance` (K, S_fine), under
+    `warp_subsample=2` "nw1" alone) and under `warp_importance` "u_sel"
+    (the selection's 0-d uniform); noises are standard normals scaled by
+    `noise_std` here. What it lacks is drawn from `generator` on the
+    rays' device in `draw_shapes` order. The JAX function draws them
+    from its key `rng` as
 
         k_perturb, k_pdf_s, k_pdf_t, k_rest = split(rng, 4)
         u = uniform(k_perturb, (N, S))
@@ -460,14 +572,15 @@ def render_train_planar(
         kc_noise_s, kc_noise_t, _, _ = split(k_coarse, 4)
         ncs, nct = (normal(k, (N, S)) for k in (kc_noise_s, kc_noise_t))
         k_noise_s, k_noise_t, k_fw, k_bw = split(k_fine, 4)
-        ns, nt, nw1, nw2 = (normal(k, (N, S_fine)) for k in
+        ns, nt, nw1, nw2 = (normal(k, (rows, S_fine)) for k in
                             (k_noise_s, k_noise_t, k_fw, k_bw))
+        u_sel = uniform(fold_in(k_rest, 7), ())
 
     so a test can rebuild them and pass them in."""
-    check_train_envelope(cfg)
     n = rays.shape[0]
     S = cfg.N_samples
     dev = rays.device
+    ws, wi, K = warp_plan(cfg, n)
     draws = dict(draws or {})
     for k, shape in draw_shapes(cfg, n).items():
         if k not in draws:
@@ -512,17 +625,23 @@ def render_train_planar(
         S, use_viewdir=use_viewdir, encode_a=encode_a, encode_t=True,
         output_flow=("fw", "bw"), **kker)
     warp_kw = dict(static_branch=False, flow_in=True, encode_t=True, **kker)
-    warp_ops = {w: make_planar_nerf_train(S, output_flow=(w,), **warp_kw)
-                for w in ("fw", "bw")}
-    # one weight packing serves the three evaluations of the step
+    if ws == 2 or wi:
+        # one stacked warp evaluation with both flow heads, so that every
+        # row reads the opposite direction for the cycle term
+        warp_ops = {"both": make_planar_nerf_train(
+            S, output_flow=("fw", "bw"), **warp_kw)}
+    else:
+        warp_ops = {w: make_planar_nerf_train(S, output_flow=(w,), **warp_kw)
+                    for w in ("fw", "bw")}
+    # one weight packing serves every evaluation of the step
     pw = main_op.pack(params_fine)
 
     main = main_op(params_fine, o, d, zs, None, dir_emb, a_emb, t_emb, pw=pw)
     far = zs > Z_FAR  # flow is zeroed beyond z_far
-    ffw = tuple(torch.where(far, 0.0, main[k])
-                for k in ("ffw_x", "ffw_y", "ffw_z"))
-    fbw = tuple(torch.where(far, 0.0, main[k])
-                for k in ("fbw_x", "fbw_y", "fbw_z"))
+    ffw = tuple(torch.where(far, 0.0, main[f"ffw_{c}"]) for c in "xyz")
+    fbw = tuple(torch.where(far, 0.0, main[f"fbw_{c}"]) for c in "xyz")
+    srgb = tuple(main[f"srgb_{c}"] for c in "rgb")
+    trgb = tuple(main[f"trgb_{c}"] for c in "rgb")
 
     res["zs"] = zs
     xyz = tuple(o[:, c:c + 1] + d[:, c:c + 1] * zs for c in range(3))
@@ -530,42 +649,92 @@ def render_train_planar(
     res["xyzs_fw"] = tuple(x + f for x, f in zip(xyz, ffw))
     res["xyzs_bw"] = tuple(x + f for x, f in zip(xyz, fbw))
 
-    def warp_eval(flows, t_shift, which):
-        """The transient field at xyz + flow and time t + t_shift."""
-        ts_shift = torch.clamp(ts + t_shift, 0, cfg.max_t)
-        t_emb_w = nerf_m.embedding_lookup(embeddings["t"], ts_shift)
-        out = warp_ops[which](params_fine, o, d, zs, flows, None, None,
-                              t_emb_w, pw=pw)
-        flow_back = tuple(torch.where(far, 0.0, out[f"f{which}_{c}"])
-                          for c in ("x", "y", "z"))
-        return out, flow_back
+    def t_emb_at(ts_w):
+        return nerf_m.embedding_lookup(embeddings["t"],
+                                       torch.clamp(ts_w, 0, cfg.max_t))
 
-    out_w1, flowb_fw = warp_eval(ffw, +1, "bw")
-    out_w2, flowb_bw = warp_eval(fbw, -1, "fw")
+    n2 = n // 2
+    if ws == 2:
+        # rows [0, n/2): the fw warp (xyz + flow_fw at t+1); rows
+        # [n/2, n): the bw warp (xyz + flow_bw at t-1)
+        flows_w = tuple(torch.cat([f[:n2], b[n2:]]) for f, b in zip(ffw, fbw))
+        out_w = warp_ops["both"](
+            params_fine, o, d, zs, flows_w, None, None,
+            t_emb_at(torch.cat([ts[:n2] + 1, ts[n2:] - 1])), pw=pw)
+        # the cycle term reads the opposite direction's flow at the warped
+        # point: bw on the fw-warped half, fw on the other
+        flow_back = tuple(torch.where(far, 0.0, torch.cat(
+            [out_w[f"fbw_{c}"][:n2], out_w[f"ffw_{c}"][n2:]]))
+            for c in "xyz")
+        w_slots = [(out_w["tsig"], tuple(out_w[f"trgb_{c}"] for c in "rgb"))]
+    elif not wi:
+        outs, flows_back = [], []
+        for flows, shift, which in ((ffw, +1, "bw"), (fbw, -1, "fw")):
+            out = warp_ops[which](params_fine, o, d, zs, flows, None, None,
+                                  t_emb_at(ts + shift), pw=pw)
+            outs.append(out)
+            flows_back.append(tuple(torch.where(far, 0.0, out[f"f{which}_{c}"])
+                                    for c in "xyz"))
+        flowb_fw, flowb_bw = flows_back
+        w_slots = [(out["tsig"], tuple(out[f"trgb_{c}"] for c in "rgb"))
+                   for out in outs]
+    else:
+        # under warp_importance the warps are evaluated after the main
+        # composite, whose transient weights score the rays; the warp
+        # slots carry the main planes, their outputs discarded
+        w_slots = [(main["tsig"], trgb)]
 
-    comp_in = {"zs": zs, "ssig": main["ssig"], "tsig": main["tsig"],
-               "tsig_w1": out_w1["tsig"], "tsig_w2": out_w2["tsig"],
-               "ns": noise("ns"), "nt": noise("nt"),
-               "nw1": noise("nw1"), "nw2": noise("nw2")}
-    for c in "rgb":
-        comp_in[f"srgb_{c}"] = main[f"srgb_{c}"]
-        comp_in[f"trgb_{c}"] = main[f"trgb_{c}"]
-        comp_in[f"trgb_w1_{c}"] = out_w1[f"trgb_{c}"]
-        comp_in[f"trgb_w2_{c}"] = out_w2[f"trgb_{c}"]
-    comp = make_planar_compositor(S)(comp_in)
-    sw, tw, w = (comp["static_weights"], comp["transient_weights"],
-                 comp["weights"])
-    maps = comp["maps"]
-    res["rgb_fine"] = maps[:, 0:3]
-    res["depth_fine"] = maps[:, 3]
-    res["rgb_fw"] = maps[:, 4:7]
-    res["rgb_bw"] = maps[:, 7:10]
+    ns, nt = noise("ns"), noise("nt")
+    nws = [nt] if wi else [noise("nw1")] if ws == 2 else [noise("nw1"),
+                                                          noise("nw2")]
+    use_ck = cfg.planar_compositing != "off"
+    if use_ck:
+        compositor = make_planar_compositor(S)
+        # a single warp rides both slots; the second slot's outputs are
+        # discarded, so their cotangents are zero and nothing is doubled
+        comp = compositor(_comp_inputs(zs, main, ns, nt, w_slots[0],
+                                       w_slots[-1], nws[0], nws[-1]))
+        sw, tw, w = (comp["static_weights"], comp["transient_weights"],
+                     comp["weights"])
+        maps = comp["maps"]
+        res["rgb_fine"] = maps[:, 0:3]
+        res["depth_fine"] = maps[:, 3]
+        tw_ws = [comp["tw_w1"], comp["tw_w2"]]
+        rgb_ws = [maps[:, 4:7], maps[:, 7:10]]
+    else:
+        c = _plain_composite(zs, main["ssig"], main["tsig"], ns, nt, srgb,
+                             trgb)
+        sw, tw, w = c["sw"], c["tw"], c["w"]
+        res["rgb_fine"], res["depth_fine"] = c["rgb"], c["depth"]
+        rgb_ws, tw_ws = [], []
+        if not wi:
+            for (tsig_w, trgb_w), nw in zip(w_slots, nws):
+                rgb_w, tw_w = _plain_warp_composite(c, tsig_w, trgb_w, nw,
+                                                    srgb)
+                rgb_ws.append(rgb_w)
+                tw_ws.append(tw_w)
     res["static_weights"] = sw
     res["transient_weights"] = tw
     res["weights"] = w
 
-    res["xyzs_fw_bw"] = tuple(x + f for x, f in zip(res["xyzs_fw"], flowb_fw))
-    res["xyzs_bw_fw"] = tuple(x + f for x, f in zip(res["xyzs_bw"], flowb_bw))
+    if wi:
+        _importance_warps(res, params_fine, warp_ops["both"], pw, o, d, zs,
+                          ts, main, ffw, fbw, srgb, xyz, ns, nt, tw, K,
+                          draws.get("u_sel"), noise("nw1"), noise("nw2"),
+                          compositor if use_ck else None, t_emb_at)
+    elif ws == 2:
+        res["rgb_w"] = rgb_ws[0]
+        # the warped point is xyz + flow_fw on the first half, xyz +
+        # flow_bw on the second
+        xyz_warp = tuple(torch.cat([f[:n2], b[n2:]]) for f, b in
+                         zip(res["xyzs_fw"], res["xyzs_bw"]))
+        res["xyzs_wb"] = tuple(x + f for x, f in zip(xyz_warp, flow_back))
+    else:
+        res["rgb_fw"], res["rgb_bw"] = rgb_ws
+        res["xyzs_fw_bw"] = tuple(x + f for x, f in zip(res["xyzs_fw"],
+                                                        flowb_fw))
+        res["xyzs_bw_fw"] = tuple(x + f for x, f in zip(res["xyzs_bw"],
+                                                        flowb_bw))
 
     # composited flow expectations
     res["xyz_fine"] = torch.stack([(w * x).sum(-1) for x in xyz], -1)
@@ -575,10 +744,81 @@ def render_train_planar(
     res["xyz_bw"] = res["xyz_fine"] + flow_bw_map
 
     # disocclusion = 1 - |sum(warped_w - w)|, without gradient
-    occ_fw = (comp["tw_w1"] - tw).detach()
-    occ_bw = (comp["tw_w2"] - tw).detach()
-    res["disocc_fw"] = 1.0 - occ_fw.sum(-1, keepdim=True).abs()
-    res["disocc_bw"] = 1.0 - occ_bw.sum(-1, keepdim=True).abs()
-    res["disoccs_fw"] = 1.0 - occ_fw.abs()
-    res["disoccs_bw"] = 1.0 - occ_bw.abs()
+    if ws == 2:
+        _disocclusion(res, "w", tw_ws[0], tw)
+    elif not wi:
+        _disocclusion(res, "fw", tw_ws[0], tw)
+        _disocclusion(res, "bw", tw_ws[1], tw)
     return res
+
+
+def _disocclusion(res, name, tw_warp, tw, suffix=""):
+    """disocc_<name> (N, 1) and disoccs_<name> (N, S) of a warp's
+    transient weights against the main ones, without gradient."""
+    occ = (tw_warp - tw).detach()
+    res[f"disocc_{name}{suffix}"] = 1.0 - occ.sum(-1, keepdim=True).abs()
+    res[f"disoccs_{name}{suffix}"] = 1.0 - occ.abs()
+
+
+def _importance_warps(res, params_fine, warp_op, pw, o, d, zs, ts, main, ffw,
+                      fbw, srgb, xyz, ns, nt, tw, K, u_sel, nw1, nw2,
+                      compositor, t_emb_at):
+    """The warp terms of `warp_importance` into `res`: score each ray by
+    its composited transient weight (without gradient) plus 0.05, which
+    keeps the static rays in the support, draw K rays
+    (`_importance_select`), evaluate both warp directions on them in one
+    2K-row evaluation (rows [0, K) fw at t+1, [K, 2K) bw at t-1) and
+    composite them against the gathered rays' static field: in the fused
+    compositor (a second call, on the K rows) or, with `compositor`
+    None, in plain PyTorch."""
+    idx, v = _importance_select(tw.detach().sum(-1) + 0.05, K, u_sel)
+    res["warp_idx"], res["warp_v"] = idx, v
+
+    zs_g = zs[idx].contiguous()
+    ffw_g = tuple(f[idx] for f in ffw)
+    fbw_g = tuple(f[idx] for f in fbw)
+    far_g = zs_g > Z_FAR
+    ts_g = ts[idx]
+    o_g, d_g = o[idx], d[idx]
+
+    def two(a):
+        return torch.cat([a, a])
+
+    out_w = warp_op(params_fine, two(o_g), two(d_g), two(zs_g),
+                    tuple(torch.cat([f, b]) for f, b in zip(ffw_g, fbw_g)),
+                    None, None, t_emb_at(torch.cat([ts_g + 1, ts_g - 1])),
+                    pw=pw)
+    # the cycle term reads the opposite direction's flow at the warped point
+    flowb_fw_g = tuple(torch.where(far_g, 0.0, out_w[f"fbw_{c}"][:K])
+                       for c in "xyz")
+    flowb_bw_g = tuple(torch.where(far_g, 0.0, out_w[f"ffw_{c}"][K:])
+                       for c in "xyz")
+    w1 = (out_w["tsig"][:K], tuple(out_w[f"trgb_{c}"][:K] for c in "rgb"))
+    w2 = (out_w["tsig"][K:], tuple(out_w[f"trgb_{c}"][K:] for c in "rgb"))
+    main_g = {k: main[k][idx] for k in ("ssig", "tsig", "srgb_r", "srgb_g",
+                                        "srgb_b", "trgb_r", "trgb_g",
+                                        "trgb_b")}
+    ns_g, nt_g = ns[idx], nt[idx]
+    if compositor is not None:
+        comp_g = compositor(_comp_inputs(zs_g, main_g, ns_g, nt_g, w1, w2,
+                                         nw1, nw2))
+        tw_g = comp_g["transient_weights"]
+        tw_fw_g, tw_bw_g = comp_g["tw_w1"], comp_g["tw_w2"]
+        res["rgb_fw_g"] = comp_g["maps"][:, 4:7]
+        res["rgb_bw_g"] = comp_g["maps"][:, 7:10]
+    else:
+        srgb_g = tuple(main_g[f"srgb_{c}"] for c in "rgb")
+        c = _plain_composite(zs_g, main_g["ssig"], main_g["tsig"], ns_g,
+                             nt_g, srgb_g, tuple(main_g[f"trgb_{c}"]
+                                                 for c in "rgb"))
+        tw_g = c["tw"]
+        res["rgb_fw_g"], tw_fw_g = _plain_warp_composite(c, *w1, nw1, srgb_g)
+        res["rgb_bw_g"], tw_bw_g = _plain_warp_composite(c, *w2, nw2, srgb_g)
+    _disocclusion(res, "fw", tw_fw_g, tw_g, "_g")
+    _disocclusion(res, "bw", tw_bw_g, tw_g, "_g")
+    xyzs_g = tuple(x[idx] for x in xyz)
+    res["xyzs_g"] = xyzs_g
+    res["xyzs_fw_bw_g"] = tuple(x + f + fb for x, f, fb
+                                in zip(xyzs_g, ffw_g, flowb_fw_g))
+    res["xyzs_bw_fw_g"] = tuple(x + b + fb for x, b, fb
+                                in zip(xyzs_g, fbw_g, flowb_bw_g))

@@ -19,9 +19,13 @@ Coarse-to-fine (`N_importance > 0`) runs one `inference` pass of the
 coarse model on the plain evaluators and one of the fine model at the
 sorted union of the stratified depths and the importance draws (the
 planar paths, `models/raymarch.py`, render it too: at test time
-`render_rays` hands it the coarse model). `mesh` and the `'stub'` train
-backend are not ported, and each raises `NotImplementedError` naming its
-ROADMAP.md item.
+`render_rays` hands it the coarse model). The train backend 'stub' is
+the JAX package's profiling stand-in: the fine model's evaluations
+(the main one and both warps) become tanh(xyz @ static_xyz_0.w[:3, :16])
+(the flows that map's columns 8:14 times 0.01), so that a step timed
+with it measures everything but the field; it runs no kernel, by design,
+and is no model to train. `mesh` is not ported and raises
+`NotImplementedError` naming its ROADMAP.md item.
 
 `interpolate` (with `_interp_pre` / `_interp_post`) renders a time
 between two rendered frames from their per-sample planes: the eval CLI's
@@ -72,24 +76,28 @@ class RenderConfig:
     # train backend: 'auto' = the hand-written kernels on a CUDA device
     # with bfloat16 compute (the JAX package's Pallas backend on a TPU),
     # the plain f32 evaluators otherwise; 'pallas' forces the kernels (the
-    # plain versions on CPU tensors); 'xla' the plain evaluators
+    # plain versions on CPU tensors); 'xla' the plain evaluators; 'stub'
+    # the profiling stand-in of the field (`stub_field`) on the packed path
     train_backend: str = "auto"
     # the main evaluation's compositing in the fused compositor
     # (ops/compositing_kernel.py) when the kernel train backend is active
     # on the packed path
     fused_compositing: bool = False
     # the fused three-way compositor of the planar paths: in training
-    # 'auto' and 'on' use it (its plain version on CPU tensors; 'off' is
-    # not ported there); on the test-time planes route 'on', or 'auto' on
-    # a CUDA device, composites in it, else in plain PyTorch, and 'off'
-    # also turns the composited route off
+    # 'auto' and 'on' use it (its plain version on CPU tensors), 'off'
+    # composites in plain PyTorch; on the test-time planes route 'on', or
+    # 'auto' on a CUDA device, composites in it, else in plain PyTorch,
+    # and 'off' also turns the composited route off
     planar_compositing: str = "auto"
     # planar train path: 'auto' = whenever the kernel train backend is
     # active and the configuration is in its envelope; 'on' forces it;
     # 'off' keeps the packed-boundary path (`render_rays`)
     fused_train: str = "auto"
-    # warp-evaluation subsampling / importance selection of the planar
-    # train path; only the exact values (1, 0.0) are ported
+    # the planar train path's warp evaluation (models/raymarch.py::
+    # warp_plan): warp_subsample 2 warps half the rays each way in one
+    # evaluation; warp_importance f in (0, 1] evaluates both directions on
+    # round(f N) rays drawn by transient weight, with Horvitz-Thompson
+    # loss weights; (1, 0.0) is the exact branch
     warp_subsample: int = 1
     warp_importance: float = 0.0
     # planar test-time path: 'auto' = on a CUDA device with bfloat16
@@ -121,11 +129,10 @@ def planar_eval_decision(cfg: RenderConfig, device) -> Tuple[bool, list]:
 def _resolve_backend(backend: str, name: str, cfg: RenderConfig,
                      device) -> str:
     """'auto' -> 'pallas' (the kernels) on a CUDA device with bfloat16
-    compute, else 'xla' (the plain evaluators)."""
-    if backend == "stub":
-        raise NotImplementedError(
-            f"{name}='stub' (the profiling stand-in of the field) is not "
-            "ported (ROADMAP.md queue A, 'stub train backend')")
+    compute, else 'xla' (the plain evaluators); the train backend also
+    takes 'stub'."""
+    if backend == "stub" and name == "train_backend":
+        return backend
     if backend not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown {name} {backend!r}")
     if backend == "auto":
@@ -212,6 +219,14 @@ def _plain_fields(model, xyz, dir_emb, a_emb, t_emb, cfg, flow, sigma_only,
                           part(a_emb, i), part(t_emb, i), cfg, flow,
                           sigma_only, dtype) for i in range(0, n, step)]
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def stub_field(model, xyz: torch.Tensor) -> torch.Tensor:
+    """The 'stub' train backend's stand-in of a field evaluation at the
+    points xyz (N, S, 3): tanh(xyz @ static_xyz_0.w[:3, :16]), a map of
+    the right width that depends on the params, so that the step's
+    backward still runs."""
+    return torch.tanh(xyz @ model["static_xyz_0"]["w"][:3, :16])
 
 
 def render_rays(
@@ -343,11 +358,22 @@ def render_rays(
         sigma_only = test_time and not fine
         this_flow = tuple(f for f in flow if f in ("fw", "bw"))
         kernel_train = use_kernel_train and fine
+        # the profiling stand-in's map of the points (`stub_field`)
+        stub = tbackend == "stub" and not test_time and fine
         has_a_ = has_a and fine
         results[f"zs_{typ}"] = zs
         results[f"xyzs_{typ}"] = xyz
         packed = pw = static_rgbs = transient_rgbs = None
-        if (use_kernel_eval and fine) or kernel_train:
+        if stub:
+            packed = stub_field(model, xyz)
+            static_rgbs = packed[..., 0:3]
+            static_sigmas_raw = packed[..., 3]
+            if output_transient:
+                transient_rgbs = packed[..., 4:7]
+                transient_sigmas_raw = packed[..., 7]
+                raw_flows = {"fw": 0.01 * packed[..., 8:11],
+                             "bw": 0.01 * packed[..., 11:14]}
+        elif (use_kernel_eval and fine) or kernel_train:
             from nsff_pl_tpu_torch.ops import mlp_kernel as mk
 
             if kernel_train:
@@ -453,7 +479,11 @@ def render_rays(
                 ts_shift = torch.clamp(ts + t_shift, 0, cfg.max_t)
                 t_emb_ray = nerf_m.embedding_lookup(embeddings["t"],
                                                     ts_shift)
-                if kernel_train:
+                if stub:
+                    pk = stub_field(model, xyz_w_pts)
+                    tr_w = {"rgb": pk[..., 4:7], "sigma": pk[..., 7],
+                            f"flow_{which_flow}": 0.01 * pk[..., 8:11]}
+                elif kernel_train:
                     ft_w = mtk.make_fused_nerf_train(
                         Sx, use_viewdir=cfg.use_viewdir, encode_a=False,
                         encode_t=True, output_flow=(which_flow,),

@@ -4,8 +4,9 @@
 `params_from_jax` carries a JAX params pytree (given as numpy arrays,
 e.g. `jax.tree.map(np.asarray, params)`) over to port tensors. Both
 packages keep weights in the (in, out) layout, so nothing is
-transposed. `opt_state_from_jax` / `opt_state_to_numpy` carry Adam's
-count and moments across the same way. `save`/`load` write and read the
+transposed. `opt_state_from_jax` / `opt_state_to_numpy` carry every
+optimizer's state across the same way (adam's and radam's count and
+moments, sgd's trace, ranger's slow weights and lookahead count). `save`/`load` write and read the
 port's own parameters with `torch.save`.
 
 A trainer checkpoint is `ckpt_dir/step_<n>/state.pt`, one `torch.save`
@@ -62,51 +63,105 @@ def to_device(params, device):
     return _map(params, lambda t: t.to(dev))
 
 
-def _adam_state(tree):
-    """(count, mu, nu) of the first node of a (numpy) optax state tree
-    with Adam's `count`, `mu` and `nu` (also `opt_state_to_numpy`'s dict)."""
-    if isinstance(tree, dict) and {"count", "mu", "nu"} <= set(tree):
-        return tree["count"], tree["mu"], tree["nu"]
-    if hasattr(tree, "mu") and hasattr(tree, "nu"):
-        return tree.count, tree.mu, tree.nu
+def _has(node, *names) -> bool:
+    """Does a dict, or an optax state (a NamedTuple), hold these fields?"""
+    if isinstance(node, dict):
+        keys = node
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        keys = node._fields
+    else:
+        return False
+    return all(k in keys for k in names)
+
+
+def _get(node, name):
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+def _find(tree, pred):
+    """The first node of a (numpy) optax state tree, depth first, for
+    which `pred` holds; None if none does."""
+    if pred(tree):
+        return tree
     for sub in (tree.values() if isinstance(tree, dict) else
                 tree if isinstance(tree, (tuple, list)) else ()):
-        found = _adam_state(sub)
+        found = _find(sub, pred)
         if found is not None:
             return found
     return None
 
 
-def opt_state_from_jax(np_opt_state, opt, params):
-    """Load the Adam count and moments of an optax `adam` state (as
-    numpy, e.g. `jax.tree.map(np.asarray, opt_state)`) into the
-    `optim.AdamState` that `optim.Adam.init(params)` made, in place."""
+def jax_opt_fields(np_opt_state) -> Dict[str, Any]:
+    """The fields of the port's optimizer state (`optim.OptState`) in an
+    optax state tree of the JAX package's `make_optimizer` (as numpy, or
+    as an orbax checkpoint's dicts), by its structure: a `lookahead`
+    state is ranger's (the inner RAdam's count and moments, the slow
+    weights and the lookahead's count), a trace sgd's (the trace and the
+    schedule's count), else the count and moments of adam or radam.
+    Counts come as scalars, the rest as trees nested like the params."""
+    la = _find(np_opt_state, lambda t: _has(t, "inner", "slow", "count"))
+    if la is not None:
+        out = jax_opt_fields(_get(la, "inner"))
+        return {**out, "slow": _get(la, "slow"),
+                "lookahead_count": _get(la, "count")}
+    tr = _find(np_opt_state, lambda t: _has(t, "trace"))
+    if tr is not None:
+        sched = _find(np_opt_state,
+                      lambda t: _has(t, "count") and not _has(t, "mu"))
+        return {"count": _get(sched, "count"), "trace": _get(tr, "trace")}
+    adam = _find(np_opt_state, lambda t: _has(t, "count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("no optimizer state (a count and moments, a "
+                         "trace or a lookahead state) in the given tree")
+    return {k: _get(adam, k) for k in ("count", "mu", "nu")}
+
+
+def load_opt_fields(opt, fields: Dict[str, Any], params) -> None:
+    """Copy `fields` (counts as scalars, the rest as trees nested like
+    `params`) into the optimizer state `opt`, in place; the fields must be
+    the state's own."""
     from nsff_pl_tpu_torch.training.optim import param_leaves
 
-    st = _adam_state(np_opt_state)
-    if st is None:
-        raise ValueError("no Adam state (count, mu, nu) in the given tree")
-    count, mu, nu = st[0], param_leaves(st[1]), param_leaves(st[2])
+    if set(fields) != set(opt.fields()):
+        raise ValueError(f"optimizer state with {sorted(fields)}, this "
+                         f"optimizer keeps {sorted(opt.fields())}")
     leaves = param_leaves(params)
-    if len(mu) != len(leaves):
-        raise ValueError(f"{len(mu)} moments for {len(leaves)} parameters")
-    opt.count.fill_(int(np.asarray(count)))
-    for p, m, v, om, ov in zip(leaves, mu, nu, opt.mu, opt.nu):
-        om.copy_(torch.as_tensor(np.asarray(m), dtype=p.dtype).reshape(
-            p.shape))
-        ov.copy_(torch.as_tensor(np.asarray(v), dtype=p.dtype).reshape(
-            p.shape))
+    with torch.no_grad():
+        for k in opt.COUNTS:
+            getattr(opt, k).fill_(int(np.asarray(fields[k])))
+        for k in opt.LISTS:
+            src = param_leaves(fields[k])
+            if len(src) != len(leaves):
+                raise ValueError(f"{k}: {len(src)} tensors for "
+                                 f"{len(leaves)} parameters")
+            for p, a, dst in zip(leaves, src, getattr(opt, k)):
+                dst.copy_(torch.as_tensor(np.asarray(a), dtype=p.dtype)
+                          .reshape(p.shape))
+
+
+def opt_state_from_jax(np_opt_state, opt, params):
+    """Load the state of an optax optimizer from the JAX package's
+    `make_optimizer` (as numpy, e.g. `jax.tree.map(np.asarray,
+    opt_state)`) into the `optim.OptState` that the port's optimizer of
+    the same name made (`init(params)`), in place: adam's and radam's
+    count and moments, sgd's trace and count, ranger's inner radam state,
+    slow weights and lookahead count."""
+    load_opt_fields(opt, jax_opt_fields(np_opt_state), params)
+
+
+def opt_state_tree(opt, params, leaf=lambda t: t):
+    """An optimizer state as {field: count (int) or tree nested like
+    `params`}, each tensor through `leaf`."""
+    out = {k: int(getattr(opt, k)) for k in opt.COUNTS}
+    for k in opt.LISTS:
+        out[k] = _map(tree_like(params, getattr(opt, k)), leaf)
+    return out
 
 
 def opt_state_to_numpy(opt, params):
-    """Adam's count and moments as {"count", "mu", "nu"}, the moments
-    nested like `params`, as numpy."""
-    def as_numpy(leaves):
-        return _map(tree_like(params, leaves),
-                    lambda t: t.detach().cpu().numpy())
-
-    return {"count": int(opt.count), "mu": as_numpy(opt.mu),
-            "nu": as_numpy(opt.nu)}
+    """The optimizer state's fields (`opt_state_tree`) as numpy: Adam's
+    {"count", "mu", "nu"}, and the fields of the others."""
+    return opt_state_tree(opt, params, lambda t: t.detach().cpu().numpy())
 
 
 def tree_like(params, leaves):

@@ -1,7 +1,9 @@
 """The NSFF loss suite (port of `nsff_pl_tpu/training/loss.py`):
 `compute_losses` on the reference-shaped result dict of
-`models/rendering.py::render_rays`, `compute_losses_planar` (its exact
-branch) on the planar layout of `models/raymarch.py::render_train_planar`.
+`models/rendering.py::render_rays`, `compute_losses_planar` on the planar
+layout of `models/raymarch.py::render_train_planar`, with the warp terms
+of each of its warp variants (exact, `warp_subsample=2`,
+`warp_importance`).
 
 Eight terms with epoch schedules: lambda_geo = lambda_geo_init *
 0.1**(epoch // 10) for the depth and flow terms, lambda_reg = 0.1,
@@ -223,6 +225,44 @@ def compute_losses(
     return _finalize_terms(ret, masks, weights, cfg)
 
 
+def _importance_warp_terms(results, rgbs, S: int):
+    """pho_l and cyc_l per ray under warp_importance: both directions were
+    evaluated on K Horvitz-Thompson-selected rays (`warp_idx`, weights
+    `warp_v`); each selected ray's contribution goes back to its ray
+    times v (`ht_scatter`), an unbiased estimate of the exact branch's
+    per-ray terms, and each disocclusion normaliser is the matching
+    estimate of the batch mean (a self-normalised ratio). With
+    warp_importance=1.0 both are the exact branch's terms. The scatter
+    adds a ray drawn twice in a fixed order (`index_put` with
+    accumulate), so a step gives the same bits on every run."""
+    idx, v = results["warp_idx"], results["warp_v"]
+    n = rgbs.shape[0]
+    rgbs_g = rgbs[idx]
+
+    def ht_scatter(contrib):  # (K,) -> (N,)
+        return contrib.new_zeros((n,)).index_put((idx,), v * contrib,
+                                                 accumulate=True)
+
+    d_fw = results["disocc_fw_g"][:, 0]
+    d_bw = results["disocc_bw_g"][:, 0]
+    r_fw = ((results["rgb_fw_g"] - rgbs_g) ** 2).mean(-1)
+    r_bw = ((results["rgb_bw_g"] - rgbs_g) ** 2).mean(-1)
+    den_fw = (v * d_fw).sum() / n
+    den_bw = (v * d_bw).sum() / n
+    pho = ht_scatter(d_fw * r_fw) / den_fw + ht_scatter(d_bw * r_bw) / den_bw
+
+    cyc_abs_fw = sum((a - b).abs() for a, b in zip(results["xyzs_fw_bw_g"],
+                                                   results["xyzs_g"]))
+    cyc_abs_bw = sum((a - b).abs() for a, b in zip(results["xyzs_bw_fw_g"],
+                                                   results["xyzs_g"]))
+    dfs, dbs = results["disoccs_fw_g"], results["disoccs_bw_g"]
+    den_fws = (v * dfs.mean(-1)).sum() / n
+    den_bws = (v * dbs.mean(-1)).sum() / n
+    cyc = (ht_scatter((dfs * cyc_abs_fw).sum(-1)) / den_fws
+           + ht_scatter((dbs * cyc_abs_bw).sum(-1)) / den_bws) / (3 * S)
+    return pho, cyc
+
+
 def compute_losses_planar(
     results: Dict[str, torch.Tensor],
     batch: Dict[str, torch.Tensor],
@@ -255,21 +295,43 @@ def compute_losses_planar(
                           batch, cfg, lambda_geo, Ks, Ps)
 
     S = tw.shape[1]
-    # photometric warping loss, normalized by the batch-mean disocclusion
-    pho_l = (results["disocc_fw"] * (results["rgb_fw"] - rgbs) ** 2
-             / results["disocc_fw"].mean())
-    pho_l = pho_l + (results["disocc_bw"] * (results["rgb_bw"] - rgbs) ** 2
-                     / results["disocc_bw"].mean())
-    ret["pho_l"] = pho_l.mean(-1)
-    # cycle consistency: mean over (S, 3) of disoccs * |xyz_fw_bw - xyz|
-    cyc_abs_fw = sum((a - b).abs() for a, b in zip(results["xyzs_fw_bw"],
-                                                   results["xyzs"]))
-    cyc_abs_bw = sum((a - b).abs() for a, b in zip(results["xyzs_bw_fw"],
-                                                   results["xyzs"]))
-    cyc_l = (results["disoccs_fw"] * cyc_abs_fw / results["disoccs_fw"].mean()
-             + results["disoccs_bw"] * cyc_abs_bw
-             / results["disoccs_bw"].mean())
-    ret["cyc_l"] = cyc_l.sum(-1) / (3 * S)
+    if "rgb_fw_g" in results:
+        ret["pho_l"], ret["cyc_l"] = _importance_warp_terms(results, rgbs, S)
+    elif "rgb_w" in results:
+        # warp_subsample=2: the first half of the rays warped forward, the
+        # second backward; each direction's disocclusion normaliser is its
+        # half's mean, and each term counts twice, so that the batch mean
+        # is the exact fw + bw loss's expectation
+        n2 = rgbs.shape[0] // 2
+        dw = results["disocc_w"]  # (N, 1)
+        pho = dw * (results["rgb_w"] - rgbs) ** 2
+        pho = torch.cat([pho[:n2] / dw[:n2].mean(), pho[n2:] / dw[n2:].mean()])
+        ret["pho_l"] = 2.0 * pho.mean(-1)
+        cyc_abs = sum((a - b).abs() for a, b in zip(results["xyzs_wb"],
+                                                    results["xyzs"]))
+        dws = results["disoccs_w"]  # (N, S)
+        cyc = dws * cyc_abs
+        cyc = torch.cat([cyc[:n2] / dws[:n2].mean(),
+                         cyc[n2:] / dws[n2:].mean()])
+        ret["cyc_l"] = 2.0 * cyc.sum(-1) / (3 * S)
+    else:
+        # photometric warping loss, normalized by the batch-mean
+        # disocclusion
+        pho_l = (results["disocc_fw"] * (results["rgb_fw"] - rgbs) ** 2
+                 / results["disocc_fw"].mean())
+        pho_l = pho_l + (results["disocc_bw"] * (results["rgb_bw"] - rgbs)
+                         ** 2 / results["disocc_bw"].mean())
+        ret["pho_l"] = pho_l.mean(-1)
+        # cycle consistency: mean over (S, 3) of disoccs * |xyz_fw_bw - xyz|
+        cyc_abs_fw = sum((a - b).abs() for a, b in zip(results["xyzs_fw_bw"],
+                                                       results["xyzs"]))
+        cyc_abs_bw = sum((a - b).abs() for a, b in zip(results["xyzs_bw_fw"],
+                                                       results["xyzs"]))
+        cyc_l = (results["disoccs_fw"] * cyc_abs_fw
+                 / results["disoccs_fw"].mean()
+                 + results["disoccs_bw"] * cyc_abs_bw
+                 / results["disoccs_bw"].mean())
+        ret["cyc_l"] = cyc_l.sum(-1) / (3 * S)
 
     # the static slice: samples below z_far, as reduction masks
     n_near = int(S * Z_FAR)

@@ -3,7 +3,8 @@
 
 `make_train_step` builds one training step: device-side batch gather ->
 render with scene-flow warping (the planar path where it applies, else
-the reference-shaped `render_rays`) -> loss -> backward -> Adam update.
+the reference-shaped `render_rays`) -> loss -> backward -> the optimizer's
+update (`training/optim.py`: adam, sgd, radam or ranger).
 PyTorch runs eagerly, so the step is a plain function where the JAX
 package returned a jitted one. With `scan_steps=K > 1` it returns the
 counterpart of the JAX package's K-step dispatch (`lax.scan` over K
@@ -29,12 +30,12 @@ import torch
 
 from nsff_pl_tpu_torch import resolve_device
 from nsff_pl_tpu_torch.models.rendering import RenderConfig, render_rays
-from nsff_pl_tpu_torch.training.optim import AdamState, param_leaves
+from nsff_pl_tpu_torch.training.optim import OptState, param_leaves
 
 
 class TrainState(NamedTuple):
     params: Any  # {'nerf_fine', 'embedding_a'?, 'embedding_t'?}
-    opt_state: Any  # optim.AdamState over `optim.param_leaves(params)`
+    opt_state: Any  # an optim.OptState over `optim.param_leaves(params)`
     step: int
 
 
@@ -84,16 +85,20 @@ def make_train_step(
     with the kernel backend active (`train_backend` 'pallas', or 'auto'
     on a CUDA device with bfloat16 compute). 'on' outside the envelope
     raises. Every other case (no transient branch, not both flows,
-    `fused_train='off'`, the plain evaluators) renders through the
-    packed-boundary `render_rays` with `compute_losses`.
+    `fused_train='off'`, the plain evaluators, `train_backend='stub'`
+    under 'auto') renders through the packed-boundary `render_rays` with
+    `compute_losses`. The planar path never reads `train_backend`, so a
+    'stub' configuration with `fused_train='on'` trains on the kernels.
+    `warp_subsample=2` and `warp_importance` run on the planar path only
+    (elsewhere they raise `ValueError`, as does a batch or a combination
+    the JAX renderer refuses, `models/raymarch.py::warp_plan`).
 
     With `scan_steps=K > 1` it returns the K-step dispatch `_MultiStep`
     (its docstring has the signature), which on a CUDA device replays one
     CUDA graph of all K steps."""
     from nsff_pl_tpu_torch.data.pipeline import _sample_batch
     from nsff_pl_tpu_torch.models.raymarch import (
-        check_train_envelope, planar_unapplicable_reasons,
-        render_train_planar)
+        planar_unapplicable_reasons, render_train_planar, warp_plan)
     from nsff_pl_tpu_torch.training.loss import (compute_losses,
                                                  compute_losses_planar,
                                                  total_loss)
@@ -124,8 +129,8 @@ def make_train_step(
             + (f" (unavailable here: {'; '.join(reasons)})" if reasons
                else " (enable it: fused_train='on'/'auto' with the kernel "
                     "train backend)"))
-    if use_planar:
-        check_train_envelope(render_cfg)
+    if use_planar:  # the JAX renderer's ValueErrors, before any step
+        warp_plan(render_cfg, batch_size)
     flow = tuple(output_transient_flow)
 
     def step_body(params, opt, step, table, weights, Ks, Ps, generator, t,
@@ -208,13 +213,10 @@ def _clone_params(tree):
 
 
 def clone_state(state: TrainState) -> TrainState:
-    """A copy of a train state: its params, Adam's count and moments."""
+    """A copy of a train state: its params and its optimizer's state."""
     params = _clone_params(state.params)
-    opt = AdamState(param_leaves(params))
-    with torch.no_grad():
-        opt.count.copy_(state.opt_state.count)
-        torch._foreach_copy_(opt.mu + opt.nu,
-                             state.opt_state.mu + state.opt_state.nu)
+    opt = type(state.opt_state)(param_leaves(params))
+    opt.copy_(state.opt_state)
     return state._replace(params=params, opt_state=opt)
 
 
@@ -222,8 +224,8 @@ def _tensors(x):
     """The tensors of a nested dict / state, for the capture's key."""
     if isinstance(x, dict):
         return [t for k in sorted(x) for t in _tensors(x[k])]
-    if isinstance(x, AdamState):
-        return [x.count] + x.params + x.mu + x.nu
+    if isinstance(x, OptState):
+        return x.params + x.tensors()
     return [x] if isinstance(x, torch.Tensor) else []
 
 
@@ -268,7 +270,7 @@ class _MultiStep:
     `torch.cuda.set_sync_debug_mode("error")`, so a step that waits on
     the host raises there), and again whenever the tensors it reads
     change (another state, table or buffer). The graph reads the
-    parameters, the Adam state, the table and `tmp_rgb` at their
+    parameters, the optimizer state, the table and `tmp_rgb` at their
     addresses and updates them in place; everything else (the packed
     weights, the backward's scratch, the activations) comes from the
     graph's own pool. Around a replay only device-side work runs: a fill

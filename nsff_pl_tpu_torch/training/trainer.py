@@ -1,10 +1,11 @@
 """Training orchestration (port of `nsff_pl_tpu/training/trainer.py`):
 `NSFFSystem`, a plain loop around the train step.
 
-- the scenes, params (with an optional warm start), Adam and its
-  schedule, the device ray table with its hard-sampling weights, the
-  frame scheduler and the train step (`make_train_step(scan_steps=K)`:
-  one CUDA graph of K steps on the card), as the JAX trainer builds them;
+- the scenes, params (with an optional warm start), the optimizer
+  (adam, sgd, radam or ranger) and its schedule, the device ray table
+  with its hard-sampling weights, the frame scheduler and the train
+  step (`make_train_step(scan_steps=K)`: one CUDA graph of K steps on
+  the card), as the JAX trainer builds them;
 - `fit`: groups of K steps clipped at the epoch end, the validation
   cadence and the last step (a clipped group runs single steps); the
   per-step metrics of a window are copied to the host without a wait
@@ -15,15 +16,18 @@
   variants), image grids for TensorBoard, and the
   hard-sampling refresh, weight = 1 - SSIM(tmp_rgb, gt) per pixel, all
   on the device;
-- `save` / `restore`: params, Adam's count and moments, the step, the
+- `save` / `restore`: params, the optimizer's state (Adam's count and
+  moments; sgd's trace; ranger's slow weights and lookahead count too,
+  so that a resume syncs from the right slow point), the step, the
   sampling weights, and (for an exact resume) the hard-sampling buffer,
   the train generator's and the frame scheduler's states. `restore`
   copies into the tensors the captured graph reads, so a restore needs
   no new capture.
 
-Nothing here rebinds a tensor the train step reads: the params, Adam's
-state, the table, the weights and `tmp_rgb` keep their storage for the
-life of the system, so each dispatch shape is captured once.
+Nothing here rebinds a tensor the train step reads: the params, the
+optimizer's state, the table, the weights and `tmp_rgb` keep their
+storage for the life of the system, so each dispatch shape is captured
+once.
 
 Not ported (each raises `NotImplementedError` naming its ROADMAP item):
 more than one GPU ('multi-GPU'), `profile_dir` ('profiling'), datasets
@@ -254,19 +258,20 @@ class NSFFSystem:
     def restore(self, path: str) -> None:
         """Load a checkpoint into the system's own tensors (in place)."""
         tree = ckpt_lib.restore_checkpoint(path)
+        mine, src = (param_leaves(self.state.params),
+                     param_leaves(tree["params"]))
+        if [tuple(t.shape) for t in mine] != [tuple(t.shape) for t in src]:
+            raise ValueError(f"{path}: parameter shapes differ from this "
+                             "configuration's")
         opt = self.state.opt_state
-        mine = param_leaves(self.state.params)
-        pairs = [(mine, param_leaves(tree["params"])),
-                 (opt.mu, param_leaves(tree["opt_state"]["mu"])),
-                 (opt.nu, param_leaves(tree["opt_state"]["nu"]))]
-        for dst, src in pairs:
-            if [tuple(t.shape) for t in dst] != [tuple(t.shape) for t in src]:
-                raise ValueError(f"{path}: parameter shapes differ from "
-                                 "this configuration's")
+        try:
+            ckpt_lib.load_opt_fields(opt, tree["opt_state"],
+                                     self.state.params)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e} (optimizer "
+                             f"{self.cfg.optimizer!r})") from e
         with torch.no_grad():
-            for dst, src in pairs:
-                torch._foreach_copy_(dst, [t.to(self.device) for t in src])
-            opt.count.fill_(int(tree["opt_state"]["count"]))
+            torch._foreach_copy_(mine, [t.to(self.device) for t in src])
             self.batcher.weights.copy_(tree["sampling_weights"])
             if tree.get("tmp_rgb", torch.empty(0)).shape == \
                     self.tmp_rgb.shape:
@@ -281,13 +286,11 @@ class NSFFSystem:
         """Checkpoint `ckpt_dir/<exp>/step_<n>`, and the config beside it."""
         t0 = time.perf_counter()
         step = int(self.state.step)
-        opt = self.state.opt_state
         params = self.state.params
         tree = {
             "params": params,
-            "opt_state": {"count": int(opt.count),
-                          "mu": ckpt_lib.tree_like(params, opt.mu),
-                          "nu": ckpt_lib.tree_like(params, opt.nu)},
+            "opt_state": ckpt_lib.opt_state_tree(self.state.opt_state,
+                                                 params),
             "step": step,
             "sampling_weights": self.batcher.weights,
             "tmp_rgb": self.tmp_rgb,

@@ -6,8 +6,10 @@ from:
 
     python scripts/jax_ckpt_to_torch.py ckpts/smoke_full/step_15 out/exp
 
-It carries the params, Adam's count and moments, the step and the
-hard-sampling weights. The train generator's and frame scheduler's
+It carries the params, the optimizer's state (adam's and radam's count
+and moments, sgd's momentum trace and count, ranger's inner radam state,
+slow weights and lookahead count), the step and the hard-sampling
+weights. The train generator's and frame scheduler's
 states are not in a JAX checkpoint (the JAX trainer re-seeds both on a
 resume), so the port's resume re-seeds them too.
 
@@ -48,13 +50,10 @@ def port_tree(tree):
     """A JAX trainer checkpoint's tree -> the port's checkpoint dict."""
     import torch
 
-    from nsff_pl_tpu_torch.training.checkpoint import _adam_state
+    from nsff_pl_tpu_torch.training.checkpoint import jax_opt_fields
 
     state = tree["state"]
-    found = _adam_state(state["opt_state"])
-    if found is None:
-        raise ValueError("no Adam state (count, mu, nu) in the checkpoint")
-    count, mu, nu = found
+    fields = jax_opt_fields(state["opt_state"])
 
     def tensors(t):
         if isinstance(t, dict):
@@ -63,9 +62,8 @@ def port_tree(tree):
 
     return {
         "params": tensors(_np_tree(state["params"])),
-        "opt_state": {"count": int(np.asarray(count)),
-                      "mu": tensors(_np_tree(mu)),
-                      "nu": tensors(_np_tree(nu))},
+        "opt_state": {k: int(np.asarray(v)) if k.endswith("count")
+                      else tensors(_np_tree(v)) for k, v in fields.items()},
         "step": int(np.asarray(state["step"])),
         "sampling_weights": torch.from_numpy(
             np.array(tree["sampling_weights"], dtype=np.float32)),

@@ -6,7 +6,8 @@ and atol 1e-9, i.e. 2e-6 of the base lr: the JAX schedule runs in f32,
 the port's in f64, and near the end of the cosine 1 + cos cancels in
 f32), the Adam update against
 optax (rtol 1e-5, f32 rounding of the same formula in another order),
-and the Adam state carried across with `opt_state_from_jax`."""
+sgd, radam and ranger built and stepped from a fresh state, and the Adam
+state carried across with `opt_state_from_jax`."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -118,8 +119,40 @@ def test_adam_matches_optax(weight_decay):
 
 @pytest.mark.parametrize("name", ["sgd", "radam", "ranger"])
 def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.make_optimizer(tconfig.NSFFConfig(optimizer=name), 1)
+    """Once unported, now built: each optimizer's class and fresh state
+    (zero counts and moments, ranger's slow weights at the params), and
+    its first three updates from that state against optax at the Adam
+    test's tolerance (tests/test_torch_optimizers.py runs them longer,
+    from a state carried over from JAX)."""
+    kw = dict(optimizer=name, lr=1e-2, lr_scheduler="cosine", num_epochs=4)
+    jtx = joptim.make_optimizer(jconfig.NSFFConfig(**kw), 2)
+    ttx = toptim.make_optimizer(tconfig.NSFFConfig(**kw), 2)
+    assert type(ttx) is {"sgd": toptim.Sgd, "radam": toptim.RAdam,
+                         "ranger": toptim.Ranger}[name]
+    p_np = _toy_params(0)
+    jp = jax.tree.map(jnp.asarray, p_np)
+    jstate = jtx.init(jp)
+    tp = {"b": {k: torch.from_numpy(v.copy()) for k, v in p_np["b"].items()},
+          "a": torch.from_numpy(p_np["a"].copy())}
+    opt = ttx.init(tp)
+    for k, v in opt.fields().items():
+        if k == "slow":
+            for a, b in zip(v, toptim.param_leaves(tp)):
+                assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+        elif isinstance(v, list):
+            assert all(not bool(t.any()) for t in v), k
+        else:
+            assert int(v) == 0, k
+    for step in range(3):
+        g = _toy_params(10 + step)
+        upd, jstate = jtx.update(jax.tree.map(jnp.asarray, g), jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        for leaf, gl in zip(toptim.param_leaves(tp), jax.tree.leaves(g)):
+            leaf.grad = torch.from_numpy(gl)
+        ttx.step(opt)
+    for a, b in zip(toptim.param_leaves(tp), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=1e-5, atol=1e-7)
 
 
 def test_opt_state_round_trip_from_jax():

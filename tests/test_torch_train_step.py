@@ -224,12 +224,22 @@ def test_make_train_step_decisions():
         tx, **kw).use_planar
     assert tstep.make_train_step(dataclasses.replace(on, N_importance=8),
                                  lcfg, tx, **kw).use_planar
-    for bad, match in ((dict(warp_subsample=2), "warp_subsample"),
-                       (dict(warp_importance=0.5), "warp_importance"),
-                       (dict(planar_compositing="off"), "planar_compositing")):
-        with pytest.raises(NotImplementedError, match=match):
+    # the warp variants and the plain composite build a planar step
+    for variant in (dict(warp_subsample=2), dict(warp_importance=0.5),
+                    dict(planar_compositing="off")):
+        assert tstep.make_train_step(dataclasses.replace(on, **variant),
+                                     lcfg, tx, **kw).use_planar
+    # and the JAX renderer's refusals raise with its wording
+    for bad, batch, match in (
+            (dict(warp_subsample=2), 5, "needs an even ray batch"),
+            (dict(warp_subsample=2, warp_importance=0.5), 4,
+             "mutually exclusive"),
+            (dict(warp_importance=1.5), 4, r"must be in \[0, 1\]"),
+            (dict(warp_importance=-0.5), 4, r"must be in \[0, 1\]"),
+            (dict(warp_subsample=3), 4, "must be 1 or 2")):
+        with pytest.raises(ValueError, match=match):
             tstep.make_train_step(dataclasses.replace(on, **bad), lcfg, tx,
-                                  **kw)
+                                  **{**kw, "batch_size": batch})
     # scan_steps > 1: the K-step dispatch
     multi = tstep.make_train_step(on, lcfg, tx, scan_steps=4, **kw)
     assert multi.use_planar and multi.K == 4
