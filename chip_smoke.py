@@ -152,7 +152,26 @@ once), then:
    `--warp_importance 0.5`: ranger on 4 frames, uninterrupted and
    stopped by its time budget and resumed (the resumed state equal to
    the checkpoint file, the ends the same bits), and Adam on all frames
-   for WI_RUN_BUDGET_S, its validation PSNR up by PSNR_GAIN_DB.
+   for WI_RUN_BUDGET_S, its validation PSNR up by PSNR_GAIN_DB;
+12. profiling and the serving tools (main paths; after the eval phase,
+   on the scene training checkpoint), a JSON line per part: (a) the
+   train CLI with `--profile_dir` on the scene's first 3 frames at
+   128x72 (27 steps): its torch.profiler trace holds the ranges of steps
+   10-14 and, in them, B2's and B3's kernels at PER_STEP a step, and the
+   run ends with the bits of the same run with `--scan_steps 1` and no
+   profiling; ms a step inside the window and unprofiled; (b)
+   `tools/profile_step.py` at 8192 rays, auto (B2 + B3) then off (B4 +
+   B5): ms a step, launches per step, its trace; (c)
+   `tools/save_weights_only.py` on the checkpoint: a served frame and an
+   eval frame from the stripped file equal those from the full one bit
+   for bit; (d) `tools/export_render.py` at 512x288, chunk 32768,
+   `--use_viewdir --N_samples 128 --check`: the kernel route in bfloat16
+   with `--encode_t --output_transient` (B1) and without `encode_t`
+   (B5), and the plain route in float32, each reloaded in a fresh
+   process that imports torch and, for the kernel route,
+   `nsff_pl_tpu_torch.ops.library` alone: one launch a call, its output
+   within the tool's check tolerance of the live renderer, ms per
+   exported chunk beside the live chunk.
 
 The training phases end with a torch.profiler trace of 5 more steps
 (device time by kernel, the device's busy share and the backward's
@@ -1790,9 +1809,9 @@ def run_counts(system, counts, per_step, label, val=None):
 
 def cli_step_ms(system):
     """Host ms per step of a CLI run: fit's wall time without its
-    validations, checkpoints and the capture."""
+    validations, checkpoints and the capture (an eager run has none)."""
     other = (sum(system.val_seconds) + sum(system.save_seconds)
-             + system.train_step.capture_seconds)
+             + getattr(system.train_step, "capture_seconds", 0.0))
     return (system.fit_seconds - other) * 1e3 / max(system.steps_run, 1)
 
 
@@ -3553,6 +3572,387 @@ def variants_cli_phase(torch, np, card, base_psnr):
     return ran
 
 
+
+# ---------------- profiling and the serving tools (main paths) ----------
+
+# the train CLI's profiled run: 3 frames at 128x72, 27 steps an epoch, so
+# that the trace window (steps 10-15) lies inside one epoch
+PROFILE_WH, PROFILE_FRAMES = (128, 72), 3
+PROFILE_DIR = "chip_smoke_out/profile_cli"
+PROFILE_WINDOW = (10, 15)
+# profile_step: 1 warm-up, 30 timed and 4 traced steps at 8192 rays (the
+# JAX repo's bench recipe: the packed path without the fused compositor)
+PROFILE_STEP_STEPS, PROFILE_STEP_TRACED = 1 + 30 + 4, 4
+PER_STEP_PROFILE_OFF = {k: v for k, v in PER_STEP_PACKED.items()
+                        if not k.startswith("fused_compositing")}
+EXPORT_DIR = "chip_smoke_out/export"
+# an exported program's timing: warm-up calls (the card's clocks settle
+# after the fresh process's idle start), then timed calls
+EXPORT_WARMUP, EXPORT_REPS = 10, 20
+# the fresh process that loads the exported kernel artifacts: it imports
+# torch and nsff_pl_tpu_torch.ops.library, nothing else; per artifact
+# (path, inputs, where to save the first call's outputs) one JSON line
+EXPORT_LOADER = r"""
+import json, sys, torch
+import nsff_pl_tpu_torch.ops.library as library
+counts = {"planar_eval_comp": library.rk.planar_eval_comp_cuda.launches,
+          "fused_nerf_eval": library.mk.fused_nerf_eval_cuda.launches}
+warmup, reps = int(sys.argv[1]), int(sys.argv[2])
+for path, inputs, out in zip(*[iter(sys.argv[3:])] * 3):
+    for c in counts.values():
+        c.clear()
+    prog = torch.export.load(path).module()
+    rays, ts = (t.cuda() for t in torch.load(inputs))
+    with torch.no_grad():
+        torch.save([g.cpu() for g in prog(rays, ts)], out)
+        for _ in range(warmup):
+            prog(rays, ts)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            prog(rays, ts)
+        end.record()
+        torch.cuda.synchronize()
+    print(json.dumps({
+        "path": path, "ms": start.elapsed_time(end) / reps,
+        "calls": 1 + warmup + reps,
+        "launches": {k: sum(c.values()) for k, c in counts.items()},
+        "modules": sorted(m for m in sys.modules if m.startswith("nsff"))}))
+"""
+
+
+def trace_kernels(logdir, per_step):
+    """(the `step <n>` ranges, {symbol: kernel events}, all kernel events)
+    of the one torch.profiler trace under `logdir`, for the kernels of
+    `per_step` (their first kernel, SYMBOLS)."""
+    import glob
+
+    files = glob.glob(f"{logdir}/*.pt.trace.json")
+    if len(files) != 1:
+        fail(f"{logdir}: {len(files)} trace files, expected 1")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    steps = sorted(int(e["name"].split()[1]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith("step "))
+    syms = {SYMBOLS[k] for k in per_step}
+    return steps, {s: sum(_symbol_count(n, s) for n in names)
+                   for s in syms}, len(names)
+
+
+def expected_symbols(per_step, steps):
+    out = {}
+    for k, v in per_step.items():
+        out[SYMBOLS[k]] = out.get(SYMBOLS[k], 0) + v * steps
+    return out
+
+
+def profile_cli_part(torch, card):
+    """(a) The train CLI with --profile_dir on the scene's first frames:
+    the trace of steps 10-15 holds B2's and B3's kernels at PER_STEP per
+    step, and the run ends with the bits of the same run with
+    --scan_steps 1 and no profiling. Returns the launches the card ran."""
+    import shutil
+
+    from nsff_pl_tpu_torch.apps.train import cli
+
+    extra = ["--img_wh", str(PROFILE_WH[0]), str(PROFILE_WH[1]),
+             "--start_end", "0", str(PROFILE_FRAMES),
+             "--cache_dir", f"{SCENE_RUN_DIR}/cache_prof"]
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    ran, systems = {}, {}
+    for label, more in (("prof", ["--profile_dir", PROFILE_DIR]),
+                        ("prof_ref", ["--scan_steps", "1"])):
+        torch.cuda.synchronize()
+        reset_counts()
+        system = cli(scene_argv(label, extra + more))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        n = system.steps_run
+        if system.scan_steps != 1 or n != system.total_steps or n < 20:
+            fail(f"profile CLI {label}: K {system.scan_steps}, {n} steps of "
+                 f"{system.total_steps}")
+        for k, v in counts.items():
+            want = PER_STEP.get(k, 0) * n
+            if k != "planar_eval_comp" and v != want:  # B1: validations
+                fail(f"profile CLI {label}: {k} launched {v} times, "
+                     f"expected {want}")
+            ran[k] = ran.get(k, 0) + v
+        systems[label] = system
+    prof, ref = systems["prof"], systems["prof_ref"]
+    window = list(range(*PROFILE_WINDOW))
+    steps, kernels, n_kernels = trace_kernels(PROFILE_DIR, PER_STEP)
+    want = expected_symbols(PER_STEP, len(window))
+    diff = _same_bits(torch, _train_state(torch, prof),
+                      _train_state(torch, ref))
+    out = {"steps": prof.steps_run, "traced_steps": prof.trace_steps,
+           "trace_step_ranges": steps, "trace_kernels": kernels,
+           "expected": want, "kernel_events": n_kernels,
+           "ms_per_step_in_window": prof.trace_seconds * 1e3 / len(window),
+           "ms_per_step_unprofiled_run": cli_step_ms(ref),
+           "ms_per_step_profiled_run": cli_step_ms(prof),
+           "differ_from_unprofiled": diff, "card": card}
+    print("tools (a) train CLI --profile_dir: " + json.dumps(out),
+          flush=True)
+    if prof.trace_steps != window or steps != window:
+        fail(f"profile CLI: traced steps {prof.trace_steps}, ranges {steps}")
+    if kernels != want:
+        fail(f"profile CLI: the trace holds {kernels}, expected {want}")
+    if any(n for n, _ in diff.values()):
+        fail("profile CLI: profiling changed the run's bits")
+    del prof, ref, systems
+    torch.cuda.empty_cache()
+    return ran
+
+
+def profile_step_part(torch, card):
+    """(b) `tools/profile_step.py` at 8192 rays on the planar path (auto)
+    and the packed path (off): ms per step, launch counts per step, and
+    the trace of its 4 traced steps. Returns the launches."""
+    import math
+    import shutil
+
+    from nsff_pl_tpu_torch.tools import profile_step
+
+    ran, out = {}, {"batch": LARGE_BATCH, "card": card}
+    for mode, per_step in (("auto", PER_STEP), ("off", PER_STEP_PROFILE_OFF)):
+        logdir = f"chip_smoke_out/profile_step_{mode}"
+        shutil.rmtree(logdir, ignore_errors=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        res = profile_step.main([mode, logdir, str(LARGE_BATCH)])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check_counts(counts, per_step, PROFILE_STEP_STEPS,
+                     f"profile_step {mode}")
+        _, kernels, n_kernels = trace_kernels(logdir, per_step)
+        want = expected_symbols(per_step, PROFILE_STEP_TRACED)
+        out[mode] = {"ms_per_step": res["ms_per_step"], "loss": res["loss"],
+                     "trace_kernels": kernels, "kernel_events": n_kernels}
+        if kernels != want or not math.isfinite(res["loss"]):
+            fail(f"profile_step {mode}: trace {kernels}, expected {want}, "
+                 f"loss {res['loss']}")
+        for k, v in counts.items():
+            ran[k] = ran.get(k, 0) + v
+        del res
+        torch.cuda.empty_cache()
+    print("tools (b) profile_step: " + json.dumps(out), flush=True)
+    return ran
+
+
+def stripped_weights_part(torch, np, card, ckpt):
+    """(c) `tools/save_weights_only.py` on the scene training checkpoint:
+    a served frame (`RenderService` on `checkpoint.load`) and an eval
+    frame (the eval CLI's `load_params` and renderer, test item 0 with
+    visibility, one graph of equal chunks) equal those of the full
+    checkpoint bit for bit. Returns the launches the card ran."""
+    import os
+    from types import SimpleNamespace
+
+    from nsff_pl_tpu_torch.apps.evaluate import load_params
+    from nsff_pl_tpu_torch.apps.serve import RenderService
+    from nsff_pl_tpu_torch.config import NSFFConfig, render_config
+    from nsff_pl_tpu_torch.scene import scene_dict
+    from nsff_pl_tpu_torch.tools import save_weights_only
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+    from nsff_pl_tpu_torch.training.step import (make_render_fn,
+                                                 render_full_image)
+
+    out_dir = "chip_smoke_out/weights_planar"
+    n_params = save_weights_only.main(["--ckpt_path", ckpt, "--out",
+                                       out_dir])
+    cfg = NSFFConfig(img_wh=(W_IMG, H_IMG), start_end=(0, N_FRAMES),
+                     use_viewdir=True, encode_t=True, N_samples=128,
+                     dtype="bfloat16")
+    K, poses = scene(np)
+    data = scene_dict["monocular"](
+        root_dir=SCENE_DIR, split="test", img_wh=(W_IMG, H_IMG),
+        start_end=(0, N_FRAMES), device="cuda")
+    item = data.test_item(0, targets=())
+    vis_poses = torch.as_tensor(data.poses[0:1], dtype=torch.float32,
+                                device="cuda")
+    vis_K = torch.as_tensor(data.K, device="cuda")
+    frames, ran = {}, {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for label, path in (("full", ckpt), ("stripped", out_dir)):
+        svc = RenderService(ckpt_lib.load(path), K, poses, (W_IMG, H_IMG),
+                            cfg, chunk=CHUNK)
+        served = svc.render_maps(3)
+        params = load_params(SimpleNamespace(ckpt_path=path), cfg, "cuda")
+        render = make_render_fn(render_config(cfg), output_transient=True,
+                                with_visibility=True,
+                                keys=("rgb_fine", "depth_fine"))
+        ev = render_full_image(render, params, item["rays"], item["ts"],
+                               chunk=CHUNK, vis_poses=vis_poses, vis_K=vis_K,
+                               scan_chunks=True)
+        frames[label] = [served[k] for k in ("rgb_fine", "depth_fine")] + [
+            ev[k] for k in ("rgb_fine", "depth_fine")]
+        g_ran, g_counted = graph_ran(render)
+        for k, v in g_ran.items():
+            ran[k] = ran.get(k, 0) + v - g_counted[k]
+    torch.cuda.synchronize()
+    for k, v in launch_counts().items():
+        ran[k] = ran.get(k, 0) + v
+    same = [bool(torch.equal(a, b))
+            for a, b in zip(frames["full"], frames["stripped"])]
+    sizes = {k: os.path.getsize(os.path.join(p, ckpt_lib.STATE_FILE))
+             for k, p in (("full", ckpt), ("stripped", out_dir))}
+    print("tools (c) save_weights_only: " + json.dumps(
+        {"params": n_params, "bytes": sizes,
+         "equal (served rgb, depth; eval rgb, depth)": same,
+         "launches": {k: v for k, v in ran.items() if v}, "card": card}),
+        flush=True)
+    if not all(same):
+        fail("frames from the stripped checkpoint differ from the full one")
+    return ran
+
+
+def export_part(torch, np, card, ckpt):
+    """(d) `tools/export_render.py` at the flagship serving configuration
+    (512x288, chunk 32768, use_viewdir, N_samples 128): the kernel route
+    in bfloat16 with encode_t (B1) and without (B5), and the plain route
+    in float32, each with --check. The two kernel artifacts reload in one
+    fresh process that imports torch and nsff_pl_tpu_torch.ops.library
+    alone: one launch of the kernel a call, the output against the live
+    renderer's, ms per exported chunk beside the live one (the plain
+    artifact: timed here, after the tool's reload). Returns the launches
+    the card ran."""
+    import os
+    import shutil
+
+    from nsff_pl_tpu_torch.apps.evaluate import load_params
+    from nsff_pl_tpu_torch.config import NSFFConfig, build_params
+    from nsff_pl_tpu_torch.tools import export_render as er
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+    from nsff_pl_tpu_torch.training.step import make_render_fn
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    static = build_params(NSFFConfig(use_viewdir=True,
+                                     start_end=(0, N_FRAMES)),
+                          torch.Generator().manual_seed(5), device="cuda")
+    static_ckpt = ckpt_lib.save_checkpoint(f"{EXPORT_DIR}/static", 0,
+                                           {"params": static})
+    base = ["--img_wh", str(W_IMG), str(H_IMG), "--chunk", str(CHUNK),
+            "--use_viewdir", "--N_samples", "128", "--N_frames",
+            str(N_FRAMES)]
+    kernel_route = ["--dtype", "bfloat16", "--mlp_backend", "pallas"]
+    dev = torch.device("cuda")
+    ran, lines, loads, live = {}, {}, [], {}
+    for label, path, flags, kernel in (
+            ("B1", ckpt, ["--encode_t", "--output_transient"] + kernel_route,
+             "planar_eval_comp"),
+            ("B5", static_ckpt, kernel_route, "fused_nerf_eval"),
+            ("plain", ckpt, ["--encode_t", "--output_transient",
+                             "--dtype", "float32"], None)):
+        out = f"{EXPORT_DIR}/{label}.pt2"
+        args = er.get_opts(["--ckpt_path", path, "--out", out, *base,
+                            *flags, "--check"])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        meta = er.main(args)
+        export_s = time.perf_counter() - t0
+        counts = launch_counts()
+        # --check: one call of the reloaded program, one live
+        check_counts(counts, {kernel: 2} if kernel else {}, 1,
+                     f"export {label} --check")
+        for k, v in counts.items():
+            ran[k] = ran.get(k, 0) + v
+        cfg = NSFFConfig(img_wh=(W_IMG, H_IMG), start_end=(0, N_FRAMES),
+                         use_viewdir=True, encode_t=args.encode_t,
+                         N_samples=128)
+        params = load_params(args, cfg, dev)
+        render = make_render_fn(
+            er.render_config(args, dev),
+            output_transient=args.output_transient and args.encode_t,
+            keys=er.OUTPUT_KEYS)
+        rays, ts = er.check_rays(CHUNK, dev)
+        live[label] = [render(params, rays, ts)[k] for k in er.OUTPUT_KEYS]
+        reps = EXPORT_REPS if kernel else 3
+        warm = EXPORT_WARMUP if kernel else 1
+        live_ms = cuda_ms(torch, lambda: render(params, rays, ts),
+                          iters=reps, warmup=warm)
+        lines[label] = {"route": label, "export_s": export_s,
+                        "mb": os.path.getsize(out) / 1e6,
+                        "check": meta["check"], "live_chunk_ms": live_ms,
+                        "card": card}
+        if kernel:
+            inputs = f"{EXPORT_DIR}/{label}.inputs.pt"
+            torch.save((rays.cpu(), ts.cpu()), inputs)
+            loads += [out, inputs, f"{out}.got.pt"]
+        else:  # the plain artifact, timed here
+            with torch.no_grad():
+                prog = torch.export.load(out).module()
+                lines[label]["exported_chunk_ms"] = cuda_ms(
+                    torch, lambda: prog(rays, ts), iters=reps, warmup=warm)
+            del prog
+        del params, render
+        torch.cuda.empty_cache()
+    reset_counts()
+    r = subprocess.run([sys.executable, "-c", EXPORT_LOADER,
+                        str(EXPORT_WARMUP), str(EXPORT_REPS), *loads],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"export: the fresh process failed:\n{r.stdout[-3000:]}"
+             f"{r.stderr[-3000:]}")
+    results = [json.loads(x) for x in r.stdout.splitlines()
+               if x.startswith("{")]
+    if len(results) != 2:
+        fail(f"export: the fresh process printed {r.stdout[-3000:]}")
+    for label, kernel, res in zip(("B1", "B5"),
+                                  ("planar_eval_comp", "fused_nerf_eval"),
+                                  results):
+        got = torch.load(f"{EXPORT_DIR}/{label}.pt2.got.pt")
+        errs = [float((g.cuda() - w).abs().max())
+                for g, w in zip(got, live[label])]
+        extra = [m for m in res["modules"]
+                 if m not in ("nsff_pl_tpu_torch", "nsff_pl_tpu_torch.ops")
+                 and not m.startswith("nsff_pl_tpu_torch.ops.")]
+        lines[label].update(
+            exported_chunk_ms=res["ms"], fresh_process_max_abs_err=errs,
+            fresh_process_launches=res["launches"], calls=res["calls"],
+            modules=res["modules"])
+        if extra:
+            fail(f"export {label}: the fresh process imported {extra}")
+        want = {k: res["calls"] if k == kernel else 0
+                for k in res["launches"]}
+        if res["launches"] != want:
+            fail(f"export {label}: launches {res['launches']} for "
+                 f"{res['calls']} calls, expected {want}")
+        if max(errs) > er.CHECK_TOL:
+            fail(f"export {label}: the fresh process's output differs from "
+                 f"the live renderer's by {max(errs)}")
+        ran[kernel] = ran.get(kernel, 0) + res["calls"]
+    for line in lines.values():
+        print("tools (d) export_render: " + json.dumps(line), flush=True)
+    return ran
+
+
+def tools_phase(torch, np, card):
+    """Profiling and the serving tools: (a) the train CLI with
+    --profile_dir, (b) profile_step at 8192 rays on both paths, (c)
+    save_weights_only on the scene training checkpoint, (d) export_render
+    of both kernel routes and the plain one. Returns the launches the
+    card ran, by kernel."""
+    import os
+
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+
+    ckpt = os.path.abspath(ckpt_lib.latest_checkpoint(
+        f"{SCENE_RUN_DIR}/ckpts/planar"))
+    ran = {}
+    for part in (profile_cli_part(torch, card),
+                 profile_step_part(torch, card),
+                 stripped_weights_part(torch, np, card, ckpt),
+                 export_part(torch, np, card, ckpt)):
+        for k, v in part.items():
+            ran[k] = ran.get(k, 0) + v
+    return ran
+
+
 def main() -> int:
     import torch
 
@@ -3821,6 +4221,15 @@ def main() -> int:
         # the worst error also covers the eval paths' inputs
         rec["max_abs_err"] = max(rec["max_abs_err"], eval_errs.get(name, 0))
     phase_s["eval"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- profiling and the serving tools (main paths) -------
+    tools_ran = tools_phase(torch, np, card)
+    record["launches"] += tools_ran.get("planar_eval_comp", 0)
+    for name, rec in list(train_records.items()) + list(
+            packed_records.items()):
+        rec["launches"] += tools_ran.get(name, 0)
+    phase_s["tools"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---------------- coarse-to-fine (main paths) ----------------

@@ -114,7 +114,9 @@ class NSFFConfig:
     log_dir: str = "logs"
     ckpt_dir: str = "ckpts"
     val_every_steps: int = 0  # 0 => validate once per epoch (reference behavior)
-    profile_dir: str = ""  # raises 'profiling' in the port
+    # a torch.profiler trace of steps 10-15 under this directory (forces
+    # scan_steps to 1; utils/profiling.py)
+    profile_dir: str = ""
     # train steps per dispatch: one CUDA graph of K steps on the card
     # (training/step.py::_MultiStep); per-step semantics are unchanged
     scan_steps: int = 1
@@ -344,8 +346,9 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         choices=["float32", "bfloat16"])
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="a profiler trace of steps 10-15 (not "
-                             "ported: 'profiling')")
+                        help="write a torch.profiler trace of steps "
+                             "10-15 here (TensorBoard / Perfetto JSON; "
+                             "forces --scan_steps 1)")
     parser.add_argument("--scan_steps", type=int, default=1,
                         help="train steps per dispatch, one CUDA graph of "
                              "K steps on the card; >1 amortizes host "

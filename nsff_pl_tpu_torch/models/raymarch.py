@@ -109,6 +109,7 @@ def render_test_planar(
     cfg: RenderConfig,
     *,
     params_coarse: Optional[nerf_m.Params] = None,
+    packed_fine=None,
     output_transient: bool = True,
     output_transient_flow=(),
     vis_poses=None,
@@ -118,6 +119,8 @@ def render_test_planar(
 ) -> Dict[str, torch.Tensor]:
     """Test-time (no-grad) render on the planar evaluators; the JAX
     function's result keys and values on both of its routes.
+    `packed_fine` takes the fine model's weights already packed for the
+    composited evaluator (its `fn.pack`).
 
     A key filter within `comp_eval_keys` (and `planar_compositing` not
     'off') takes the composited route. Otherwise the planes route
@@ -163,7 +166,8 @@ def render_test_planar(
         res.update(_composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb,
                                cfg, kker, output_transient=output_transient,
                                flow=flow, encode_a=encode_a,
-                               vis_poses=vis_poses, vis_K=vis_K))
+                               vis_poses=vis_poses, vis_K=vis_K,
+                               pw=packed_fine))
         return res
 
     op = make_planar_nerf_train(
@@ -336,9 +340,11 @@ def _coarse_test(res, params_coarse, o, d, zs, zs_mid, dir_emb, t_emb, cfg,
 
 
 def _composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb, cfg, kker, *,
-                output_transient, flow, encode_a, vis_poses, vis_K):
+                output_transient, flow, encode_a, vis_poses, vis_K,
+                pw=None):
     """The composited route of `render_test_planar`: one (N, M) maps row
-    per ray from the composited evaluator."""
+    per ray from the composited evaluator (on the packed weights `pw`
+    when given)."""
     vis_pl = None
     if output_transient and vis_poses is not None:
         vis_pl = _visibility_planes(o, d, zs, vis_K, cfg.img_wh, vis_poses)
@@ -347,7 +353,7 @@ def _composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb, cfg, kker, *,
         encode_t=output_transient, output_flow=flow,
         vis_in=vis_pl is not None, z_far=Z_FAR, **kker)
     maps = comp_op(params_fine, o, d, zs.contiguous(), vis_pl, dir_emb,
-                   a_emb, t_emb)
+                   a_emb, t_emb, pw=pw)
     cols = comp_op.cols_map
 
     def col(name):

@@ -250,7 +250,12 @@ def render_rays(
     """Render a batch of (N, 6) NDC rays at frame indices `ts`; the result
     dict has the JAX function's keys.
 
-    params: {'fine': ..., 'coarse'?: ...}; embeddings: {'a'?, 't'?}
+    params: {'fine': ..., 'coarse'?: ..., 'fine_packed'?: ...};
+    embeddings: {'a'?, 't'?}; 'fine_packed' holds the fine model's
+    weights already packed for the test-time kernel this configuration
+    runs (its evaluator's `fn.pack`: B1's on the planar route, B5's on
+    the packed one), which a caller that renders many batches with fixed
+    weights packs once (`tools/export_render.py`);
     (N_frames, C) tables; vis_poses ((C, 3, 4)) / vis_K enable the
     test-time visibility culling of the transient sigma; `view_dir`
     overrides the (N, 3) directions of the view embedding; `keys` filters
@@ -302,6 +307,7 @@ def render_rays(
         out = raymarch.render_test_planar(
             params["fine"], embeddings, rays, ts, cfg,
             params_coarse=params.get("coarse"),
+            packed_fine=params.get("fine_packed"),
             output_transient=output_transient, output_transient_flow=flow,
             vis_poses=vis_poses, vis_K=vis_K, view_dir=view_dir, keys=keys)
         if keys is not None:
@@ -391,7 +397,9 @@ def render_rays(
                     Sx, use_viewdir=cfg.use_viewdir, encode_a=has_a_,
                     encode_t=output_transient, output_flow=this_flow, **kker)
             # one weight packing serves the main and both warped evaluations
-            pw = field.pack(model)
+            pw = params.get("fine_packed") if use_kernel_eval else None
+            if pw is None:
+                pw = field.pack(model)
             packed = field(model, xyz,
                            dir_embedded if cfg.use_viewdir else None,
                            a_embedded, t_embedded, pw=pw)

@@ -197,7 +197,15 @@ fused_nerf_eval_cuda.launches = Counter()  # by sample count
 
 
 def fused_nerf_eval(pw, xyz, dir_emb, a_emb, t_emb, **kw):
-    """CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    """CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Under `torch.export` the call goes through the custom op
+    `nsff_torch::fused_nerf_eval` (`ops/library.py`), which does the same
+    when the exported program runs."""
+    if torch.compiler.is_exporting():
+        from nsff_pl_tpu_torch.ops import library
+
+        return library.call_fused_nerf_eval(pw, xyz, dir_emb, a_emb, t_emb,
+                                            **kw)
     if xyz.is_cuda:
         return fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, **kw)
     return fused_nerf_eval_ref(pw, xyz, dir_emb, a_emb, t_emb, **kw)

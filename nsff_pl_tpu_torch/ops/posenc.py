@@ -6,7 +6,9 @@ frequencies `2**linspace(0, max_logscale, N_freqs)` (logscale) or
 are made once, by fills on the device, and kept: a copy from the host
 would wait on it, which a captured CUDA graph cannot hold. They are made
 outside inference mode, so a first call from a no-grad render leaves
-tensors that training's autograd can save.
+tensors that training's autograd can save. Under `torch.export` they are
+made in the traced program and not kept (a tensor made while tracing
+must not outlive the trace).
 """
 from __future__ import annotations
 
@@ -36,7 +38,9 @@ def _freqs_on(max_logscale: float, n_freqs: int, logscale: bool, dtype,
 def posenc(x: torch.Tensor, max_logscale: float, n_freqs: int,
            logscale: bool = True) -> torch.Tensor:
     """Embed (..., C) -> (..., C*(1+2*n_freqs)), f32 in, f32 out."""
-    freqs = _freqs_on(max_logscale, n_freqs, logscale, x.dtype, x.device)
+    make = (_freqs_on.__wrapped__ if torch.compiler.is_exporting()
+            else _freqs_on)
+    freqs = make(max_logscale, n_freqs, logscale, x.dtype, x.device)
     xf = x[..., None, :] * freqs[:, None]  # (..., N_freqs, C)
     sc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)
     sc = sc.reshape(*x.shape[:-1], 2 * n_freqs * x.shape[-1])

@@ -447,7 +447,15 @@ planar_eval_comp_cuda.launches = Counter()  # by sample count
 
 
 def planar_eval_comp(pw, o, d, zs, vis, dir_emb, a_emb, t_emb, **kw):
-    """CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    """CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Under `torch.export` the call goes through the custom op
+    `nsff_torch::planar_eval_comp` (`ops/library.py`), which does the
+    same when the exported program runs."""
+    if torch.compiler.is_exporting():
+        from nsff_pl_tpu_torch.ops import library
+
+        return library.call_planar_eval_comp(pw, o, d, zs, vis, dir_emb,
+                                             a_emb, t_emb, **kw)
     if o.is_cuda:
         return planar_eval_comp_cuda(pw, o, d, zs, vis, dir_emb, a_emb,
                                      t_emb, **kw)
@@ -473,11 +481,12 @@ def make_planar_nerf_eval_comp(
     D: int = 8,
     skips=(4,),
 ):
-    """Build fn(params, o, d, zs, vis, dir_emb, a_emb, t_emb) -> (N, M) f32
-    maps, the JAX function's contract: o/d (N, 3) NDC ray origins and
-    directions, zs (N, S) sample depths, vis (N, S) visibility counts
-    when `vis_in` (vis == 0 forces transient sigma to -10 before the
-    softplus), per-ray embeddings. Flow maps mask samples beyond `z_far`.
+    """Build fn(params, o, d, zs, vis, dir_emb, a_emb, t_emb, pw=None) ->
+    (N, M) f32 maps, the JAX function's contract: o/d (N, 3) NDC ray
+    origins and directions, zs (N, S) sample depths, vis (N, S)
+    visibility counts when `vis_in` (vis == 0 forces transient sigma to
+    -10 before the softplus), per-ray embeddings. Flow maps mask samples
+    beyond `z_far`. `pw` takes weights already packed by `fn.pack`.
     `fn.cols_map` / `fn.n_map` give the column layout."""
     freqs = tuple(float(f) for f in posenc_freqs(s_emb_xyz, n_emb_xyz))
     xyz_w = 3 + 6 * n_emb_xyz
@@ -499,11 +508,12 @@ def make_planar_nerf_eval_comp(
               skips=tuple(skips))
 
     def fn(params: Dict, o, d, zs, vis=None, dir_emb=None, a_emb=None,
-           t_emb=None):
+           t_emb=None, pw=None):
         if vis_in != (vis is not None):
             raise ValueError(f"vis_in={vis_in} but vis is "
                              f"{'given' if vis is not None else 'None'}")
-        pw = pack_padded_weights(params, weight_names, **pack_kw)
+        if pw is None:
+            pw = pack_padded_weights(params, weight_names, **pack_kw)
         return planar_eval_comp(
             pw, o.contiguous(), d.contiguous(), zs.contiguous(),
             vis.contiguous() if vis is not None else None,

@@ -7,12 +7,13 @@ packages keep weights in the (in, out) layout, so nothing is
 transposed. `opt_state_from_jax` / `opt_state_to_numpy` carry every
 optimizer's state across the same way (adam's and radam's count and
 moments, sgd's trace, ranger's slow weights and lookahead count). `save`/`load` write and read the
-port's own parameters with `torch.save`.
+port's own parameters with `torch.save` (`load` also takes a checkpoint).
 
 A trainer checkpoint is `ckpt_dir/step_<n>/state.pt`, one `torch.save`
 of a nested dict of CPU tensors (`save_checkpoint`, `restore_checkpoint`,
 `latest_checkpoint`); the trainer's config sits beside the step
-directories as `config.json`. The JAX package's orbax checkpoints are
+directories as `config.json`. `save_weights_only` strips one to its
+params. The JAX package's orbax checkpoints are
 converted by `scripts/jax_ckpt_to_torch.py`, where both packages import.
 `import_pl_checkpoint` reads a reference Lightning `.ckpt`, with the JAX
 package's key map; `merge_params` is its non-strict partial load.
@@ -52,8 +53,14 @@ def save(path, params) -> None:
 
 
 def load(path, device="cuda"):
+    """Params written by `save`, or those of a checkpoint (a `step_<n>`
+    directory or its file, full or params-only), on `device`."""
     dev = resolve_device(device)
+    if os.path.isdir(path):
+        path = os.path.join(path, STATE_FILE)
     tree = torch.load(path, map_location="cpu", weights_only=True)
+    if "params" in tree:
+        tree = tree["params"]
     return _map(tree, lambda t: t.to(dev))
 
 
@@ -191,16 +198,21 @@ def _to_cpu(tree):
     return tree
 
 
-def save_checkpoint(ckpt_dir: str, step: int, state: Dict[str, Any]) -> str:
-    """Save a nested dict of tensors and Python values under
-    `ckpt_dir/step_<step>`; returns that directory. The file is written
-    whole, then renamed into place."""
-    path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step}"))
+def _write_state(path: str, state: Dict[str, Any]) -> str:
+    """`state` on the CPU to `path/state.pt`, written whole, then renamed
+    into place; returns `path` made absolute."""
+    path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(_to_cpu(state), tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
     return path
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state: Dict[str, Any]) -> str:
+    """Save a nested dict of tensors and Python values under
+    `ckpt_dir/step_<step>`; returns that directory."""
+    return _write_state(os.path.join(ckpt_dir, f"step_{step}"), state)
 
 
 def restore_checkpoint(path: str) -> Dict[str, Any]:
@@ -211,6 +223,22 @@ def restore_checkpoint(path: str) -> Dict[str, Any]:
     if not os.path.exists(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_weights_only(ckpt_path: str, out_path: str) -> str:
+    """Strip a checkpoint to its bare params (the analog of the
+    reference's `utils/save_weights_only.py:12-15`): a port checkpoint
+    (`step_<n>` or its file, whatever optimizer wrote it) or a reference
+    Lightning `.ckpt` becomes the params-only checkpoint `out_path`
+    (a directory holding `state.pt`, {"params": ...}), which
+    `restore_checkpoint`, `load` and the eval CLI read. Returns
+    `out_path`."""
+    if ckpt_path.endswith(".ckpt"):
+        params = import_pl_checkpoint(ckpt_path)
+    else:
+        params = restore_checkpoint(ckpt_path)["params"]
+    _write_state(out_path, {"params": params})
+    return out_path
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

@@ -10,7 +10,9 @@
   cadence and the last step (a clipped group runs single steps); the
   per-step metrics of a window are copied to the host without a wait
   and read after the next group has been dispatched; validation and a
-  checkpoint at each epoch end; `time_budget_s`;
+  checkpoint at each epoch end; `time_budget_s`; with `profile_dir`, a
+  torch.profiler trace of steps 10-15 of the run (`utils/profiling.py`;
+  K is 1 then; each single step is a `step <n>` range);
 - `validate`: the middle frame (read from disk once, kept on the
   device) rendered on the card, PSNR and SSIM (and their masked
   variants), image grids for TensorBoard, and the
@@ -30,8 +32,7 @@ storage for the life of the system, so each dispatch shape is captured
 once.
 
 Not ported (each raises `NotImplementedError` naming its ROADMAP item):
-more than one GPU ('multi-GPU'), `profile_dir` ('profiling'), datasets
-other than `monocular`.
+more than one GPU ('multi-GPU'), datasets other than `monocular`.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ from nsff_pl_tpu_torch.training.step import (TrainState, make_render_fn,
                                              make_train_step,
                                              render_full_image,
                                              write_tmp_rgb)
+from nsff_pl_tpu_torch.utils import profiling
 from nsff_pl_tpu_torch.utils import visualization as viz
 
 VAL_KEYS = ("rgb_fine", "depth_fine", "transient_alpha_fine",
@@ -106,10 +108,6 @@ def check_ported(cfg: NSFFConfig) -> None:
         raise NotImplementedError(
             "training on more than one GPU is not ported yet (ROADMAP.md "
             "queue A, 'multi-GPU')")
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir is not ported yet (ROADMAP.md queue A, "
-            "'profiling')")
     if cfg.dataset_name != "monocular":
         raise NotImplementedError(
             f"dataset {cfg.dataset_name!r} is not ported; the port reads "
@@ -218,7 +216,8 @@ class NSFFSystem:
             steps_per_epoch=self.steps_per_epoch,
             batch_size=cfg.batch_size, hard_sampling=cfg.hard_sampling,
             device=dev)
-        self.scan_steps = max(cfg.scan_steps, 1)
+        # K-step dispatch; profiling wants per-step dispatch boundaries
+        self.scan_steps = 1 if cfg.profile_dir else max(cfg.scan_steps, 1)
         self.train_step = make_train_step(
             self.render_cfg, self.loss_cfg, self.tx,
             scan_steps=self.scan_steps, **self._step_kwargs)
@@ -245,6 +244,10 @@ class NSFFSystem:
         self.save_seconds: List[float] = []
         self.fit_seconds = 0.0
         self.steps_run = 0
+        # the profiled window: its steps and wall seconds (to the end of
+        # its device work, without writing the trace)
+        self.trace_steps: List[int] = []
+        self.trace_seconds: Optional[float] = None
         if cfg.ckpt_path:  # full resume
             self.restore(cfg.ckpt_path)
 
@@ -358,8 +361,16 @@ class NSFFSystem:
                 self._write_rows(fetch, at_step, log_every, progress, t0)
                 t0 = time.time()
 
+        trace = None
         step = step0 = self.state.step
         while step < self.total_steps:
+            if cfg.profile_dir:  # a trace of steps 10-15 (K is 1 here)
+                if step == step0 + 10 and trace is None:
+                    trace = profiling.Trace(cfg.profile_dir,
+                                            self.device).start()
+                elif step >= step0 + 15 and trace is not None:
+                    self._end_trace(trace)
+                    trace = None
             g = min(K, self.total_steps - step)
             g = min(g, self.steps_per_epoch - step % self.steps_per_epoch)
             if cfg.val_every_steps > 0:
@@ -376,9 +387,13 @@ class NSFFSystem:
                 single = self._remainder_step()
                 for i in range(g):
                     t = self.scheduler.next()
-                    self.state, metrics, aux = single(
-                        self.state, self.batcher.table, self.batcher.weights,
-                        self.Ks, self.Ps, self.generator, t)
+                    with torch.profiler.record_function(f"step {step + i}"):
+                        self.state, metrics, aux = single(
+                            self.state, self.batcher.table,
+                            self.batcher.weights, self.Ks, self.Ps,
+                            self.generator, t)
+                    if trace is not None:
+                        self.trace_steps.append(step + i)
                     if cfg.hard_sampling:
                         with torch.no_grad():
                             write_tmp_rgb(self.tmp_rgb, t, aux["rand_idx"],
@@ -418,10 +433,17 @@ class NSFFSystem:
                           f"at step {step}/{self.total_steps}; "
                           f"checkpointed and exiting cleanly", flush=True)
                 break
+        if trace is not None:  # the loop ended inside the window
+            self._end_trace(trace)
         self.logger.flush()
         self.fit_seconds += time.time() - t_fit0
         self.steps_run += step - step0
         return self.state
+
+    def _end_trace(self, trace: profiling.Trace) -> None:
+        trace.stop()
+        self.trace_seconds = trace.seconds
+        print(f"profile trace written to {self.cfg.profile_dir}", flush=True)
 
     # ------------------------------------------------------------------
     def validate(self, epoch) -> Dict[str, float]:

@@ -910,3 +910,94 @@ def test_hard_sampling_draw_is_deterministic():
     assert float((cdf[0].double() - want).abs().max()) <= 1e-6 * float(
         want[-1])
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["planar_eval_comp", "fused_nerf_eval"])
+def test_custom_ops_launch_the_kernels(op):
+    """B1 and B5 as the custom ops of `ops/library.py` on CUDA tensors:
+    `torch.library.opcheck` passes, and a call launches the kernel once
+    and gives the wrapper's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.models import nerf as tn
+    from nsff_pl_tpu_torch.ops import library
+    from nsff_pl_tpu_torch.ops import mlp_kernel as tmk
+
+    n, s = 37, 128
+    g = torch.Generator().manual_seed(0)
+    params = tn.init_nerf_params(g, "fine", use_viewdir=True,
+                                 encode_transient=True, output_flow=True,
+                                 device="cuda")
+    o = (torch.rand(n, 3, generator=g) * 2 - 1).cuda()
+    d = ((torch.rand(n, 3, generator=g) - 0.5) * 0.4).cuda()
+    dirs = (torch.rand(n, 27, generator=g) * 2 - 1).cuda()
+    t = torch.randn(n, 48, generator=g).cuda()
+    zs = torch.linspace(0, 1, s, device="cuda").expand(n, s).contiguous()
+    if op == "planar_eval_comp":
+        fn = trk.make_planar_nerf_eval_comp(s, use_viewdir=True)
+        args = (fn.pack(params), o, d, zs, None, dirs, None, t)
+        call, wrapper = library.call_planar_eval_comp, trk.planar_eval_comp
+        counter = trk.planar_eval_comp_cuda.launches
+    else:
+        fn = tmk.make_fused_nerf_eval(s, use_viewdir=True, encode_a=False,
+                                      encode_t=True, output_flow=("fw",))
+        xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
+        args = (fn.pack(params), xyz, dirs, None, t)
+        call, wrapper = library.call_fused_nerf_eval, tmk.fused_nerf_eval
+        counter = tmk.fused_nerf_eval_cuda.launches
+    want = wrapper(*args, **fn.kernel_kw)
+    before = counter[s]
+    got = call(*args, **fn.kernel_kw)
+    torch.cuda.synchronize()
+    assert counter[s] == before + 1
+    assert torch.equal(got, want)
+    w, b, slots = library.slot_lists(args[0])
+    kw = dict(fn.kernel_kw, freqs=list(fn.kernel_kw["freqs"]),
+              skips=list(fn.kernel_kw["skips"]))
+    if op == "fused_nerf_eval":
+        flow = kw.pop("output_flow")
+        kw.update(flow_fw="fw" in flow, flow_bw="bw" in flow)
+    torch.library.opcheck(getattr(library, op), (w, b, slots, *args[1:]), kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encode_t", [True, False])
+def test_exported_kernel_route_on_the_card(tmp_path, encode_t):
+    """`tools/export_render.py --mlp_backend pallas --platforms cuda` on a
+    seeded model: the graph holds the kernel's op (B1 with encode_t, B5
+    without), and the reloaded program gives the live renderer's output
+    (--check) with one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.config import NSFFConfig, build_params
+    from nsff_pl_tpu_torch.ops import library
+    from nsff_pl_tpu_torch.ops import mlp_kernel as tmk
+    from nsff_pl_tpu_torch.tools import export_render
+    from nsff_pl_tpu_torch.training import checkpoint
+
+    params = build_params(NSFFConfig(use_viewdir=True, encode_t=encode_t,
+                                     start_end=(0, 4)),
+                          torch.Generator().manual_seed(0), device="cuda")
+    ckpt = checkpoint.save_checkpoint(str(tmp_path), 0, {"params": params})
+    out = str(tmp_path / "render.pt2")
+    argv = ["--ckpt_path", ckpt, "--out", out, "--chunk", "512",
+            "--img_wh", "32", "16", "--use_viewdir", "--N_frames", "4",
+            "--dtype", "bfloat16", "--mlp_backend", "pallas",
+            "--platforms", "cuda", "--check"]
+    if encode_t:
+        argv += ["--encode_t", "--output_transient"]
+    meta = export_render.main(export_render.get_opts(argv))
+    assert max(meta["check"].values()) <= export_render.CHECK_TOL
+    name = "planar_eval_comp" if encode_t else "fused_nerf_eval"
+    counter = (trk.planar_eval_comp_cuda if encode_t
+               else tmk.fused_nerf_eval_cuda).launches
+    prog = torch.export.load(out)
+    assert {str(n.target) for n in prog.graph.nodes
+            if str(n.target).startswith(library.NAMESPACE)} == {
+        f"{library.NAMESPACE}.{name}.default"}
+    before = counter[128]
+    rays, ts = export_render.check_rays(512, torch.device("cuda"))
+    prog.module()(rays, ts)
+    torch.cuda.synchronize()
+    assert counter[128] == before + 1

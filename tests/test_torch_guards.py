@@ -78,7 +78,9 @@ def _entry_points():
     from nsff_pl_tpu_torch.apps import evaluate as eval_app
     from nsff_pl_tpu_torch.apps import train as train_app
     from nsff_pl_tpu_torch.scene import MonocularScene
+    from nsff_pl_tpu_torch.tools import export_render, profile_step
     from nsff_pl_tpu_torch.training.trainer import NSFFSystem
+    from nsff_pl_tpu_torch.utils import profiling
 
     return {
         "resolve_device": lambda: resolve_device(),
@@ -126,6 +128,14 @@ def _entry_points():
         # the eval CLI
         "eval_main": lambda: eval_app.main(eval_app.get_opts(
             ["--root_dir", "unused", "--ckpt_path", "unused"])),
+        # profiling and the serving tools
+        "trace": lambda: profiling.trace("unused").__enter__(),
+        "profile_step_main": lambda: profile_step.main(["auto", "unused",
+                                                        "8"]),
+        "export_render_main": lambda: export_render.main(
+            export_render.get_opts(["--ckpt_path", "unused", "--out",
+                                    "unused", "--mlp_backend", "pallas",
+                                    "--dtype", "bfloat16"])),
     }
 
 
@@ -136,7 +146,8 @@ def _entry_points():
      "opt_state_from_jax", "build_params_static", "make_train_step_packed",
      "make_train_step_static", "make_render_fn_train_mode",
      "RenderService_packed_float32", "MonocularScene", "NSFFSystem",
-     "train_main", "eval_main"]))
+     "train_main", "eval_main", "trace", "profile_step_main",
+     "export_render_main"]))
 def test_entry_points_need_a_gpu_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

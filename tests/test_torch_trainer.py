@@ -25,8 +25,9 @@ steps. Torch runs on one thread (many tiny ops).
   `scripts/jax_ckpt_to_torch.py` resumes an `NSFFSystem` with the JAX
   params, Adam state, step and sampling weights (equal), and warm-starts
   one by `weight_path` (params only).
-- Options not ported (more than one GPU, `profile_dir`, other datasets)
-  raise `NotImplementedError` naming their ROADMAP item.
+- Options not ported (more than one GPU, other datasets) raise
+  `NotImplementedError` naming their ROADMAP item (`profile_dir`:
+  tests/test_torch_profiling.py).
 """
 import json
 import os
@@ -305,7 +306,6 @@ def test_orbax_checkpoint_converts_and_resumes(tmp_path):
 @pytest.mark.parametrize("extra,label", [
     (dict(num_gpus=2), "multi-GPU"), (dict(num_nodes=2), "multi-GPU"),
     (dict(coordinator_address="localhost:1234"), "multi-GPU"),
-    (dict(profile_dir="prof"), "profiling"),
     (dict(dataset_name="blender"), "monocular")])
 def test_unported_options_raise(scene, tmp_path, extra, label):
     """Options whose features are not ported name their ROADMAP item
