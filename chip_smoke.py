@@ -171,7 +171,19 @@ once), then:
    process that imports torch and, for the kernel route,
    `nsff_pl_tpu_torch.ops.library` alone: one launch a call, its output
    within the tool's check tolerance of the live renderer, ms per
-   exported chunk beside the live chunk.
+   exported chunk beside the live chunk;
+13. data-parallel training (main paths; after the C1 phase): a world of
+   one rank over NCCL (`parallel.distributed.initialize`) runs
+   DP_STEPS eager flagship steps and DP_STEPS as one graphed dispatch
+   (then DP_TIMED timed dispatches in turns with the undistributed
+   graph), on the planar and the packed path, each against the
+   undistributed run from the same seed: loss terms, params, the
+   optimizer's state and `tmp_rgb` the same bits; the collectives the
+   capture called (one all-reduce a step) and, by torch.profiler over a
+   replay, the copies NCCL left in the graph for them; the graphed ms a
+   step of both. Then the train CLI with the C1 phase's flags and
+   `--num_gpus 2` (one GPU: the fewer-GPUs note, a world of one) against
+   C1's first run (`--num_gpus 1`): the same bits at the end.
 
 The training phases end with a torch.profiler trace of 5 more steps
 (device time by kernel, the device's busy share and the backward's
@@ -1133,11 +1145,11 @@ def check_counts(counts, expected, n, what):
 
 
 def train_setup(torch, cfg, params, device, batch, scan_steps=1,
-                hard_sampling=False, render_kw=None):
+                hard_sampling=False, render_kw=None, mesh=None):
     """Optimizer, state and train step of the recipe `cfg` on `device`
-    (`scan_steps` > 1: the K-step dispatch); `render_kw` overrides fields
-    of its render config that the CLI has no flag for
-    (`planar_compositing`)."""
+    (`scan_steps` > 1: the K-step dispatch; `mesh`: data-parallel);
+    `render_kw` overrides fields of its render config that the CLI has
+    no flag for (`planar_compositing`)."""
     import dataclasses
 
     from nsff_pl_tpu_torch.config import loss_config, render_config
@@ -1155,7 +1167,7 @@ def train_setup(torch, cfg, params, device, batch, scan_steps=1,
                                cfg.output_transient_flow),
                            steps_per_epoch=spe, batch_size=batch,
                            hard_sampling=hard_sampling,
-                           scan_steps=scan_steps, device=device)
+                           scan_steps=scan_steps, device=device, mesh=mesh)
     return TrainState(params, tx.init(params), 0), step
 
 
@@ -2928,7 +2940,7 @@ def c1_phase(torch, np, card):
               + json.dumps(diff), flush=True)
         if any(n for n, _ in diff.values()):
             fail(f"C1: {what} ends elsewhere than the first run")
-    return ran
+    return ran, ends["c1a"]
 
 
 def graphed_equals_loop(torch, np, render, params, data, frames, vis):
@@ -3953,6 +3965,253 @@ def tools_phase(torch, np, card):
     return ran
 
 
+# the data-parallel phase: eager steps and the K of its graphed dispatch,
+# and the timed dispatches of each graph (in turns)
+DP_STEPS = 10
+DP_TIMED = 3
+
+
+def _dp_state(torch, state, tmp, rows):
+    """Copies of a run's params, optimizer state, `tmp_rgb` and stacked
+    loss terms, for `_same_bits`."""
+    from nsff_pl_tpu_torch.training.optim import param_leaves
+
+    return {"params": [p.detach().clone() for p in param_leaves(
+                state.params)],
+            "optimizer state": [t.clone() for t in
+                                state.opt_state.tensors()],
+            "tmp_rgb": [tmp.clone()], "loss terms": [torch.stack(rows)]}
+
+
+def _dp_eager(torch, cfg, table, Ks, Ps, mesh):
+    """DP_STEPS eager steps from the seeded weights, every draw from the
+    seeded generator: (state copies, the launches they made)."""
+    from nsff_pl_tpu_torch.config import build_params
+    from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
+    from nsff_pl_tpu_torch.training.step import write_tmp_rgb
+
+    params = build_params(cfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+    state, step = train_setup(torch, cfg, params, "cuda", BATCH, mesh=mesh)
+    batcher = RayBatcher(table, BATCH, device="cuda")
+    sched = FrameScheduler(N_FRAMES, seed=cfg.seed)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    tmp = torch.zeros((N_FRAMES, H_IMG * W_IMG, 3), device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    rows = []
+    for _ in range(DP_STEPS):
+        t = sched.next()
+        state, m, aux = step(state, batcher.table, batcher.weights, Ks, Ps,
+                             gen, t)
+        write_tmp_rgb(tmp, t, aux["rand_idx"], aux["rgb_fine"])
+        rows.append(torch.stack(list(m.values())))
+    torch.cuda.synchronize()
+    return _dp_state(torch, state, tmp, rows), launch_counts()
+
+
+class _DpGraphed:
+    """One graphed run (`scan_steps=DP_STEPS`, hard sampling) of `cfg`
+    from the seeded weights, on `mesh` or undistributed, dispatched a
+    K-step group at a time."""
+
+    def __init__(self, torch, cfg, table, Ks, Ps, mesh):
+        from nsff_pl_tpu_torch.config import build_params
+        from nsff_pl_tpu_torch.data.pipeline import (FrameScheduler,
+                                                     RayBatcher)
+
+        self.torch = torch
+        params = build_params(cfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+        self.state, self.multi = train_setup(
+            torch, cfg, params, "cuda", BATCH, scan_steps=DP_STEPS,
+            hard_sampling=True, mesh=mesh)
+        self.batcher = RayBatcher(table, BATCH, hard_sampling=True,
+                                  device="cuda")
+        self.sched = FrameScheduler(N_FRAMES, seed=cfg.seed)
+        self.gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+        self.tmp = torch.zeros((N_FRAMES, H_IMG * W_IMG, 3), device="cuda")
+        self.Ks, self.Ps = Ks, Ps
+        self.rows, self.ms = [], []
+
+    def dispatch(self, timed=False):
+        torch = self.torch
+        ts = torch.tensor([self.sched.next() for _ in range(DP_STEPS)],
+                          device="cuda")
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        self.state, self.tmp, m = self.multi(
+            self.state, self.tmp, self.batcher.table, self.batcher.weights,
+            self.Ks, self.Ps, self.gen, ts)
+        ev1.record()
+        torch.cuda.synchronize()
+        if timed:
+            self.ms.append(ev0.elapsed_time(ev1) / DP_STEPS)
+        self.rows += [torch.stack([m[k][i] for k in m])
+                      for i in range(DP_STEPS)]
+
+    def ran(self):
+        """The launches the card ran: the capture's times the replays."""
+        return {k: v * self.multi.replays
+                for k, v in self.multi.graph_launches.items()}
+
+
+def _replay_profile(torch, run):
+    """torch.profiler over one more dispatch of `run`: the device time of
+    each kernel and copy its replay ran (us, by name), their count and
+    the device-to-device copies and NCCL kernels among them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run.dispatch()
+    ran = {e.key: (e.count, _dev_us(e)) for e in prof.key_averages()
+           if _dev_us(e) > 0}
+    return ran, {
+        "device events": sum(c for c, _ in ran.values()),
+        "device ms": sum(us for _, us in ran.values()) / 1e3,
+        "Memcpy DtoD": sum(c for k, (c, _) in ran.items()
+                           if "Memcpy DtoD" in k),
+        "nccl kernels": sum(c for k, (c, _) in ran.items()
+                            if "nccl" in k.lower())}
+
+
+def dp_phase(torch, np, tcfg, pcfg, table, Ks, Ps, card, c1_end):
+    """Data-parallel training on the one card (docstring item 13); the
+    CLI part holds `--num_gpus 2` against the C1 phase's first run
+    (`c1_end`, the same flags with `--num_gpus 1`). Returns the launches
+    the card ran, by kernel."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from nsff_pl_tpu_torch.apps.train import cli
+    from nsff_pl_tpu_torch.parallel import distributed as dist_lib
+    from nsff_pl_tpu_torch.parallel import mesh as mesh_lib
+
+    ran = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            ran[k] = ran.get(k, 0) + v
+
+    rdv = tempfile.mkdtemp(dir="chip_smoke_out")
+    mesh = dist_lib.initialize(tcfg, torch.device("cuda", 0),
+                               init_method="file://" + os.path.abspath(
+                                   os.path.join(rdv, "store")))
+    try:
+        if (mesh.size, torch.distributed.get_backend()) != (1, "nccl"):
+            fail(f"dp: a world of {mesh.size} on "
+                 f"{torch.distributed.get_backend()}")
+        for label, cfg, per_step in (("planar", tcfg, PER_STEP),
+                                     ("packed", pcfg, PER_STEP_PACKED)):
+            eager = {}
+            for m in (None, mesh):
+                eager[m is None], counts = _dp_eager(torch, cfg, table, Ks,
+                                                     Ps, m)
+                check_counts(counts, per_step, DP_STEPS,
+                             f"dp {label} eager (mesh {m is not None})")
+                add(counts)
+            runs = {}
+            for m in (mesh, None):
+                run = runs[m is None] = _DpGraphed(torch, cfg, table, Ks, Ps,
+                                                   m)
+                before = dict(mesh_lib.CALLED)
+                run.dispatch()  # warm-up runs, capture, one replay
+                called = {k: v - before.get(k, 0)
+                          for k, v in mesh_lib.CALLED.items()}
+                if m is not None:
+                    k_cap = (run.multi.WARMUP + 1) * DP_STEPS
+                    print(f"dp {label}: the dispatch's warm-up and capture "
+                          f"called {json.dumps(called)} collectives over "
+                          f"{k_cap} steps ({DP_STEPS} of them captured), "
+                          f"capture {run.multi.capture_seconds:.2f} s",
+                          flush=True)
+                    if called.get("all_reduce") != k_cap:
+                        fail(f"dp {label}: {called.get('all_reduce')} "
+                             f"all-reduces called over {k_cap} steps")
+            for turn in (True, False, False, True, True, False)[:2 * DP_TIMED]:
+                runs[turn].dispatch(timed=True)
+            prof = {k: _replay_profile(torch, r) for k, r in runs.items()}
+            print(f"dp {label}: one replay of the {DP_STEPS}-step graph ran "
+                  f"{json.dumps(prof[False][1])} on the mesh, "
+                  f"{json.dumps(prof[True][1])} undistributed (one rank: "
+                  "NCCL turns each all-gather into a device copy and leaves "
+                  "the in-place all-reduce out)", flush=True)
+            mine, other = prof[False][0], prof[True][0]
+            diff = sorted(((mine.get(k, (0, 0))[1] - other.get(k, (0, 0))[1],
+                            k) for k in set(mine) | set(other)),
+                          key=lambda d: -abs(d[0]))
+            print(f"dp {label}: device us a replay, mesh minus "
+                  "undistributed, the 8 largest (count mesh / undistributed):"
+                  + "".join(f"\n  {d:+.1f} {k[:90]} ({mine.get(k, (0,))[0]} / "
+                            f"{other.get(k, (0,))[0]})" for d, k in diff[:8]),
+                  flush=True)
+            for what, a, b in (
+                    ("eager", eager[False], eager[True]),
+                    ("graphed", *(_dp_state(torch, runs[k].state,
+                                            runs[k].tmp, runs[k].rows)
+                                  for k in (False, True)))):
+                diff = _same_bits(torch, a, b)
+                print(f"dp {label} {what}: a world of one against the "
+                      f"undistributed run (tensors that differ, largest "
+                      f"difference): " + json.dumps(diff), flush=True)
+                if any(n for n, _ in diff.values()):
+                    fail(f"dp {label} {what}: the world of one parts from "
+                         "the undistributed run")
+            for k, run in runs.items():
+                check_counts(run.multi.graph_launches, per_step, DP_STEPS,
+                             f"dp {label} graph")
+                add(run.ran())
+            dp_ms, one_ms = (float(np.mean(runs[k].ms)) for k in (False,
+                                                                  True))
+            print(f"dp {label}: graphed {dp_ms:.4f} ms a step on a world of "
+                  f"one, {one_ms:.4f} undistributed (ms a step of each "
+                  f"timed dispatch: {[round(v, 4) for v in runs[False].ms]} "
+                  f"/ {[round(v, 4) for v in runs[True].ms]}) on {card}",
+                  flush=True)
+            del runs, eager
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+
+    # the train CLI: --num_gpus 2 on one GPU is a world of one, against
+    # the C1 phase's first run (the same flags, --num_gpus 1)
+    c1 = ["--start_end", "0", str(C1_FRAMES), "--val_every_steps",
+          str(C1_VAL_EVERY), "--cache_dir", f"{SCENE_RUN_DIR}/cache_c1"]
+    torch.cuda.synchronize()
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        system = cli(scene_argv("dp2", c1 + ["--num_gpus", "2"]))
+    torch.cuda.synchronize()
+    printed = out.getvalue()
+    print(printed, end="", flush=True)
+    add(run_counts(system, launch_counts(), PER_STEP, "dp CLI --num_gpus 2"))
+    note = ("note: --num_gpus x --num_nodes = 2 but 1 GPUs are attached; "
+            "using all 1")
+    if note not in printed or system.mesh is None or system.mesh.size != 1:
+        fail("dp CLI --num_gpus 2: no fewer-GPUs note, or not a world of "
+             "one")
+    print(f"dp CLI --num_gpus 2: {system.steps_run} steps, "
+          f"{cli_step_ms(system):.3f} ms per step through the CLI on "
+          f"{card}", flush=True)
+    diff = _same_bits(torch, c1_end, _train_state(torch, system))
+    del system
+    same_rows = jsonl_rows("c1a") == jsonl_rows("dp2")
+    print("dp CLI: --num_gpus 2 (a world of one) against --num_gpus 1 (C1's "
+          "first run; tensors that differ, largest difference): "
+          + json.dumps(diff) + f"; loss rows equal: {same_rows}", flush=True)
+    if any(n for n, _ in diff.values()) or not same_rows:
+        fail("dp CLI: --num_gpus 2 on one GPU ends elsewhere than "
+             "--num_gpus 1")
+    torch.cuda.empty_cache()
+    return ran
+
+
 def main() -> int:
     import torch
 
@@ -4302,11 +4561,20 @@ def main() -> int:
             by_s[S][name]["launches"] = c2f_ran.get(f"{name}@{S}", 0)
 
     # ---------------- reproducibility across refreshes (C1) -------------
-    c1_ran = c1_phase(torch, np, card)
+    c1_ran, c1_end = c1_phase(torch, np, card)
     record["launches"] += c1_ran["planar_eval_comp"]
     for name, rec in train_records.items():
         rec["launches"] += c1_ran[name]
     phase_s["C1"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- data-parallel training (main paths) -------------
+    dp_ran = dp_phase(torch, np, tcfg, pcfg, table, Ks, Ps, card, c1_end)
+    record["launches"] += dp_ran.get("planar_eval_comp", 0)
+    for name, rec in list(train_records.items()) + list(
+            packed_records.items()):
+        rec["launches"] += dp_ran.get(name, 0)
+    phase_s["data-parallel"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---------------- agreement ----------------

@@ -59,7 +59,7 @@ def get_opts(argv=None):
     parser.add_argument("--chunk", type=int, default=32 * 1024)
     parser.add_argument("--num_gpus", type=int, default=1,
                         help="GPUs to render over (more than one is not "
-                             "ported: 'multi-GPU')")
+                             "ported: 'multi-GPU eval and serving')")
 
     parser.add_argument("--encode_a", default=False, action="store_true")
     parser.add_argument("--N_a", type=int, default=48)
@@ -189,7 +189,8 @@ def main(args, device=None):
     if args.num_gpus > 1:
         raise NotImplementedError(
             f"--num_gpus {args.num_gpus}: rendering over more than one GPU "
-            "is not ported (ROADMAP.md queue A, 'multi-GPU')")
+            "is not ported (ROADMAP.md queue A, 'multi-GPU eval and "
+            "serving')")
     w, h = args.img_wh
     dataset = scene_dict[args.dataset_name](
         root_dir=args.root_dir, split=args.split, img_wh=(w, h),

@@ -9,8 +9,15 @@
 The flags are the JAX package's (`config.add_train_args`) plus
 `--fused_compositing`. It trains on one CUDA card; `main(cfg,
 device="cpu")` and `cli(argv, device="cpu")` run the kernels' plain
-versions on the CPU instead (for tests). More than one GPU raises
-('multi-GPU').
+versions on the CPU instead (for tests).
+
+`--num_gpus N` (N > 1) trains data-parallel, one rank a GPU
+(`parallel/`): fewer GPUs than asked for print a note and train on
+those present (a world of one still takes the distributed path); on the
+CPU N gloo ranks. Over nodes, each node runs the same command with
+`--num_nodes M --coordinator_address <node 0's host:port> --node_rank
+<its index>`. Local rank 0 runs in this process (`main` returns its
+system), the node's other ranks in spawned processes.
 """
 from __future__ import annotations
 
@@ -43,10 +50,31 @@ def _debug_backup_list():
 
 def main(cfg, device="cuda"):
     from nsff_pl_tpu_torch import resolve_device
-    from nsff_pl_tpu_torch.training.trainer import NSFFSystem
+    from nsff_pl_tpu_torch.parallel import distributed as dist_lib
 
     dev = resolve_device(device)
-    system = NSFFSystem(cfg, device=dev)
+    if dist_lib.asked(cfg) > 1:
+        return dist_lib.launch(_train_rank, cfg, dev, (cfg,))
+    return train(cfg, dev)
+
+
+def _train_rank(mesh, cfg):
+    return train(cfg, mesh.device, mesh)
+
+
+def train(cfg, dev, mesh=None):
+    """Build the system on `dev` (one rank of `mesh`), print its notes
+    (rank 0) and fit."""
+    from nsff_pl_tpu_torch.training.trainer import NSFFSystem
+
+    system = NSFFSystem(cfg, device=dev, mesh=mesh)
+    if system.primary:
+        _notes(system, cfg, dev)
+    system.fit(log_every=max(cfg.refresh_every, 1) * 50)
+    return system
+
+
+def _notes(system, cfg, dev):
     print(f"scene: {system.train_scene.N_frames} frames "
           f"{cfg.img_wh[0]}x{cfg.img_wh[1]} loaded in "
           f"{system.load_seconds:.2f} s; {system.steps_per_epoch} "
@@ -61,8 +89,6 @@ def main(cfg, device="cuda"):
         # dispatch replays one CUDA graph
         print("note: --scan_steps 1; pass e.g. --scan_steps 10 to run K "
               "steps a dispatch as one CUDA graph (PERF.md)", flush=True)
-    system.fit(log_every=max(cfg.refresh_every, 1) * 50)
-    return system
 
 
 def cli(argv=None, device="cuda"):

@@ -54,8 +54,8 @@ class NSFFConfig:
     num_epochs: int = 16
     hard_sampling: bool = False
 
-    # ---- distributed (opt.py:63-66); more than one GPU raises
-    # 'multi-GPU' in the port ----
+    # ---- distributed (opt.py:63-66): data-parallel training over
+    # torch.distributed (`parallel/`) ----
     num_gpus: int = 1
     num_nodes: int = 1
     coordinator_address: str = ""
@@ -267,15 +267,14 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="sample hard rays more according to SSIM")
 
     parser.add_argument("--num_gpus", type=int, default=1,
-                        help="GPUs per node (more than 1 is not ported: "
-                             "'multi-GPU')")
+                        help="GPUs per node: one rank each, data-parallel "
+                             "over rays (training only)")
     parser.add_argument("--num_nodes", type=int, default=1,
-                        help="processes to train data-parallel across "
-                             "(more than 1 is not ported: 'multi-GPU')")
+                        help="nodes to train data-parallel across")
     parser.add_argument("--coordinator_address", type=str,
                         default=d.coordinator_address,
-                        help="host:port of process 0 for multi-node "
-                             "bootstrap (not ported: 'multi-GPU')")
+                        help="host:port of node 0 for multi-node "
+                             "bootstrap")
     parser.add_argument("--node_rank", type=int, default=d.node_rank,
                         help="this process's rank when "
                              "--coordinator_address is set")

@@ -49,6 +49,7 @@ from nsff_pl_tpu_torch.ops.posenc import posenc
 from nsff_pl_tpu_torch.ops.raymarch_kernel import (make_planar_nerf_eval_comp,
                                                    make_planar_nerf_train)
 from nsff_pl_tpu_torch.ops.sampling import sample_pdf, stratified_zs
+from nsff_pl_tpu_torch.parallel.mesh import shard_rows
 
 
 def comp_eval_keys(output_transient: bool, flow) -> frozenset:
@@ -270,9 +271,10 @@ def render_test_planar(
 
 
 def _coarse_pass(params_coarse, o, d, zs, dir_emb, t_emb, cfg, kker, *,
-                 encode_t, ns=None, nt=None, vis=None):
+                 encode_t, ns=None, nt=None, vis=None, mesh=None):
     """The coarse pass of coarse-to-fine: the coarse model (no appearance,
-    no flow heads) on the stratified depths `zs`, and its composite with
+    no flow heads) on the stratified depths `zs` (sharded by rows over
+    `mesh` when given), and its composite with
     the sigma noises `ns` / `nt` (none at test time): both towers, with
     the transient sigma culled where `vis` is 0, or without `encode_t`
     the static tower alone. Returns the model's planes and {"sig_s",
@@ -285,7 +287,8 @@ def _coarse_pass(params_coarse, o, d, zs, dir_emb, t_emb, cfg, kker, *,
     coarse_op = make_planar_nerf_train(
         zs.shape[1], use_viewdir=cfg.use_viewdir, encode_a=False,
         encode_t=encode_t, output_flow=(), **kker)
-    cout = coarse_op(params_coarse, o, d, zs, None, dir_emb, None, t_emb)
+    cout = shard_rows(coarse_op, mesh)(params_coarse, o, d, zs, None, dir_emb,
+                                       None, t_emb)
     d_s, d_t = cp.deltas_from_zs(zs)
     sig_s = cp.softplus(cout["ssig"] if ns is None else cout["ssig"] + ns)
     tau_s = d_s * sig_s
@@ -393,11 +396,14 @@ def planar_unapplicable_reasons(cfg: RenderConfig, output_transient: bool,
 
 
 
-def warp_plan(cfg: RenderConfig, n: int) -> Tuple[int, float, int]:
+def warp_plan(cfg: RenderConfig, n: int,
+              world: int = 1) -> Tuple[int, float, int]:
     """How a training batch of n rays evaluates its warps: (warp_subsample,
     warp_importance, K), K the rays the importance selection keeps (0
     without it). Raises the JAX package's ValueErrors for the
-    combinations it refuses."""
+    combinations it refuses, and, over a mesh of `world` ranks, for a
+    batch or a K that does not divide over it (every evaluation is
+    sharded by rows)."""
     ws, wi = cfg.warp_subsample, float(cfg.warp_importance)
     if ws not in (1, 2):
         raise ValueError(f"warp_subsample must be 1 or 2, got {ws}")
@@ -411,7 +417,14 @@ def warp_plan(cfg: RenderConfig, n: int) -> Tuple[int, float, int]:
     if cfg.planar_compositing not in ("auto", "on", "off"):
         raise ValueError(
             f"unknown planar_compositing {cfg.planar_compositing!r}")
-    return ws, wi, (max(int(round(wi * n)), 1) if wi else 0)
+    K = max(int(round(wi * n)), 1) if wi else 0
+    if n % world:
+        raise ValueError(f"a batch of {n} rays does not divide over the "
+                         f"{world}-rank mesh")
+    if wi and K % world:
+        raise ValueError(f"warp_importance={wi}: K = {K} selected rays must "
+                         f"divide the {world}-device mesh")
+    return ws, wi, K
 
 
 def draw_shapes(cfg: RenderConfig, n: int) -> Dict[str, tuple]:
@@ -528,6 +541,7 @@ def render_train_planar(
     params_coarse: Optional[nerf_m.Params] = None,
     generator: Optional[torch.Generator] = None,
     draws: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Render a training batch with planar layouts; the result dict has
     the JAX function's keys and values:
@@ -582,11 +596,18 @@ def render_train_planar(
                             (k_noise_s, k_noise_t, k_fw, k_bw))
         u_sel = uniform(fold_in(k_rest, 7), ())
 
-    so a test can rebuild them and pass them in."""
+    so a test can rebuild them and pass them in.
+
+    Over a `mesh` (`parallel/mesh.py`) every field evaluation (the coarse
+    one, the main one, the warps) and every compositor call runs on the
+    rank's block of rows, its outputs gathered back to the global rows
+    (`shard_rows`, the JAX package's `shard_map`s); the batch, the draws,
+    the warp plan, the selection, `sample_pdf`, the sort and the masks
+    stay global on every rank."""
     n = rays.shape[0]
     S = cfg.N_samples
     dev = rays.device
-    ws, wi, K = warp_plan(cfg, n)
+    ws, wi, K = warp_plan(cfg, n, mesh.size if mesh is not None else 1)
     draws = dict(draws or {})
     for k, shape in draw_shapes(cfg, n).items():
         if k not in draws:
@@ -613,7 +634,7 @@ def render_train_planar(
     if cfg.N_importance > 0:
         cout, co = _coarse_pass(params_coarse, o, d, zs, dir_emb, t_emb, cfg,
                                 kker, encode_t=True, ns=noise("ncs"),
-                                nt=noise("nct"))
+                                nt=noise("nct"), mesh=mesh)
         res["rgb_coarse"] = torch.stack(
             [(co["sw"] * cout[f"srgb_{c}"] + co["tw"] * cout[f"trgb_{c}"])
              .sum(-1) for c in "rgb"], -1)
@@ -641,6 +662,8 @@ def render_train_planar(
                     for w in ("fw", "bw")}
     # one weight packing serves every evaluation of the step
     pw = main_op.pack(params_fine)
+    main_op = shard_rows(main_op, mesh)
+    warp_ops = {w: shard_rows(op, mesh) for w, op in warp_ops.items()}
 
     main = main_op(params_fine, o, d, zs, None, dir_emb, a_emb, t_emb, pw=pw)
     far = zs > Z_FAR  # flow is zeroed beyond z_far
@@ -695,7 +718,7 @@ def render_train_planar(
                                                           noise("nw2")]
     use_ck = cfg.planar_compositing != "off"
     if use_ck:
-        compositor = make_planar_compositor(S)
+        compositor = shard_rows(make_planar_compositor(S), mesh, whole=0)
         # a single warp rides both slots; the second slot's outputs are
         # discarded, so their cotangents are zero and nothing is doubled
         comp = compositor(_comp_inputs(zs, main, ns, nt, w_slots[0],

@@ -24,8 +24,10 @@ the JAX package's profiling stand-in: the fine model's evaluations
 (the main one and both warps) become tanh(xyz @ static_xyz_0.w[:3, :16])
 (the flows that map's columns 8:14 times 0.01), so that a step timed
 with it measures everything but the field; it runs no kernel, by design,
-and is no model to train. `mesh` is not ported and raises
-`NotImplementedError` naming its ROADMAP.md item.
+and is no model to train. In training, `mesh` shards every field
+evaluation and the fused compositor by rows (`parallel/mesh.py`); at
+test time it raises `NotImplementedError` naming its ROADMAP.md item
+('multi-GPU eval and serving').
 
 `interpolate` (with `_interp_pre` / `_interp_post`) renders a time
 between two rendered frames from their per-sample planes: the eval CLI's
@@ -43,6 +45,7 @@ from nsff_pl_tpu_torch.ops import compositing as cp
 from nsff_pl_tpu_torch.ops import rays as ray_ops
 from nsff_pl_tpu_torch.ops.posenc import posenc
 from nsff_pl_tpu_torch.ops.sampling import sample_pdf, stratified_zs
+from nsff_pl_tpu_torch.parallel.mesh import shard_rows
 
 Z_FAR = 0.95  # flow is zeroed beyond this NDC depth
 # sample rows of one plain evaluation in a test render (`_plain_fields`)
@@ -292,11 +295,18 @@ def render_rays(
         ns, nt, nw1, nw2 = (normal(k, (N, S_fine)) for k in
                             (k_noise_s, k_noise_t, k_fw, k_bw))
 
-    so a test can rebuild them and pass them in."""
-    if mesh is not None:
+    so a test can rebuild them and pass them in.
+
+    In training, over a `mesh` (`parallel/mesh.py`), every field
+    evaluation (the kernels', the plain evaluators', the stub's, the
+    coarse pass's and the warps') and the fused compositor run on the
+    rank's block of rows, their outputs gathered back to the global rows
+    (`shard_rows`); the rest stays global on every rank. The batch must
+    divide over the mesh."""
+    if mesh is not None and test_time:
         raise NotImplementedError(
-            "rendering over a device mesh is not ported (ROADMAP.md queue "
-            "A, 'multi-GPU')")
+            "rendering over a device mesh at test time is not ported "
+            "(ROADMAP.md queue A, 'multi-GPU eval and serving')")
     output_transient = output_transient and cfg.encode_t
     flow = tuple(output_transient_flow) if output_transient else ()
     dev = rays.device
@@ -371,7 +381,7 @@ def render_rays(
         results[f"xyzs_{typ}"] = xyz
         packed = pw = static_rgbs = transient_rgbs = None
         if stub:
-            packed = stub_field(model, xyz)
+            packed = shard_rows(stub_field, mesh)(model, xyz)
             static_rgbs = packed[..., 0:3]
             static_sigmas_raw = packed[..., 3]
             if output_transient:
@@ -400,9 +410,9 @@ def render_rays(
             pw = params.get("fine_packed") if use_kernel_eval else None
             if pw is None:
                 pw = field.pack(model)
-            packed = field(model, xyz,
-                           dir_embedded if cfg.use_viewdir else None,
-                           a_embedded, t_embedded, pw=pw)
+            packed = shard_rows(field, mesh)(
+                model, xyz, dir_embedded if cfg.use_viewdir else None,
+                a_embedded, t_embedded, pw=pw)
             un = mk.unpack_fused(packed, encode_t=output_transient,
                                  output_flow=this_flow)
             static_rgbs = un["static_rgbs"]
@@ -413,9 +423,11 @@ def render_rays(
                 raw_flows = {f: un[f"transient_flows_{f}"]
                              for f in this_flow}
         else:
-            pf = _plain_fields(model, xyz, dir_embedded,
-                               a_embedded if has_a_ else None, t_embedded,
-                               cfg, this_flow, sigma_only, cdtype)
+            pf = shard_rows(
+                lambda m, x, de, ae, te: _plain_fields(
+                    m, x, de, ae, te, cfg, this_flow, sigma_only, cdtype),
+                mesh)(model, xyz, dir_embedded,
+                      a_embedded if has_a_ else None, t_embedded)
             static_rgbs = pf.get("static_rgbs")
             static_sigmas_raw = pf["static_sigmas_raw"]
             if output_transient:
@@ -456,7 +468,7 @@ def render_rays(
                 make_fused_compositing
 
             zero = torch.zeros((n_rays, Sx), device=dev)
-            comp = make_fused_compositing(Sx)(
+            comp = shard_rows(make_fused_compositing(Sx), mesh, whole=0)(
                 packed, zs, zero if noise_std <= 0 else noise(nkeys[0]),
                 zero if noise_std <= 0 else noise(nkeys[1]))
             static_sigmas = comp["static_sigmas"]
@@ -488,7 +500,7 @@ def render_rays(
                 t_emb_ray = nerf_m.embedding_lookup(embeddings["t"],
                                                     ts_shift)
                 if stub:
-                    pk = stub_field(model, xyz_w_pts)
+                    pk = shard_rows(stub_field, mesh)(model, xyz_w_pts)
                     tr_w = {"rgb": pk[..., 4:7], "sigma": pk[..., 7],
                             f"flow_{which_flow}": 0.01 * pk[..., 8:11]}
                 elif kernel_train:
@@ -496,15 +508,17 @@ def render_rays(
                         Sx, use_viewdir=cfg.use_viewdir, encode_a=False,
                         encode_t=True, output_flow=(which_flow,),
                         static_branch=False, **kker)
-                    pk = ft_w(model, xyz_w_pts, None, None, t_emb_ray, pw=pw)
+                    pk = shard_rows(ft_w, mesh)(model, xyz_w_pts, None, None,
+                                                t_emb_ray, pw=pw)
                     tr_w = {"rgb": pk[..., 4:7], "sigma": pk[..., 7],
                             f"flow_{which_flow}": pk[..., 8:11]}
                 else:
-                    tr_w = nerf_m.transient_forward(
-                        model,
-                        posenc(xyz_w_pts, cfg.S_emb_xyz, cfg.N_emb_xyz),
-                        _expand(t_emb_ray, Sx), output_flow=(which_flow,),
-                        flow_scale=cfg.flow_scale, compute_dtype=cdtype)
+                    tr_w = shard_rows(
+                        lambda m, x, te: nerf_m.transient_forward(
+                            m, posenc(x, cfg.S_emb_xyz, cfg.N_emb_xyz),
+                            _expand(te, Sx), output_flow=(which_flow,),
+                            flow_scale=cfg.flow_scale, compute_dtype=cdtype),
+                        mesh)(model, xyz_w_pts, t_emb_ray)
                 flows_w = torch.where((zs > Z_FAR)[..., None], 0.0,
                                       tr_w[f"flow_{which_flow}"])
                 tr_alphas_w = cp.sigma2alpha(tr_w["sigma"], transient_deltas,

@@ -12,6 +12,13 @@ steps): on a CUDA device the step is captured once in a CUDA graph and
 replayed, so one dispatch issues no Python op per step (see
 `_MultiStep`); on the CPU the same steps run eagerly.
 
+Over a `mesh` (`parallel/mesh.py`, one rank a GPU) the step is the
+JAX package's data-parallel step: the batch and every draw stay global
+(the same generator and seed on every rank), each field evaluation is
+sharded by rows and gathered back, the loss runs replicated on the
+global rows, and one all-reduce sums the weight gradients before the
+optimizer's update, inside the K-step CUDA graph too.
+
 `make_render_fn` returns a plain function under `torch.inference_mode()`.
 `render_full_image` is the host chunk loop; it pads the last chunk to the
 full chunk size by repeating the last ray, as the JAX loop does, so every
@@ -30,6 +37,7 @@ import torch
 
 from nsff_pl_tpu_torch import resolve_device
 from nsff_pl_tpu_torch.models.rendering import RenderConfig, render_rays
+from nsff_pl_tpu_torch.parallel.mesh import all_reduce_grads, check_device
 from nsff_pl_tpu_torch.training.optim import OptState, param_leaves
 
 
@@ -64,6 +72,7 @@ def make_train_step(
     hard_sampling: bool = False,
     scan_steps: int = 1,
     device="cuda",
+    mesh=None,
 ):
     """Build the train step on `device`:
 
@@ -95,7 +104,16 @@ def make_train_step(
 
     With `scan_steps=K > 1` it returns the K-step dispatch `_MultiStep`
     (its docstring has the signature), which on a CUDA device replays one
-    CUDA graph of all K steps."""
+    CUDA graph of all K steps.
+
+    With a `mesh` (this rank's, on `device`) the step is data-parallel:
+    the field evaluations run sharded by rows (`render_train_planar`,
+    `render_rays`), and after the backward one all-reduce sums the
+    models' weight gradients over the ranks
+    (`parallel.mesh.all_reduce_grads`; the embeddings' come out whole on
+    every rank), so every rank takes the same update. A world of one
+    still calls the collectives. The batch (and wi's K) must divide
+    over the mesh."""
     from nsff_pl_tpu_torch.data.pipeline import _sample_batch
     from nsff_pl_tpu_torch.models.raymarch import (
         planar_unapplicable_reasons, render_train_planar, warp_plan)
@@ -104,6 +122,8 @@ def make_train_step(
                                                  total_loss)
 
     dev = resolve_device(device)
+    if mesh is not None:
+        check_device(mesh, dev)
     if scan_steps < 1:
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
     if render_cfg.fused_train not in ("auto", "on", "off"):
@@ -129,8 +149,12 @@ def make_train_step(
             + (f" (unavailable here: {'; '.join(reasons)})" if reasons
                else " (enable it: fused_train='on'/'auto' with the kernel "
                     "train backend)"))
+    world = mesh.size if mesh is not None else 1
     if use_planar:  # the JAX renderer's ValueErrors, before any step
-        warp_plan(render_cfg, batch_size)
+        warp_plan(render_cfg, batch_size, world)
+    elif batch_size % world:
+        raise ValueError(f"a batch of {batch_size} rays does not divide "
+                         f"over the {world}-rank mesh")
     flow = tuple(output_transient_flow)
 
     def step_body(params, opt, step, table, weights, Ks, Ps, generator, t,
@@ -145,7 +169,7 @@ def make_train_step(
             results = render_train_planar(
                 models["fine"], embeddings, batch["rays"], batch["ts"],
                 render_cfg, params_coarse=models.get("coarse"),
-                generator=generator, draws=draws)
+                generator=generator, draws=draws, mesh=mesh)
             loss_d = compute_losses_planar(results, batch, loss_cfg,
                                            epoch=epoch, Ks=Ks, Ps=Ps)
         else:
@@ -153,12 +177,16 @@ def make_train_step(
                 models, embeddings, batch["rays"],
                 batch["ts"] if output_transient else None, render_cfg,
                 test_time=False, output_transient=output_transient,
-                output_transient_flow=flow, generator=generator, draws=draws)
+                output_transient_flow=flow, generator=generator, draws=draws,
+                mesh=mesh)
             loss_d = compute_losses(results, batch, loss_cfg, epoch=epoch,
                                     output_transient_flow=flow, Ks=Ks, Ps=Ps)
         loss = total_loss(loss_d)
         opt.zero_grad()
         loss.backward()
+        if mesh is not None:  # the models' weights (the embeddings'
+            # gradients are whole on every rank: parallel/mesh.py)
+            all_reduce_grads(param_leaves(models), mesh)
         tx.step(opt)
 
         with torch.no_grad():

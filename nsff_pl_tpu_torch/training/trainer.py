@@ -31,8 +31,18 @@ optimizer's state, the table, the weights and `tmp_rgb` keep their
 storage for the life of the system, so each dispatch shape is captured
 once.
 
-Not ported (each raises `NotImplementedError` naming its ROADMAP item):
-more than one GPU ('multi-GPU'), datasets other than `monocular`.
+Data-parallel (`mesh`, one rank a GPU, started by `apps/train.py`
+through `parallel.distributed.launch`): every rank builds the same
+system from the same seed and files and runs the same loop (the
+schedule, the draws, the validation, whole on every rank, and so the
+hard-sampling refresh); the step shards its field evaluations and sums
+the gradients (`training/step.py`). Rank 0 alone logs, prints and
+writes checkpoints, the ranks meeting at a barrier after each save; a
+time budget is decided by rank 0 for all. Checkpoints are those of one
+process, so either restores in the other.
+
+Not ported (raises `NotImplementedError` naming its ROADMAP item):
+datasets other than `monocular`.
 """
 from __future__ import annotations
 
@@ -49,6 +59,8 @@ from nsff_pl_tpu_torch import resolve_device
 from nsff_pl_tpu_torch.config import (NSFFConfig, build_params, loss_config,
                                       render_config)
 from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
+from nsff_pl_tpu_torch.parallel import distributed as dist_lib
+from nsff_pl_tpu_torch.parallel.mesh import check_device
 from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
 from nsff_pl_tpu_torch.training import metrics as metrics_lib
 from nsff_pl_tpu_torch.training.optim import (make_lr_schedule,
@@ -102,12 +114,34 @@ class TensorBoardLogger:
         self.jsonl.flush()
 
 
-def check_ported(cfg: NSFFConfig) -> None:
-    """Raise for the options whose features the port has not yet."""
-    if cfg.num_gpus > 1 or cfg.num_nodes > 1 or cfg.coordinator_address:
-        raise NotImplementedError(
-            "training on more than one GPU is not ported yet (ROADMAP.md "
-            "queue A, 'multi-GPU')")
+class _NullLogger:
+    """The logger of a rank other than 0: writes nothing."""
+    writer = None
+
+    def scalar(self, *a, **k):
+        pass
+
+    def row_jsonl(self, *a, **k):
+        pass
+
+    def image(self, *a, **k):
+        pass
+
+    def flush(self):
+        pass
+
+
+def check_ported(cfg: NSFFConfig, mesh=None) -> None:
+    """Raise for the options whose features the port has not yet, for
+    the bootstrap flags the JAX package refuses, and for more than one
+    rank asked for without the ranks' mesh."""
+    dist_lib.check(cfg)
+    if dist_lib.asked(cfg) > 1 and mesh is None:
+        raise ValueError(
+            f"--num_gpus x --num_nodes = {dist_lib.asked(cfg)} ranks but no "
+            "mesh: multi-GPU training starts one rank a GPU through "
+            "apps.train (parallel.distributed.launch), which hands each "
+            "rank its mesh")
     if cfg.dataset_name != "monocular":
         raise NotImplementedError(
             f"dataset {cfg.dataset_name!r} is not ported; the port reads "
@@ -162,13 +196,18 @@ class _Fetch:
 
 
 class NSFFSystem:
-    """End-to-end training system on `device` (default the card)."""
+    """End-to-end training system on `device` (default the card); one
+    rank of a data-parallel job with `mesh` (this rank's, on `device`)."""
 
-    def __init__(self, cfg: NSFFConfig, device="cuda"):
+    def __init__(self, cfg: NSFFConfig, device="cuda", mesh=None):
         dev = resolve_device(device)
-        check_ported(cfg)
+        check_ported(cfg, mesh)
+        if mesh is not None:
+            check_device(mesh, dev)
         self.device = dev
         self.cfg = cfg
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.rank == 0
 
         from nsff_pl_tpu_torch.scene import scene_dict
 
@@ -215,7 +254,7 @@ class NSFFSystem:
             output_transient_flow=tuple(cfg.output_transient_flow),
             steps_per_epoch=self.steps_per_epoch,
             batch_size=cfg.batch_size, hard_sampling=cfg.hard_sampling,
-            device=dev)
+            device=dev, mesh=mesh)
         # K-step dispatch; profiling wants per-step dispatch boundaries
         self.scan_steps = 1 if cfg.profile_dir else max(cfg.scan_steps, 1)
         self.train_step = make_train_step(
@@ -230,8 +269,9 @@ class NSFFSystem:
             output_transient=cfg.output_transient, output_transient_flow=(),
             keys=VAL_KEYS, device=dev)
 
-        self.logger = TensorBoardLogger(os.path.join(cfg.log_dir,
-                                                     cfg.exp_name))
+        self.logger = (TensorBoardLogger(os.path.join(cfg.log_dir,
+                                                      cfg.exp_name))
+                       if self.primary else _NullLogger())
         self.ckpt_dir = os.path.join(cfg.ckpt_dir, cfg.exp_name)
         w, h = cfg.img_wh
         # the hard-sampling buffer; a (1, 1, 3) stand-in passes through a
@@ -286,25 +326,42 @@ class NSFFSystem:
         self.state = self.state._replace(step=int(tree["step"]))
 
     def save(self) -> str:
-        """Checkpoint `ckpt_dir/<exp>/step_<n>`, and the config beside it."""
+        """Checkpoint `ckpt_dir/<exp>/step_<n>`, and the config beside it
+        (rank 0 writes; every rank of a mesh waits for it)."""
         t0 = time.perf_counter()
         step = int(self.state.step)
-        params = self.state.params
-        tree = {
-            "params": params,
-            "opt_state": ckpt_lib.opt_state_tree(self.state.opt_state,
-                                                 params),
-            "step": step,
-            "sampling_weights": self.batcher.weights,
-            "tmp_rgb": self.tmp_rgb,
-            "generator": self.generator.get_state(),
-            "scheduler": _scheduler_state(self.scheduler),
-        }
-        path = ckpt_lib.save_checkpoint(self.ckpt_dir, step, tree)
-        with open(os.path.join(self.ckpt_dir, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(self.cfg), f, indent=2, default=str)
+        path = os.path.join(self.ckpt_dir, f"step_{step}")
+        if self.primary:
+            params = self.state.params
+            tree = {
+                "params": params,
+                "opt_state": ckpt_lib.opt_state_tree(self.state.opt_state,
+                                                     params),
+                "step": step,
+                "sampling_weights": self.batcher.weights,
+                "tmp_rgb": self.tmp_rgb,
+                "generator": self.generator.get_state(),
+                "scheduler": _scheduler_state(self.scheduler),
+            }
+            path = ckpt_lib.save_checkpoint(self.ckpt_dir, step, tree)
+            with open(os.path.join(self.ckpt_dir, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(self.cfg), f, indent=2,
+                          default=str)
+        if self.mesh is not None:
+            dist_lib.barrier(self.mesh)
         self.save_seconds.append(time.perf_counter() - t0)
         return path
+
+    def _out_of_time(self, t_fit0: float) -> bool:
+        """Has the run spent its time budget? Rank 0's clock decides for
+        every rank of a mesh (one broadcast a dispatch, only with a
+        budget)."""
+        over = time.time() - t_fit0 > self.cfg.time_budget_s
+        if self.mesh is None:
+            return over
+        flag = torch.tensor([float(over)], device=self.device)
+        torch.distributed.broadcast(flag, 0, group=self.mesh.group)
+        return bool(flag.item())
 
     def _remainder_step(self):
         if self._single_step is None:
@@ -346,8 +403,10 @@ class NSFFSystem:
     def fit(self, log_every: int = 50, progress: bool = True):
         """The training loop: groups of `scan_steps` steps per dispatch,
         clipped so that no group crosses an epoch end, a validation or
-        the last step; the steps of a clipped group run one at a time."""
+        the last step; the steps of a clipped group run one at a time.
+        Only rank 0 prints its progress."""
         cfg = self.cfg
+        progress = progress and self.primary
         K = self.scan_steps
         pending: List[Tuple[int, int, Dict[str, torch.Tensor]]] = []
         n_pending = 0
@@ -364,7 +423,8 @@ class NSFFSystem:
         trace = None
         step = step0 = self.state.step
         while step < self.total_steps:
-            if cfg.profile_dir:  # a trace of steps 10-15 (K is 1 here)
+            # a trace of steps 10-15 (K is 1 here), on rank 0
+            if cfg.profile_dir and self.primary:
                 if step == step0 + 10 and trace is None:
                     trace = profiling.Trace(cfg.profile_dir,
                                             self.device).start()
@@ -421,7 +481,7 @@ class NSFFSystem:
                     self.validate(step // self.steps_per_epoch)
                 self.save()
             if (cfg.time_budget_s > 0 and step < self.total_steps
-                    and time.time() - t_fit0 > cfg.time_budget_s):
+                    and self._out_of_time(t_fit0)):
                 drain(ready, step)
                 if pending:
                     drain(_Fetch(pending, self.device), step)
@@ -443,7 +503,9 @@ class NSFFSystem:
     def _end_trace(self, trace: profiling.Trace) -> None:
         trace.stop()
         self.trace_seconds = trace.seconds
-        print(f"profile trace written to {self.cfg.profile_dir}", flush=True)
+        if self.primary:
+            print(f"profile trace written to {self.cfg.profile_dir}",
+                  flush=True)
 
     # ------------------------------------------------------------------
     def validate(self, epoch) -> Dict[str, float]:
@@ -490,8 +552,9 @@ class NSFFSystem:
                     tmp.cpu().numpy(), viz.visualize_depth(
                         -sm.cpu().numpy()), 0.5), step)
         self.logger.flush()
-        print(f"epoch {epoch}: " + " ".join(
-            f"val/{k}={v:.4f}" for k, v in log.items()), flush=True)
+        if self.primary:
+            print(f"epoch {epoch}: " + " ".join(
+                f"val/{k}={v:.4f}" for k, v in log.items()), flush=True)
         self.val_seconds.append(time.perf_counter() - t_val0)
         self.val_history.append((step, log))
         return log

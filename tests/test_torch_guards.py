@@ -78,6 +78,7 @@ def _entry_points():
     from nsff_pl_tpu_torch.apps import evaluate as eval_app
     from nsff_pl_tpu_torch.apps import train as train_app
     from nsff_pl_tpu_torch.scene import MonocularScene
+    from nsff_pl_tpu_torch.parallel import distributed
     from nsff_pl_tpu_torch.tools import export_render, profile_step
     from nsff_pl_tpu_torch.training.trainer import NSFFSystem
     from nsff_pl_tpu_torch.utils import profiling
@@ -136,6 +137,11 @@ def _entry_points():
             export_render.get_opts(["--ckpt_path", "unused", "--out",
                                     "unused", "--mlp_backend", "pallas",
                                     "--dtype", "bfloat16"])),
+        # data-parallel training
+        "launch": lambda: distributed.launch(
+            print, NSFFConfig(num_gpus=2)),
+        "train_main_two_gpus": lambda: train_app.main(
+            train_cfg.replace(num_gpus=2)),
     }
 
 
@@ -147,7 +153,7 @@ def _entry_points():
      "make_train_step_static", "make_render_fn_train_mode",
      "RenderService_packed_float32", "MonocularScene", "NSFFSystem",
      "train_main", "eval_main", "trace", "profile_step_main",
-     "export_render_main"]))
+     "export_render_main", "launch", "train_main_two_gpus"]))
 def test_entry_points_need_a_gpu_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

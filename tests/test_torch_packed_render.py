@@ -181,7 +181,9 @@ def test_draws_from_a_generator_and_key_filter():
     (dict(train_backend="stub"), "stub"),
     (dict(mesh=object()), "multi-GPU")])
 def test_unported_options_name_their_roadmap_items(bad, match):
-    """The device mesh is not ported and raises naming its ROADMAP item.
+    """A device mesh at test time is not ported and raises naming its
+    ROADMAP item ('multi-GPU eval and serving'; in training the mesh
+    shards the field evaluations, tests/test_torch_parallel.py).
     The 'stub' train backend, which did so before, now renders: the
     profiling stand-in of the field (tanh(xyz @ static_xyz_0.w[:3, :16])
     for the main evaluation and both warps) against the JAX package's,
@@ -201,6 +203,7 @@ def test_unported_options_name_their_roadmap_items(bad, match):
     with pytest.raises(NotImplementedError, match=match) as e:
         render_rays({"fine": tparams["nerf_fine"]},
                     {"t": tparams["embedding_t"]}, torch.from_numpy(rays),
-                    torch.from_numpy(ts).long(), cfg, test_time=False,
+                    torch.from_numpy(ts).long(), cfg, test_time=True,
                     output_transient_flow=FLOW, mesh=mesh)
     assert "ROADMAP" in str(e.value)
+    assert "multi-GPU eval and serving" in str(e.value)

@@ -309,7 +309,20 @@ def test_orbax_checkpoint_converts_and_resumes(tmp_path):
     (dict(dataset_name="blender"), "monocular")])
 def test_unported_options_raise(scene, tmp_path, extra, label):
     """Options whose features are not ported name their ROADMAP item
-    before anything is loaded."""
+    before anything is loaded. The multi-GPU options are ported
+    (tests/test_torch_parallel.py) and raise here, before anything is
+    loaded, only where no rank stands behind them: more than one rank
+    asked for without the launcher's mesh, several nodes without a
+    coordinator, and the JAX package's `--coordinator_address requires
+    --node_rank`."""
     cfg = NSFFConfig(**_kw(scene, tmp_path, "x", **extra))
+    if label == "multi-GPU":
+        why = {"num_gpus": "no mesh: multi-GPU training",
+               "num_nodes": "needs --coordinator_address",
+               "coordinator_address": "requires --node_rank"}[next(
+                   iter(extra))]
+        with pytest.raises(ValueError, match=why):
+            NSFFSystem(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=label):
         NSFFSystem(cfg, device="cpu")
