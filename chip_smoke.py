@@ -79,7 +79,8 @@ once), then:
    LPIPS n/a), each frame held against the host loop's (GRAPH_TOL), its
    PSNR against the untrained render's (PSNR_GAIN_DB), a flatness floor
    (FLAT_STD), and three frames of the static tower in float32 on the
-   plain evaluators against bfloat16 (F32_TOL); the spiral (180 frames), again with `--fix_view_dir`;
+   plain evaluators against bfloat16 (F32_TOL); the spiral (180 frames)
+   with `--fix_view_dir`, its frame 5 against the same pose without it;
    `test_fixview0_interp4` (30 items) on the planes route (B2's forward
    + B3: held against B1's composited route within FRAME_TOL, its dt = 0
    frame against the t render, the splat twice for the same bits, in its
@@ -127,10 +128,11 @@ once), then:
    within PSNR_C2F_TOL of the planar route's);
 9. reproducibility (ROADMAP C1): the train CLI at the flagship recipe
    with hard sampling on the scene's first 4 frames (one epoch, 589
-   steps, a validation and hard-sampling refresh every 200 steps), twice
-   from one seed and once stopped by its time budget and resumed: the
-   params, Adam's moments, `tmp_rgb` and the sampling weights at the end
-   the same bits in all three;
+   steps, a validation and hard-sampling refresh every 200 steps), from
+   one seed and once stopped by its time budget and resumed: the params,
+   Adam's moments, `tmp_rgb` and the sampling weights at the end the
+   same bits in both (the second run from the seed is phase 13's
+   `--num_gpus 2` run);
 10. agreement: a small frame rendered on the card equals the plain CPU
    render of the same weights within `TOL`; one training step at batch
    64 on the card equals the plain CPU step from the same state, batch
@@ -181,9 +183,17 @@ once), then:
    optimizer's state and `tmp_rgb` the same bits; the collectives the
    capture called (one all-reduce a step) and, by torch.profiler over a
    replay, the copies NCCL left in the graph for them; the graphed ms a
-   step of both. Then the train CLI with the C1 phase's flags and
-   `--num_gpus 2` (one GPU: the fewer-GPUs note, a world of one) against
-   C1's first run (`--num_gpus 1`): the same bits at the end.
+   step of both. Served 512x288 frames over the mesh (`RenderService(
+   mesh=)`) on B1 and, with `planar_eval="off"`, on B5 against the
+   undistributed service: the same bits, one launch and one all-gather a
+   chunk, seconds a request in turns. Then the train CLI with the C1
+   phase's flags and `--num_gpus 2` (one GPU: the fewer-GPUs note, a
+   world of one) against C1's first run (`--num_gpus 1`): the same bits
+   at the end, the same loss rows and the same validation rows (its
+   validations render over the mesh). Then the eval CLI with
+   `--num_gpus 2` on the eval phase's `test_spiral --fix_view_dir`:
+   one graph replay a frame (the graph holds the chunks' all-gathers),
+   every file the eval phase's run wrote the same bytes.
 
 The training phases end with a torch.profiler trace of 5 more steps
 (device time by kernel, the device's busy share and the backward's
@@ -2233,18 +2243,34 @@ def against_f64(torch, np, card, data, params, cfg):
     return rows
 
 
+def eval_base():
+    """The eval CLI's flags on the scene and the scene training phase's
+    checkpoint (trained weights), in bfloat16."""
+    import os
+
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+
+    ckpt = os.path.abspath(ckpt_lib.latest_checkpoint(
+        f"{SCENE_RUN_DIR}/ckpts/planar"))
+    return ["--root_dir", os.path.abspath(SCENE_DIR), "--img_wh", str(W_IMG),
+            str(H_IMG), "--start_end", "0", str(N_FRAMES), "--encode_t",
+            "--use_viewdir", "--N_samples", "128", "--dtype", "bfloat16",
+            "--ckpt_path", ckpt]
+
+
 def eval_phase(torch, np, card):
     """The eval CLI (`apps.evaluate`, in process) on the scene and the
     trained checkpoint of the scene training phase: the test split (30
     frames, bfloat16, depth maps) with its frames held against the host
     loop, the untrained render, a flatness floor and float32 on the plain
-    evaluators; the spiral (180 frames) and a few frames with
-    --fix_view_dir; test_fixview0_interp4 (the planes route, the splat in
-    both its forms); the test split with --planar_eval off (B5). Each
-    kernel of these paths is held against its plain version on the
-    inputs the path gives it on one chunk of frame 0, with the trained
-    weights. Returns the launches the card ran in the CLI runs and each
-    kernel's largest error there."""
+    evaluators; the spiral (180 frames) with --fix_view_dir, its frame 5
+    against the same pose without it; test_fixview0_interp4 (the planes
+    route, the splat in both its forms); the test split with
+    --planar_eval off (B5). Each kernel of these paths is held against
+    its plain version on the inputs the path gives it on one chunk of
+    frame 0, with the trained weights. Returns the launches the card ran in the CLI runs, each
+    kernel's largest error there and the spiral's seconds a frame
+    render."""
     import os
 
     from nsff_pl_tpu_torch.config import (NSFFConfig, build_params,
@@ -2254,17 +2280,11 @@ def eval_phase(torch, np, card):
     from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
     from nsff_pl_tpu_torch.ops import softsplat as ss
     from nsff_pl_tpu_torch.scene import imageio
-    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
     from nsff_pl_tpu_torch.training.step import (equal_chunks,
                                                  make_render_fn,
                                                  render_full_image)
 
-    scene_dir = os.path.abspath(SCENE_DIR)
-    ckpt = os.path.abspath(ckpt_lib.latest_checkpoint(
-        f"{SCENE_RUN_DIR}/ckpts/planar"))
-    base = ["--root_dir", scene_dir, "--img_wh", str(W_IMG), str(H_IMG),
-            "--start_end", "0", str(N_FRAMES), "--encode_t", "--use_viewdir",
-            "--N_samples", "128", "--dtype", "bfloat16", "--ckpt_path", ckpt]
+    base = eval_base()
     os.makedirs(EVAL_DIR, exist_ok=True)
     here = os.getcwd()
     os.chdir(EVAL_DIR)  # the CLI writes results/monocular/<scene_name>
@@ -2375,23 +2395,28 @@ def eval_phase(torch, np, card):
         del rep
         torch.cuda.empty_cache()
 
-        # ---- spiral, and a few frames with a fixed view direction ----
-        _, ran, _ = eval_split(
-            torch, np, card, "test_spiral", base + ["--split", "test_spiral",
-                                          "--scene_name", "spiral"],
-            {"planar_eval_comp": 1}, 6 * N_FRAMES)
-        add(ran)
-        _, ran, _ = eval_split(
+        # ---- the spiral with a fixed view direction (the data-parallel
+        # phase renders it again over a mesh), and its frame 5 without ----
+        rep, ran, _ = eval_split(
             torch, np, card, "test_spiral --fix_view_dir",
             base + ["--split", "test_spiral", "--fix_view_dir",
                     "--scene_name", "spiral_fixed"],
             {"planar_eval_comp": 1}, 6 * N_FRAMES)
         add(ran)
-        a = imageio.read_png("results/monocular/spiral/005.png")
+        spiral_s = float(np.mean(rep.render_seconds))
+        item = rep.dataset.test_item(5, targets=())
+        rgb = render_full_image(rep.render, rep.params, item["rays"],
+                                item["ts"], chunk=CHUNK,
+                                scan_chunks=True)["rgb_fine"]
+        add(graph_ran(rep.render)[0])
+        add({k: -v for k, v in ran.items()})
+        a = (255 * np.clip(rgb.float().cpu().numpy(), 0, 1)).astype(
+            np.uint8).reshape(H_IMG, W_IMG, 3)
         b = imageio.read_png("results/monocular/spiral_fixed/005.png")
-        print(f"eval test_spiral --fix_view_dir: frame 5 against the "
-              f"spiral's: {(a != b).mean():.4f} of the pixel channels "
-              "differ", flush=True)
+        print(f"eval test_spiral --fix_view_dir: frame 5 against the same "
+              f"pose without it: {(a != b).mean():.4f} of the pixel "
+              "channels differ", flush=True)
+        del rep
 
         # ---- space-time interpolation: the planes route ----
         rep, ran, g = eval_split(
@@ -2559,7 +2584,7 @@ def eval_phase(torch, np, card):
             fail("eval: the packed frame disagrees with the planar frame")
     finally:
         os.chdir(here)
-    return total, kernel_errs
+    return total, kernel_errs, spiral_s
 
 
 # ---------------- coarse-to-fine (main paths) ----------------
@@ -2893,10 +2918,12 @@ def c1_phase(torch, np, card):
     """Card training reproduces itself (ROADMAP C1): the train CLI at the
     flagship recipe with hard sampling on the scene's first C1_FRAMES
     frames, a validation and hard-sampling refresh every C1_VAL_EVERY
-    steps, one epoch, twice from the same seed, and a third time stopped
-    mid-epoch by its time budget and resumed from its checkpoint: the
-    params, Adam's moments, `tmp_rgb` and the sampling weights at the
-    end must be the same bits in all three."""
+    steps, one epoch, from the seed, and again stopped mid-epoch by its
+    time budget and resumed from its checkpoint: the params, Adam's
+    moments, `tmp_rgb` and the sampling weights at the end must be the
+    same bits in both. The second run from the same seed is the data-
+    parallel phase's (`--num_gpus 2` on one GPU, a world of one), held
+    to the same bits and loss and validation rows."""
     from nsff_pl_tpu_torch.apps.train import cli
     from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
 
@@ -2914,14 +2941,13 @@ def c1_phase(torch, np, card):
             ran[k] = ran.get(k, 0) + v
         return system
 
-    for exp in ("c1a", "c1b"):
-        system = run(exp, [])
-        ends[exp] = _train_state(torch, system)
-        print(f"C1 run {exp}: {system.steps_run} steps, "
-              f"{len(system.val_seconds)} validations and refreshes, "
-              f"{cli_step_ms(system):.3f} ms per step through the CLI on "
-              f"{card}", flush=True)
-        del system
+    system = run("c1a", [])
+    ends["c1a"] = _train_state(torch, system)
+    print(f"C1 run c1a: {system.steps_run} steps, "
+          f"{len(system.val_seconds)} validations and refreshes, "
+          f"{cli_step_ms(system):.3f} ms per step through the CLI on "
+          f"{card}", flush=True)
+    del system
     system = run("c1c", ["--time_budget_s", str(C1_BUDGET_S)])
     stop, total = system.state.step, system.total_steps
     del system
@@ -2932,14 +2958,13 @@ def c1_phase(torch, np, card):
     ends["c1c"] = _train_state(torch, system)
     del system
     torch.cuda.empty_cache()
-    for other, what in (("c1b", "a second run from the same seed"),
-                        ("c1c", f"a run stopped at step {stop} and resumed")):
-        diff = _same_bits(torch, ends["c1a"], ends[other])
-        print(f"C1: {what}, against the first run after {total} steps "
-              f"(tensors that differ, largest difference): "
-              + json.dumps(diff), flush=True)
-        if any(n for n, _ in diff.values()):
-            fail(f"C1: {what} ends elsewhere than the first run")
+    what = f"a run stopped at step {stop} and resumed"
+    diff = _same_bits(torch, ends["c1a"], ends["c1c"])
+    print(f"C1: {what}, against the first run after {total} steps "
+          f"(tensors that differ, largest difference): "
+          + json.dumps(diff), flush=True)
+    if any(n for n, _ in diff.values()):
+        fail(f"C1: {what} ends elsewhere than the first run")
     return ran, ends["c1a"]
 
 
@@ -3969,6 +3994,9 @@ def tools_phase(torch, np, card):
 # and the timed dispatches of each graph (in turns)
 DP_STEPS = 10
 DP_TIMED = 3
+# served frames a route and a service (over the world of one, and
+# undistributed), timed in turns
+DP_FRAMES = 3
 
 
 def _dp_state(torch, state, tmp, rows):
@@ -4077,11 +4105,152 @@ def _replay_profile(torch, run):
                             if "nccl" in k.lower())}
 
 
-def dp_phase(torch, np, tcfg, pcfg, table, Ks, Ps, card, c1_end):
-    """Data-parallel training on the one card (docstring item 13); the
-    CLI part holds `--num_gpus 2` against the C1 phase's first run
-    (`c1_end`, the same flags with `--num_gpus 1`). Returns the launches
-    the card ran, by kernel."""
+def dp_serving(torch, np, cfg, params, K, poses, mesh, card):
+    """Served 512x288 frames over the world of one `mesh` (docstring item
+    13): a `RenderService` over the mesh against the undistributed one on
+    B1 and, with `planar_eval="off"`, on B5: the same request gives the
+    same bits, one launch and one all-gather a chunk; then DP_FRAMES
+    requests of each service in turns, timed on the host's clock.
+    Returns the launches the card ran."""
+    from nsff_pl_tpu_torch.apps.serve import RenderService
+    from nsff_pl_tpu_torch.parallel import mesh as mesh_lib
+
+    ran = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            ran[k] = ran.get(k, 0) + v
+
+    c2w = poses[7].copy()
+    c2w[:, 3] += np.array([0.02, -0.01, 0.03], np.float32)
+    n_chunks = -(-W_IMG * H_IMG // CHUNK)
+    for label, kernel, c in (("B1", "planar_eval_comp", cfg),
+                             ("B5", "fused_nerf_eval",
+                              cfg.replace(planar_eval="off"))):
+        svc = {alone: RenderService(params, K, poses, (W_IMG, H_IMG), c,
+                                    chunk=CHUNK, device="cuda",
+                                    mesh=None if alone else mesh)
+               for alone in (False, True)}
+        maps = {}
+        for alone in (False, True):
+            torch.cuda.synchronize()
+            reset_counts()
+            gathers = mesh_lib.CALLED["all_gather"]
+            maps[alone] = svc[alone].render_maps(5, c2w.tolist())
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            check_counts(counts, {kernel: n_chunks}, 1,
+                         f"dp serving {label} (mesh {not alone})")
+            add(counts)
+            gathers = mesh_lib.CALLED["all_gather"] - gathers
+            if gathers != (0 if alone else n_chunks):
+                fail(f"dp serving {label}: {gathers} all-gathers a frame")
+        diff = _same_bits(torch, {k: [v] for k, v in maps[False].items()},
+                          {k: [v] for k, v in maps[True].items()})
+        secs = {False: [], True: []}
+        for alone in (False, True, True, False, False, True)[:2 * DP_FRAMES]:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            svc[alone].render_pose(5, c2w.tolist())  # ends with a copy out
+            secs[alone].append(time.perf_counter() - t0)
+            counts = launch_counts()
+            check_counts(counts, {kernel: n_chunks}, 1,
+                         f"dp serving {label} (timed)")
+            add(counts)
+        print(f"dp serving {label}: a {W_IMG}x{H_IMG} frame over a world of "
+              f"one against the undistributed service (tensors that differ, "
+              f"largest difference): {json.dumps(diff)}; {n_chunks} "
+              f"launches and {n_chunks} all-gathers a frame; seconds a "
+              f"request {[round(v, 6) for v in secs[False]]} / "
+              f"{[round(v, 6) for v in secs[True]]}, mean "
+              f"{np.mean(secs[False]):.6f} / {np.mean(secs[True]):.6f} "
+              f"on {card}", flush=True)
+        if any(n for n, _ in diff.values()):
+            fail(f"dp serving {label}: the world of one parts from the "
+                 "undistributed service")
+        del svc, maps
+    return ran
+
+
+def dp_eval(torch, np, card, spiral_s):
+    """The eval CLI with `--num_gpus 2` on one GPU (a world of one) on the
+    eval phase's split `test_spiral --fix_view_dir` (docstring item 13):
+    the fewer-GPUs note, each frame one replay of a graph that captured
+    the chunks' all-gathers, and every file the eval phase's run wrote
+    the same bytes. Returns the launches the card ran."""
+    import io
+    import os
+
+    from nsff_pl_tpu_torch.parallel import mesh as mesh_lib
+
+    argv = eval_base() + ["--split", "test_spiral", "--fix_view_dir",
+                          "--scene_name", "spiral_fixed_dp", "--num_gpus",
+                          "2"]
+    here = os.getcwd()
+    os.chdir(EVAL_DIR)
+    try:
+        gathers = mesh_lib.CALLED["all_gather"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rep, ran, g = eval_split(
+                torch, np, card, "test_spiral --fix_view_dir --num_gpus 2",
+                argv, {"planar_eval_comp": 1}, 6 * N_FRAMES)
+        printed = out.getvalue()
+        print(printed, end="", flush=True)
+        gathers = mesh_lib.CALLED["all_gather"] - gathers
+        if (rep.mesh is None or rep.mesh.size != 1
+                or "1 GPUs are attached; using all 1" not in printed):
+            fail("dp eval: no fewer-GPUs note, or not a world of one")
+        if gathers != 2 * g.n_chunks:  # the warm-up's and the capture's
+            fail(f"dp eval: {gathers} all-gathers called for one graph of "
+                 f"{g.n_chunks} chunks")
+        mine, theirs = ("results/monocular/spiral_fixed" + x
+                        for x in ("_dp", ""))
+        names = sorted(os.listdir(theirs))
+        if sorted(n.replace("spiral_fixed", "spiral_fixed_dp")
+                  for n in names) != sorted(os.listdir(mine)):
+            fail("dp eval: other files than the eval phase's run")
+
+        def read(path):
+            with open(path, "rb") as f:
+                return f.read()
+
+        differ = [n for n in names if read(os.path.join(theirs, n)) != read(
+            os.path.join(mine, n.replace("spiral_fixed", "spiral_fixed_dp")))]
+        print(f"dp eval: {len(names)} files against the eval phase's run "
+              f"of the split, {len(differ)} differ {differ[:5]}; "
+              f"{np.mean(rep.render_seconds):.4f} s a frame render over a "
+              f"world of one, {spiral_s:.4f} s in the eval phase's run, "
+              f"on {card}", flush=True)
+        if differ:
+            fail("dp eval: the world of one writes other bytes than one "
+                 "process")
+        return ran
+    finally:
+        os.chdir(here)
+
+
+def val_rows(exp):
+    """A run's validation metrics, {step: {tag: value}} (the JSONL holds
+    one row a metric)."""
+    rows = {}
+    with open(f"{SCENE_RUN_DIR}/logs/{exp}/metrics.jsonl") as f:
+        for r in map(json.loads, f):
+            for k, v in r.items():
+                if k.startswith("val/"):
+                    rows.setdefault(r["step"], {})[k] = v
+    return rows
+
+
+def dp_phase(torch, np, tcfg, pcfg, table, Ks, Ps, card, c1_end, scfg,
+             params, K, poses, spiral_s):
+    """Data parallelism on the one card (docstring item 13): training, the
+    served frames of the serving configuration `scfg` (`dp_serving`),
+    then the train CLI with `--num_gpus 2` against the C1 phase's first
+    run (`c1_end`, the same flags with `--num_gpus 1`; its validations
+    over the mesh too) and the eval CLI with `--num_gpus 2`
+    (`dp_eval`). Returns the launches the card ran, by kernel."""
     import io
     import os
     import shutil
@@ -4174,6 +4343,7 @@ def dp_phase(torch, np, tcfg, pcfg, table, Ks, Ps, card, c1_end):
                   flush=True)
             del runs, eager
             torch.cuda.empty_cache()
+        add(dp_serving(torch, np, scfg, params, K, poses, mesh, card))
     finally:
         torch.distributed.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -4202,12 +4372,18 @@ def dp_phase(torch, np, tcfg, pcfg, table, Ks, Ps, card, c1_end):
     diff = _same_bits(torch, c1_end, _train_state(torch, system))
     del system
     same_rows = jsonl_rows("c1a") == jsonl_rows("dp2")
+    vals = val_rows("dp2")
+    same_vals = bool(vals) and vals == val_rows("c1a")
     print("dp CLI: --num_gpus 2 (a world of one) against --num_gpus 1 (C1's "
           "first run; tensors that differ, largest difference): "
-          + json.dumps(diff) + f"; loss rows equal: {same_rows}", flush=True)
-    if any(n for n, _ in diff.values()) or not same_rows:
+          + json.dumps(diff) + f"; loss rows equal: {same_rows}; validation "
+          f"rows (over the mesh) equal: {same_vals}, steps {sorted(vals)}",
+          flush=True)
+    if any(n for n, _ in diff.values()) or not same_rows or not same_vals:
         fail("dp CLI: --num_gpus 2 on one GPU ends elsewhere than "
              "--num_gpus 1")
+    torch.cuda.empty_cache()
+    add(dp_eval(torch, np, card, spiral_s))
     torch.cuda.empty_cache()
     return ran
 
@@ -4472,7 +4648,7 @@ def main() -> int:
     t_phase = time.perf_counter()
 
     # ---------------- eval (a main path) ----------------
-    eval_ran, eval_errs = eval_phase(torch, np, card)
+    eval_ran, eval_errs, spiral_s = eval_phase(torch, np, card)
     record["launches"] += eval_ran.get("planar_eval_comp", 0)
     for name, rec in list(train_records.items()) + list(
             packed_records.items()):
@@ -4568,8 +4744,9 @@ def main() -> int:
     phase_s["C1"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # ---------------- data-parallel training (main paths) -------------
-    dp_ran = dp_phase(torch, np, tcfg, pcfg, table, Ks, Ps, card, c1_end)
+    # ---------------- data parallelism (main paths) -------------
+    dp_ran = dp_phase(torch, np, tcfg, pcfg, table, Ks, Ps, card, c1_end,
+                      cfg, params, K, poses, spiral_s)
     record["launches"] += dp_ran.get("planar_eval_comp", 0)
     for name, rec in list(train_records.items()) + list(
             packed_records.items()):

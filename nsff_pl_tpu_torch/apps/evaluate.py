@@ -29,6 +29,16 @@ is the port's own (`step_<n>` of the train CLI) or a reference Lightning
 `.ckpt`; a JAX orbax checkpoint converts with
 `scripts/jax_ckpt_to_torch.py`. `main(args, device="cpu")` and
 `cli(argv, device="cpu")` run on the CPU (the kernels' plain versions).
+
+`--num_gpus N` (N > 1) renders data-parallel over N ranks, one a GPU
+(`parallel.distributed.launch`: rank 0 in this process; fewer GPUs than
+asked for print a note and render on those present; on the CPU N gloo
+ranks). Every rank loads the scene and the params and renders every
+frame, each chunk's rays sharded over the ranks (the chunk rounded to
+them as the JAX CLI rounds it) and gathered back; rank 0 alone prints,
+scores (PSNR, SSIM, LPIPS), splats the interpolated frames and writes
+the PNGs, the video and the tables. No collective follows an item's
+last gather, so the other ranks go on to the next frame meanwhile.
 """
 from __future__ import annotations
 
@@ -58,8 +68,8 @@ def get_opts(argv=None):
     parser.add_argument("--N_importance", type=int, default=0)
     parser.add_argument("--chunk", type=int, default=32 * 1024)
     parser.add_argument("--num_gpus", type=int, default=1,
-                        help="GPUs to render over (more than one is not "
-                             "ported: 'multi-GPU eval and serving')")
+                        help="GPUs to render data-parallel over, one rank "
+                             "a GPU (rank 0 writes the results)")
 
     parser.add_argument("--encode_a", default=False, action="store_true")
     parser.add_argument("--N_a", type=int, default=48)
@@ -172,25 +182,39 @@ def _write_video(path, frames, fmt, fps):
 def main(args, device=None):
     """Render the split; returns a report (output directory, seconds per
     item and per render, the metric tables, and the renderer, scene and
-    params it used)."""
+    params it used). With `--num_gpus` > 1 the split renders over that
+    many ranks (`evaluate`) and this is rank 0's report."""
+    from nsff_pl_tpu_torch import resolve_device
+
+    dev = resolve_device(device or args.device)
+    if args.num_gpus > 1:
+        from nsff_pl_tpu_torch.parallel import distributed
+
+        return distributed.launch(_eval_rank, args, dev, (args,))
+    return evaluate(args, dev)
+
+
+def _eval_rank(mesh, args):
+    return evaluate(args, mesh.device, mesh)
+
+
+def evaluate(args, dev, mesh=None):
+    """`main`'s work on `dev`, as one rank of `mesh` when given (rank 0
+    writes; the report of another rank holds no tables)."""
     import torch
 
-    from nsff_pl_tpu_torch import resolve_device
     from nsff_pl_tpu_torch.config import NSFFConfig, render_config
     from nsff_pl_tpu_torch.models.rendering import (interpolate,
                                                     planar_eval_decision)
+    from nsff_pl_tpu_torch.parallel.mesh import round_chunk
     from nsff_pl_tpu_torch.scene import scene_dict
     from nsff_pl_tpu_torch.scene.imageio import write_png
     from nsff_pl_tpu_torch.training import metrics as metrics_lib
     from nsff_pl_tpu_torch.training.step import (make_render_fn,
                                                  render_full_image)
 
-    dev = resolve_device(device or args.device)
-    if args.num_gpus > 1:
-        raise NotImplementedError(
-            f"--num_gpus {args.num_gpus}: rendering over more than one GPU "
-            "is not ported (ROADMAP.md queue A, 'multi-GPU eval and "
-            "serving')")
+    primary = mesh is None or mesh.rank == 0
+    chunk = round_chunk(args.chunk, mesh)
     w, h = args.img_wh
     dataset = scene_dict[args.dataset_name](
         root_dir=args.root_dir, split=args.split, img_wh=(w, h),
@@ -208,7 +232,8 @@ def main(args, device=None):
     rcfg = render_config(cfg)
 
     dir_name = f"results/{args.dataset_name}/{args.scene_name}"
-    os.makedirs(dir_name, exist_ok=True)
+    if primary:
+        os.makedirs(dir_name, exist_ok=True)
 
     # interpolation needs the per-sample planes of both frames
     is_interp = (args.split.startswith("test_fixview")
@@ -227,17 +252,19 @@ def main(args, device=None):
     render = make_render_fn(
         rcfg, test_time=True, output_transient=output_transient,
         output_transient_flow=flow, with_visibility=output_transient,
-        keys=keys, device=dev)
+        keys=keys, device=dev, mesh=mesh)
     engaged, why = planar_eval_decision(rcfg, dev)
-    print(f"render path: {'planar fused kernel' if engaged else 'packed'}"
-          + ("" if engaged else f" ({'; '.join(why)})"), flush=True)
+    if primary:
+        print(f"render path: {'planar fused kernel' if engaged else 'packed'}"
+              + ("" if engaged else f" ({'; '.join(why)})"), flush=True)
     vis_K = torch.as_tensor(dataset.K, device=dev)
 
     fixed_view_dir = None
     if args.fix_view_dir and args.split.startswith("test_spiral"):
         fixed_view_dir = dataset.test_item(0, targets=())["rays"][:, 3:6]
-        print("fix_view_dir: view-dependence embedded with pose-0 ray "
-              "directions for all frames", flush=True)
+        if primary:
+            print("fix_view_dir: view-dependence embedded with pose-0 ray "
+                  "directions for all frames", flush=True)
 
     render_seconds = []
 
@@ -248,7 +275,7 @@ def main(args, device=None):
                                      dtype=torch.float32, device=dev)
                      if output_transient else None)
         t0 = time.perf_counter()
-        out = render_full_image(render, params, rays, ts, chunk=args.chunk,
+        out = render_full_image(render, params, rays, ts, chunk=chunk,
                                 vis_poses=vis_poses, vis_K=vis_K,
                                 view_dir=fixed_view_dir, scan_chunks=True)
         if dev.type == "cuda":
@@ -258,7 +285,7 @@ def main(args, device=None):
 
     n_items = len(dataset)
     psnrs = ssims = lpipss = None
-    if args.split == "test":
+    if args.split == "test" and primary:
         psnrs = np.zeros((n_items, 2))
         ssims = np.zeros((n_items, 2))
         lpipss = np.full((n_items, 2), np.nan)
@@ -266,7 +293,7 @@ def main(args, device=None):
         if lpips_model is None:
             print("LPIPS unavailable (no --lpips_weights file given); "
                   "reporting n/a — PSNR/SSIM are unaffected", flush=True)
-    targets = ("rgbs", "mask") if args.split == "test" else ()
+    targets = ("rgbs", "mask") if args.split == "test" and primary else ()
 
     def host_u8(img):
         img = np.clip(img.float().cpu().numpy(), 0, 1)
@@ -278,6 +305,8 @@ def main(args, device=None):
         t_item = time.perf_counter()
         sample = dataset.test_item(i, targets=targets)
         if args.split.startswith("test_fixview") and i == n_items - 1:
+            if not primary:  # nothing more to render
+                break
             # final frame: reuse the last t+1 render
             img_pred, img_pred_ = host_u8(
                 last_results["rgb_fine"].reshape(h, w, 3))
@@ -296,26 +325,27 @@ def main(args, device=None):
                 interp = int(args.split.split("_")[-1][6:])
                 results_tp1 = f(rays, torch.clamp(ts + 1, 0, n_frames - 1),
                                 min(t + 1, n_frames - 1))
-                for dt in np.linspace(0, 1, interp + 1)[:-1]:
-                    if dt == 0:
-                        img_pred = results["rgb_fine"].reshape(h, w, 3)
-                        depth_pred = results["depth_fine"]
-                    else:
-                        img_pred, depth_pred = interpolate(
-                            results, results_tp1, float(dt),
-                            dataset.Ks[sample["cam_ids"]], sample["c2w"],
-                            (w, h))
-                    img_pred, img_pred_ = host_u8(img_pred)
-                    imgs.append(img_pred_)
-                    write_png(os.path.join(
-                        dir_name, f"{i:03d}_{int(dt * 100):03d}.png"),
-                        img_pred_)
-                    if args.save_depth:
-                        depths.append(save_depth_img(
-                            depth_pred, h, w, dir_name,
-                            f"depth_{i:03d}_{int(dt * 100):03d}.png"))
                 last_results = results_tp1
-            else:
+                if primary:  # the splat and the writes: rank 0's
+                    for dt in np.linspace(0, 1, interp + 1)[:-1]:
+                        if dt == 0:
+                            img_pred = results["rgb_fine"].reshape(h, w, 3)
+                            depth_pred = results["depth_fine"]
+                        else:
+                            img_pred, depth_pred = interpolate(
+                                results, results_tp1, float(dt),
+                                dataset.Ks[sample["cam_ids"]], sample["c2w"],
+                                (w, h))
+                        img_pred, img_pred_ = host_u8(img_pred)
+                        imgs.append(img_pred_)
+                        write_png(os.path.join(
+                            dir_name, f"{i:03d}_{int(dt * 100):03d}.png"),
+                            img_pred_)
+                        if args.save_depth:
+                            depths.append(save_depth_img(
+                                depth_pred, h, w, dir_name,
+                                f"depth_{i:03d}_{int(dt * 100):03d}.png"))
+            elif primary:
                 img_pred, img_pred_ = host_u8(
                     results["rgb_fine"].reshape(h, w, 3))
                 imgs.append(img_pred_)
@@ -340,9 +370,10 @@ def main(args, device=None):
                 v = metrics_lib.lpips(lpips_model, img_gt, pr, mask)
                 lpipss[i, 1] = np.nan if v is None else v
         item_seconds.append(time.perf_counter() - t_item)
-        print(f"[{i+1}/{n_items}] rendered", flush=True)
+        if primary:
+            print(f"[{i+1}/{n_items}] rendered", flush=True)
 
-    if args.split == "test":
+    if args.split == "test" and primary:
         mean_psnr = np.nanmean(psnrs, 0)
         mean_ssim = np.nanmean(ssims, 0)
         mean_lpips = np.array([np.nan if np.isnan(c).all()
@@ -361,9 +392,10 @@ def main(args, device=None):
         print(f"LPIPS \t {_fmt(mean_lpips[0])} \t {_fmt(mean_lpips[1])}",
               flush=True)
 
-    _write_video(os.path.join(dir_name,
-                              f"{args.scene_name}.{args.video_format}"),
-                 imgs, args.video_format, args.fps)
+    if primary:
+        _write_video(os.path.join(dir_name,
+                                  f"{args.scene_name}.{args.video_format}"),
+                     imgs, args.video_format, args.fps)
     if args.save_depth and depths:
         _write_video(os.path.join(
             dir_name, f"depth_{args.scene_name}.{args.video_format}"),
@@ -371,7 +403,8 @@ def main(args, device=None):
     return SimpleNamespace(
         dir_name=dir_name, n_items=n_items, item_seconds=item_seconds,
         render_seconds=render_seconds, psnr=psnrs, ssim=ssims, lpips=lpipss,
-        render=render, dataset=dataset, params=params, engaged=engaged)
+        render=render, dataset=dataset, params=params, engaged=engaged,
+        mesh=mesh)
 
 
 def cli(argv=None, device=None):

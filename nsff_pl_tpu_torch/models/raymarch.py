@@ -117,6 +117,7 @@ def render_test_planar(
     vis_K=None,
     view_dir=None,
     keys=None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Test-time (no-grad) render on the planar evaluators; the JAX
     function's result keys and values on both of its routes.
@@ -135,7 +136,14 @@ def render_test_planar(
 
     With `N_importance > 0` the coarse model `params_coarse` is evaluated
     first (`_coarse_test`) and the fine pass runs at the sorted union of
-    the stratified depths and its deterministic importance draws."""
+    the stratified depths and its deterministic importance draws.
+
+    Over a `mesh` (`parallel/mesh.py`) each evaluation (the coarse pass,
+    the composited evaluator with its visibility planes, the planes
+    route's evaluator) and the fused compositor run on the rank's block
+    of rows, their outputs gathered back (`shard_rows`, the JAX
+    package's `_shard_planar`); the rest stays global on every rank. The
+    rays must divide over the mesh."""
     n = rays.shape[0]
     S = cfg.N_samples
     o, d = rays[:, 0:3], rays[:, 3:6]
@@ -158,7 +166,7 @@ def render_test_planar(
     if cfg.N_importance > 0:
         zs = _coarse_test(res, params_coarse, o, d, zs, zs_mid, dir_emb,
                           t_emb, cfg, kker, output_transient=output_transient,
-                          vis_poses=vis_poses, vis_K=vis_K)
+                          vis_poses=vis_poses, vis_K=vis_K, mesh=mesh)
     Sf = zs.shape[1]  # the fine pass's sample count
 
     use_comp = (keys is not None and cfg.planar_compositing != "off"
@@ -168,13 +176,14 @@ def render_test_planar(
                                cfg, kker, output_transient=output_transient,
                                flow=flow, encode_a=encode_a,
                                vis_poses=vis_poses, vis_K=vis_K,
-                               pw=packed_fine))
+                               pw=packed_fine, mesh=mesh))
         return res
 
     op = make_planar_nerf_train(
         Sf, use_viewdir=cfg.use_viewdir, encode_a=encode_a,
         encode_t=output_transient, output_flow=flow, **kker)
-    out = op(params_fine, o, d, zs, None, dir_emb, a_emb, t_emb)
+    out = shard_rows(op, mesh)(params_fine, o, d, zs, None, dir_emb, a_emb,
+                               t_emb)
 
     res["zs_fine"] = zs
     xyz = tuple(o[:, c:c + 1] + d[:, c:c + 1] * zs for c in range(3))
@@ -218,7 +227,7 @@ def render_test_planar(
             comp_in[f"trgb_{c}"] = trgb[i]
             comp_in[f"trgb_w1_{c}"] = trgb[i]
             comp_in[f"trgb_w2_{c}"] = trgb[i]
-        ck = make_planar_compositor(Sf)(comp_in)
+        ck = shard_rows(make_planar_compositor(Sf), mesh, whole=0)(comp_in)
         sw, tw, w = (ck["static_weights"], ck["transient_weights"],
                      ck["weights"])
         res["rgb_fine"] = ck["maps"][:, 0:3]
@@ -308,17 +317,17 @@ def _coarse_pass(params_coarse, o, d, zs, dir_emb, t_emb, cfg, kker, *,
 
 
 def _coarse_test(res, params_coarse, o, d, zs, zs_mid, dir_emb, t_emb, cfg,
-                 kker, *, output_transient, vis_poses, vis_K):
+                 kker, *, output_transient, vis_poses, vis_K, mesh=None):
     """The coarse pass of a coarse-to-fine test render (`_coarse_pass`,
     noise-free, with the visibility culling of the transient sigma when
-    `vis_poses` is given), the coarse result keys into `res`, and the
-    deterministic importance draws. Returns the fine pass's sorted
-    (N, S_fine) depths."""
+    `vis_poses` is given; sharded over `mesh`), the coarse result keys
+    into `res`, and the deterministic importance draws. Returns the fine
+    pass's sorted (N, S_fine) depths."""
     vis = None
     if output_transient and vis_poses is not None:
         vis = _visibility_planes(o, d, zs, vis_K, cfg.img_wh, vis_poses)
     _, c = _coarse_pass(params_coarse, o, d, zs, dir_emb, t_emb, cfg, kker,
-                        encode_t=output_transient, vis=vis)
+                        encode_t=output_transient, vis=vis, mesh=mesh)
     res["zs_coarse"] = zs
     res["xyzs_coarse"] = torch.stack(
         [o[:, i:i + 1] + d[:, i:i + 1] * zs for i in range(3)], -1)
@@ -344,10 +353,10 @@ def _coarse_test(res, params_coarse, o, d, zs, zs_mid, dir_emb, t_emb, cfg,
 
 def _composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb, cfg, kker, *,
                 output_transient, flow, encode_a, vis_poses, vis_K,
-                pw=None):
+                pw=None, mesh=None):
     """The composited route of `render_test_planar`: one (N, M) maps row
     per ray from the composited evaluator (on the packed weights `pw`
-    when given)."""
+    when given), its rows and visibility planes sharded over `mesh`."""
     vis_pl = None
     if output_transient and vis_poses is not None:
         vis_pl = _visibility_planes(o, d, zs, vis_K, cfg.img_wh, vis_poses)
@@ -355,8 +364,8 @@ def _composited(params_fine, o, d, zs, dir_emb, a_emb, t_emb, cfg, kker, *,
         zs.shape[1], use_viewdir=cfg.use_viewdir, encode_a=encode_a,
         encode_t=output_transient, output_flow=flow,
         vis_in=vis_pl is not None, z_far=Z_FAR, **kker)
-    maps = comp_op(params_fine, o, d, zs.contiguous(), vis_pl, dir_emb,
-                   a_emb, t_emb, pw=pw)
+    maps = shard_rows(comp_op, mesh)(params_fine, o, d, zs.contiguous(),
+                                     vis_pl, dir_emb, a_emb, t_emb, pw=pw)
     cols = comp_op.cols_map
 
     def col(name):

@@ -24,10 +24,9 @@ the JAX package's profiling stand-in: the fine model's evaluations
 (the main one and both warps) become tanh(xyz @ static_xyz_0.w[:3, :16])
 (the flows that map's columns 8:14 times 0.01), so that a step timed
 with it measures everything but the field; it runs no kernel, by design,
-and is no model to train. In training, `mesh` shards every field
-evaluation and the fused compositor by rows (`parallel/mesh.py`); at
-test time it raises `NotImplementedError` naming its ROADMAP.md item
-('multi-GPU eval and serving').
+and is no model to train. A `mesh` shards every field evaluation and
+the fused compositors by rows (`parallel/mesh.py`), in training and at
+test time.
 
 `interpolate` (with `_interp_pre` / `_interp_post`) renders a time
 between two rendered frames from their per-sample planes: the eval CLI's
@@ -297,16 +296,15 @@ def render_rays(
 
     so a test can rebuild them and pass them in.
 
-    In training, over a `mesh` (`parallel/mesh.py`), every field
-    evaluation (the kernels', the plain evaluators', the stub's, the
-    coarse pass's and the warps') and the fused compositor run on the
-    rank's block of rows, their outputs gathered back to the global rows
-    (`shard_rows`); the rest stays global on every rank. The batch must
-    divide over the mesh."""
-    if mesh is not None and test_time:
-        raise NotImplementedError(
-            "rendering over a device mesh at test time is not ported "
-            "(ROADMAP.md queue A, 'multi-GPU eval and serving')")
+    Over a `mesh` (`parallel/mesh.py`), in training and at test time,
+    every field evaluation (the kernels', the plain evaluators', the
+    stub's, the coarse pass's and the warps') and the fused compositors
+    run on the rank's block of rows, their outputs gathered back to the
+    global rows (`shard_rows`); the rest, a `view_dir` override's
+    embedding included, stays global on every rank and is cut with the
+    rays where an evaluation takes it. `vis_poses`, `vis_K` and
+    `params["fine_packed"]` pass whole. The rays must divide over the
+    mesh."""
     output_transient = output_transient and cfg.encode_t
     flow = tuple(output_transient_flow) if output_transient else ()
     dev = rays.device
@@ -319,7 +317,8 @@ def render_rays(
             params_coarse=params.get("coarse"),
             packed_fine=params.get("fine_packed"),
             output_transient=output_transient, output_transient_flow=flow,
-            vis_poses=vis_poses, vis_K=vis_K, view_dir=view_dir, keys=keys)
+            vis_poses=vis_poses, vis_K=vis_K, view_dir=view_dir, keys=keys,
+            mesh=mesh)
         if keys is not None:
             out = {k: v for k, v in out.items() if k in keys}
         return out

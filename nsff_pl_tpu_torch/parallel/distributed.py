@@ -14,7 +14,14 @@ process's chips. Here each GPU is one rank, a process of its own:
   (node 0, `--node_rank` 0, holds the store);
 - every rank runs the same host loop (same seeds, same frame schedule,
   the same batch and draws), so host-side state stays the same; rank 0
-  owns the side effects (logs, prints, checkpoints).
+  owns the side effects (logs, prints, checkpoints);
+- the server's rank 0 alone takes requests: it broadcasts each to the
+  other ranks (`send_request`), which wait for it in a follow loop
+  (`receive_request`), with a keep-alive while it is idle so that no
+  wait outlasts the group's timeout.
+
+The eval and serve CLIs take `--num_gpus` alone, as the JAX tools do:
+their options lack the multi-node flags, which then read one node.
 """
 from __future__ import annotations
 
@@ -30,28 +37,38 @@ from nsff_pl_tpu_torch.parallel.mesh import Mesh, backend_for, make_mesh
 
 # how long a rank waits on the others (rendezvous, a collective)
 TIMEOUT_S = 600
+# the most an idle server's followers wait between two broadcasts
+KEEP_ALIVE_S = 60
+
+# the multi-node flags of options that lack them (one node)
+_ONE_NODE = {"num_nodes": 1, "coordinator_address": "", "node_rank": -1}
+
+
+def _flag(cfg, name):
+    return getattr(cfg, name, _ONE_NODE[name])
 
 
 def asked(cfg) -> int:
     """The ranks the flags ask for: --num_gpus x --num_nodes."""
-    return cfg.num_gpus * max(cfg.num_nodes, 1)
+    return cfg.num_gpus * max(_flag(cfg, "num_nodes"), 1)
 
 
 def check(cfg) -> None:
     """The JAX package's refusals of the bootstrap flags, and the port's
     one more: several nodes need a coordinator to meet at."""
-    if cfg.coordinator_address and cfg.node_rank < 0:
+    nodes, coordinator, node_rank = (_flag(cfg, k) for k in _ONE_NODE)
+    if coordinator and node_rank < 0:
         raise ValueError("--coordinator_address requires --node_rank")
-    if cfg.num_nodes > 1 and not cfg.coordinator_address:
-        raise ValueError(f"--num_nodes {cfg.num_nodes}: multi-node training "
+    if nodes > 1 and not coordinator:
+        raise ValueError(f"--num_nodes {nodes}: multi-node training "
                          "needs --coordinator_address host:port (node 0's) "
                          "and --node_rank")
-    if cfg.num_gpus < 1 or cfg.num_nodes < 1:
+    if cfg.num_gpus < 1 or nodes < 1:
         raise ValueError(f"--num_gpus {cfg.num_gpus} --num_nodes "
-                         f"{cfg.num_nodes}: each must be at least 1")
-    if cfg.num_nodes > 1 and not 0 <= cfg.node_rank < cfg.num_nodes:
-        raise ValueError(f"--node_rank {cfg.node_rank} outside the "
-                         f"{cfg.num_nodes} nodes")
+                         f"{nodes}: each must be at least 1")
+    if nodes > 1 and not 0 <= node_rank < nodes:
+        raise ValueError(f"--node_rank {node_rank} outside the "
+                         f"{nodes} nodes")
 
 
 def local_ranks(cfg, device) -> int:
@@ -71,10 +88,11 @@ def initialize(cfg, device, local_rank: int = 0, local_size: int = 1,
     that fails to form raises."""
     check(cfg)
     device = torch.device(device)
-    nodes = max(cfg.num_nodes, 1)
-    node = cfg.node_rank if cfg.coordinator_address else 0
-    if cfg.coordinator_address:
-        init_method = f"tcp://{cfg.coordinator_address}"
+    nodes = max(_flag(cfg, "num_nodes"), 1)
+    coordinator = _flag(cfg, "coordinator_address")
+    node = _flag(cfg, "node_rank") if coordinator else 0
+    if coordinator:
+        init_method = f"tcp://{coordinator}"
     if init_method is None:
         raise ValueError("no rendezvous: give init_method or "
                          "--coordinator_address")
@@ -105,6 +123,39 @@ def barrier(mesh: Mesh) -> None:
         dist.barrier(group=mesh.group, device_ids=[mesh.device.index])
     else:
         dist.barrier(group=mesh.group)
+
+
+# a request's kinds (`send_request`)
+STOP, RENDER, KEEP_ALIVE = 0, 1, 2
+_REQUEST_LEN = 15  # kind, t, has a pose, the 3x4 pose
+
+
+def send_request(mesh: Mesh, kind: int, t: int = 0, c2w=None) -> None:
+    """Rank 0: broadcast one request to the mesh's other ranks: a fixed
+    (15,) float64 tensor on the mesh's device holding the kind (STOP,
+    RENDER or KEEP_ALIVE), the frame time `t` and, where given, the 3x4
+    camera pose `c2w` (already checked by the caller: a request the
+    followers cannot take must never be sent)."""
+    buf = torch.zeros((_REQUEST_LEN,), dtype=torch.float64)
+    buf[0], buf[1] = kind, t
+    if c2w is not None:
+        buf[2] = 1
+        buf[3:] = torch.as_tensor(c2w, dtype=torch.float64).reshape(12)
+    dist.broadcast(buf.to(mesh.device), 0, group=mesh.group)
+
+
+def receive_request(mesh: Mesh):
+    """A follower: wait for rank 0's next request (`send_request`) and
+    return (kind, t, c2w as a (3, 4) float32 array or None). The wait
+    ends within the group's timeout (`TIMEOUT_S`); an idle rank 0 sends
+    a KEEP_ALIVE every `KEEP_ALIVE_S`."""
+    buf = torch.empty((_REQUEST_LEN,), dtype=torch.float64,
+                      device=mesh.device)
+    dist.broadcast(buf, 0, group=mesh.group)
+    buf = buf.cpu()
+    c2w = (buf[3:].reshape(3, 4).to(torch.float32).numpy()
+           if buf[2] else None)
+    return int(buf[0]), int(buf[1]), c2w
 
 
 def _rank_main(local_rank, fn, cfg, dev_type, local_size, init_method,
@@ -147,16 +198,16 @@ def launch(fn, cfg, device="cuda", args=()):
     check(cfg)
     dev = resolve_device(device)
     n_local = local_ranks(cfg, dev)
-    world = n_local * max(cfg.num_nodes, 1)
-    if max(cfg.node_rank, 0) == 0:
+    nodes = max(_flag(cfg, "num_nodes"), 1)
+    world = n_local * nodes
+    if max(_flag(cfg, "node_rank"), 0) == 0:
         if world != asked(cfg):
             print(f"note: --num_gpus x --num_nodes = {asked(cfg)} but "
                   f"{world} GPUs are attached; using all {world}",
                   flush=True)
         print(f"mesh: {world} {dev.type} ranks over "
-              f"{max(cfg.num_nodes, 1)} node(s), data-parallel over rays",
-              flush=True)
-    tmp = None if cfg.coordinator_address else tempfile.mkdtemp(
+              f"{nodes} node(s), data-parallel over rays", flush=True)
+    tmp = None if _flag(cfg, "coordinator_address") else tempfile.mkdtemp(
         prefix="nsff_rendezvous_")
     init = None if tmp is None else "file://" + os.path.join(tmp, "store")
     threads = max(1, torch.get_num_threads() // n_local)

@@ -81,6 +81,16 @@ def check_device(mesh: Mesh, device) -> None:
         raise ValueError(f"the mesh's device {mesh.device} is not {d}")
 
 
+def round_chunk(chunk: int, mesh) -> int:
+    """A render chunk over `mesh`, as the JAX package's eval CLI, server
+    and validation size it: max(n, chunk - chunk % n) for n ranks, so that
+    every chunk's rays divide over them; `chunk` itself without a mesh."""
+    if mesh is None:
+        return chunk
+    n = mesh.size
+    return max(n, chunk - chunk % n)
+
+
 def _all_gather(mesh: Mesh, local) -> List[torch.Tensor]:
     """Each tensor of `local` (this rank's rows) -> the global rows, in
     rank order: one all-gather a dtype of the tensors flattened side by

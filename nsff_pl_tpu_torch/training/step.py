@@ -26,10 +26,13 @@ chunk has one shape. With `scan_chunks=True` it splits a frame into equal
 chunks and, on a CUDA device, renders them all by one replay of a CUDA
 graph (`_ChunkGraph`), the counterpart of the JAX package's chunk loop in
 one `lax.scan` dispatch. In place of the render's `rng` argument a
-`test_time=False` renderer takes a `generator`.
+`test_time=False` renderer takes a `generator`. Over a mesh each
+chunk's rays shard over the ranks as in the JAX package's
+`make_render_fn(mesh=)`.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -447,6 +450,7 @@ def make_render_fn(
     with_visibility: bool = False,
     keys: Optional[Tuple[str, ...]] = None,
     device="cuda",
+    mesh=None,
 ):
     """Renderer (no gradient) for one ray batch on `device`:
     render(params, rays, ts, vis_poses=None, vis_K=None, view_dir=None,
@@ -454,8 +458,17 @@ def make_render_fn(
     `keys` restricts the returned dict and, on the planar test path when
     it lies within `comp_eval_keys`, selects the composited kernel route.
     With `test_time=False` the render perturbs the depths and adds sigma
-    noise as in training, from `generator` or `draws`."""
+    noise as in training, from `generator` or `draws`.
+
+    Over a `mesh` (this rank's, on `device`) the batch's rays (and ts and
+    view directions with them) shard over the ranks inside each field
+    evaluation (`render_rays`), and every rank returns the whole batch's
+    results: the batch must divide over the mesh
+    (`parallel.mesh.round_chunk` sizes a chunk so), and every rank must
+    render the same batches in the same order."""
     dev = resolve_device(device)
+    if mesh is not None:
+        check_device(mesh, dev)
 
     @torch.inference_mode()
     def render(params, rays, ts, vis_poses=None, vis_K=None, view_dir=None,
@@ -474,9 +487,10 @@ def make_render_fn(
             output_transient_flow=output_transient_flow,
             vis_poses=vis_poses if with_visibility else None,
             vis_K=vis_K if with_visibility else None,
-            view_dir=view_dir, keys=keys)
+            view_dir=view_dir, keys=keys, mesh=mesh)
 
     render.device = dev
+    render.mesh = mesh
     render.chunk_graphs = {}  # render_full_image's CUDA graphs
     return render
 
@@ -486,15 +500,19 @@ def _pad_last(x: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
 
 
-def equal_chunks(n: int, chunk: int) -> Tuple[int, int]:
+def equal_chunks(n: int, chunk: int, world: int = 1) -> Tuple[int, int]:
     """(count, size) of the equal chunks of an n-ray frame, as the JAX
     package's `scan_chunks` sizes them: K = ceil(n / chunk) chunks of
     ceil(n / K) rays rounded up to a multiple of 1024 (never above
     `chunk`), so a frame that is K.5 chunks long pads a few rays rather
     than half a chunk (512x288 at 32768: 5 x 29696, 1024 rays of
-    padding)."""
+    padding). Over a mesh of `world` ranks the size rounds up to a
+    multiple of lcm(1024, world) instead, so that each chunk divides
+    over the ranks (`chunk` does: `parallel.mesh.round_chunk`); only a
+    world of 3, 5, 6 or 7 (below 8) pads more."""
     k = -(-n // chunk)
-    size = min(chunk, ((-(-n // k) + 1023) // 1024) * 1024)
+    step = math.lcm(1024, world)
+    size = min(chunk, ((-(-n // k) + step - 1) // step) * step)
     return -(-n // size), size
 
 
@@ -515,7 +533,10 @@ class _ChunkGraph:
     it; nothing falls back to the host loop. `graph_launches` holds the
     kernel launches one capture recorded (`ops/launches.py`), `replays`
     the replays since, `warmup_launches` what the warm-up launched and
-    `capture_seconds` the warm-up and capture's host seconds."""
+    `capture_seconds` the warm-up and capture's host seconds. Over a mesh
+    the chunks' all-gathers are captured in the same graph (the mesh's
+    communicator exists before: `parallel.mesh.make_mesh`), so every
+    rank replays its graph once a frame, in step."""
 
     def __init__(self, render_fn, params, inputs, n_chunks: int,
                  chunk: int):
@@ -593,7 +614,9 @@ def render_full_image(render_fn, params, rays, ts, chunk: int = 32768,
     (`_ChunkGraph`), captured once per frame size, chunk, input set and
     params, and kept on `render_fn.chunk_graphs`; on the CPU the same
     chunks run eagerly. The returned tensors are the caller's either
-    way."""
+    way. A renderer over a mesh (`make_render_fn(mesh=)`) needs `chunk`
+    divisible by its ranks (`parallel.mesh.round_chunk`); its equal
+    chunks divide by them too (`equal_chunks`)."""
     dev = render_fn.device
     rays = torch.as_tensor(rays, dtype=torch.float32, device=dev)
     if ts is not None:
@@ -602,7 +625,9 @@ def render_full_image(render_fn, params, rays, ts, chunk: int = 32768,
         view_dir = torch.as_tensor(view_dir, dtype=torch.float32, device=dev)
     n = rays.shape[0]
     if scan_chunks and n > chunk:
-        n_chunks, chunk = equal_chunks(n, chunk)
+        mesh = getattr(render_fn, "mesh", None)
+        n_chunks, chunk = equal_chunks(n, chunk,
+                                       mesh.size if mesh is not None else 1)
         pad = n_chunks * chunk - n
         inputs = {"rays": rays, "ts": ts, "view_dir": view_dir}
         inputs = {k: _pad_last(v, pad) if pad else v

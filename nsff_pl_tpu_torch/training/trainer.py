@@ -34,12 +34,15 @@ once.
 Data-parallel (`mesh`, one rank a GPU, started by `apps/train.py`
 through `parallel.distributed.launch`): every rank builds the same
 system from the same seed and files and runs the same loop (the
-schedule, the draws, the validation, whole on every rank, and so the
-hard-sampling refresh); the step shards its field evaluations and sums
-the gradients (`training/step.py`). Rank 0 alone logs, prints and
-writes checkpoints, the ranks meeting at a barrier after each save; a
-time budget is decided by rank 0 for all. Checkpoints are those of one
-process, so either restores in the other.
+schedule, the draws, the validation and the hard-sampling refresh);
+the step shards its field evaluations and sums the gradients
+(`training/step.py`), and the validation's render shards each chunk's
+rays over the ranks (its chunk rounded to them as the JAX trainer
+rounds it), every rank getting the whole frame, so the metrics, the
+SSIM maps and the refresh run replicated on the same bits. Rank 0
+alone logs, prints and writes checkpoints, the ranks meeting at a
+barrier after each save; a time budget is decided by rank 0 for all.
+Checkpoints are those of one process, so either restores in the other.
 
 Not ported (raises `NotImplementedError` naming its ROADMAP item):
 datasets other than `monocular`.
@@ -60,7 +63,7 @@ from nsff_pl_tpu_torch.config import (NSFFConfig, build_params, loss_config,
                                       render_config)
 from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
 from nsff_pl_tpu_torch.parallel import distributed as dist_lib
-from nsff_pl_tpu_torch.parallel.mesh import check_device
+from nsff_pl_tpu_torch.parallel.mesh import check_device, round_chunk
 from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
 from nsff_pl_tpu_torch.training import metrics as metrics_lib
 from nsff_pl_tpu_torch.training.optim import (make_lr_schedule,
@@ -267,7 +270,7 @@ class NSFFSystem:
         self.val_render = make_render_fn(
             self.render_cfg, test_time=True,
             output_transient=cfg.output_transient, output_transient_flow=(),
-            keys=VAL_KEYS, device=dev)
+            keys=VAL_KEYS, device=dev, mesh=mesh)
 
         self.logger = (TensorBoardLogger(os.path.join(cfg.log_dir,
                                                       cfg.exp_name))
@@ -518,7 +521,8 @@ class NSFFSystem:
             self._val_item = self.val_scene.test_item(0)
         item = self._val_item
         rays, ts = item["rays"], item["ts"]
-        chunk = min(max(cfg.chunk // 4, 1024), rays.shape[0])
+        chunk = round_chunk(min(max(cfg.chunk // 4, 1024), rays.shape[0]),
+                            self.mesh)
         out = render_full_image(self.val_render, self.state.params, rays, ts,
                                 chunk=chunk)
         step = int(self.state.step)

@@ -76,6 +76,7 @@ def _entry_points():
     train_cfg = NSFFConfig(encode_t=True, use_viewdir=True, N_importance=4,
                            batch_size=4, lr_scheduler="cosine")
     from nsff_pl_tpu_torch.apps import evaluate as eval_app
+    from nsff_pl_tpu_torch.apps import serve as serve_app
     from nsff_pl_tpu_torch.apps import train as train_app
     from nsff_pl_tpu_torch.scene import MonocularScene
     from nsff_pl_tpu_torch.parallel import distributed
@@ -142,6 +143,13 @@ def _entry_points():
             print, NSFFConfig(num_gpus=2)),
         "train_main_two_gpus": lambda: train_app.main(
             train_cfg.replace(num_gpus=2)),
+        # multi-GPU eval and serving
+        "eval_main_two_gpus": lambda: eval_app.main(eval_app.get_opts(
+            ["--root_dir", "unused", "--ckpt_path", "unused",
+             "--num_gpus", "2"])),
+        "serve_main_two_gpus": lambda: serve_app.main(serve_app.get_opts(
+            ["--ckpt_path", "unused", "--scene_meta", "unused",
+             "--num_gpus", "2"])),
     }
 
 
@@ -153,7 +161,8 @@ def _entry_points():
      "make_train_step_static", "make_render_fn_train_mode",
      "RenderService_packed_float32", "MonocularScene", "NSFFSystem",
      "train_main", "eval_main", "trace", "profile_step_main",
-     "export_render_main", "launch", "train_main_two_gpus"]))
+     "export_render_main", "launch", "train_main_two_gpus",
+     "eval_main_two_gpus", "serve_main_two_gpus"]))
 def test_entry_points_need_a_gpu_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -179,15 +179,19 @@ def test_draws_from_a_generator_and_key_filter():
 
 @pytest.mark.parametrize("bad,match", [
     (dict(train_backend="stub"), "stub"),
-    (dict(mesh=object()), "multi-GPU")])
-def test_unported_options_name_their_roadmap_items(bad, match):
-    """A device mesh at test time is not ported and raises naming its
-    ROADMAP item ('multi-GPU eval and serving'; in training the mesh
-    shards the field evaluations, tests/test_torch_parallel.py).
-    The 'stub' train backend, which did so before, now renders: the
-    profiling stand-in of the field (tanh(xyz @ static_xyz_0.w[:3, :16])
-    for the main evaluation and both warps) against the JAX package's,
-    key for key; no bf16 rounding on either side, so F32_TOL."""
+    (dict(mesh="a world of one"), "multi-GPU")])
+def test_unported_options_name_their_roadmap_items(bad, match, tmp_path):
+    """Both options once raised naming their ROADMAP items, and both now
+    render. A device mesh at test time ('multi-GPU eval and serving'):
+    over a world of one gloo rank in this process the test-time render
+    (B5's plain version, both flow heads, visibility culling) gives the
+    bits of the render without a mesh, the rays cut to the rank's block
+    and gathered back (two ranks: tests/test_torch_parallel_render.py;
+    in training: tests/test_torch_parallel.py). The 'stub' train
+    backend: the profiling stand-in of the field (tanh(xyz @
+    static_xyz_0.w[:3, :16]) for the main evaluation and both warps)
+    against the JAX package's, key for key; no bf16 rounding on either
+    side, so F32_TOL."""
     if "mesh" not in bad:
         jout, tout = _both(jax_params(), {**PACKED, **bad}, test_time=False,
                            flow=FLOW)
@@ -196,14 +200,30 @@ def test_unported_options_name_their_roadmap_items(bad, match):
         assert match in RenderConfig(**{**PACKED, **bad}).train_backend
         _hold(jout, tout, F32_TOL)
         return
+    import torch.distributed as dist
+
+    from nsff_pl_tpu_torch.parallel import mesh as mesh_lib
+
     tparams = to_torch(jax_params())
     rays, ts = _scene()
-    mesh = bad.pop("mesh", None)
-    cfg = dataclasses.replace(RenderConfig(**PACKED), **bad)
-    with pytest.raises(NotImplementedError, match=match) as e:
-        render_rays({"fine": tparams["nerf_fine"]},
-                    {"t": tparams["embedding_t"]}, torch.from_numpy(rays),
-                    torch.from_numpy(ts).long(), cfg, test_time=True,
-                    output_transient_flow=FLOW, mesh=mesh)
-    assert "ROADMAP" in str(e.value)
-    assert "multi-GPU eval and serving" in str(e.value)
+    Ks, _ = cams()
+    pose = np.eye(3, 4, dtype=np.float32)[None]
+    vis = dict(vis_poses=torch.from_numpy(pose), vis_K=torch.from_numpy(Ks[0]))
+    kw = dict(test_time=True, output_transient_flow=("fw", "bw"), **vis)
+    args = ({"fine": tparams["nerf_fine"]}, {"t": tparams["embedding_t"]},
+            torch.from_numpy(rays), torch.from_numpy(ts).long(),
+            RenderConfig(**PACKED))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = mesh_lib.make_mesh("cpu")
+        gathers = mesh_lib.CALLED["all_gather"]
+        with torch.inference_mode():
+            got = render_rays(*args, mesh=mesh, **kw)
+            want = render_rays(*args, **kw)
+        assert mesh_lib.CALLED["all_gather"] == gathers + 1
+    finally:
+        dist.destroy_process_group()
+    assert set(got) == set(want) and "transient_flow_fw" in got
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

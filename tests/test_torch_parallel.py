@@ -35,7 +35,9 @@ of tests/torch_train_helpers.py (48 rays, S = 16, 4 frames, N_tau 16).
   its own after a one-process run of two epochs: resumed from that
   run's first checkpoint it gives its second epoch's per-step losses
   (1e-4) and params (1e-4), rank 0 alone printing, logging and
-  checkpointing; its checkpoint restores in one process.
+  checkpointing; its checkpoint restores in one process. Its
+  validations, each chunk sharded over the two ranks, give the
+  one-process run's metrics at the same steps to 1e-4 relative.
 
 The ranks, the CLI runs and the JAX step run at once: the module takes
 ~38 s of pytest's count alone.
@@ -67,6 +69,7 @@ from tests import torch_train_helpers as th
 from tests.helpers_scene import make_synthetic_scene
 
 LOSS_RTOL, PARAM_ATOL = 1e-4, 1e-4
+VAL_RTOL = 1e-4
 SPE = 3  # the CLI scene's steps an epoch: 5 frames of 32 x 24, batch 32
 SEQ_TOL = 1e-6
 KEY = 21
@@ -332,3 +335,31 @@ def test_cli_two_ranks(runs, scene):
         assert torch.equal(a, b)
     assert torch.equal(one.tmp_rgb, tree["tmp_rgb"])
     assert torch.equal(one.batcher.weights, tree["sampling_weights"])
+
+
+def test_cli_two_ranks_validation(runs):
+    """The two ranks' validations (the middle frame, each chunk's rays
+    sharded over the ranks and gathered back to both) at the steps the
+    one-process run validated: the same metrics to VAL_RTOL (the params
+    they render agree to PARAM_ATOL, test_cli_two_ranks; a render over
+    the ranks gives the one-process bits on the same params,
+    tests/test_torch_parallel_render.py)."""
+    out, _ = runs[2]
+
+    def vals(exp):
+        """{step: {val/<metric>: value}} (one JSONL row a metric)."""
+        by_step = {}
+        with open(out / "logs" / exp / "metrics.jsonl") as f:
+            for r in map(json.loads, f):
+                for k, v in r.items():
+                    if k.startswith("val/"):
+                        by_step.setdefault(r["step"], {})[k] = v
+        return by_step
+
+    one, dp = vals("one"), vals("dp")
+    assert dp and set(dp) <= set(one)
+    for s, row in dp.items():
+        assert set(row) == set(one[s]) and "val/ssim" in row
+        for k, v in one[s].items():
+            np.testing.assert_allclose(row[k], v, rtol=VAL_RTOL, atol=1e-9,
+                                       err_msg=f"step {s}: {k}")
