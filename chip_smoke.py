@@ -193,7 +193,22 @@ once), then:
    validations render over the mesh). Then the eval CLI with
    `--num_gpus 2` on the eval phase's `test_spiral --fix_view_dir`:
    one graph replay a frame (the graph holds the chunks' all-gathers),
-   every file the eval phase's run wrote the same bytes.
+   every file the eval phase's run wrote the same bytes;
+14. from video frames to a trained scene (a main path; after the C1
+   phase, on its frame count and flags): C1's frames at 1536x864
+   written as JPEG by the port's encoder, the preprocess CLI's resize
+   stage to 1024x576 (the float INTER_AREA path, JPEG frames written
+   back; a second run skips; the masks stage raises detectron2's
+   RuntimeError, the colmap stage exits with the JAX package's text),
+   `trivial_masks`, write_scene's priors and model; a fresh system's
+   validation (the uncached JPEG scene load), the train CLI for one
+   epoch (the cached load equal to the uncached table, launches
+   PER_STEP, one capture, finite loss rows, the last validation's PSNR
+   up by PSNR_GAIN_DB, C1's PNG run's validations printed beside) and
+   the eval CLI's test split on its checkpoint (B1); the codec's and
+   the resize's host seconds a frame, the scene loads, the CLI's ms a
+   step and the decoded frames against `resize_area_cv2` of the source
+   (FRAMES_PSNR_DB).
 
 The training phases end with a torch.profiler trace of 5 more steps
 (device time by kernel, the device's busy share and the backward's
@@ -1713,11 +1728,13 @@ def scene_frame(np, H, W, N, i):
             ((disk[..., 0] > 0.5) * 255).astype(np.uint8))
 
 
-def write_scene(np, root, N=N_FRAMES, seed=0):
+def write_scene(np, root, N=N_FRAMES, seed=0, frames=True):
     """A seeded scene of N frames at SCENE_WH, written with the port's own
     writers: RGB frames whose rows cycle through all five PNG filters,
     16-bit disparity PNGs, grey masks, `.flo` flows (the camera's shift)
-    and a COLMAP binary model whose points every frame sees."""
+    and a COLMAP binary model whose points every frame sees. With
+    `frames=False`, no images and masks (the frames phase makes its
+    own)."""
     import os
 
     from nsff_pl_tpu_torch.scene import colmap, flowio, imageio
@@ -1725,8 +1742,8 @@ def write_scene(np, root, N=N_FRAMES, seed=0):
 
     W, H = SCENE_WH
     rng = np.random.default_rng(seed)
-    for sub in ("images", "disps", "masks", "flow_fw", "flow_bw",
-                "sparse/0"):
+    for sub in (("images", "masks") if frames else ()) + (
+            "disps", "flow_fw", "flow_bw", "sparse/0"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     cams = {1: colmap.Camera(1, "SIMPLE_RADIAL", W, H,
                              np.array([0.9 * W, W / 2, H / 2, 0.0]))}
@@ -1747,12 +1764,13 @@ def write_scene(np, root, N=N_FRAMES, seed=0):
     dx = 0.05 * 0.9 * W / 5.0  # the background's shift per frame, pixels
     flow = np.zeros((H, W, 2), np.float32)
     for i in range(N):
-        img, mask = scene_frame(np, H, W, N, i)
-        imageio.write_png(f"{root}/images/{i:05d}.png", img,
-                          filters=[0, 1, 2, 3, 4])
+        if frames:
+            img, mask = scene_frame(np, H, W, N, i)
+            imageio.write_png(f"{root}/images/{i:05d}.png", img,
+                              filters=[0, 1, 2, 3, 4])
+            imageio.write_png(f"{root}/masks/{i:05d}.png", mask, filters=[2])
         imageio.write_png(f"{root}/disps/{i:05d}.png", disp,
                           filters=[4, 1, 2])
-        imageio.write_png(f"{root}/masks/{i:05d}.png", mask, filters=[2])
         if i < N - 1:
             flow[..., 0] = dx
             flowio.write_flow(flow, f"{root}/flow_fw/{i:05d}.flo")
@@ -2966,6 +2984,204 @@ def c1_phase(torch, np, card):
     if any(n for n, _ in diff.values()):
         fail(f"C1: {what} ends elsewhere than the first run")
     return ran, ends["c1a"]
+
+
+# ---------------- from video frames to a trained scene ----------------
+
+FRAMES_DIR = "chip_smoke_out/frames_scene"
+FRAMES_EVAL_DIR = "chip_smoke_out/frames_eval"
+# a video's frames as a phone or ffmpeg gives them, 1.5 x the scene's
+# native size: the preprocess driver shrinks them to SCENE_WH, a ratio of
+# 1.5 (OpenCV's float INTER_AREA path)
+FRAMES_SRC_WH = (1536, 864)
+# the decoded frames_resized against `resize_area_cv2` of the source
+# frames: one q95 round trip of smooth content; a wrong IDCT or
+# upsampler gives noise, not a 1-LSB error
+FRAMES_PSNR_DB = 30.0
+
+
+def _psnr8(np, a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / mse)) if mse else float("inf")
+
+
+def frames_phase(torch, np, card):
+    """From video frames to a trained scene, on numpy and the port alone:
+    C1's seeded frames (`scene_frame`) at FRAMES_SRC_WH written as
+    JPEG (`scene/jpeg.py::encode_jpeg`) into frames/; the preprocess CLI
+    in process (`apps/preprocess.py --stages resize --max_w 1024 --max_h
+    576`: the float INTER_AREA path, the frames written back as JPEG),
+    its masks stage (detectron2's RuntimeError), its colmap stage (the
+    JAX package's exit text) and a second resize (it skips);
+    frames_resized/ in as images/ (as COLMAP's undistorter puts them),
+    `trivial_masks`, and write_scene's disparities, flows and COLMAP
+    model at that size. Then a fresh system's validation (the uncached
+    JPEG scene load), the train CLI at C1's flags for one epoch (the
+    cached load, bit-equal to the uncached table; launches PER_STEP, one
+    capture, finite loss rows, the last validation's PSNR above the fresh
+    one's by PSNR_GAIN_DB) and the eval CLI's test split on its
+    checkpoint (B1). Prints the codec's and the resize's host seconds a
+    frame, the scene loads, the CLI's ms a step and the PSNR of the
+    decoded frames_resized against `resize_area_cv2` of the source
+    frames (at least FRAMES_PSNR_DB). Returns the launches the card
+    ran."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from nsff_pl_tpu_torch.apps import preprocess
+    from nsff_pl_tpu_torch.apps.train import cli
+    from nsff_pl_tpu_torch.config import get_opts
+    from nsff_pl_tpu_torch.scene import imageio, jpeg, masks
+    from nsff_pl_tpu_torch.training import checkpoint as ckpt_lib
+    from nsff_pl_tpu_torch.training.trainer import NSFFSystem
+
+    root = FRAMES_DIR
+    for d in (root, FRAMES_EVAL_DIR, f"{SCENE_RUN_DIR}/cache_frames",
+              f"{SCENE_RUN_DIR}/ckpts/frames", f"{SCENE_RUN_DIR}/logs/frames"):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(f"{root}/frames")
+    (W0, H0), (W, H) = FRAMES_SRC_WH, SCENE_WH
+    secs = {"encode": [], "decode_src": [], "resize": [], "decode": []}
+    srcs = []
+    for i in range(C1_FRAMES):
+        # C1's frames (the first of N_FRAMES) at 1.5 x the size
+        img, _ = scene_frame(np, H0, W0, N_FRAMES, i)
+        t0 = time.perf_counter()
+        data = jpeg.encode_jpeg(img)
+        secs["encode"].append(time.perf_counter() - t0)
+        with open(f"{root}/frames/{i:05d}.jpg", "wb") as f:
+            f.write(data)
+        srcs.append(img)
+    argv = ["--root_dir", root, "--stages", "resize", "--max_w", str(W),
+            "--max_h", str(H)]
+    t0 = time.perf_counter()
+    preprocess.cli(argv)
+    preprocess_s = time.perf_counter() - t0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        preprocess.cli(argv)
+    if "frames_resized exists, skipping" not in out.getvalue():
+        fail(f"frames: a second resize did not skip: {out.getvalue()!r}")
+    try:
+        preprocess.cli(["--root_dir", root, "--stages", "masks"])
+        fail("frames: the masks stage ran without detectron2")
+    except RuntimeError as e:
+        if "detectron2" not in str(e):
+            raise
+    try:
+        preprocess.cli(["--root_dir", root, "--stages", "colmap",
+                        "--colmap_bin", "chip-smoke-no-colmap"])
+        fail("frames: the colmap stage ran without COLMAP")
+    except SystemExit as e:
+        if not ("COLMAP binary" in str(e.code)
+                and "not found" in str(e.code)):
+            fail(f"frames: the colmap stage exited with {e.code!r}")
+    names = sorted(os.listdir(f"{root}/frames_resized"))
+    if names != [f"{i:05d}.jpg" for i in range(C1_FRAMES)]:
+        fail(f"frames: frames_resized holds {names}")
+    psnrs = []
+    for i, name in enumerate(names):
+        with open(f"{root}/frames/{name}", "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        src = jpeg.decode_jpeg(data)
+        secs["decode_src"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        imageio.resize_area_cv2(src, (W, H))
+        secs["resize"].append(time.perf_counter() - t0)
+        with open(f"{root}/frames_resized/{name}", "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        got = jpeg.decode_jpeg(data)
+        secs["decode"].append(time.perf_counter() - t0)
+        if got.shape != (H, W, 3):
+            fail(f"frames: {name} resized to {got.shape}")
+        psnrs.append(_psnr8(np, got, imageio.resize_area_cv2(srcs[i],
+                                                             (W, H))))
+    print(f"frames: {C1_FRAMES} frames, host seconds a frame: JPEG encode "
+          f"at {W0}x{H0} {np.mean(secs['encode']):.4f}, decode at {W0}x{H0} "
+          f"{np.mean(secs['decode_src']):.4f}, INTER_AREA to {W}x{H} "
+          f"{np.mean(secs['resize']):.4f}, decode at {W}x{H} "
+          f"{np.mean(secs['decode']):.4f}; the preprocess resize stage "
+          f"{preprocess_s:.3f} s in all; decoded frames_resized against "
+          f"resize_area_cv2 of the source PSNR "
+          + json.dumps([round(p, 3) for p in psnrs])
+          + f" dB (at least {FRAMES_PSNR_DB}) on {card}", flush=True)
+    if min(psnrs) < FRAMES_PSNR_DB:
+        fail(f"frames: the JPEG round trip scores {min(psnrs):.3f} dB")
+
+    # the undistorter's images/, all-static masks, the priors and model
+    shutil.copytree(f"{root}/frames_resized", f"{root}/images")
+    if masks.trivial_masks(root) != C1_FRAMES:
+        fail("frames: trivial_masks wrote no mask a frame")
+    write_scene(np, root, N=C1_FRAMES, frames=False)
+
+    extra = ["--root_dir", root, "--start_end", "0", str(C1_FRAMES),
+             "--val_every_steps", str(C1_VAL_EVERY), "--cache_dir",
+             f"{SCENE_RUN_DIR}/cache_frames"]
+    reset_counts()
+    fresh = NSFFSystem(get_opts(scene_argv("frames", extra)))
+    uncached_s = fresh.load_seconds
+    table = fresh.train_scene.rays.clone()
+    base = fresh.validate(0)
+    ran = launch_counts()
+    del fresh
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_counts()
+    system = cli(scene_argv("frames", extra))
+    torch.cuda.synchronize()
+    for k, v in run_counts(system, launch_counts(), PER_STEP,
+                           "frames run").items():
+        ran[k] = ran.get(k, 0) + v
+    if not torch.equal(system.train_scene.rays, table):
+        fail("frames: the cached ray table differs from the uncached one")
+    del table
+    rows = jsonl_rows("frames")
+    if sorted(rows) != list(range(system.total_steps)) or not all(
+            np.isfinite(v) for r in rows.values() for v in r.values()):
+        fail("frames run: the loss rows are not every step's, finite")
+    last_step, last = system.val_history[-1]
+    gain = last["psnr"] - base["psnr"]
+    c1 = {s: round(r["val/psnr"], 3) for s, r in val_rows("c1a").items()}
+    print(f"frames run: {system.steps_run} steps, scene load "
+          f"{uncached_s:.3f} s uncached (JPEG decode, LANCZOS, ray table "
+          f"on the card), {system.load_seconds:.3f} s cached; "
+          f"{cli_step_ms(system):.3f} ms per step through the CLI; "
+          f"validation PSNR {base['psnr']:.3f} dB fresh, "
+          + json.dumps({s: round(v["psnr"], 3) for s, v in
+                        system.val_history})
+          + f" dB by step (C1's first run on the PNG frames: "
+          + json.dumps(c1) + f"): +{gain:.3f} dB (must exceed "
+          f"{PSNR_GAIN_DB}) on {card}", flush=True)
+    if not gain > PSNR_GAIN_DB:
+        fail(f"frames run: validation PSNR gained {gain:.3f} dB")
+    ckpt = os.path.abspath(ckpt_lib.latest_checkpoint(
+        f"{SCENE_RUN_DIR}/ckpts/frames"))
+    del system
+    torch.cuda.empty_cache()
+
+    argv = ["--root_dir", os.path.abspath(root), "--img_wh", str(W_IMG),
+            str(H_IMG), "--start_end", "0", str(C1_FRAMES), "--encode_t",
+            "--use_viewdir", "--N_samples", "128", "--dtype", "bfloat16",
+            "--ckpt_path", ckpt, "--split", "test", "--scene_name", "frames"]
+    os.makedirs(FRAMES_EVAL_DIR, exist_ok=True)
+    here = os.getcwd()
+    os.chdir(FRAMES_EVAL_DIR)
+    try:
+        rep, eval_ran, _ = eval_split(torch, np, card, "frames test", argv,
+                                      {"planar_eval_comp": 1}, C1_FRAMES)
+    finally:
+        os.chdir(here)
+    if not np.isfinite(rep.psnr).all() or not (rep.psnr[:, 0] > 0).all():
+        fail(f"frames: the eval CLI's test PSNR {rep.psnr.tolist()}")
+    print(f"frames test: PSNR {rep.psnr[:, 0].tolist()} on the "
+          f"JPEG scene's {C1_FRAMES} frames", flush=True)
+    for k, v in eval_ran.items():
+        ran[k] = ran.get(k, 0) + v
+    return ran
 
 
 def graphed_equals_loop(torch, np, render, params, data, frames, vis):
@@ -4742,6 +4958,14 @@ def main() -> int:
     for name, rec in train_records.items():
         rec["launches"] += c1_ran[name]
     phase_s["C1"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- from video frames to a trained scene -------------
+    frames_ran = frames_phase(torch, np, card)
+    record["launches"] += frames_ran.get("planar_eval_comp", 0)
+    for name, rec in train_records.items():
+        rec["launches"] += frames_ran.get(name, 0)
+    phase_s["frames"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---------------- data parallelism (main paths) -------------

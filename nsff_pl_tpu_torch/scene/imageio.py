@@ -1,18 +1,27 @@
-"""PNG reading and writing, and the resize rules of the scene loader, on
-numpy and the standard library.
+"""Image files on numpy and the standard library: PNG reading and
+writing, JPEG through `scene/jpeg.py`, and the resize, erode and read
+rules of the scene loader and the preprocess driver.
 
-The JAX package reads frames with PIL and disparities and flows with
-OpenCV (`nsff_pl_tpu/scene/monocular.py:35-55`, `scene/flowio.py:44-55`).
-Neither is needed here; each rule below reproduces the one the JAX
-scene applies, bit for bit where it works on integers:
+The JAX package reads frames with PIL and disparities, flows and the
+preprocess driver's frames with OpenCV (`nsff_pl_tpu/scene/monocular.py:
+35-55`, `scene/flowio.py:44-55`, `apps/preprocess.py:38-55`). Neither is
+needed here; each rule below reproduces the one the JAX package applies,
+bit for bit where it works on integers:
 
-- `read_png`: non-interlaced PNG of 1-bit, 8-bit and 16-bit grey, 8-bit
-  grey + alpha, RGB and RGBA, every row filter. Palette, interlaced and
-  other depths, and JPEG files, raise `NotImplementedError`.
+- `decode_image` / `read_image`: PNG or JPEG by the file's magic bytes.
+- `decode_png` / `read_png`: every PNG PIL opens: grey at 1, 2, 4, 8 and
+  16 bits, palette at 1, 2, 4 and 8 bits (looked up to RGB), RGB, grey +
+  alpha and RGBA at 8 and 16 bits, every row filter, Adam7 interlacing.
 - `to_rgb` / `to_l`: PIL's `convert("RGB")` / `convert("L")` (ITU-R 601-2
-  luma in PIL's integer weights; 16-bit grey clipped at 255).
+  luma in PIL's integer weights; 16-bit grey clipped at 255, 16-bit
+  colour by its high byte; palette colours looked up first).
+- `imread_color`: OpenCV's `imread(path, IMREAD_COLOR)` as RGB: grey
+  replicated, alpha dropped, 16 bits shifted down by 8, a JPEG turned
+  by its EXIF orientation.
 - `imread_anydepth`: OpenCV's `imread(path, IMREAD_ANYDEPTH)` of a grey
   file (1-bit as 0/255).
+- `resize_area_cv2`: `cv2.INTER_AREA` of a uint8 image, shrinking.
+- `erode_cv2`: `cv2.erode` with a k x k box.
 - `resize_lanczos`: PIL's `resize(..., LANCZOS)` of an 8-bit image: the
   a=3 kernel widened by the scale when shrinking, each output pixel's
   weights normalised and quantised to 22 fractional bits, a horizontal
@@ -23,7 +32,8 @@ scene applies, bit for bit where it works on integers:
 - `resize_linear_cv2`: `cv2.INTER_LINEAR` of a float32 image (centres
   aligned, edges clamped, float weights).
 - `png_bytes` / `write_png`: PNG files of 8-bit grey and RGB and 16-bit
-  grey, with a chosen row filter per row.
+  grey, with a chosen row filter per row; `write_image`: JPEG or PNG by
+  the extension, as `cv2.imwrite` picks.
 - `gif_bytes` / `write_gif`: an animated GIF of RGB frames (the eval
   CLI's video where no ffmpeg is installed), on a fixed 3-3-2 palette.
 
@@ -41,12 +51,17 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from nsff_pl_tpu_torch.scene import jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_UNPORTED = ("(ROADMAP.md queue A, 'JPEG frames': only non-interlaced "
-             "grey, grey + alpha, RGB and RGBA PNG files are read)")
+JPEG_SOI = b"\xff\xd8\xff"
 # color type -> channels
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-_DEPTHS = {0: (1, 8, 16), 2: (8,), 4: (8,), 6: (8,)}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7: (x0, y0, dx, dy) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _png_chunks(data: bytes):
@@ -119,53 +134,110 @@ def _unfilter(data: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
     return out.reshape(h, stride).astype(np.uint8)
 
 
+def _samples(rows: np.ndarray, w: int, depth: int, ch: int) -> np.ndarray:
+    """Unfiltered (h, stride) bytes -> (h, w, ch) raw samples: uint8 for
+    depths up to 8 (sub-byte samples unpacked, unscaled), uint16 for
+    16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return ((rows[:, 0::2].astype(np.uint16) << 8)
+                | rows[:, 1::2]).reshape(h, w, ch)
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    per = 8 // depth
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    out = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return out.reshape(h, -1)[:, :w, None]
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG file bytes -> array: (h, w) bool for 1-bit grey, (h, w) uint8
-    or uint16 for grey, (h, w, 2 | 3 | 4) uint8 for grey + alpha, RGB,
-    RGBA."""
-    if data[:3] == b"\xff\xd8\xff":
-        raise NotImplementedError(f"JPEG file {_UNPORTED}")
+    for grey at 2-8 bits (2 and 4 scaled to 0-255, as PIL and libpng
+    unpack them), (h, w) uint16 for 16-bit grey, (h, w, 2 | 3 | 4) uint8
+    or uint16 for grey + alpha, RGB, RGBA, and (h, w, 3) uint8 RGB for a
+    palette image (its colours looked up; a transparency chunk is
+    ignored, as PIL's `convert("RGB")` and OpenCV's colour read do)."""
+    if data[:3] == JPEG_SOI:
+        raise ValueError("a JPEG file, not a PNG (decode_image reads both)")
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
-    header, idat = None, []
+    header, idat, plte = None, [], None
     for tag, body in _png_chunks(data):
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif tag == b"IDAT":
             idat.append(body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8)
     if header is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
     w, h, depth, ctype, comp, filt, interlace = header
     if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
-        raise NotImplementedError(
-            f"PNG of color type {ctype} at {depth} bits {_UNPORTED}")
-    if interlace:
-        raise NotImplementedError(f"interlaced PNG {_UNPORTED}")
-    if comp != 0 or filt != 0:
-        raise ValueError("unknown PNG compression or filter method")
+        raise ValueError(f"not a valid PNG: color type {ctype} at {depth} "
+                         "bits")
+    if comp != 0 or filt != 0 or interlace > 1:
+        raise ValueError("unknown PNG compression, filter or interlace "
+                         "method")
+    if ctype == 3 and (plte is None or plte.size % 3 or not plte.size):
+        raise ValueError("palette PNG without a valid PLTE chunk")
     ch = _CHANNELS[ctype]
     bits = ch * depth
-    stride = (w * bits + 7) // 8
+    bpp = max(1, bits // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
-        raise ValueError(f"PNG data holds {raw.size} bytes, expected "
-                         f"{h * (stride + 1)}")
-    rows = raw.reshape(h, stride + 1)
-    ftype = rows[:, 0]
-    if int(ftype.max(initial=0)) > 4:
-        raise ValueError("unknown PNG row filter")
-    px = _unfilter(rows[:, 1:], ftype, max(1, bits // 8))
-    if depth == 1:
-        return np.unpackbits(px, axis=1)[:, :w].astype(bool)
-    if depth == 16:
-        return (px[:, 0::2].astype(np.uint16) << 8) | px[:, 1::2]
-    img = px.reshape(h, w, ch)
-    return img[..., 0] if ch == 1 else img
+    passes = (((0, 0, 1, 1),) if not interlace else _ADAM7)
+    sizes = [(-(-(w - x0) // dx), -(-(h - y0) // dy))
+             for x0, y0, dx, dy in passes]
+    need = sum(ph * ((pw * bits + 7) // 8 + 1) for pw, ph in sizes
+               if pw > 0 and ph > 0)
+    if raw.size != need:
+        raise ValueError(f"PNG data holds {raw.size} bytes, expected {need}")
+    dtype = np.uint16 if depth == 16 else np.uint8
+    img = np.zeros((h, w, ch), dtype)
+    pos = 0
+    for (x0, y0, dx, dy), (pw, ph) in zip(passes, sizes):
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * bits + 7) // 8
+        rows = raw[pos:pos + ph * (stride + 1)].reshape(ph, stride + 1)
+        pos += ph * (stride + 1)
+        ftype = rows[:, 0]
+        if int(ftype.max(initial=0)) > 4:
+            raise ValueError("unknown PNG row filter")
+        px = _unfilter(rows[:, 1:], ftype, bpp)
+        img[y0::dy, x0::dx] = _samples(px, pw, depth, ch)
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        n = min(plte.size // 3, 256)
+        pal[:n] = plte[:3 * n].reshape(n, 3)
+        return pal[img[..., 0]]
+    if ch == 1:
+        img = img[..., 0]
+        if depth == 1:
+            return img.astype(bool)
+        if depth in (2, 4):
+            return img * np.uint8(255 // ((1 << depth) - 1))
+    return img
 
 
 def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_png(f.read())
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """PNG (`decode_png`) or JPEG (`jpeg.decode_jpeg`: (h, w) uint8 grey
+    or (h, w, 3) uint8 RGB, no EXIF turn, as PIL opens it) file bytes,
+    by the magic bytes."""
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png(data)
+    if data[:3] == JPEG_SOI:
+        return jpeg.decode_jpeg(data)
+    raise ValueError("neither a PNG nor a JPEG file")
+
+
+def read_image(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_image(f.read())
 
 
 def _grey8(img: np.ndarray) -> np.ndarray:
@@ -177,10 +249,16 @@ def _grey8(img: np.ndarray) -> np.ndarray:
     return img
 
 
+def _colour8(img: np.ndarray) -> np.ndarray:
+    """16-bit colour samples -> their high byte (PIL's `;16B` rawmodes)."""
+    return (img >> 8).astype(np.uint8) if img.dtype == np.uint16 else img
+
+
 def to_rgb(img: np.ndarray) -> np.ndarray:
     """PIL's `convert("RGB")` -> (h, w, 3) uint8."""
     if img.ndim == 2:
         return np.repeat(_grey8(img)[..., None], 3, -1)
+    img = _colour8(img)
     if img.shape[-1] == 2:  # grey + alpha
         return np.repeat(img[..., :1], 3, -1)
     return np.ascontiguousarray(img[..., :3])
@@ -190,6 +268,7 @@ def to_l(img: np.ndarray) -> np.ndarray:
     """PIL's `convert("L")` -> (h, w) uint8."""
     if img.ndim == 2:
         return _grey8(img)
+    img = _colour8(img)
     if img.shape[-1] == 2:
         return img[..., 0].copy()
     rgb = img[..., :3].astype(np.uint32)
@@ -197,14 +276,76 @@ def to_l(img: np.ndarray) -> np.ndarray:
              + 0x8000) >> 16).astype(np.uint8)
 
 
+def _describe(img: np.ndarray) -> str:
+    kinds = {2: "grey + alpha", 3: "colour", 4: "RGBA"}
+    return "grey" if img.ndim == 2 else kinds[img.shape[-1]]
+
+
 def imread_anydepth(path: str) -> np.ndarray:
-    """OpenCV's `imread(path, IMREAD_ANYDEPTH)` of a grey PNG: uint8 or
-    uint16 (h, w); 1-bit files read as 0/255."""
-    img = read_png(path)
+    """OpenCV's `imread(path, IMREAD_ANYDEPTH)` of a grey PNG or JPEG:
+    uint8 or uint16 (h, w); 1-bit files read as 0/255."""
+    img = read_image(path)
     if img.ndim != 2:
-        raise NotImplementedError(
-            f"{path}: a disparity map must be a grey PNG {_UNPORTED}")
+        raise ValueError(f"{path}: a disparity map must be a grey image; "
+                         f"this file is {_describe(img)}")
     return img.astype(np.uint8) * 255 if img.dtype == bool else img
+
+
+def imread_color(path: str) -> np.ndarray:
+    """OpenCV's `imread(path, IMREAD_COLOR)`, as (h, w, 3) uint8 RGB: grey
+    replicated, alpha dropped, 16-bit samples shifted down by 8, palette
+    colours looked up, and a JPEG turned by its EXIF orientation."""
+    with open(path, "rb") as f:
+        data = f.read()
+    img = decode_image(data)
+    if img.dtype == bool:
+        img = img.astype(np.uint8) * 255
+    img = _colour8(img)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, -1)
+    elif img.shape[-1] == 2:
+        img = np.repeat(img[..., :1], 3, -1)
+    img = img[..., :3]
+    if data[:3] == JPEG_SOI:
+        img = _orient(img, jpeg.exif_orientation(data))
+    return np.ascontiguousarray(img)
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's EXIF turn (`ExifTransform`) for orientation 1-8."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
+    for axis in flip.get(orientation, ()):
+        img = np.flip(img, axis)
+    return img
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """`cv2.imwrite` of an RGB (h, w, 3) or grey (h, w) uint8 image: JPEG
+    (quality 95, the bytes OpenCV writes) for .jpg / .jpeg / .jpe, PNG
+    for .png (the same pixels)."""
+    ext = path.rsplit(".", 1)[-1].lower() if "." in path else ""
+    if ext in ("jpg", "jpeg", "jpe"):
+        data = jpeg.encode_jpeg(img)
+    elif ext == "png":
+        data = png_bytes(img)
+    else:
+        raise ValueError(f"{path}: write_image writes .jpg, .jpeg, .jpe or "
+                         ".png files")
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def erode_cv2(mask: np.ndarray, k: int) -> np.ndarray:
+    """`cv2.erode(mask, np.ones((k, k), np.uint8))` of an integer image:
+    the minimum over a k x k box anchored at its centre (k // 2); outside
+    the image counts as the largest value, so the border never erodes."""
+    a = k // 2
+    pad = [(a, k - 1 - a), (a, k - 1 - a)] + [(0, 0)] * (mask.ndim - 2)
+    x = np.pad(mask, pad, constant_values=np.iinfo(mask.dtype).max)
+    x = np.lib.stride_tricks.sliding_window_view(x, k, 0).min(-1)
+    return np.lib.stride_tricks.sliding_window_view(x, k, 1).min(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +420,82 @@ def resize_lanczos(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     if h != img.shape[0]:
         out = _lanczos_pass(out, h, 0)
     return out.copy() if out is img else out
+
+
+def _area_tab(ssize: int, dsize: int, scale: float):
+    """OpenCV's `computeResizeAreaTab`: (dst, src, alpha float32) entries
+    in the table's order."""
+    di, si, al = [], [], []
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, ssize - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            di.append(dx)
+            si.append(sx1 - 1)
+            al.append((sx1 - fsx1) / cell)
+        for sx in range(sx1, sx2):
+            di.append(dx)
+            si.append(sx)
+            al.append(1.0 / cell)
+        if fsx2 - sx2 > 1e-3:
+            di.append(dx)
+            si.append(sx2)
+            al.append(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    return (np.array(di), np.array(si), np.array(al, np.float64).astype(
+        np.float32))
+
+
+def _area_sum(x: np.ndarray, tab, n_out: int, axis: int) -> np.ndarray:
+    """Accumulate `x`'s slices along `axis` into n_out float32 outputs in
+    the table's order, each a running float32 sum of slice * alpha."""
+    di, si, al = tab
+    x = np.moveaxis(x, axis, 0)
+    out = np.zeros((n_out,) + x.shape[1:], np.float32)
+    # the j-th entry of every output, in order
+    first = np.r_[0, np.flatnonzero(np.diff(di)) + 1]
+    rank = np.arange(di.size) - np.repeat(first, np.diff(np.r_[first,
+                                                               di.size]))
+    extra = (1,) * (x.ndim - 1)
+    for j in range(int(rank.max()) + 1):
+        e = rank == j
+        a = al[e].reshape((-1,) + extra)
+        out[di[e]] = out[di[e]] + x[si[e]] * a
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_area_cv2(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """`cv2.resize(img, size, interpolation=cv2.INTER_AREA)` of a uint8
+    (h, w) or (h, w, c) image, shrinking; `size` is (w, h). OpenCV's three
+    rules: a ratio of exactly 2 on both axes averages 2x2 blocks in
+    integers, `(a + b + c + d + 2) >> 2`; other integer ratios round the
+    block sum times float32 1 / area to nearest even; other ratios sum
+    float32 area weights (`computeResizeAreaTab`), a row pass then a
+    column pass, each in OpenCV's order, rounded to nearest even."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_area_cv2 takes uint8, got {img.dtype}")
+    w, h = size
+    sh, sw = img.shape[:2]
+    sx, sy = 1.0 / (w / sw), 1.0 / (h / sh)
+    if sx < 1 or sy < 1:
+        raise ValueError(f"resize_area_cv2 shrinks: {sw}x{sh} -> {w}x{h}")
+    ix, iy = round(sx), round(sy)
+    if abs(sx - ix) < 2.220446049250313e-16 and \
+            abs(sy - iy) < 2.220446049250313e-16:
+        blocks = img.astype(np.int64).reshape(
+            (h, iy, w, ix) + img.shape[2:]).sum((1, 3))
+        if ix == 2 and iy == 2 and (img.ndim == 2 or img.shape[2] in (
+                1, 3, 4)):
+            return ((blocks + 2) >> 2).astype(np.uint8)
+        scale = np.float32(1) / np.float32(ix * iy)
+        return np.clip(np.rint(blocks.astype(np.float32) * scale), 0,
+                       255).astype(np.uint8)
+    rows = _area_sum(img.astype(np.float32), _area_tab(sw, w, sx), w, 1)
+    out = _area_sum(rows, _area_tab(sh, h, sy), h, 0)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def _pil_nearest_index(in_size: int, out_size: int) -> np.ndarray:

@@ -2,7 +2,8 @@
 
 The geometry and prior work runs on the host in numpy as in the JAX
 package; images, masks and disparities are decoded and resized by
-`scene/imageio.py` (PIL's and OpenCV's rules, without either), flows by
+`scene/imageio.py` (PIL's and OpenCV's rules, without either; JPEG
+frames through `scene/jpeg.py`), flows by
 `scene/flowio.py`. The (N_frames, H*W, 16) float32 ray table is built
 frame by frame with the port's `ops/rays.py` on the scene's `device` and
 stays there: the training pipeline gathers its batches from it.
@@ -33,15 +34,16 @@ from nsff_pl_tpu_torch.scene import poses as pose_utils
 
 
 def _imread_rgb(path: str, img_wh: Tuple[int, int]) -> np.ndarray:
-    """PIL: open, convert("RGB"), resize LANCZOS, / 255."""
-    img = imageio.resize_lanczos(imageio.to_rgb(imageio.read_png(path)),
+    """PIL: open (PNG or JPEG, no EXIF turn), convert("RGB"), resize
+    LANCZOS, / 255."""
+    img = imageio.resize_lanczos(imageio.to_rgb(imageio.read_image(path)),
                                  img_wh)
     return img.astype(np.float32) / 255.0  # (h, w, 3)
 
 
 def _imread_gray(path: str, img_wh: Tuple[int, int]) -> np.ndarray:
-    """PIL: open, convert("L"), resize NEAREST, / 255."""
-    img = imageio.resize_nearest_pil(imageio.to_l(imageio.read_png(path)),
+    """PIL: open (PNG or JPEG), convert("L"), resize NEAREST, / 255."""
+    img = imageio.resize_nearest_pil(imageio.to_l(imageio.read_image(path)),
                                      img_wh)
     return img.astype(np.float32) / 255.0  # (h, w)
 

@@ -31,16 +31,44 @@ def _imported_modules(path: Path):
             yield node.module
 
 
-def _forbidden(mod: str) -> bool:
+# the card's machine has neither PIL nor OpenCV (nor the PyPI `imageio`;
+# the port's own `nsff_pl_tpu_torch.scene.imageio` is another module)
+IMAGE_LIBRARIES = ("PIL", "cv2", "imageio")
+MASKS = PORT / "scene" / "masks.py"
+
+
+def _forbidden(mod: str, path: Path = None) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib") or top == "nsff_pl_tpu"
+    if top == "detectron2":  # only behind `predict_masks`'s gate
+        return path != MASKS
+    return (top in ("jax", "jaxlib") or top == "nsff_pl_tpu"
+            or top in IMAGE_LIBRARIES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_sources_import_no_jax(path):
-    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    bad = [m for m in _imported_modules(path) if _forbidden(m, path)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_detectron2_only_inside_the_mask_gate():
+    """`scene/masks.py` imports detectron2 only inside `predict_masks`,
+    in the `try` whose failure raises the gate's RuntimeError."""
+    tree = ast.parse(MASKS.read_text())
+    gate = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name == "predict_masks")
+    inside = {id(n) for t in ast.walk(gate) if isinstance(t, ast.Try)
+              and any(isinstance(x, ast.Raise) for h in t.handlers
+                      for x in ast.walk(h))
+              for n in ast.walk(t)}
+    found = [n for n in ast.walk(tree)
+             if isinstance(n, (ast.Import, ast.ImportFrom))
+             and "detectron2" in ast.unparse(n)]
+    assert found and all(id(n) in inside for n in found)
+    assert not _forbidden("detectron2.config", MASKS)
+    assert not _forbidden("nsff_pl_tpu_torch.scene.imageio")
+    assert _forbidden("detectron2", PORT / "apps" / "preprocess.py")
 
 
 def test_importing_the_port_loads_no_jax():

@@ -129,33 +129,51 @@ def test_png_other_modes_and_conversions(tmp_path):
 
 
 def test_unreadable_files_raise(tmp_path):
-    """JPEG, palette and interlaced files name the ROADMAP item; a file
-    that is no PNG, or a corrupt one, raises too."""
+    """Progressive, arithmetic-coded, 12-bit and CMYK JPEG files name the
+    ROADMAP item ('progressive JPEG'): PIL reads them, the port does not
+    yet. A file that is neither PNG nor JPEG, and truncated PNG or JPEG
+    data, raise too; no reader falls back to another."""
     rng = np.random.default_rng(4)
     a = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
     cases = {}
     buf = io.BytesIO()
-    Image.fromarray(a).save(buf, format="JPEG")
-    cases["jpeg"] = buf.getvalue()
+    Image.fromarray(a).save(buf, format="JPEG", progressive=True)
+    cases["progressive"] = buf.getvalue()
     buf = io.BytesIO()
-    Image.fromarray(a).convert("P").save(buf, format="PNG")
-    cases["palette"] = buf.getvalue()
-    # an Adam7 header (PIL does not write interlaced PNG files)
-    good = imageio.png_bytes(a)
-    ihdr = good[16:29]
-    ihdr = ihdr[:12] + b"\x01"
-    cases["interlaced"] = (good[:16] + ihdr + struct.pack(
-        ">I", zlib.crc32(b"IHDR" + ihdr) & 0xffffffff) + good[33:])
+    Image.fromarray(a).convert("CMYK").save(buf, format="JPEG")
+    cases["cmyk"] = buf.getvalue()
+    base = io.BytesIO()
+    Image.fromarray(a).save(base, format="JPEG")
+    base = base.getvalue()
+    sof = base.index(b"\xff\xc0")
+    # the same file marked arithmetic-coded, and 12-bit
+    cases["arithmetic"] = base[:sof + 1] + b"\xc9" + base[sof + 2:]
+    cases["12-bit"] = base[:sof + 4] + b"\x0c" + base[sof + 5:]
     for name, data in cases.items():
-        with pytest.raises(NotImplementedError, match="JPEG frames"):
-            imageio.decode_png(data)
+        with pytest.raises(NotImplementedError, match="progressive JPEG"):
+            imageio.decode_image(data)
+        (tmp_path / f"{name}.jpg").write_bytes(data)
+        with pytest.raises(NotImplementedError, match="progressive JPEG"):
+            imageio.read_image(str(tmp_path / f"{name}.jpg"))
+        with pytest.raises(NotImplementedError, match="progressive JPEG"):
+            imageio.imread_color(str(tmp_path / f"{name}.jpg"))
     with pytest.raises(ValueError):
-        imageio.decode_png(b"GIF89a" + bytes(40))
+        imageio.decode_image(b"GIF89a" + bytes(40))
+    with pytest.raises(ValueError):
+        imageio.decode_png(base)
+    good = imageio.png_bytes(a)
     with pytest.raises(Exception):
         imageio.decode_png(good[:-30])
-    (tmp_path / "x.png").write_bytes(cases["jpeg"])
-    with pytest.raises(NotImplementedError):
+    for cut in (2, 30, len(base) // 2):
+        with pytest.raises(ValueError):
+            imageio.decode_image(base[:-cut])
+    (tmp_path / "x.png").write_bytes(base[:-30])
+    with pytest.raises(ValueError):
         imageio.imread_anydepth(str(tmp_path / "x.png"))
+    # a colour file is no disparity map
+    (tmp_path / "rgb.png").write_bytes(good)
+    with pytest.raises(ValueError, match="colour"):
+        imageio.imread_anydepth(str(tmp_path / "rgb.png"))
 
 
 @pytest.mark.parametrize("size", SIZES + [(512, 288)],
