@@ -168,12 +168,15 @@ once), then:
    eval frame from the stripped file equal those from the full one bit
    for bit; (d) `tools/export_render.py` at 512x288, chunk 32768,
    `--use_viewdir --N_samples 128 --check`: the kernel route in bfloat16
-   with `--encode_t --output_transient` (B1) and without `encode_t`
-   (B5), and the plain route in float32, each reloaded in a fresh
-   process that imports torch and, for the kernel route,
-   `nsff_pl_tpu_torch.ops.library` alone: one launch a call, its output
-   within the tool's check tolerance of the live renderer, ms per
-   exported chunk beside the live chunk;
+   with `--encode_t --output_transient` (B1), with `--encode_t
+   --N_importance 64` (the planar coarse-to-fine route on seeded
+   weights: B2's forward at 128 samples, then B1 at 192) and without
+   `encode_t` (B5), and the plain route in float32, each reloaded in a
+   fresh process that imports torch and, for the kernel routes,
+   `nsff_pl_tpu_torch.ops.library` alone: one launch of each kernel a
+   call, its output within the tool's check tolerance of the live
+   renderer (the coarse-to-fine route: equal to it), ms per exported
+   chunk beside the live chunk;
 13. data-parallel training (main paths; after the C1 phase): a world of
    one rank over NCCL (`parallel.distributed.initialize`) runs
    DP_STEPS eager flagship steps and DP_STEPS as one graphed dispatch
@@ -208,7 +211,11 @@ once), then:
    the eval CLI's test split on its checkpoint (B1); the codec's and
    the resize's host seconds a frame, the scene loads, the CLI's ms a
    step and the decoded frames against `resize_area_cv2` of the source
-   (FRAMES_PSNR_DB).
+   (FRAMES_PSNR_DB). Two of the resized frames have their quantised
+   coefficients rewritten progressive, arithmetic-coded and progressive
+   arithmetic-coded (`tests/torch_jpeg_writer.py`, numpy alone: the card's
+   machine has neither PIL nor OpenCV), each decoding to the baseline
+   decode's bytes, with the host seconds a frame of each decode.
 
 The training phases end with a torch.profiler trace of 5 more steps
 (device time by kernel, the device's busy share and the backward's
@@ -3005,6 +3012,67 @@ def _psnr8(np, a, b):
     return float(10 * np.log10(255.0 ** 2 / mse)) if mse else float("inf")
 
 
+# the other codings libjpeg-turbo reads, each rewriting a baseline
+# frame's quantised coefficients (`tests/torch_jpeg_writer.py::write_dct`)
+FRAME_CODINGS = {"progressive Huffman": dict(progressive=True),
+                 "sequential arithmetic": dict(arithmetic=True),
+                 "progressive arithmetic": dict(progressive=True,
+                                                arithmetic=True)}
+
+
+def jpeg_writer():
+    """`tests/torch_jpeg_writer.py` (numpy and the port's `scene/jpeg.py`
+    alone), loaded from this checkout by its path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_jpeg_writer.py")
+    spec = importlib.util.spec_from_file_location("torch_jpeg_writer", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclass looks itself up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def frame_codings(np, folder, names, baseline_s, card):
+    """The preprocess's q95 frames `names` (baseline, as OpenCV writes
+    them) with their quantised coefficients rewritten progressive
+    (libjpeg's scan script, PIL's and OpenCV's), sequential arithmetic and
+    progressive arithmetic: each decodes to the baseline decode's bytes
+    (complete scans: no block smoothing). Prints the host seconds a frame
+    of each coding's decode beside the baseline's."""
+    from nsff_pl_tpu_torch.scene import jpeg
+
+    jw = jpeg_writer()
+    secs = {k: {"write": [], "decode": [], "kb": []} for k in FRAME_CODINGS}
+    for name in names:
+        with open(f"{folder}/{name}", "rb") as f:
+            data = f.read()
+        want = jpeg.decode_jpeg(data)
+        frame, coefs = jw.coefficients_of(data)
+        for coding, kw in FRAME_CODINGS.items():
+            t0 = time.perf_counter()
+            other = jw.write_dct(frame, coefs, **kw)
+            secs[coding]["write"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            got = jpeg.decode_jpeg(other)
+            secs[coding]["decode"].append(time.perf_counter() - t0)
+            secs[coding]["kb"].append(len(other) / 1e3)
+            if not np.array_equal(got, want):
+                fail(f"frames: {name} rewritten {coding} decodes "
+                     f"{int(np.abs(got.astype(int) - want).max())} off the "
+                     "baseline decode")
+    h, w = want.shape[:2]
+    print(f"frames codings: {len(names)} of the {w}x{h} q95 frames "
+          "rewritten, each equal to the baseline decode; host seconds a "
+          f"frame (host times): baseline decode {baseline_s:.4f}, "
+          + json.dumps({k: {m: round(float(np.mean(v)), 4)
+                            for m, v in d.items()}
+                        for k, d in secs.items()})
+          + f" (write: the numpy writer of tests/) on {card}", flush=True)
+
+
 def frames_phase(torch, np, card):
     """From video frames to a trained scene, on numpy and the port alone:
     C1's seeded frames (`scene_frame`) at FRAMES_SRC_WH written as
@@ -3111,6 +3179,8 @@ def frames_phase(torch, np, card):
           + f" dB (at least {FRAMES_PSNR_DB}) on {card}", flush=True)
     if min(psnrs) < FRAMES_PSNR_DB:
         fail(f"frames: the JPEG round trip scores {min(psnrs):.3f} dB")
+    frame_codings(np, f"{root}/frames_resized", names[:2],
+                  np.mean(secs["decode"]), card)
 
     # the undistorter's images/, all-static masks, the priors and model
     shutil.copytree(f"{root}/frames_resized", f"{root}/images")
@@ -3849,7 +3919,9 @@ EXPORT_LOADER = r"""
 import json, sys, torch
 import nsff_pl_tpu_torch.ops.library as library
 counts = {"planar_eval_comp": library.rk.planar_eval_comp_cuda.launches,
-          "fused_nerf_eval": library.mk.fused_nerf_eval_cuda.launches}
+          "fused_nerf_eval": library.mk.fused_nerf_eval_cuda.launches,
+          "planar_nerf_train_fwd":
+              library.rk.planar_nerf_train_fwd_cuda.launches}
 warmup, reps = int(sys.argv[1]), int(sys.argv[2])
 for path, inputs, out in zip(*[iter(sys.argv[3:])] * 3):
     for c in counts.values():
@@ -3869,7 +3941,8 @@ for path, inputs, out in zip(*[iter(sys.argv[3:])] * 3):
     print(json.dumps({
         "path": path, "ms": start.elapsed_time(end) / reps,
         "calls": 1 + warmup + reps,
-        "launches": {k: sum(c.values()) for k, c in counts.items()},
+        "launches": {f"{k}@{S}": n for k, c in counts.items()
+                     for S, n in sorted(c.items()) if n},
         "modules": sorted(m for m in sys.modules if m.startswith("nsff"))}))
 """
 
@@ -4065,13 +4138,17 @@ def stripped_weights_part(torch, np, card, ckpt):
 def export_part(torch, np, card, ckpt):
     """(d) `tools/export_render.py` at the flagship serving configuration
     (512x288, chunk 32768, use_viewdir, N_samples 128): the kernel route
-    in bfloat16 with encode_t (B1) and without (B5), and the plain route
-    in float32, each with --check. The two kernel artifacts reload in one
-    fresh process that imports torch and nsff_pl_tpu_torch.ops.library
-    alone: one launch of the kernel a call, the output against the live
-    renderer's, ms per exported chunk beside the live one (the plain
-    artifact: timed here, after the tool's reload). Returns the launches
-    the card ran."""
+    in bfloat16 with encode_t (B1), with encode_t and `--N_importance
+    C2F_NI` on seeded weights (the planar coarse-to-fine route: B2's
+    forward at 128 samples, sample_pdf and the sort, B1 at 192) and
+    without encode_t (B5), and the plain route in float32, each with
+    --check. The three kernel artifacts reload in one fresh process that
+    imports torch and nsff_pl_tpu_torch.ops.library alone: one launch of
+    each kernel a call at its sample count, the output against the live
+    renderer's (the coarse-to-fine route: the same bits), ms per exported
+    chunk beside the live one (the plain artifact: timed here, after the
+    tool's reload). Returns the launches the card ran (`name@S` at S other
+    than 128)."""
     import os
     import shutil
 
@@ -4088,19 +4165,31 @@ def export_part(torch, np, card, ckpt):
                           torch.Generator().manual_seed(5), device="cuda")
     static_ckpt = ckpt_lib.save_checkpoint(f"{EXPORT_DIR}/static", 0,
                                            {"params": static})
+    c2f = build_params(NSFFConfig(use_viewdir=True, encode_t=True,
+                                  N_importance=C2F_NI,
+                                  start_end=(0, N_FRAMES)),
+                       torch.Generator().manual_seed(6), device="cuda")
+    c2f_ckpt = ckpt_lib.save_checkpoint(f"{EXPORT_DIR}/c2f", 0,
+                                        {"params": c2f})
+    del static, c2f
     base = ["--img_wh", str(W_IMG), str(H_IMG), "--chunk", str(CHUNK),
             "--use_viewdir", "--N_samples", "128", "--N_frames",
             str(N_FRAMES)]
     kernel_route = ["--dtype", "bfloat16", "--mlp_backend", "pallas"]
     dev = torch.device("cuda")
     ran, lines, loads, live = {}, {}, [], {}
-    for label, path, flags, kernel in (
-            ("B1", ckpt, ["--encode_t", "--output_transient"] + kernel_route,
-             "planar_eval_comp"),
-            ("B5", static_ckpt, kernel_route, "fused_nerf_eval"),
-            ("plain", ckpt, ["--encode_t", "--output_transient",
-                             "--dtype", "float32"], None)):
-        out = f"{EXPORT_DIR}/{label}.pt2"
+    # (label, checkpoint, flags, launches of each kernel a call)
+    routes = [
+        ("B1", ckpt, ["--encode_t", "--output_transient"] + kernel_route,
+         {"planar_eval_comp": 1}),
+        ("B2+B1 c2f", c2f_ckpt, ["--encode_t", "--N_importance",
+                                 str(C2F_NI)] + kernel_route,
+         {"planar_nerf_train_fwd": 1, f"planar_eval_comp@{128 + C2F_NI}": 1}),
+        ("B5", static_ckpt, kernel_route, {"fused_nerf_eval": 1}),
+        ("plain", ckpt, ["--encode_t", "--output_transient",
+                         "--dtype", "float32"], None)]
+    for label, path, flags, kernel in routes:
+        out = f"{EXPORT_DIR}/{label.split()[0]}.pt2"
         args = er.get_opts(["--ckpt_path", path, "--out", out, *base,
                             *flags, "--check"])
         torch.cuda.synchronize()
@@ -4110,13 +4199,12 @@ def export_part(torch, np, card, ckpt):
         export_s = time.perf_counter() - t0
         counts = launch_counts()
         # --check: one call of the reloaded program, one live
-        check_counts(counts, {kernel: 2} if kernel else {}, 1,
-                     f"export {label} --check")
+        check_counts(counts, kernel or {}, 2, f"export {label} --check")
         for k, v in counts.items():
             ran[k] = ran.get(k, 0) + v
         cfg = NSFFConfig(img_wh=(W_IMG, H_IMG), start_end=(0, N_FRAMES),
                          use_viewdir=True, encode_t=args.encode_t,
-                         N_samples=128)
+                         N_samples=128, N_importance=args.N_importance)
         params = load_params(args, cfg, dev)
         render = make_render_fn(
             er.render_config(args, dev),
@@ -4133,7 +4221,7 @@ def export_part(torch, np, card, ckpt):
                         "check": meta["check"], "live_chunk_ms": live_ms,
                         "card": card}
         if kernel:
-            inputs = f"{EXPORT_DIR}/{label}.inputs.pt"
+            inputs = f"{EXPORT_DIR}/{label.split()[0]}.inputs.pt"
             torch.save((rays.cpu(), ts.cpu()), inputs)
             loads += [out, inputs, f"{out}.got.pt"]
         else:  # the plain artifact, timed here
@@ -4153,12 +4241,12 @@ def export_part(torch, np, card, ckpt):
              f"{r.stderr[-3000:]}")
     results = [json.loads(x) for x in r.stdout.splitlines()
                if x.startswith("{")]
-    if len(results) != 2:
+    kernel_routes = [(label, kernel) for label, _, _, kernel in routes
+                     if kernel]
+    if len(results) != len(kernel_routes):
         fail(f"export: the fresh process printed {r.stdout[-3000:]}")
-    for label, kernel, res in zip(("B1", "B5"),
-                                  ("planar_eval_comp", "fused_nerf_eval"),
-                                  results):
-        got = torch.load(f"{EXPORT_DIR}/{label}.pt2.got.pt")
+    for (label, kernel), res in zip(kernel_routes, results):
+        got = torch.load(f"{EXPORT_DIR}/{label.split()[0]}.pt2.got.pt")
         errs = [float((g.cuda() - w).abs().max())
                 for g, w in zip(got, live[label])]
         extra = [m for m in res["modules"]
@@ -4170,15 +4258,16 @@ def export_part(torch, np, card, ckpt):
             modules=res["modules"])
         if extra:
             fail(f"export {label}: the fresh process imported {extra}")
-        want = {k: res["calls"] if k == kernel else 0
-                for k in res["launches"]}
+        want = {(k if "@" in k else f"{k}@128"): n * res["calls"]
+                for k, n in kernel.items()}
         if res["launches"] != want:
             fail(f"export {label}: launches {res['launches']} for "
                  f"{res['calls']} calls, expected {want}")
-        if max(errs) > er.CHECK_TOL:
+        if max(errs) > (0.0 if "c2f" in label else er.CHECK_TOL):
             fail(f"export {label}: the fresh process's output differs from "
                  f"the live renderer's by {max(errs)}")
-        ran[kernel] = ran.get(kernel, 0) + res["calls"]
+        for k, n in kernel.items():
+            ran[k] = ran.get(k, 0) + n * res["calls"]
     for line in lines.values():
         print("tools (d) export_render: " + json.dumps(line), flush=True)
     return ran
@@ -4950,7 +5039,9 @@ def main() -> int:
             train_records.items()):
         rec["launches"] += c2f_ran.get(name, 0)
         for S in by_s:
-            by_s[S][name]["launches"] = c2f_ran.get(f"{name}@{S}", 0)
+            # the export route's fine pass (tools (d)) runs B1 at 192 too
+            by_s[S][name]["launches"] = (c2f_ran.get(f"{name}@{S}", 0)
+                                         + tools_ran.get(f"{name}@{S}", 0))
 
     # ---------------- reproducibility across refreshes (C1) -------------
     c1_ran, c1_end = c1_phase(torch, np, card)

@@ -1019,7 +1019,15 @@ planar_nerf_train_bwd_cuda.launches = {"static": Counter(),
 
 
 def planar_nerf_train_fwd(pw, o, d, zs, flows, dir_emb, a_emb, t_emb, **kw):
-    """CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    """CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Under `torch.export` the call goes through the custom op
+    `nsff_torch::planar_nerf_train_fwd` (`ops/library.py`), which does the
+    same when the exported program runs."""
+    if torch.compiler.is_exporting():
+        from nsff_pl_tpu_torch.ops import library
+
+        return library.call_planar_nerf_train_fwd(pw, o, d, zs, flows,
+                                                  dir_emb, a_emb, t_emb, **kw)
     if o.is_cuda:
         return planar_nerf_train_fwd_cuda(pw, o, d, zs, flows, dir_emb,
                                           a_emb, t_emb, **kw)

@@ -14,10 +14,13 @@ bit for bit where it works on integers:
   alpha and RGBA at 8 and 16 bits, every row filter, Adam7 interlacing.
 - `to_rgb` / `to_l`: PIL's `convert("RGB")` / `convert("L")` (ITU-R 601-2
   luma in PIL's integer weights; 16-bit grey clipped at 255, 16-bit
-  colour by its high byte; palette colours looked up first).
+  colour by its high byte; palette colours looked up first; a CMYK JPEG
+  inverted as PIL opens it, then Pillow's `cmyk2rgb`, and L through
+  RGB).
 - `imread_color`: OpenCV's `imread(path, IMREAD_COLOR)` as RGB: grey
-  replicated, alpha dropped, 16 bits shifted down by 8, a JPEG turned
-  by its EXIF orientation.
+  replicated, alpha dropped, 16 bits shifted down by 8, a CMYK JPEG by
+  OpenCV's `icvCvt_CMYK2BGR_8u_C4C3R`, a JPEG turned by its EXIF
+  orientation; a lossless grey JPEG raises, as OpenCV's read does.
 - `imread_anydepth`: OpenCV's `imread(path, IMREAD_ANYDEPTH)` of a grey
   file (1-bit as 0/255).
 - `resize_area_cv2`: `cv2.INTER_AREA` of a uint8 image, shrinking.
@@ -225,9 +228,9 @@ def read_png(path: str) -> np.ndarray:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """PNG (`decode_png`) or JPEG (`jpeg.decode_jpeg`: (h, w) uint8 grey
-    or (h, w, 3) uint8 RGB, no EXIF turn, as PIL opens it) file bytes,
-    by the magic bytes."""
+    """PNG (`decode_png`) or JPEG (`jpeg.decode_jpeg`: (h, w) uint8 grey,
+    (h, w, 3) uint8 RGB or (h, w, 4) `jpeg.CMYK`, no EXIF turn) file
+    bytes, by the magic bytes."""
     if data[:8] == PNG_SIGNATURE:
         return decode_png(data)
     if data[:3] == JPEG_SOI:
@@ -254,8 +257,20 @@ def _colour8(img: np.ndarray) -> np.ndarray:
     return (img >> 8).astype(np.uint8) if img.dtype == np.uint16 else img
 
 
+def _muldiv255(a, b):
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
 def to_rgb(img: np.ndarray) -> np.ndarray:
     """PIL's `convert("RGB")` -> (h, w, 3) uint8."""
+    if isinstance(img, jpeg.CMYK):
+        # PIL opens CMYK JPEG inverted ("CMYK;I", Adobe's convention),
+        # then `cmyk2rgb`: (255 - k) - (c * (255 - k)) / 255, rounded
+        p = 255 - np.asarray(img).astype(np.int64)
+        nk = 255 - p[..., 3:]
+        return np.clip(nk - _muldiv255(p[..., :3], nk), 0,
+                       255).astype(np.uint8)
     if img.ndim == 2:
         return np.repeat(_grey8(img)[..., None], 3, -1)
     img = _colour8(img)
@@ -265,7 +280,10 @@ def to_rgb(img: np.ndarray) -> np.ndarray:
 
 
 def to_l(img: np.ndarray) -> np.ndarray:
-    """PIL's `convert("L")` -> (h, w) uint8."""
+    """PIL's `convert("L")` -> (h, w) uint8 (CMYK through RGB, as PIL has
+    no direct conversion)."""
+    if isinstance(img, jpeg.CMYK):
+        img = to_rgb(img)
     if img.ndim == 2:
         return _grey8(img)
     img = _colour8(img)
@@ -277,6 +295,8 @@ def to_l(img: np.ndarray) -> np.ndarray:
 
 
 def _describe(img: np.ndarray) -> str:
+    if isinstance(img, jpeg.CMYK):
+        return "CMYK"
     kinds = {2: "grey + alpha", 3: "colour", 4: "RGBA"}
     return "grey" if img.ndim == 2 else kinds[img.shape[-1]]
 
@@ -297,7 +317,17 @@ def imread_color(path: str) -> np.ndarray:
     colours looked up, and a JPEG turned by its EXIF orientation."""
     with open(path, "rb") as f:
         data = f.read()
+    if data[:3] == JPEG_SOI and jpeg.frame_kind(data) == (0xC3, 1):
+        raise NotImplementedError(
+            f"{path}: a lossless grey JPEG file: OpenCV's colour read asks "
+            "libjpeg-turbo for RGB, which converts no colour space of a "
+            "lossless file")
     img = decode_image(data)
+    if isinstance(img, jpeg.CMYK):
+        # OpenCV takes libjpeg's CMYK as it comes: k - (255 - c) * k / 256
+        c = np.asarray(img).astype(np.int64)
+        k = c[..., 3:]
+        img = (k - (((255 - c[..., :3]) * k) >> 8)).astype(np.uint8)
     if img.dtype == bool:
         img = img.astype(np.uint8) * 255
     img = _colour8(img)

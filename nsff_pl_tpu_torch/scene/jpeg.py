@@ -1,18 +1,33 @@
-"""Baseline JPEG decode and encode on numpy and the standard library,
-bit for bit with libjpeg-turbo's defaults (the library under PIL and
-OpenCV).
+"""JPEG decode and encode on numpy and the standard library, bit for bit
+with libjpeg-turbo's defaults (the library under PIL and OpenCV).
 
-- `decode_jpeg`: sequential Huffman files (SOF0 / SOF1) of 8-bit samples,
-  1 or 3 components, sampling factors 1 or 2 on each axis, restart
-  intervals, 8- and 16-bit quantisation tables, any Huffman tables,
-  interleaved or not; JFIF YCbCr, or RGB (an Adobe transform of 0 or
-  the component ids 'R', 'G', 'B'). The steps are libjpeg-turbo's
-  default decode: the integer "islow" IDCT (`jidctint.c`) with the
-  range-limit table's 10-bit wrap, fancy upsampling
-  (`jdsample.c`: the triangle filters of h2v1, h2v2 and h1v2 with their
-  alternating biases, replication where a downsampled row is at most
-  two samples wide), the fixed-point YCbCr -> RGB of `jdcolor.c`, the
-  padded blocks cropped to the image.
+- `decode_jpeg`: every 8-bit JPEG file libjpeg-turbo decodes, as PIL and
+  OpenCV read it:
+  - sequential Huffman (SOF0 / SOF1), progressive Huffman (SOF2; T.81
+    Annex G: DC first and refinement scans, AC first scans with EOB runs,
+    AC refinement with its correction bits), sequential and progressive
+    arithmetic coding (SOF9 / SOF10; the QM decoder of Annex D with the
+    DC and AC statistics of F.1.4.4 and G.1.3, DAC conditioning, default
+    L = 0, U = 1, Kx = 5), and lossless Huffman (SOF3; Annex H,
+    predictors 1-7 and the point transform);
+  - 1, 3 or 4 components, sampling factors 1-4 in integer ratios,
+    restart intervals (which reset DC predictions, EOB runs and the
+    arithmetic statistics), 8- and 16-bit quantisation tables;
+  - colour: JFIF YCbCr, RGB (an Adobe transform of 0 or the component
+    ids 'R', 'G', 'B'), CMYK and YCCK (an Adobe transform other than 0,
+    converted as `ycck_cmyk_convert` does) handed back as a `CMYK` array;
+    a lossless file is RGB unless a marker says otherwise, and then
+    raises, as libjpeg-turbo converts no colour space of it.
+  The steps are libjpeg-turbo's default decode: the block smoothing of a
+  progressive file whose coefficients 1-9 are not all known to full
+  precision (`jdcoefct.c`, `decompress_smooth_data`: the 5x5 DC window,
+  the DC itself estimated when no AC coefficient was coded), the integer
+  "islow" IDCT (`jidctint.c`) with the range-limit table's 10-bit wrap,
+  fancy upsampling (`jdsample.c`: the triangle filters of h2v1, h2v2 and
+  h1v2 with their alternating biases, replication where a downsampled
+  row is at most two samples wide, and for every other integer ratio
+  and every lossless file), the fixed-point YCbCr -> RGB of `jdcolor.c`,
+  the padded blocks cropped to the image.
 - `encode_jpeg`: the file `cv2.imencode('.jpg')` writes at its defaults
   (PIL's at quality 95): JFIF APP0, `jpeg_set_quality`'s tables forced
   to baseline, 4:2:0 by `h2v2_downsample` (alternating bias 1, 2) after
@@ -21,26 +36,33 @@ OpenCV).
   `jccoefct.c`, the standard Huffman tables, 0xFF stuffing and a last
   byte padded with 1 bits. Grey images are one component.
 - `exif_orientation`: the EXIF orientation tag (1-8) of a file, or 1.
+- `read_coefficients`: a file's quantised coefficients (the entropy
+  decode alone); `frame_kind`: its SOF marker and component count.
 
-Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files
-and 4-component (CMYK / YCCK) files raise `NotImplementedError`; corrupt
-or truncated data raises `ValueError`.
+What libjpeg-turbo does not decode raises `NotImplementedError` naming
+that limit (PIL and OpenCV raise there too): hierarchical processes
+(SOF5-7, SOF13-15), arithmetic-coded lossless (SOF11), precisions other
+than 8 (PIL opens 8-bit files only), 2 components, fractional sampling
+ratios. Corrupt or truncated data raises `ValueError`.
 
-Only the Huffman decode is sequential: a Python loop over symbols with
-one 16-bit peek a symbol into a table that also holds the coefficient's
-value when code and value fit 16 bits. Everything after it, and the
-whole encoder, is vectorised over all blocks in int64 numpy.
+Only entropy decoding is sequential: a Python loop over Huffman symbols
+with one 16-bit peek a symbol into a table that also holds the
+coefficient's value when code and value fit 16 bits; the arithmetic
+decoder a Python call a binary decision (several a coefficient, so an
+arithmetic-coded file decodes several times slower than a Huffman one);
+the lossless predictors 4-7, which read the sample just decoded, a loop
+over samples. Everything after it, and the whole encoder, is vectorised
+over all blocks in int64 numpy.
 """
 from __future__ import annotations
 
 import array
 import re
 import struct
+from types import SimpleNamespace
 from typing import Dict, List
 
 import numpy as np
-
-_UNPORTED = "(ROADMAP.md queue A, 'progressive JPEG')"
 
 # zigzag position -> natural (row-major) index
 ZIGZAG = np.array([
@@ -64,18 +86,6 @@ _F1_961 = 16069
 _F2_053 = 16819
 _F2_562 = 20995
 _F3_072 = 25172
-
-_SOF_KINDS = {
-    0xC2: "a progressive JPEG", 0xC3: "a lossless JPEG",
-    0xC5: "a hierarchical JPEG", 0xC6: "a hierarchical progressive JPEG",
-    0xC7: "a hierarchical lossless JPEG",
-    0xC9: "an arithmetic-coded JPEG",
-    0xCA: "an arithmetic-coded progressive JPEG",
-    0xCB: "an arithmetic-coded lossless JPEG",
-    0xCD: "an arithmetic-coded hierarchical JPEG",
-    0xCE: "an arithmetic-coded hierarchical progressive JPEG",
-    0xCF: "an arithmetic-coded hierarchical lossless JPEG"}
-
 
 # ---------------------------------------------------------------------------
 # the islow transforms
@@ -219,16 +229,19 @@ def _fancy_h2(x: np.ndarray, biases) -> np.ndarray:
     return out
 
 
-def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
-    """libjpeg-turbo's fancy upsampling of one downsampled plane (its
-    real rows and columns only) by (fh, fv) in {1, 2}."""
+def _upsample(plane: np.ndarray, fh: int, fv: int, fancy=True) -> np.ndarray:
+    """libjpeg-turbo's upsampling of one downsampled plane (its real rows
+    and columns only) by the integer ratios (fh, fv): with `fancy`, the
+    triangle filters of h2v1, h1v2 and h2v2; other ratios, and all
+    without `fancy`, by replication (`int_upsample`)."""
     if fh == 1 and fv == 1:
         return plane
     x = plane.astype(np.int64)
     w = x.shape[1]
+    if not fancy or (fh, fv) not in ((2, 1), (1, 2), (2, 2)) or (
+            fh == 2 and w <= 2):
+        return np.repeat(np.repeat(plane, fv, 0), fh, 1)
     if fv == 1:  # h2v1
-        if w <= 2:
-            return np.repeat(plane, 2, 1)
         return (_fancy_h2(x, (1, 2)) >> 2).astype(np.uint8)
     above = np.concatenate([x[:1], x[:-1]], 0)
     below = np.concatenate([x[1:], x[-1:]], 0)
@@ -237,8 +250,6 @@ def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
         out[0::2] = (3 * x + above + 1) >> 2
         out[1::2] = (3 * x + below + 2) >> 2
         return out.astype(np.uint8)
-    if w <= 2:  # h2v2 without context: replication
-        return np.repeat(np.repeat(plane, 2, 0), 2, 1)
     out = np.empty((2 * x.shape[0], 2 * w), np.int64)
     out[0::2] = _fancy_h2(3 * x + above, (8, 7)) >> 4
     out[1::2] = _fancy_h2(3 * x + below, (8, 7)) >> 4
@@ -264,22 +275,29 @@ def _codes(counts, values):
 _TABLES: Dict[tuple, list] = {}
 
 
-def _decode_table(counts, values, ac: bool):
+def _decode_table(counts, values, kind: str):
     """`_build_table`, kept for the next file with the same table."""
-    key = (tuple(counts), tuple(values), ac)
+    key = (tuple(counts), tuple(values), kind)
     if key not in _TABLES:
         if len(_TABLES) >= 64:
             _TABLES.clear()
-        _TABLES[key] = _build_table(counts, values, ac)
+        _TABLES[key] = _build_table(counts, values, kind)
     return _TABLES[key]
 
 
-def _build_table(counts, values, ac: bool):
+def _build_table(counts, values, kind: str):
     """A 65536-entry list indexed by the next 16 bits of the stream:
     (bits consumed, run, value, extra bits still to read), or None for a
     code that is not in the table. With code and value within 16 bits
-    the entry holds the value; otherwise `extra` bits follow. DC entries
-    have run 0; EOB has run 64; ZRL run 15 with value 0."""
+    the entry holds the value; otherwise `extra` bits follow. The symbol
+    is read as `kind` says:
+    - "dc": a size (run 0);
+    - "ac": run / size, EOB (and, as libjpeg reads it, any zero size but
+      ZRL's) as run 64, ZRL as run 15 with value 0;
+    - "prog": run / size as they are (a zero size with value 0 is an EOB
+      run of 2^run blocks, or ZRL at run 15);
+    - "lossless": a size, 16 standing for the difference 32768 with no
+      extra bits."""
     lengths = np.zeros(65536, np.int64)
     symbols = np.zeros(65536, np.int64)
     valid = np.zeros(65536, bool)
@@ -290,12 +308,13 @@ def _build_table(counts, values, ac: bool):
             raise ValueError("corrupt JPEG Huffman table")
         lengths[lo:hi], symbols[lo:hi], valid[lo:hi] = length, sym, True
     p = np.arange(65536, dtype=np.int64)
-    size = symbols & 15
-    run = (symbols >> 4) if ac else np.zeros_like(symbols)
-    if ac:
-        # EOB, and (as libjpeg reads it) any zero size but ZRL's, ends
-        # the block
+    size = symbols & (31 if kind == "lossless" else 15)
+    run = (symbols >> 4) if kind in ("ac", "prog") else np.zeros_like(symbols)
+    if kind == "ac":
         run = np.where((size == 0) & (run != 15), 64, run)
+    if kind == "lossless":
+        wide = size >= 16
+        size = np.where(wide, 0, size)
     total = lengths + size
     fits = total <= 16
     bits = np.where(fits, (p >> np.maximum(16 - total, 0))
@@ -303,41 +322,261 @@ def _build_table(counts, values, ac: bool):
     val = np.where(size > 0,
                    np.where(bits < (1 << np.maximum(size - 1, 0)),
                             bits - (1 << size) + 1, bits), 0)
+    if kind == "lossless":
+        val = np.where(wide, 32768, val)
     consumed = np.where(fits, total, lengths)
     extra = np.where(fits, 0, size)
-    key = np.where(valid, ((consumed * 128 + run) * 65536 + val + 32768)
+    key = np.where(valid, ((consumed * 128 + run) * 131072 + val + 65536)
                    * 32 + extra, -1)
     uniq, inverse = np.unique(key, return_inverse=True)
-    entries = [None if k < 0 else (int(k >> 28), int((k >> 21) & 127),
-                                   int(((k >> 5) & 65535) - 32768),
+    entries = [None if k < 0 else (int(k >> 29), int((k >> 22) & 127),
+                                   int(((k >> 5) & 131071) - 65536),
                                    int(k & 31)) for k in uniq.tolist()]
     return [entries[i] for i in inverse.tolist()]
 
 
 # ---------------------------------------------------------------------------
-# decode
+# the arithmetic decoder (T.81 Annex D; libjpeg-turbo's jdarith.c)
+# ---------------------------------------------------------------------------
+
+# Table D.2: (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS) of each
+# state, and 113, libjpeg's fixed 0.5 estimate of the sign bins
+_QM = (
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0),
+    (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0),
+    (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0cef, 43, 21, 0),
+    (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+    (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0),
+    (0x2ef1, 67, 40, 0), (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0),
+    (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0),
+    (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0),
+    (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0),
+    (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0),
+    (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0),
+    (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0),
+    (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+    (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0),
+    (0x3c3d, 104, 100, 0), (0x375e, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0))
+_QE = [q for q, _, _, _ in _QM]
+_NLPS = [(sw << 7) | nl for _, nl, _, sw in _QM]  # with the MPS switch
+_NMPS = [nm for _, _, nm, _ in _QM]
+
+
+class _Arith:
+    """The QM decoder over one restart interval's entropy-coded bytes;
+    past their end it reads zeros, as libjpeg does at a marker.
+    `bit(st, i)` decodes one decision with statistics bin `st[i]` (state
+    index in bits 0-6, the more probable symbol in bit 7) and updates the
+    bin."""
+    __slots__ = ("data", "pos", "c", "a", "ct")
+
+    def __init__(self, seg: bytes):
+        self.data = seg.replace(b"\xff\x00", b"\xff")
+        self.pos, self.c, self.a, self.ct = 0, 0, 0, -16
+
+    def bit(self, st, i) -> int:
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                if self.pos < len(self.data):
+                    c = (c << 8) | self.data[self.pos]
+                    self.pos += 1
+                else:
+                    c <<= 8
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = _QE[sv & 0x7F]
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ _NMPS[sv & 0x7F]
+            else:
+                st[i] = (sv & 0x80) ^ _NLPS[sv & 0x7F]
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ _NLPS[sv & 0x7F]
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ _NMPS[sv & 0x7F]
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_dc_diff(dec, st, ctx, si, cond) -> int:
+    """One DC difference (F.1.4.4.1) from statistics `st`; ctx[si] is the
+    component's conditioning context, updated; cond = (L, U)."""
+    s = ctx[si]
+    if not dec.bit(st, s):
+        ctx[si] = 0
+        return 0
+    sign = dec.bit(st, s + 1)
+    s += 2 + sign
+    m = dec.bit(st, s)
+    if m:
+        s = 20
+        while dec.bit(st, s):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError("corrupt JPEG arithmetic-coded data")
+            s += 1
+    L, U = cond
+    if m < (1 << L) >> 1:
+        ctx[si] = 0
+    elif m > (1 << U) >> 1:
+        ctx[si] = 12 + 4 * sign
+    else:
+        ctx[si] = 4 + 4 * sign
+    v = m
+    s += 14
+    while m > 1:
+        m >>= 1
+        if dec.bit(st, s):
+            v |= m
+    v += 1
+    return -v if sign else v
+
+
+def _arith_ac_value(dec, st, s, k, kx) -> int:
+    """The magnitude of a nonzero AC coefficient at bin s = SN (F.1.4.4.2)
+    and its sign from the fixed bin."""
+    sign = dec.bit(_FIXED_BIN, 0)
+    m = dec.bit(st, s)
+    if m and dec.bit(st, s):
+        m <<= 1
+        s = 189 if k <= kx else 217
+        while dec.bit(st, s):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError("corrupt JPEG arithmetic-coded data")
+            s += 1
+    v = m
+    s += 14
+    while m > 1:
+        m >>= 1
+        if dec.bit(st, s):
+            v |= m
+    v += 1
+    return -v if sign else v
+
+
+# the fixed-probability bin of the signs: state 113 with MPS 0, which
+# every decision leaves as it is
+_FIXED_BIN = [113]
+
+
+def _arith_ac(dec, st, coefs, base, ss, se, al, kx) -> None:
+    """AC coefficients ss..se of one block (sequential, or a progressive
+    first scan at point transform al)."""
+    k = ss
+    while k <= se:
+        s = 3 * (k - 1)
+        if dec.bit(st, s):
+            return  # EOB
+        while not dec.bit(st, s + 1):
+            s += 3
+            k += 1
+            if k > se:
+                raise ValueError("corrupt JPEG arithmetic-coded data")
+        coefs[base + k] = _arith_ac_value(dec, st, s + 2, k, kx) * (1 << al)
+        k += 1
+
+
+def _arith_ac_refine(dec, st, coefs, base, ss, se, al) -> None:
+    """One block of a successive-approximation AC scan (G.1.3.3)."""
+    p1, m1 = 1 << al, -1 << al
+    kex = se
+    while kex > 0 and not coefs[base + kex]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        s = 3 * (k - 1)
+        if k > kex and dec.bit(st, s):
+            return  # EOB
+        while True:
+            cur = coefs[base + k]
+            if cur:
+                if dec.bit(st, s + 2):
+                    coefs[base + k] = cur + (m1 if cur < 0 else p1)
+                break
+            if dec.bit(st, s + 1):
+                coefs[base + k] = m1 if dec.bit(_FIXED_BIN, 0) else p1
+                break
+            s += 3
+            k += 1
+            if k > se:
+                raise ValueError("corrupt JPEG arithmetic-coded data")
+        k += 1
+
+
+# ---------------------------------------------------------------------------
+# entropy-coded segments
 # ---------------------------------------------------------------------------
 
 class _Component:
-    __slots__ = ("cid", "h", "v", "tq", "qt", "coefs", "grid_w", "grid_h",
-                 "width", "height", "bw", "bh")
+    __slots__ = ("cid", "h", "v", "vd", "tq", "qt", "coefs", "grid_w",
+                 "grid_h", "width", "height", "bw", "bh", "coef_bits")
 
     def __init__(self, cid, h, v, tq):
         self.cid, self.h, self.v, self.tq = cid, h, v, tq
+        self.vd = v  # the declared factor (a lone component's MCU is 1x1)
         self.qt = None
+        # the point transform each of the first ten zigzag coefficients
+        # was last coded at, -1 for never (libjpeg's coef_bits)
+        self.coef_bits = [-1] * 10
 
 
 _SCAN_END = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")
 _RST = re.compile(rb"\xff+[\xd0-\xd7]")
 
 
-def _decode_scan(seg: bytes, blocks, comps_in_scan):
-    """Decode one restart interval's entropy-coded bytes: `blocks` lists
-    (component index, dc table, ac table, coefficient buffer, base) in
-    decoding order."""
+def _words(seg: bytes):
+    """The unstuffed bytes of a Huffman-coded segment as one 32-bit window
+    per byte, and its length in bits."""
     data = seg.replace(b"\xff\x00", b"\xff")
     b = np.frombuffer(data + bytes(8), np.uint8).astype(np.int64)
-    w = ((b[:-4] << 24) | (b[1:-3] << 16) | (b[2:-2] << 8) | b[3:-1]).tolist()
+    w = ((b[:-4] << 24) | (b[1:-3] << 16) | (b[2:-2] << 8) | b[3:-1])
+    return w.tolist(), 8 * len(data)
+
+
+def _decode_scan(seg: bytes, blocks, comps_in_scan, al=0):
+    """Decode one restart interval's Huffman-coded bytes of a sequential
+    scan, or of a progressive DC first scan (no AC table; point transform
+    `al`): `blocks` lists (component in scan, dc table, ac table,
+    coefficient buffer, base) in decoding order."""
+    w, n_bits = _words(seg)
     pred = [0] * comps_in_scan
     pos = 0
     try:
@@ -351,7 +590,9 @@ def _decode_scan(seg: bytes, blocks, comps_in_scan):
                     v -= (1 << x) - 1
             v += pred[ci]
             pred[ci] = v
-            coefs[base] = v
+            coefs[base] = v << al
+            if act is None:
+                continue
             k = 1
             while k < 64:
                 c, r, v, x = act[(w[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
@@ -368,19 +609,189 @@ def _decode_scan(seg: bytes, blocks, comps_in_scan):
                 k += 1
     except (TypeError, IndexError):
         raise ValueError("corrupt JPEG entropy-coded data") from None
-    if pos > 8 * len(data):
+    if pos > n_bits:
         raise ValueError("truncated JPEG entropy-coded data")
 
 
-def _scan_blocks(comps, scan, mcux, mcuy, tables):
-    """Per-block (component in scan, dc, ac, buffer, base) in decoding
-    order, and the blocks an MCU holds."""
+def _decode_dc_refine(seg: bytes, blocks, al):
+    """One restart interval of a progressive DC refinement scan
+    (G.1.2.1): the next bit of each block's DC, one raw bit a block."""
+    w, n_bits = _words(seg)
+    if len(blocks) > n_bits:
+        raise ValueError("truncated JPEG entropy-coded data")
+    p1 = 1 << al
+    for pos, (_, _, _, coefs, base) in enumerate(blocks):
+        if (w[pos >> 3] >> (31 - (pos & 7))) & 1:
+            coefs[base] |= p1
+
+
+def _decode_ac_first(seg: bytes, bases, coefs, table, ss, se, al):
+    """One restart interval of a progressive AC first scan (G.1.2.2): one
+    component's blocks at `bases`, EOB runs across blocks."""
+    w, n_bits = _words(seg)
+    pos = eobrun = 0
+    try:
+        for base in bases:
+            if eobrun:
+                eobrun -= 1
+                continue
+            k = ss
+            while k <= se:
+                c, r, v, x = table[(w[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                pos += c
+                if x:
+                    v = (w[pos >> 3] >> (32 - (pos & 7) - x)) & ((1 << x) - 1)
+                    pos += x
+                    if v < (1 << (x - 1)):
+                        v -= (1 << x) - 1
+                elif v == 0:  # a zero size: ZRL, or an EOB run
+                    if r == 15:
+                        k += 16
+                        continue
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (w[pos >> 3] >> (32 - (pos & 7) - r)) \
+                            & ((1 << r) - 1)
+                        pos += r
+                    eobrun -= 1
+                    break
+                k += r
+                coefs[base + min(k, 63)] = v * (1 << al)
+                k += 1
+    except (TypeError, IndexError):
+        raise ValueError("corrupt JPEG entropy-coded data") from None
+    if pos > n_bits:
+        raise ValueError("truncated JPEG entropy-coded data")
+
+
+def _decode_ac_refine(seg: bytes, bases, coefs, table, ss, se, al):
+    """One restart interval of a progressive AC refinement scan
+    (G.1.2.3): newly nonzero coefficients of +-2^al and one correction
+    bit for each coefficient already nonzero (`jdphuff.c`)."""
+    w, n_bits = _words(seg)
+    p1, m1 = 1 << al, -1 << al
+    pos = eobrun = 0
+    try:
+        for base in bases:
+            k = ss
+            if eobrun == 0:
+                while k <= se:
+                    c, r, v, x = table[(w[pos >> 3] >> (16 - (pos & 7)))
+                                       & 0xFFFF]
+                    pos += c
+                    if x:
+                        v = (w[pos >> 3] >> (32 - (pos & 7) - x)) \
+                            & ((1 << x) - 1)
+                        pos += x
+                        if v < (1 << (x - 1)):
+                            v -= (1 << x) - 1
+                    s = 0
+                    if v:
+                        s = p1 if v > 0 else m1
+                    elif r != 15:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += (w[pos >> 3] >> (32 - (pos & 7) - r)) \
+                                & ((1 << r) - 1)
+                            pos += r
+                        break
+                    while k <= se:
+                        cur = coefs[base + k]
+                        if cur:
+                            if (w[pos >> 3] >> (31 - (pos & 7))) & 1 and \
+                                    not cur & p1:
+                                coefs[base + k] = cur + (p1 if cur >= 0
+                                                         else m1)
+                            pos += 1
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if s:
+                        coefs[base + min(k, 63)] = s
+                    k += 1
+            if eobrun:
+                while k <= se:
+                    cur = coefs[base + k]
+                    if cur:
+                        if (w[pos >> 3] >> (31 - (pos & 7))) & 1 and \
+                                not cur & p1:
+                            coefs[base + k] = cur + (p1 if cur >= 0 else m1)
+                        pos += 1
+                    k += 1
+                eobrun -= 1
+    except (TypeError, IndexError):
+        raise ValueError("corrupt JPEG entropy-coded data") from None
+    if pos > n_bits:
+        raise ValueError("truncated JPEG entropy-coded data")
+
+
+def _decode_arith(seg: bytes, blocks, n_comps, dc_cond, ac_cond, *,
+                  progressive, ss, se, ah, al):
+    """One restart interval of an arithmetic-coded scan: `blocks` lists
+    (component in scan, dc table, ac table, coefficient buffer, base).
+    The statistics of the scan's tables start from zero here, as at every
+    restart marker (F.1.4.4.1, G.1.3)."""
+    dec = _Arith(seg)
+    dc_st = {td: [0] * 64 for _, td, _, _, _ in blocks[:10]}
+    ac_st = {ta: [0] * 256 for _, _, ta, _, _ in blocks[:10]}
+    ctx = [0] * n_comps
+    pred = [0] * n_comps
+    for si, td, ta, coefs, base in blocks:
+        if not progressive:
+            v = (pred[si] + _arith_dc_diff(dec, dc_st[td], ctx, si,
+                                           dc_cond[td]) + 32768) & 0xFFFF
+            pred[si] = v - 32768
+            coefs[base] = v - 32768
+            _arith_ac(dec, ac_st[ta], coefs, base, 1, 63, 0, ac_cond[ta])
+        elif ss == 0 and ah == 0:
+            pred[si] += _arith_dc_diff(dec, dc_st[td], ctx, si, dc_cond[td])
+            coefs[base] = pred[si] * (1 << al)
+        elif ss == 0:
+            if dec.bit(_FIXED_BIN, 0):
+                coefs[base] |= 1 << al
+        elif ah == 0:
+            _arith_ac(dec, ac_st[ta], coefs, base, ss, se, al, ac_cond[ta])
+        else:
+            _arith_ac_refine(dec, ac_st[ta], coefs, base, ss, se, al)
+
+
+def _decode_lossless(seg: bytes, units, tables):
+    """One restart interval of a Huffman-coded lossless scan: `units`
+    lists (table, difference buffer, index) in decoding order; the
+    differences (H.1.2.2: sizes 0-16, 16 standing for 32768) go into the
+    buffers."""
+    w, n_bits = _words(seg)
+    pos = 0
+    try:
+        for t, buf, i in units:
+            c, _, v, x = tables[t][(w[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            pos += c
+            if x:
+                v = (w[pos >> 3] >> (32 - (pos & 7) - x)) & ((1 << x) - 1)
+                pos += x
+                if v < (1 << (x - 1)):
+                    v -= (1 << x) - 1
+            buf[i] = v
+    except (TypeError, IndexError):
+        raise ValueError("corrupt JPEG entropy-coded data") from None
+    if pos > n_bits:
+        raise ValueError("truncated JPEG entropy-coded data")
+
+
+def _scan_blocks(comps, scan, mcux, mcuy, unit=64):
+    """Per data unit (component in scan, dc table, ac table, buffer, base)
+    in decoding order, and the units an MCU holds: a lone component's
+    real blocks in raster order, else the MCUs of the interleaved scan
+    (their dummy blocks included). `unit` is the size of one data unit
+    in its buffer (64 coefficients, or 1 lossless sample)."""
     if len(scan) == 1:
         ci, td, ta = scan[0]
         c = comps[ci]
         by, bx = np.mgrid[0:c.bh, 0:c.bw]
-        bases = ((by * c.grid_w + bx) * 64).reshape(-1).tolist()
-        kind = (0, tables[0, td], tables[1, ta], c.coefs)
+        bases = ((by * c.grid_w + bx) * unit).reshape(-1).tolist()
+        kind = (0, td, ta, c.coefs)
         return [kind + (b,) for b in bases], 1
     per_mcu = []
     for si, (ci, td, ta) in enumerate(scan):
@@ -388,15 +799,17 @@ def _scan_blocks(comps, scan, mcux, mcuy, tables):
         for y in range(c.v):
             for x in range(c.h):
                 per_mcu.append((si, ci, y, x, td, ta))
+    if len(per_mcu) > 10:
+        raise ValueError(f"JPEG MCU of {len(per_mcu)} data units (at most "
+                         "10)")
     my, mx = np.mgrid[0:mcuy, 0:mcux]
     my, mx = my.reshape(-1, 1), mx.reshape(-1, 1)
     out_cols = []
     for si, ci, y, x, td, ta in per_mcu:
         c = comps[ci]
-        out_cols.append((((my * c.v + y) * c.grid_w + mx * c.h + x) * 64)
+        out_cols.append((((my * c.v + y) * c.grid_w + mx * c.h + x) * unit)
                         .reshape(-1))
-    kinds = [(si, tables[0, td], tables[1, ta], comps[ci].coefs)
-             for si, ci, y, x, td, ta in per_mcu]
+    kinds = [(si, td, ta, comps[ci].coefs) for si, ci, y, x, td, ta in per_mcu]
     bases = np.stack(out_cols, 1).reshape(-1).tolist()
     n = len(kinds)
     return [kinds[i % n] + (b,) for i, b in enumerate(bases)], n
@@ -475,17 +888,243 @@ def exif_orientation(data: bytes) -> int:
     return 1
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG file bytes -> (h, w) uint8 for one component, (h, w, 3) uint8
-    RGB for three: libjpeg-turbo's default decode, bit for bit."""
+# ---------------------------------------------------------------------------
+# block smoothing (libjpeg-turbo's jdcoefct.c, decompress_smooth_data)
+# ---------------------------------------------------------------------------
+
+# natural positions of zigzag coefficients 1-9 and the 5x5 DC kernels
+# (rows of DC01..DC25, DC13 the block's own) of their estimates: without
+# DC interpolation (any of 1-9 coded), and with it (none coded)
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+_K_AC = {
+    1: {10: -7, 11: 50, 13: -50, 14: 7},
+    2: {2: -7, 7: 50, 17: -50, 22: 7},
+    3: {2: -1, 7: 13, 12: -24, 17: 13, 22: -1},
+    4: {9: 1, 15: 1, 16: -10, 18: 10, 1: -1, 19: -1, 21: 1, 23: -1, 3: 1,
+        5: -1, 6: 10, 8: -10},
+    5: {10: -1, 11: 13, 12: -24, 13: 13, 14: -1},
+}
+_K_DC = {
+    1: {0: -1, 1: -1, 3: 1, 4: 1, 5: -3, 6: 13, 8: -13, 9: 3, 10: -3,
+        11: 38, 13: -38, 14: 3, 15: -3, 16: 13, 18: -13, 19: 3, 20: -1,
+        21: -1, 23: 1, 24: 1},
+    2: {0: -1, 1: -3, 2: -3, 3: -3, 4: -1, 5: -1, 6: 13, 7: 38, 8: 13,
+        9: -1, 15: 1, 16: -13, 17: -38, 18: -13, 19: 1, 20: 1, 21: 3,
+        22: 3, 23: 3, 24: 1},
+    3: {2: 1, 6: 2, 7: 7, 8: 2, 11: -5, 12: -14, 13: -5, 16: 2, 17: 7,
+        18: 2, 22: 1},
+    4: {0: -1, 4: 1, 6: 9, 8: -9, 16: -9, 18: 9, 20: 1, 24: -1},
+    5: {6: 2, 7: -5, 8: 2, 10: 1, 11: 7, 12: -14, 13: 7, 14: 1, 16: 2,
+        17: -5, 18: 2},
+    6: {6: 1, 8: -1, 11: 2, 13: -2, 16: 1, 18: -1},
+    7: {6: 1, 7: -3, 8: 1, 16: -1, 17: 3, 18: -1},
+    8: {6: 1, 8: -1, 11: -3, 13: 3, 16: 1, 18: -1},
+    9: {6: 1, 7: 2, 8: 1, 16: -1, 17: -2, 18: -1},
+    0: {0: -2, 1: -6, 2: -8, 3: -6, 4: -2, 5: -6, 6: 6, 7: 42, 8: 6,
+        9: -6, 10: -8, 11: 42, 12: 152, 13: 42, 14: -8, 15: -6, 16: 6,
+        17: 42, 18: 6, 19: -6, 20: -2, 21: -6, 22: -8, 23: -6, 24: -2},
+}
+
+
+def _smooth_rows(bh: int, v: int, total: int) -> np.ndarray:
+    """(bh, 5) block rows each block row's 5x5 window reads, as
+    `decompress_smooth_data` points them: an iMCU row of `v` block rows,
+    the last one holding `bh % v` (or v), and the image's row count
+    taken as that row count times `total` iMCU rows (so a short last
+    iMCU row sees itself as the image's last rows)."""
+    out = []
+    for r in range(total):
+        br = v if r < total - 1 else (bh % v or v)
+        n = br * total
+        for b in range(br):
+            row = r * v + b
+            i = r * br + b
+            prev = row - 1 if i > 0 else row
+            nxt = row + 1 if i < n - 1 else row
+            out.append((row - 2 if i > 1 else prev, prev, row, nxt,
+                        row + 2 if i < n - 2 else nxt))
+    return np.array(out[:bh], np.int64)
+
+
+def _smooth(c: _Component, coef: np.ndarray, total: int) -> np.ndarray:
+    """(bh*bw, 64) zigzag coefficients of component c -> the same with
+    coefficients 1-9 (and, when none of them was coded, the DC) estimated
+    from the 5x5 neighbourhood of DC values where they are zero and not
+    known to full precision."""
+    bits = c.coef_bits
+    change_dc = all(b == -1 for b in bits[1:10])
+    rows = _smooth_rows(c.bh, c.vd, total)
+    # the coefficient array is padded to whole iMCU rows of the declared
+    # factor (a lone component's rows there were never coded: zero)
+    grid = np.zeros((max(c.grid_h, int(rows.max()) + 1), c.grid_w), np.int64)
+    grid[:c.grid_h] = np.frombuffer(c.coefs, np.int32).reshape(
+        c.grid_h, c.grid_w, 64)[..., 0]
+    cols = np.clip(np.arange(c.bw)[:, None] + np.arange(-2, 3), 0,
+                   c.bw - 1)
+    # dcs[j]: DC(j + 1) of every block, (bh, bw)
+    dcs = [grid[rows[:, j // 5][:, None], cols[:, j % 5][None, :]]
+           .reshape(-1) for j in range(25)]
+    q = c.qt
+    out = coef.copy()
+    q00 = int(q[0])
+    for zz in range(1, 10 if change_dc else 6):
+        al = bits[zz]
+        if al == 0:
+            continue
+        kern = (_K_DC if change_dc else _K_AC)[zz]
+        num = q00 * sum(w * dcs[j] for j, w in kern.items())
+        qk = int(q[_SMOOTH_POS[zz - 1]])
+        pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        pred = np.where(num >= 0, pred, -pred)
+        col = out[:, zz]
+        out[:, zz] = np.where(col == 0, pred, col)
+    if change_dc:
+        num = q00 * sum(w * dcs[j] for j, w in _K_DC[0].items())
+        pred = ((q00 << 7) + np.abs(num)) // (q00 << 8)
+        out[:, 0] = np.where(num >= 0, pred, -pred)
+    return out
+
+
+def _smoothing_ok(comps) -> bool:
+    """`smoothing_ok`: every component's DC coded at least in part, the
+    quantisers of coefficients 0-9 nonzero, and some coefficient 1-9 of
+    some component not known to full precision."""
+    useful = False
+    for c in comps:
+        if c.qt is None or c.coef_bits[0] < 0 or \
+                not all(c.qt[p] for p in (0,) + _SMOOTH_POS):
+            return False
+        useful = useful or any(b != 0 for b in c.coef_bits[1:10])
+    return useful
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+class CMYK(np.ndarray):
+    """A 4-component JPEG's (h, w, 4) uint8 samples as libjpeg-turbo hands
+    them to a reader asking for CMYK (an Adobe file's values stay
+    inverted; YCCK is converted, `ycck_cmyk_convert`). The type tells
+    `imageio.to_rgb` / `to_l` / `imread_color` apart from RGBA."""
+
+
+# SOF marker -> (progressive, lossless, arithmetic)
+_SOF = {0xC0: (False, False, False), 0xC1: (False, False, False),
+        0xC2: (True, False, False), 0xC3: (False, True, False),
+        0xC9: (False, False, True), 0xCA: (True, False, True)}
+_UNSUPPORTED = {0xC5: "a hierarchical (differential sequential)",
+                0xC6: "a hierarchical (differential progressive)",
+                0xC7: "a hierarchical (differential lossless)",
+                0xC8: "a JPG-extension",
+                0xCB: "an arithmetic-coded lossless",
+                0xCD: "an arithmetic-coded hierarchical (differential "
+                      "sequential)",
+                0xCE: "an arithmetic-coded hierarchical (differential "
+                      "progressive)",
+                0xCF: "an arithmetic-coded hierarchical (differential "
+                      "lossless)"}
+_READERS = "libjpeg-turbo (the library PIL and OpenCV read JPEG with)"
+
+
+def _frame_header(body):
+    """(H, W, [components]) of an SOF segment, checked as libjpeg-turbo
+    and PIL check it."""
+    if len(body) < 6:
+        raise ValueError("corrupt JPEG frame header")
+    prec, H, W, nc = body[0], _u16(body, 1), _u16(body, 3), body[5]
+    if prec != 8:
+        raise NotImplementedError(
+            f"a {prec}-bit JPEG file: PIL opens 8-bit JPEG files only")
+    if nc not in (1, 3, 4):
+        raise NotImplementedError(
+            f"a {nc}-component JPEG file: PIL opens 1, 3 or 4 components")
+    if H == 0 or W == 0 or len(body) != 6 + 3 * nc:
+        raise ValueError("corrupt JPEG frame header")
+    comps = []
+    for k in range(nc):
+        cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
+        h, v = hv >> 4, hv & 15
+        if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
+            raise ValueError(f"corrupt JPEG frame header: sampling factors "
+                             f"({h}, {v}), table {tq}")
+        comps.append(_Component(cid, h, v, tq))
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+    for c in comps:
+        if hmax % c.h or vmax % c.v:
+            raise NotImplementedError(
+                f"JPEG sampling factors {[(d.h, d.v) for d in comps]}: "
+                f"{_READERS} upsamples integer ratios only ('Fractional "
+                "sampling not implemented yet')")
+    return H, W, comps
+
+
+def _undifference(diff: np.ndarray, pred: int, pt: int, first_rows):
+    """Lossless samples of one component (H.1.2.1; libjpeg-turbo's
+    jdlossls.c): (h, w) differences -> values mod 2^16 before the point
+    transform. Each row of `first_rows` (the first, and the first after a
+    restart) is predicted along itself from 2^(7 - pt); every other row's
+    first sample from the one above, the rest by predictor `pred`."""
+    d = diff.astype(np.int64)
+    h, w = d.shape
+    out = np.zeros_like(d)
+    for r in range(h):
+        row = d[r]
+        if r in first_rows:
+            row = row.copy()
+            row[0] += 1 << (7 - pt)
+            out[r] = np.cumsum(row) & 0xFFFF
+            continue
+        up = out[r - 1]
+        if pred in (1, 2, 3):
+            base = {1: None, 2: up, 3: np.concatenate([up[:1], up[:-1]])}
+            if pred == 1:
+                row = row.copy()
+                row[0] += up[0]
+                out[r] = np.cumsum(row) & 0xFFFF
+            else:
+                b = base[pred].copy()
+                b[0] = up[0]
+                out[r] = (row + b) & 0xFFFF
+            continue
+        cur = out[r]
+        ra = cur[0] = (row[0] + up[0]) & 0xFFFF
+        rows = row.tolist()
+        ups = up.tolist()
+        for x in range(1, w):
+            rb, rc = ups[x], ups[x - 1]
+            if pred == 4:
+                p = ra + rb - rc
+            elif pred == 5:
+                p = ra + ((rb - rc) >> 1)
+            elif pred == 6:
+                p = rb + ((ra - rc) >> 1)
+            else:
+                p = (ra + rb) >> 1
+            ra = (rows[x] + p) & 0xFFFF
+            cur[x] = ra
+    return out
+
+
+def read_coefficients(data: bytes) -> SimpleNamespace:
+    """Entropy-decode every scan of a JPEG file: `frame` (the SOF marker),
+    `height`, `width`, `comps` (each with its id, factors `h`, `v`,
+    table `tq` and `qt` (natural order), and `coefs`, its quantised
+    coefficients in zigzag order over the whole MCU grid, or its samples
+    for a lossless file), `jfif` and `adobe`."""
     qts: Dict[int, np.ndarray] = {}
     tables = {}
+    dc_cond = {t: (0, 1) for t in range(4)}
+    ac_cond = {t: 5 for t in range(4)}
     comps: List[_Component] = []
     W = H = 0
     restart = 0
     jfif = False
     adobe = None
-    frame = False
+    frame = None
     mcux = mcuy = 0
     for marker, body in _segments(data):
         if marker == 0xDB:
@@ -512,49 +1151,48 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 values = list(body[i + 17:i + 17 + nv])
                 if tc > 1 or th > 3 or len(counts) != 16 or len(values) != nv:
                     raise ValueError("corrupt JPEG Huffman table")
-                tables[tc, th] = _decode_table(counts, values, bool(tc))
+                tables[tc, th] = (counts, values)
                 i += 17 + nv
-        elif marker in _SOF_KINDS:
+        elif marker == 0xCC:
+            if len(body) % 2:
+                raise ValueError("corrupt JPEG DAC segment")
+            for i in range(0, len(body), 2):
+                tc, tb, cs = body[i] >> 4, body[i] & 15, body[i + 1]
+                if tc > 1 or tb > 3:
+                    raise ValueError("corrupt JPEG DAC segment")
+                if tc:
+                    if not 1 <= cs <= 63:
+                        raise ValueError("corrupt JPEG DAC segment")
+                    ac_cond[tb] = cs
+                else:
+                    L, U = cs & 15, cs >> 4
+                    if L > U:
+                        raise ValueError("corrupt JPEG DAC segment")
+                    dc_cond[tb] = (L, U)
+        elif marker in _UNSUPPORTED:
             raise NotImplementedError(
-                f"{_SOF_KINDS[marker]} file {_UNPORTED}")
-        elif marker in (0xC0, 0xC1):
-            if len(body) < 6:
-                raise ValueError("corrupt JPEG frame header")
-            prec, H, W, nc = body[0], _u16(body, 1), _u16(body, 3), body[5]
-            if prec != 8:
-                raise NotImplementedError(
-                    f"a {prec}-bit JPEG file {_UNPORTED}")
-            if nc == 4:
-                raise NotImplementedError(
-                    f"a 4-component (CMYK or YCCK) JPEG file {_UNPORTED}")
-            if nc not in (1, 3):
-                raise NotImplementedError(
-                    f"a {nc}-component JPEG file {_UNPORTED}")
-            if H == 0 or W == 0 or len(body) != 6 + 3 * nc:
-                raise ValueError("corrupt JPEG frame header")
-            for k in range(nc):
-                cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
-                comps.append(_Component(cid, hv >> 4, hv & 15, tq))
-            if nc == 1:  # one component: its MCU is one block
+                f"{_UNSUPPORTED[marker]} JPEG file (SOF 0x{marker:02X}): "
+                f"{_READERS} does not decode this process")
+        elif marker in _SOF:
+            if frame is not None:
+                raise ValueError("JPEG with two frame headers")
+            progressive, lossless, arithmetic = _SOF[marker]
+            H, W, comps = _frame_header(body)
+            frame = marker
+            if len(comps) == 1:  # one component: its MCU is one unit
                 comps[0].h = comps[0].v = 1
             hmax = max(c.h for c in comps)
             vmax = max(c.v for c in comps)
-            for c in comps:
-                if c.h not in (1, 2) or c.v not in (1, 2) or \
-                        hmax % c.h or vmax % c.v:
-                    raise NotImplementedError(
-                        f"JPEG sampling factors {[(d.h, d.v) for d in comps]}"
-                        f" {_UNPORTED}")
-            mcux = -(-W // (8 * hmax))
-            mcuy = -(-H // (8 * vmax))
+            unit = 1 if lossless else 8
+            mcux = -(-W // (unit * hmax))
+            mcuy = -(-H // (unit * vmax))
             for c in comps:
                 c.width = -(-W * c.h // hmax)
                 c.height = -(-H * c.v // vmax)
-                c.bw, c.bh = -(-c.width // 8), -(-c.height // 8)
+                c.bw, c.bh = -(-c.width // unit), -(-c.height // unit)
                 c.grid_w, c.grid_h = mcux * c.h, mcuy * c.v
-                c.coefs = array.array("i", bytes(4 * 64 * c.grid_w
-                                                  * c.grid_h))
-            frame = True
+                c.coefs = array.array("i", bytes(4 * (unit * unit)
+                                                 * c.grid_w * c.grid_h))
         elif marker == 0xDD:
             if len(body) != 2:
                 raise ValueError("corrupt JPEG restart interval")
@@ -565,10 +1203,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if body[:5] == b"Adobe" and len(body) >= 12:
                 adobe = body[11]
         elif marker == 0xDA:
-            if not frame:
+            if frame is None:
                 raise ValueError("JPEG scan before its frame header")
             header, ecs = body
             ns = header[0]
+            if not 1 <= ns <= 4 or len(header) != 4 + 2 * ns:
+                raise ValueError("corrupt JPEG scan header")
             scan = []
             for k in range(ns):
                 cid, t = header[1 + 2 * k:3 + 2 * k]
@@ -576,39 +1216,43 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                           None)
                 if ci is None:
                     raise ValueError("JPEG scan names an unknown component")
-                if (0, t >> 4) not in tables or (1, t & 15) not in tables:
-                    raise ValueError("JPEG scan without its Huffman tables")
-                if comps[ci].qt is None:
-                    if comps[ci].tq not in qts:
-                        raise ValueError("JPEG component without its "
-                                         "quantisation table")
-                    comps[ci].qt = qts[comps[ci].tq]
                 scan.append((ci, t >> 4, t & 15))
             ss, se = header[1 + 2 * ns], header[2 + 2 * ns]
-            if ss != 0 or se != 63:
-                raise ValueError("corrupt JPEG scan header")
-            blocks, per_mcu = _scan_blocks(comps, scan, mcux, mcuy, tables)
-            n_units = len(blocks) // per_mcu
-            parts = _RST.split(ecs) if restart else [ecs]
-            interval = restart or n_units
-            if len(parts) != -(-n_units // interval):
-                raise ValueError(
-                    f"JPEG scan holds {len(parts)} restart intervals, "
-                    f"expected {-(-n_units // interval)}")
-            step = interval * per_mcu
-            for k, part in enumerate(parts):
-                _decode_scan(part, blocks[k * step:(k + 1) * step],
-                             len(scan))
+            ah, al = header[3 + 2 * ns] >> 4, header[3 + 2 * ns] & 15
+            _scan(comps, scan, ecs, ss, se, ah, al, frame, tables, qts,
+                  dc_cond, ac_cond, restart, mcux, mcuy)
         elif marker == 0xD9:
             break
     else:
         raise ValueError("truncated JPEG: no end of image")
-    if not frame or any(c.qt is None for c in comps):
+    if frame is None or any(c.qt is None for c in comps):
         raise ValueError("JPEG without a complete scan")
+    return SimpleNamespace(frame=frame, height=H, width=W, comps=comps,
+                           jfif=jfif, adobe=adobe)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG file bytes -> (h, w) uint8 for one component, (h, w, 3) uint8
+    RGB for three, a (h, w, 4) uint8 `CMYK` for four: libjpeg-turbo's
+    default decode, bit for bit."""
+    f = read_coefficients(data)
+    comps, H, W, jfif, adobe = f.comps, f.height, f.width, f.jfif, f.adobe
+    progressive, lossless, _ = _SOF[f.frame]
     planes = []
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+    smooth = progressive and _smoothing_ok(comps)
+    total = -(-H // (8 * max(c.vd for c in comps)))
     for c in comps:
+        if lossless:
+            px = np.frombuffer(c.coefs, np.int32).reshape(
+                c.grid_h, c.grid_w)[:c.height, :c.width]
+            planes.append(px.astype(np.uint8))
+            continue
         coef = np.frombuffer(c.coefs, np.int32).reshape(
             c.grid_h, c.grid_w, 64)[:c.bh, :c.bw].reshape(-1, 64)
+        if smooth:
+            coef = _smooth(c, coef.astype(np.int64), total)
         nat = np.zeros_like(coef, dtype=np.int64)
         nat[:, ZIGZAG] = coef
         px = _idct_islow((nat * c.qt).reshape(-1, 8, 8))
@@ -617,19 +1261,146 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         planes.append(px)
     if len(comps) == 1:
         return np.ascontiguousarray(planes[0])
-    hmax = max(c.h for c in comps)
-    vmax = max(c.v for c in comps)
-    full = [_upsample(p, hmax // c.h, vmax // c.v)[:H, :W]
+    full = [_upsample(p, hmax // c.h, vmax // c.v, fancy=not lossless)[:H, :W]
             for p, c in zip(planes, comps)]
-    if jfif:
-        rgb = False
+    # the colour space as libjpeg-turbo guesses it: 4 components are YCCK
+    # by an Adobe transform other than 0, else CMYK; 3 are YCbCr by JFIF,
+    # by an Adobe transform other than 0, or (a DCT file without either)
+    # by ids other than 'R', 'G', 'B', else RGB
+    if len(comps) == 4:
+        ycc = adobe not in (None, 0)
+    elif jfif:
+        ycc = True
     elif adobe is not None:
-        rgb = adobe == 0
+        ycc = adobe != 0
     else:
-        rgb = [c.cid for c in comps] == [82, 71, 66]
-    if rgb:
-        return np.stack(full, -1)
-    return _ycc_to_rgb(*full)
+        ycc = not lossless and [c.cid for c in comps] != [82, 71, 66]
+    if ycc and lossless:
+        raise NotImplementedError(
+            f"a lossless JPEG file in {'YCCK' if len(comps) == 4 else 'YCbCr'}"
+            f": {_READERS} converts no colour space of a lossless file")
+    if len(comps) == 4:
+        if ycc:
+            rgb = _ycc_to_rgb(*full[:3])
+            full = [255 - rgb[..., i] for i in range(3)] + [full[3]]
+        return np.stack(full, -1).view(CMYK)
+    if ycc:
+        return _ycc_to_rgb(*full)
+    return np.stack(full, -1)
+
+
+def frame_kind(data: bytes):
+    """(SOF marker, number of components) of a JPEG file's frame, read
+    from its header alone."""
+    for marker, body in _segments(data):
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xCC):
+            return marker, body[5] if len(body) > 5 else 0
+        if marker == 0xDA:
+            break
+    raise ValueError("JPEG without a frame header")
+
+
+def _scan(comps, scan, ecs, ss, se, ah, al, frame, tables, qts, dc_cond,
+          ac_cond, restart, mcux, mcuy):
+    """Decode one scan into the components' buffers."""
+    progressive, lossless, arithmetic = _SOF[frame]
+    for ci, _, _ in scan:
+        c = comps[ci]
+        if c.qt is None:  # latched at the component's first scan
+            if lossless:
+                c.qt = np.zeros(64, np.int64)  # a lossless file has none
+            elif c.tq not in qts:
+                raise ValueError("JPEG component without its quantisation "
+                                 "table")
+            else:
+                c.qt = qts[c.tq]
+    if lossless:
+        if not 1 <= ss <= 7 or al > 15:
+            raise ValueError(f"corrupt JPEG lossless scan: predictor {ss}, "
+                             f"point transform {al}")
+    elif progressive:
+        dc = ss == 0
+        bad = (dc and se != 0) or (not dc and (ss > se or se > 63
+                                                or len(scan) != 1))
+        if bad or (ah and al != ah - 1) or al > 13:
+            raise ValueError(f"corrupt JPEG progression: Ss {ss}, Se {se}, "
+                             f"Ah {ah}, Al {al}")
+        for ci, _, _ in scan:
+            bits = comps[ci].coef_bits
+            for k in range(ss, min(se, 9) + 1):
+                bits[k] = al
+    elif ss != 0 or se != 63:
+        raise ValueError("corrupt JPEG scan header")
+    need_dc = lossless or not progressive or (ss == 0 and ah == 0)
+    need_ac = not lossless and (not progressive or ss > 0)
+    if not arithmetic:
+        for ci, td, ta in scan:
+            if (need_dc and (0, td) not in tables) or \
+                    (need_ac and (1, ta) not in tables):
+                raise ValueError("JPEG scan without its Huffman tables")
+    blocks, per_mcu = _scan_blocks(comps, scan, mcux, mcuy,
+                                   unit=1 if lossless else 64)
+    n_units = len(blocks) // per_mcu
+    parts = _RST.split(ecs) if restart else [ecs]
+    interval = restart or n_units
+    if len(parts) != -(-n_units // interval):
+        raise ValueError(
+            f"JPEG scan holds {len(parts)} restart intervals, "
+            f"expected {-(-n_units // interval)}")
+    step = interval * per_mcu
+    if lossless:
+        _lossless_scan(comps, scan, parts, blocks, step, ss, al, tables,
+                       restart, mcux)
+        return
+    for k, part in enumerate(parts):
+        chunk = blocks[k * step:(k + 1) * step]
+        if arithmetic:
+            _decode_arith(part, chunk, len(scan), dc_cond, ac_cond,
+                          progressive=progressive, ss=ss, se=se, ah=ah,
+                          al=al)
+            continue
+        if progressive and ss == 0 and ah:
+            _decode_dc_refine(part, chunk, al)
+        elif not progressive or ss == 0:
+            chunk = [(si, _decode_table(*tables[0, td], "dc"),
+                      _decode_table(*tables[1, ta], "ac") if not progressive
+                      else None, coefs, base)
+                     for si, td, ta, coefs, base in chunk]
+            _decode_scan(part, chunk, len(scan), al)
+        else:
+            table = _decode_table(*tables[1, scan[0][2]], "prog")
+            bases = [base for _, _, _, _, base in chunk]
+            fn = _decode_ac_first if ah == 0 else _decode_ac_refine
+            fn(part, bases, comps[scan[0][0]].coefs, table, ss, se, al)
+
+
+def _lossless_scan(comps, scan, parts, blocks, step, pred, pt, tables,
+                   restart, mcux):
+    """Decode a lossless scan's differences, undo the prediction and the
+    point transform into the components' sample buffers."""
+    diffs = {ci: array.array("i", bytes(4 * comps[ci].grid_w
+                                        * comps[ci].grid_h))
+             for ci, _, _ in scan}
+    huff = {td: _decode_table(*tables[0, td], "lossless")
+            for _, td, _ in scan}
+    for k, part in enumerate(parts):
+        units = [(td, diffs[scan[si][0]], base)
+                 for si, td, _, _, base in blocks[k * step:(k + 1) * step]]
+        _decode_lossless(part, units, huff)
+    per_row = comps[scan[0][0]].bw if len(scan) == 1 else mcux
+    if restart % per_row:
+        raise NotImplementedError(
+            f"a lossless JPEG file whose restart interval ({restart} MCUs) "
+            f"is not a whole number of MCU rows ({per_row} MCUs)")
+    for ci, _, _ in scan:
+        c = comps[ci]
+        v = 1 if len(scan) == 1 else c.v
+        rows_per = (restart // per_row) * v if restart else c.grid_h
+        first = set(range(0, c.grid_h, rows_per))
+        d = np.frombuffer(diffs[ci], np.int32).reshape(c.grid_h, c.grid_w)
+        vals = _undifference(d[:, :c.width], pred, pt, first)
+        out = np.frombuffer(c.coefs, np.int32).reshape(c.grid_h, c.grid_w)
+        np.copyto(out[:, :c.width], ((vals << pt) & 0xFF).astype(np.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ and returns (rgb (chunk, 3), depth (chunk,)):
     prog = torch.export.load("kid_render.pt2").module()
     rgb, depth = prog(rays, ts)
 
-Two routes, as in the JAX tool:
+Every route of the JAX tool exports:
 - `--mlp_backend xla` (the default): the plain evaluators in `--dtype`
   (float32 by default). The program is aten ops only and loads with
   nothing but `torch`.
@@ -25,12 +25,15 @@ Two routes, as in the JAX tool:
   weights packed once here (its evaluator's `fn.pack`). A model with
   `--encode_t` takes the planar route and B1
   (`nsff_torch::planar_eval_comp`, one call a batch); one without takes
-  the packed route and B5 (`nsff_torch::fused_nerf_eval`). The program
-  loads after `import nsff_pl_tpu_torch.ops.library`, which registers the
-  ops (CUDA tensors launch the kernels, CPU tensors run their plain
-  versions), as the JAX Pallas export ties its artifact to the Mosaic
-  runtime. `--N_importance` on the planar route is not exported: its
-  coarse pass runs B2's forward, which has no custom op.
+  the packed route and B5 (`nsff_torch::fused_nerf_eval`). With
+  `--N_importance` the planar route's coarse pass is B2's forward
+  (`nsff_torch::planar_nerf_train_fwd` at `--N_samples`), then
+  `sample_pdf` and the sort, then B1 at `N_samples + N_importance`
+  (`+ 2 * N_importance` with `--output_transient`); the packed route's
+  coarse pass runs the plain evaluators. The program loads after
+  `import nsff_pl_tpu_torch.ops.library`, which registers the ops (CUDA
+  tensors launch the kernels, CPU tensors run their plain versions), as
+  the JAX Pallas export ties its artifact to the Mosaic runtime.
 
 `--platforms` names the one device the program is exported for, `cpu`
 or `cuda` (default `cuda`). A `<out>.json` sidecar records the shapes,
@@ -111,11 +114,6 @@ def render_config(args, dev: torch.device):
         backend = ("pallas" if dev.type == "cuda"
                    and args.dtype == "bfloat16" else "xla")
     planar = backend == "pallas" and args.encode_t
-    if planar and args.N_importance > 0:
-        raise NotImplementedError(
-            "--mlp_backend pallas with --encode_t and --N_importance is "
-            "not exported: the planar coarse pass runs B2's forward, which "
-            "has no custom op (export it with --mlp_backend xla)")
     return RenderConfig(
         N_samples=args.N_samples, N_importance=args.N_importance,
         use_viewdir=args.use_viewdir, encode_a=args.encode_a,

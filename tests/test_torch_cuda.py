@@ -913,11 +913,12 @@ def test_hard_sampling_draw_is_deterministic():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("op", ["planar_eval_comp", "fused_nerf_eval"])
+@pytest.mark.parametrize("op", ["planar_eval_comp", "fused_nerf_eval",
+                                "planar_nerf_train_fwd"])
 def test_custom_ops_launch_the_kernels(op):
-    """B1 and B5 as the custom ops of `ops/library.py` on CUDA tensors:
-    `torch.library.opcheck` passes, and a call launches the kernel once
-    and gives the wrapper's bits."""
+    """B1, B5 and B2's forward as the custom ops of `ops/library.py` on
+    CUDA tensors: `torch.library.opcheck` passes, and a call launches the
+    kernel once and gives the wrapper's bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from nsff_pl_tpu_torch.models import nerf as tn
@@ -939,6 +940,13 @@ def test_custom_ops_launch_the_kernels(op):
         args = (fn.pack(params), o, d, zs, None, dirs, None, t)
         call, wrapper = library.call_planar_eval_comp, trk.planar_eval_comp
         counter = trk.planar_eval_comp_cuda.launches
+    elif op == "planar_nerf_train_fwd":
+        fn = trk.make_planar_nerf_train(s, use_viewdir=True,
+                                        output_flow=("fw", "bw"))
+        args = (fn.pack(params), o, d, zs, None, dirs, None, t)
+        call = library.call_planar_nerf_train_fwd
+        wrapper = trk.planar_nerf_train_fwd
+        counter = trk.planar_nerf_train_fwd_cuda.launches
     else:
         fn = tmk.make_fused_nerf_eval(s, use_viewdir=True, encode_a=False,
                                       encode_t=True, output_flow=("fw",))
@@ -955,10 +963,13 @@ def test_custom_ops_launch_the_kernels(op):
     w, b, slots = library.slot_lists(args[0])
     kw = dict(fn.kernel_kw, freqs=list(fn.kernel_kw["freqs"]),
               skips=list(fn.kernel_kw["skips"]))
-    if op == "fused_nerf_eval":
+    if op != "planar_eval_comp":
         flow = kw.pop("output_flow")
         kw.update(flow_fw="fw" in flow, flow_bw="bw" in flow)
-    torch.library.opcheck(getattr(library, op), (w, b, slots, *args[1:]), kw)
+    rest = args[1:]
+    if op == "planar_nerf_train_fwd":  # flows: a list, empty for none
+        rest = rest[:3] + ([],) + rest[4:]
+    torch.library.opcheck(getattr(library, op), (w, b, slots, *rest), kw)
 
 
 @pytest.mark.cuda
@@ -1001,3 +1012,41 @@ def test_exported_kernel_route_on_the_card(tmp_path, encode_t):
     prog.module()(rays, ts)
     torch.cuda.synchronize()
     assert counter[128] == before + 1
+
+
+@pytest.mark.cuda
+def test_exported_c2f_route_on_the_card(tmp_path):
+    """The planar coarse-to-fine route (`--encode_t --N_importance 64`):
+    the graph holds B2's forward and B1, and the reloaded program gives
+    the live renderer's bits with one launch of each a call, B2's forward
+    at 128 samples and B1 at 192."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.config import NSFFConfig, build_params
+    from nsff_pl_tpu_torch.ops import library
+    from nsff_pl_tpu_torch.tools import export_render
+    from nsff_pl_tpu_torch.training import checkpoint
+
+    params = build_params(NSFFConfig(use_viewdir=True, encode_t=True,
+                                     N_importance=64, start_end=(0, 4)),
+                          torch.Generator().manual_seed(0), device="cuda")
+    ckpt = checkpoint.save_checkpoint(str(tmp_path), 0, {"params": params})
+    out = str(tmp_path / "render.pt2")
+    meta = export_render.main(export_render.get_opts(
+        ["--ckpt_path", ckpt, "--out", out, "--chunk", "512", "--img_wh",
+         "32", "16", "--use_viewdir", "--N_frames", "4", "--encode_t",
+         "--N_importance", "64", "--dtype", "bfloat16", "--mlp_backend",
+         "pallas", "--platforms", "cuda", "--check"]))
+    assert max(meta["check"].values()) == 0.0
+    prog = torch.export.load(out)
+    assert sorted(str(n.target) for n in prog.graph.nodes
+                  if str(n.target).startswith(library.NAMESPACE)) == [
+        f"{library.NAMESPACE}.planar_eval_comp.default",
+        f"{library.NAMESPACE}.planar_nerf_train_fwd.default"]
+    fwd = trk.planar_nerf_train_fwd_cuda.launches
+    b1 = trk.planar_eval_comp_cuda.launches
+    before = (fwd[128], b1[192])
+    rays, ts = export_render.check_rays(512, torch.device("cuda"))
+    prog.module()(rays, ts)
+    torch.cuda.synchronize()
+    assert (fwd[128], b1[192]) == (before[0] + 1, before[1] + 1)

@@ -17,11 +17,12 @@ numpy seed.
   JAX renderer with `mlp_backend='pallas', planar_eval='off'` (B5
   interpreted) within KERNEL_TOL = 2e-4
   (tests/test_torch_packed_render.py). On CPU tensors the ops run their
-  plain versions. Coarse-to-fine on the packed route (sample_pdf and the
-  sort traced) reloads equal to the live renderer (`--check`); on the
-  planar route it raises.
+  plain versions. Coarse-to-fine on both kernel routes (sample_pdf and
+  the sort traced; the planar route's coarse pass as one
+  `nsff_torch::planar_nerf_train_fwd` node, B2's forward) reloads equal
+  to the live renderer within CHECK_TOL (`--check`).
 - The sidecar's keys, `--platforms` (one device), and
-  `torch.library.opcheck` on both ops.
+  `torch.library.opcheck` on the three ops.
 S = 64 on the planar route. Torch runs on one thread.
 """
 import json
@@ -71,7 +72,7 @@ def ckpts(tmp_path_factory):
     """{(encode_t, n_importance): (port checkpoint dir, JAX params)}."""
     tmp = tmp_path_factory.mktemp("export")
     out = {}
-    for encode_t, ni in ((True, 0), (False, 0), (False, 16)):
+    for encode_t, ni in ((True, 0), (False, 0), (False, 16), (True, 16)):
         jparams = j_build_params(
             JConfig(use_viewdir=True, encode_t=encode_t, N_tau=NTAU,
                     N_importance=ni, start_end=(0, FRAMES)),
@@ -168,18 +169,26 @@ def test_packed_kernel_route_matches_jax(ckpts, tmp_path):
 
 
 def test_coarse_to_fine_export(ckpts, tmp_path):
-    """Packed route: the coarse pass, sample_pdf and the sort trace, and
-    the reloaded program equals the live renderer (--check); the planar
-    route's coarse pass (B2's forward) has no op and raises."""
+    """Both kernel routes with N_importance: the coarse pass, sample_pdf
+    and the sort trace, and the reloaded program equals the live renderer
+    (--check). The packed route's coarse pass runs the plain evaluators
+    (its graph holds B5 alone); the planar route's runs B2's forward, one
+    `planar_nerf_train_fwd` node beside B1's, with no backward."""
     ckpt, _ = ckpts[(False, 16)]
     path, meta = _export(tmp_path, ckpt, _flags(False, "pallas", "bfloat16",
                                                 16), check=True)
     assert _ops(path) == {"nsff_torch.fused_nerf_eval.default"}
     assert max(meta["check"].values()) <= ter.CHECK_TOL
-    with pytest.raises(NotImplementedError, match="B2's forward"):
-        ter.render_config(ter.get_opts(
-            ["--ckpt_path", "x", "--out", "x",
-             *_flags(True, "pallas", "bfloat16", 16)]), torch.device("cpu"))
+    ckpt, _ = ckpts[(True, 16)]
+    path, meta = _export(tmp_path, ckpt, _flags(True, "pallas", "bfloat16",
+                                                16), name="planar.pt2",
+                         check=True)
+    targets = [str(n.target) for n in torch.export.load(path).graph.nodes
+               if str(n.target).startswith(library.NAMESPACE)]
+    assert sorted(targets) == ["nsff_torch.planar_eval_comp.default",
+                               "nsff_torch.planar_nerf_train_fwd.default"]
+    assert meta["imports"] == ["torch", ter.OPS_MODULE]
+    assert max(meta["check"].values()) <= ter.CHECK_TOL
 
 
 def test_sidecar_and_platforms(ckpts, tmp_path):
@@ -235,9 +244,24 @@ def _op_inputs(encode_t):
     return params, o, d, de, te
 
 
-@pytest.mark.parametrize("op", ["planar_eval_comp", "fused_nerf_eval"])
+@pytest.mark.parametrize("op", ["planar_eval_comp", "fused_nerf_eval",
+                                "planar_nerf_train_fwd"])
 def test_opcheck(op):
-    if op == "planar_eval_comp":
+    if op == "planar_nerf_train_fwd":
+        params, o, d, de, te = _op_inputs(True)
+        fn = rk.make_planar_nerf_train(S, use_viewdir=True, encode_t=True,
+                                       output_flow=("fw", "bw"), n_tau=NTAU)
+        zs = torch.linspace(0, 1, S).expand(o.shape[0], S).contiguous()
+        w, b, slots = library.slot_lists(fn.pack(params))
+        kk = fn.kernel_kw
+        kw = dict(freqs=list(kk["freqs"]), static_branch=True,
+                  use_viewdir=True, encode_a=False, encode_t=True,
+                  flow_fw=True, flow_bw=True, flow_scale=kk["flow_scale"],
+                  D=8, skips=list(kk["skips"]))
+        args = (w, b, slots, o, d, zs, [], de, None, te)
+        want = rk.planar_nerf_train_ref(fn.pack(params), o, d, zs, None, de,
+                                        None, te, **kk)
+    elif op == "planar_eval_comp":
         params, o, d, de, te = _op_inputs(True)
         fn = rk.make_planar_nerf_eval_comp(S, use_viewdir=True, encode_t=True,
                                            n_tau=NTAU)

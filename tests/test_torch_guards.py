@@ -17,7 +17,10 @@ PORT = REPO / "nsff_pl_tpu_torch"
 # package's orbax checkpoints) and runs where both are installed, never
 # on the card's machine
 BRIDGES = {REPO / "scripts" / "jax_ckpt_to_torch.py"}
-PORT_FILES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# chip_smoke.py loads tests/torch_jpeg_writer.py on the card's machine
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                            REPO / "tests" /
+                                            "torch_jpeg_writer.py"]
               + sorted(p for p in (REPO / "scripts").glob("*.py")
                        if p not in BRIDGES))
 

@@ -11,12 +11,19 @@ Tolerances:
 - `Ks`, `Ps`, `poses`, `nearest_depth`, `len()`: 1e-6 relative;
 - `test_item` of the val, test, test_spiral, test_spiral1 and
   test_fixview0_interp1 splits: the same tolerances per key;
-- the `cache_dir/rays.npy` cache: the cached table equals the built one.
+- the `cache_dir/rays.npy` cache: the cached table equals the built one;
+- the native host builder (`nsff_pl_tpu/scene/native.py::
+  build_frame_rays`, `native/ray_table.cpp`), whose rows the JAX loader
+  takes whenever g++ builds it: the port's `_build_ray_table` on the CPU
+  gives a first frame's (no backward flow) and a last frame's (no forward
+  flow) rows under random poses, at the tolerances above.
 """
 import numpy as np
 import pytest
 
 from nsff_pl_tpu.scene import MonocularScene as JScene
+from nsff_pl_tpu.scene import monocular as jmono
+from nsff_pl_tpu.scene import native
 from nsff_pl_tpu_torch.scene import MonocularScene as TScene
 from tests.helpers_scene import make_synthetic_scene
 
@@ -85,3 +92,53 @@ def test_test_items_match_jax(root, wh):
             for k in ("flow_fw", "flow_bw"):
                 if k in ji:
                     assert np.abs(ti[k].numpy() - ji[k]).max() <= FLOW_TOL
+
+
+def _random_poses(rng, n):
+    """(n, 3, 4) camera-to-world poses: random rotations (unit
+    quaternions) and translations, z in [-2, 0.5] (so the NDC near shift
+    takes both of its branches)."""
+    q = rng.normal(size=(n, 4))
+    a, b, c, d = (q / np.linalg.norm(q, axis=1, keepdims=True)).T
+    rot = np.stack([
+        [a * a + b * b - c * c - d * d, 2 * (b * c - a * d),
+         2 * (b * d + a * c)],
+        [2 * (b * c + a * d), a * a - b * b + c * c - d * d,
+         2 * (c * d - a * b)],
+        [2 * (b * d - a * c), 2 * (c * d + a * b),
+         a * a - b * b - c * c + d * d]]).transpose(2, 0, 1)
+    trans = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(-0.5, 0.5, n),
+                      rng.uniform(-2.0, 0.5, n)], -1)
+    return np.concatenate([rot, trans[..., None]], -1).astype(np.float32)
+
+
+@pytest.mark.skipif(not native.available(),
+                    reason="native library unavailable (no g++)")
+@pytest.mark.parametrize("frame", [0, N - 1], ids=["first", "last"])
+def test_ray_table_matches_native_builder(root, frame):
+    """The port's counterpart of `native.build_frame_rays` is the device
+    builder `_build_ray_table` (and of `native.parse_flo`,
+    `flowio.read_flow`): one frame's rows under random poses."""
+    kw = dict(img_wh=(40, 30), start_end=(0, N))
+    j = JScene(root, "train", **kw)
+    t = TScene(root, "train", device="cpu", **kw)
+    poses = _random_poses(np.random.default_rng(7 + frame), N)
+    t.poses = poses
+    got = t._build_ray_table()[frame].numpy()
+    w, h = kw["img_wh"]
+    fw, bw = j._read_flow_pair(frame)
+    if frame == N - 1:
+        fw = None
+    if frame == 0:
+        bw = None
+    want = native.build_frame_rays(
+        j.K, poses[frame], jmono._imread_rgb(j.image_paths[frame], (w, h)),
+        jmono._imread_disp(j.disp_paths[frame], (w, h)),
+        jmono._imread_gray(j.mask_paths[frame], (w, h)),
+        None if fw is None else fw.reshape(h, w, 2),
+        None if bw is None else bw.reshape(h, w, 2), frame, 1.0,
+        -min(-1.0, float(poses[frame, 2, 3])))
+    assert got.shape == want.shape == (w * h, 16)
+    np.testing.assert_array_equal(got[:, 6:12], want[:, 6:12])
+    assert np.abs(got[:, 0:6] - want[:, 0:6]).max() <= RAYS_TOL
+    assert np.abs(got[:, 12:16] - want[:, 12:16]).max() <= FLOW_TOL

@@ -129,34 +129,30 @@ def test_png_other_modes_and_conversions(tmp_path):
 
 
 def test_unreadable_files_raise(tmp_path):
-    """Progressive, arithmetic-coded, 12-bit and CMYK JPEG files name the
-    ROADMAP item ('progressive JPEG'): PIL reads them, the port does not
-    yet. A file that is neither PNG nor JPEG, and truncated PNG or JPEG
-    data, raise too; no reader falls back to another."""
+    """The port raises exactly where PIL (and, for `imread_color`,
+    OpenCV) raises: a 12-bit JPEG file (the progressive, CMYK and
+    arithmetic-coded files this test once saw raise now decode, held to
+    PIL in tests/test_torch_jpeg_modes.py::test_moved_cases). A file that
+    is neither PNG nor JPEG, and truncated PNG or JPEG data, raise too; no
+    reader falls back to another."""
     rng = np.random.default_rng(4)
     a = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
-    cases = {}
-    buf = io.BytesIO()
-    Image.fromarray(a).save(buf, format="JPEG", progressive=True)
-    cases["progressive"] = buf.getvalue()
-    buf = io.BytesIO()
-    Image.fromarray(a).convert("CMYK").save(buf, format="JPEG")
-    cases["cmyk"] = buf.getvalue()
     base = io.BytesIO()
     Image.fromarray(a).save(base, format="JPEG")
     base = base.getvalue()
     sof = base.index(b"\xff\xc0")
-    # the same file marked arithmetic-coded, and 12-bit
-    cases["arithmetic"] = base[:sof + 1] + b"\xc9" + base[sof + 2:]
-    cases["12-bit"] = base[:sof + 4] + b"\x0c" + base[sof + 5:]
-    for name, data in cases.items():
-        with pytest.raises(NotImplementedError, match="progressive JPEG"):
-            imageio.decode_image(data)
-        (tmp_path / f"{name}.jpg").write_bytes(data)
-        with pytest.raises(NotImplementedError, match="progressive JPEG"):
-            imageio.read_image(str(tmp_path / f"{name}.jpg"))
-        with pytest.raises(NotImplementedError, match="progressive JPEG"):
-            imageio.imread_color(str(tmp_path / f"{name}.jpg"))
+    data = base[:sof + 4] + b"\x0c" + base[sof + 5:]  # 12-bit
+    with pytest.raises(Exception):
+        Image.open(io.BytesIO(data)).load()
+    assert cv2.imdecode(np.frombuffer(data, np.uint8),
+                        cv2.IMREAD_COLOR) is None
+    with pytest.raises(NotImplementedError, match="12-bit"):
+        imageio.decode_image(data)
+    (tmp_path / "12-bit.jpg").write_bytes(data)
+    with pytest.raises(NotImplementedError, match="12-bit"):
+        imageio.read_image(str(tmp_path / "12-bit.jpg"))
+    with pytest.raises(NotImplementedError, match="12-bit"):
+        imageio.imread_color(str(tmp_path / "12-bit.jpg"))
     with pytest.raises(ValueError):
         imageio.decode_image(b"GIF89a" + bytes(40))
     with pytest.raises(ValueError):
