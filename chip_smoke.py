@@ -104,7 +104,7 @@ once), then:
    tolerances (the warps' flow-plane cotangents, at every S, also no
    farther from the unrounded model than the plain version: EXACT_MEAN /
    EXACT_MAX), timed, with its bound; the training
-   recipe at N_importance 64 (eager, graphed within GRAPH_RTOL, launch
+   recipe at N_importance 64 (eager, graphed equal bit for bit, launch
    counts PER_STEP_C2F, a repeated batch, one step at batch 64 against
    the CPU); a 512x288 `render_pose` frame of both towers; a train CLI
    run at N_importance 64 on the scene's first 4 frames and the eval CLI
@@ -216,6 +216,30 @@ once), then:
    arithmetic-coded (`tests/torch_jpeg_writer.py`, numpy alone: the card's
    machine has neither PIL nor OpenCV), each decoding to the baseline
    decode's bytes, with the host seconds a frame of each decode.
+
+15. any sample count (ROADMAP A17; the sweep after the c2f kernels, the
+   paths after the packed coarse-to-fine phase): every kernel of the
+   paths below against its plain version at 96 and 320 samples a ray (B2
+   and B3 also at 64) at the main paths' shapes (B1 and B5 at the serving
+   chunk, the rest at batch 512) with the S = 128 tolerances (B2's
+   stacked warp call and both backward branches among them, the warps'
+   flow-plane cotangents by the unrounded-model rule, B6 with rays opaque
+   at their far sample; the other counts and the few-ray shapes are
+   tests/test_torch_cuda.py's), each timed there beside its plain version
+   and its bound at the call's real samples, and its time at 96 and 320
+   against 128 and 256 (`tail_tile_line`, ROADMAP B-d); then the main
+   paths at those counts: the recipe at `--N_samples 96` (planar:
+   TRAIN_STEPS eager steps and the same steps graphed, equal bit for bit,
+   one step at batch 64 against the CPU; packed with the fused
+   compositor: STATIC_STEPS steps, eager and graphed) and the NeRF
+   paper's coarse-to-fine counts `--N_samples 64 --N_importance 128` (the
+   coarse pass at 64, the fine pass at 320; planar: TRAIN_STEPS steps
+   graphed against eager; packed: STATIC_STEPS steps), a 512x288
+   `render_pose` frame of each recipe on B1 and on B5, and the eval CLI's
+   test split at `--N_samples 96` on the scene training checkpoint (B1 at
+   96, one graph replay a frame, frame 0 equal to the host loop), each with
+   its launch counts by sample count (PER_STEP_96, PER_STEP_PACKED_96,
+   PER_STEP_C2F2, PER_STEP_PACKED_C2F2).
 
 The training phases end with a torch.profiler trace of 5 more steps
 (device time by kernel, the device's busy share and the backward's
@@ -1170,8 +1194,8 @@ def reset_counts():
 def check_counts(counts, expected, n, what):
     """Every kernel launched exactly `expected[name] * n` times; kernels
     `expected` does not name, not at all."""
-    for k, v in counts.items():
-        want = expected.get(k, 0) * n
+    for k in sorted(set(counts) | set(expected)):
+        v, want = counts.get(k, 0), expected.get(k, 0) * n
         if v != want:
             fail(f"{what}: {k} launched {v} times, expected {want}")
 
@@ -1436,7 +1460,8 @@ def graphed_phase(torch, np, cfg, state, args, ts, idx, draws, eager,
         fail(f"{label}: a replayed dispatch called a kernel wrapper: "
              f"{eager_counts}")
     replays = multi.replays - r0
-    counts = {k: multi.graph_launches[k] * replays for k in eager_counts}
+    counts = {k: multi.graph_launches.get(k, 0) * replays
+              for k in set(eager_counts) | set(multi.graph_launches)}
     print(f"{label} [graphed]: {K} steps in one dispatch at batch {BATCH}, "
           f"{dev_ms:.3f} ms per step (CUDA events), {host_ms:.3f} ms (host "
           f"clock), {replays} replay(s) of a graph of {K} steps on "
@@ -1836,10 +1861,10 @@ def run_counts(system, counts, per_step, label, val=None):
     for k, v in counts.items():
         if v != want.get(k, 0):
             fail(f"{label}: {k} counted {v} times, expected {want.get(k, 0)}")
-        if multi.graph_launches[k] != per_step.get(k, 0) * K:
+        if multi.graph_launches.get(k, 0) != per_step.get(k, 0) * K:
             fail(f"{label}: the {K}-step graph holds "
-                 f"{multi.graph_launches[k]} launches of {k}")
-    ran = {k: multi.graph_launches[k] * multi.replays
+                 f"{multi.graph_launches.get(k, 0)} launches of {k}")
+    ran = {k: multi.graph_launches.get(k, 0) * multi.replays
            + per_step.get(k, 0) * singles + vals.get(k, 0) for k in counts}
     steps = multi.replays * K + singles
     if steps != system.steps_run:
@@ -1988,7 +2013,7 @@ def scene_training_phase(torch, np, card, graph_ms):
           f"dB (must exceed {PSNR_GAIN_DB} dB)", flush=True)
     if not gain > PSNR_GAIN_DB:
         fail(f"validation PSNR gained {gain:.3f} dB, not {PSNR_GAIN_DB}")
-    ran = {k: fresh_counts[k] + sum(c[k] for _, c in runs.values())
+    ran = {k: fresh_counts[k] + sum(c.get(k, 0) for _, c in runs.values())
            for k in fresh_counts}
     return ran, base["psnr"]
 
@@ -2136,8 +2161,9 @@ def graph_ran(render):
     ran, counted = {}, {}
     for g in render.chunk_graphs.values():
         for k, v in g.graph_launches.items():
-            ran[k] = ran.get(k, 0) + g.warmup_launches[k] + v * g.replays
-            counted[k] = counted.get(k, 0) + g.warmup_launches[k] + v
+            w = g.warmup_launches.get(k, 0)
+            ran[k] = ran.get(k, 0) + w + v * g.replays
+            counted[k] = counted.get(k, 0) + w + v
     return ran, counted
 
 
@@ -4693,6 +4719,648 @@ def dp_phase(torch, np, tcfg, pcfg, table, Ks, Ps, card, c1_end, scfg,
     return ran
 
 
+# ---------------- any sample count (ROADMAP A17) ----------------
+
+# The recipe at --N_samples 96 (one tile of 128 rows, 96 of them used)
+# and the NeRF paper's coarse-to-fine counts --N_samples 64
+# --N_importance 128: the coarse pass at 64, the fine pass at 64 + 2 x
+# 128 = 320 in training and for both towers (three tiles, the last with
+# 64 rows). Every kernel of those paths is held against its plain
+# version and timed at the sample counts they run (TIMED_S; at 64 the
+# coarse pass runs B2 alone), at the main paths' shapes; the other counts
+# (a sample, 33, 100, 512: a tile's tail of 1 to 128 rows, four tiles, a
+# lane's tail, rows that keep no 16-byte alignment) and the few-ray
+# shapes are tests/test_torch_cuda.py's.
+S96 = 96
+C2F2_S, C2F2_NI = 64, 128
+C2F2_FINE = C2F2_S + 2 * C2F2_NI
+B2_NAMES = ("planar_nerf_train_fwd", "planar_nerf_train_bwd_static",
+            "planar_nerf_train_bwd_transient")
+TIMED_S = {C2F2_S: B2_NAMES, S96: None, C2F2_FINE: None}  # None: every kernel
+# launches per step of the main paths at these counts
+PER_STEP_96 = {f"{k}@{S96}": v for k, v in PER_STEP.items()}
+PER_STEP_PACKED_96 = {f"{k}@{S96}": v for k, v in PER_STEP_PACKED.items()}
+PER_STEP_C2F2 = {**{f"{k}@{C2F2_S}": 1 for k in B2_NAMES},
+                 **{f"{k}@{C2F2_FINE}": v for k, v in PER_STEP.items()}}
+PER_STEP_PACKED_C2F2 = {f"{k}@{C2F2_FINE}": v
+                        for k, v in PER_STEP_PACKED.items()}
+SWEEP_SRC = {
+    "planar_eval_comp": ("nsff_pl_tpu_torch/csrc/planar_eval_comp.cu",
+                         "nsff_pl_tpu/ops/raymarch_kernel.py:728"),
+    "planar_nerf_train": ("nsff_pl_tpu_torch/csrc/planar_nerf_train.cu",
+                          "nsff_pl_tpu/ops/raymarch_kernel.py:64"),
+    "planar_compositor": ("nsff_pl_tpu_torch/csrc/planar_compositor.cu",
+                          "nsff_pl_tpu/ops/compositing_planar_kernel.py:110"),
+    "fused_nerf_eval": ("nsff_pl_tpu_torch/csrc/fused_nerf_eval.cu",
+                        "nsff_pl_tpu/ops/mlp_kernel.py:121"),
+    "fused_nerf_train": ("nsff_pl_tpu_torch/csrc/fused_nerf_train.cu",
+                         "nsff_pl_tpu/ops/mlp_train_kernel.py:141"),
+    "fused_compositing": ("nsff_pl_tpu_torch/csrc/fused_compositing.cu",
+                          "nsff_pl_tpu/ops/compositing_kernel.py:100")}
+
+
+def _src_of(name):
+    return SWEEP_SRC[next(k for k in SWEEP_SRC if name.startswith(k))]
+
+
+def grad_verdict(errs, per_sample):
+    """Of a backward's outputs' `rel_errs`: (worst error over max among the
+    summed leaves, its key, worst Frobenius ratio, its key, largest abs
+    error); the per-sample cotangents `per_sample` are held by other
+    rules than GRAD_MAX."""
+    summed = [k for k in errs if k not in per_sample]
+    w_max = max(summed, key=lambda k: errs[k][0])
+    w_fro = max(errs, key=lambda k: errs[k][1])
+    return (errs[w_max][0], w_max, errs[w_fro][1], w_fro,
+            max(e[2] for e in errs.values()))
+
+
+def sample_sweep(torch, params, rays, K, poses, card):
+    """Every kernel of the main paths at each sample count of TIMED_S
+    against its plain version at the main paths' shapes (B1 and B5 at the
+    serving chunk, the rest at batch 512; at 64 B2 and B3 alone), with
+    the S = 128 tolerances: B1 (both towers with visibility and flow
+    maps; the static tower) TOL; B2's forward (the main call, a warp, the
+    stacked warp call with both flow heads) PLANE_TOL / PLANE_SHARE and
+    both backward branches GRAD_MAX / GRAD_FRO, the flow-plane cotangents
+    of the warp calls also by the unrounded-model rule (EXACT_MEAN /
+    EXACT_MAX); B3 COMP_TOL; B5 (full; the static tower) PACKED_TOL /
+    PACKED_SHARE and its unused columns zero; B4's static and transient
+    branches GRAD_MAX / GRAD_FRO, the xyz cotangent DX_MAX; B6 COMP_TOL,
+    its cotangent's columns 8-15 zero, with rays whose far sample is
+    opaque (1 - alpha underflows there, where the adjoint's trailing sum
+    must be an exact 0). Then each kernel is timed at the same shapes
+    beside its plain version and its bound at the call's real samples
+    (`sweep_records`). Returns the kernel records by S of TIMED_S
+    (launches filled in by the main paths)."""
+    from nsff_pl_tpu_torch.models.raymarch import _visibility_planes
+    from nsff_pl_tpu_torch.ops import compositing_kernel as fck
+    from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
+    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
+    from nsff_pl_tpu_torch.ops.posenc import posenc
+
+    fine = params["nerf_fine"]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    worst = {}  # (kernel, S) -> largest abs error
+    rel = {}  # (kernel, S) -> largest error over a leaf's largest entry
+
+    def note(name, S, err, r=None):
+        worst[name, S] = max(worst.get((name, S), 0.0), err)
+        if r is not None:
+            rel[name, S] = max(rel.get((name, S), 0.0), r)
+
+    def inputs(n, S):
+        o, d = rays[:n, :3].contiguous(), rays[:n, 3:].contiguous()
+        zs = torch.sort(torch.rand((n, S), generator=gen, device="cuda"),
+                        1).values.contiguous()
+        flows = tuple((0.05 * torch.randn((n, S), generator=gen,
+                                          device="cuda")).contiguous()
+                      for _ in range(3))
+        te = params["embedding_t"][torch.randint(
+            0, N_FRAMES, (n,), generator=gen, device="cuda")].contiguous()
+        return o, d, zs, flows, posenc(d, 3.0, 4).contiguous(), te
+
+    def check_b1(n, S):
+        o, d, zs, _, de, te = inputs(n, S)
+        for encode_t, flow, vis_in in ((True, ("fw", "bw"), True),
+                                       (False, (), False)):
+            vis = (_visibility_planes(o, d, zs, K, (W_IMG, H_IMG), poses[:1])
+                   if vis_in else None)
+            fn = rk.make_planar_nerf_eval_comp(
+                S, use_viewdir=True, encode_t=encode_t, output_flow=flow,
+                vis_in=vis_in)
+            args = (fn.pack(fine), o, d, zs, vis, de, None,
+                    te if encode_t else None)
+            got = rk.planar_eval_comp_cuda(*args, **fn.kernel_kw)
+            torch.cuda.synchronize()
+            want = plain_by_rays(torch, rk.planar_eval_comp_ref, args,
+                                 fn.kernel_kw)
+            err = float((got - want).abs().max())
+            if not bool(torch.isfinite(got).all()) or err > TOL:
+                fail(f"planar_eval_comp at S={S} n={n} (encode_t "
+                     f"{encode_t}): max abs err {err} (tol {TOL})")
+            note("planar_eval_comp", S, err)
+
+    def check_b2_b3(n, S):
+        o, d, zs, flows, de, te = inputs(n, S)
+        main_op = rk.make_planar_nerf_train(S, use_viewdir=True,
+                                            output_flow=("fw", "bw"))
+        pw = main_op.pack(fine)
+        planes = {}
+        for label, static_branch, flow_in, flow in (
+                ("main", True, False, ("fw", "bw")),
+                ("fw warp", False, True, ("bw",)),
+                ("bw warp", False, True, ("fw",)),
+                ("stacked warp", False, True, ("fw", "bw"))):
+            op = rk.make_planar_nerf_train(S, static_branch=static_branch,
+                                           flow_in=flow_in, use_viewdir=True,
+                                           output_flow=flow)
+            args = (pw, o, d, zs, flows if flow_in else None,
+                    de if static_branch else None, None, te)
+            kw = op.kernel_kw
+            got = rk.planar_nerf_train_fwd_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            want = rk.planar_nerf_train_ref(*args, **kw)
+            err = (got - want).abs()
+            share = float((err > 1e-5).float().mean())
+            err = float(err.max())
+            if not bool(torch.isfinite(got).all()) or err > PLANE_TOL \
+                    or share > PLANE_SHARE:
+                fail(f"planar_nerf_train forward [{label}] at S={S} n={n}: "
+                     f"max abs err {err} (tol {PLANE_TOL}), share off by "
+                     f"more than 1e-5 {share} (tol {PLANE_SHARE})")
+            note("planar_nerf_train_fwd", S, err)
+            planes[label] = dict(zip(op.out_keys, got))
+            if label == "bw warp":
+                continue  # its backward is the fw warp's, other heads
+            cot = {k: torch.randn((n, S), generator=gen, device="cuda")
+                   for k in op.out_keys}
+            bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                                      "flow_scale", "D", "skips")}
+            for branch in (["static"] if static_branch else []) + [
+                    "transient"]:
+                got_b = rk.planar_nerf_train_bwd_cuda(branch, *args, cot,
+                                                      **bkw)
+                torch.cuda.synchronize()
+                want_b = rk.planar_nerf_train_bwd_ref(branch, *args, cot,
+                                                      **bkw)
+                pairs = [(f"{k}.{p}", got_b["dws"][k][p], want_b["dws"][k][p])
+                         for k in want_b["dws"] for p in ("w", "b")]
+                pairs += [(k, got_b[k], want_b[k]) for k in ("ddir", "dt")
+                          if k in want_b]
+                pairs += [(f"dflow{c}", got_b["dflows"][c],
+                           want_b["dflows"][c])
+                          for c in range(3) if "dflows" in want_b]
+                if not all(bool(torch.isfinite(a).all()) for _, a, _ in pairs):
+                    fail(f"planar_nerf_train backward ({branch}, {label}) "
+                         f"not finite at S={S} n={n}")
+                errs = {k: rel_errs(a, b) for k, a, b in pairs}
+                per_sample = [k for k in errs if k.startswith("dflow")]
+                g_max, k_max, g_fro, k_fro, abs_err = grad_verdict(
+                    errs, per_sample)
+                r_mean = r_max = 0.0
+                if "dflows" in want_b:
+                    exact = unrounded_dflows(torch, args, kw, cot,
+                                             op.out_keys)
+                    for c in range(3):
+                        rm, rx = unrounded_ratios(
+                            got_b["dflows"][c], want_b["dflows"][c],
+                            exact[c], (0, 1))
+                        r_mean, r_max = max(r_mean, rm), max(r_max, rx)
+                held = g_max <= GRAD_MAX and g_fro <= GRAD_FRO
+                if not held or r_mean > EXACT_MEAN or r_max > EXACT_MAX:
+                    fail(f"planar_nerf_train backward ({branch}, {label}) at "
+                         f"S={S} n={n}: worst error/max {g_max:.3e} "
+                         f"({k_max}), Frobenius {g_fro:.3e} ({k_fro}) (tol "
+                         f"{GRAD_MAX}, {GRAD_FRO}); dflow distance to the "
+                         f"unrounded model over the plain version's: mean "
+                         f"{r_mean:.3f}, largest {r_max:.3f} (tol "
+                         f"{EXACT_MEAN}, {EXACT_MAX})")
+                note(f"planar_nerf_train_bwd_{branch}", S, abs_err, g_max)
+        # B3 on the three evaluations' planes
+        main, w1, w2 = planes["main"], planes["fw warp"], planes["bw warp"]
+        ins = {"zs": zs, "ssig": main["ssig"], "tsig": main["tsig"],
+               "tsig_w1": w1["tsig"], "tsig_w2": w2["tsig"]}
+        for k in ("ns", "nt", "nw1", "nw2"):
+            ins[k] = torch.randn((n, S), generator=gen, device="cuda")
+        for c in "rgb":
+            ins[f"srgb_{c}"] = main[f"srgb_{c}"]
+            ins[f"trgb_{c}"] = main[f"trgb_{c}"]
+            ins[f"trgb_w1_{c}"] = w1[f"trgb_{c}"]
+            ins[f"trgb_w2_{c}"] = w2[f"trgb_{c}"]
+        ins = {k: v.contiguous() for k, v in ins.items()}
+        cot = {k: torch.randn((n, S), generator=gen, device="cuda")
+               for k in tck.OUT_KEYS}
+        gmap = torch.randn((n, tck.N_MAP), generator=gen, device="cuda")
+        w, maps = tck.planar_compositor_fwd_cuda(ins)
+        dg = tck.planar_compositor_bwd_cuda(ins, cot, gmap)
+        torch.cuda.synchronize()
+        rw, rmaps = tck.planar_compositor_fwd_ref(ins)
+        rdg = tck.planar_compositor_bwd_ref(ins, cot, gmap)
+        fwd_err = max(float((w - rw).abs().max()),
+                      float((maps - rmaps).abs().max()))
+        bwd = [rel_errs(dg[i], rdg[i]) for i in range(len(dg))]
+        bwd_err = max(e[0] for e in bwd)
+        if not (bool(torch.isfinite(dg).all()) and fwd_err <= COMP_TOL
+                and bwd_err <= COMP_TOL):
+            fail(f"planar_compositor at S={S} n={n}: forward max abs err "
+                 f"{fwd_err}, adjoint worst error/max {bwd_err} (tol "
+                 f"{COMP_TOL})")
+        note("planar_compositor_fwd", S, fwd_err)
+        note("planar_compositor_bwd", S, max(e[2] for e in bwd), bwd_err)
+
+    def check_b5(n, S):
+        o, d, zs, _, de, te = inputs(n, S)
+        xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
+        for static_branch, encode_t, flow in ((True, True, ("fw", "bw")),
+                                              (True, False, ())):
+            fn = mk.make_fused_nerf_eval(S, use_viewdir=True, encode_a=False,
+                                         encode_t=encode_t, output_flow=flow,
+                                         static_branch=static_branch)
+            args = (fn.pack(fine), xyz, de, None, te if encode_t else None)
+            got = mk.fused_nerf_eval_cuda(*args, **fn.kernel_kw)
+            torch.cuda.synchronize()
+            want = plain_by_rays(torch, mk.fused_nerf_eval_ref, args,
+                                 fn.kernel_kw)
+            err = (got - want).abs()
+            worst_e = float(err.max())
+            share = float((err.amax(-1) > 1e-5).float().mean())
+            unused = list(range(8 + 3 * len(flow) if encode_t else 4, 16))
+            if not bool(torch.isfinite(got).all()) or worst_e > PACKED_TOL \
+                    or share > PACKED_SHARE or bool(got[..., unused].any()):
+                fail(f"fused_nerf_eval at S={S} n={n} (encode_t {encode_t}): "
+                     f"max abs err {worst_e} (tol {PACKED_TOL}), rows off by "
+                     f"more than 1e-5 {share} (tol {PACKED_SHARE}), unused "
+                     f"columns zero: {not bool(got[..., unused].any())}")
+            note("fused_nerf_eval", S, worst_e)
+
+    def check_b4_b6(n, S):
+        o, d, zs, _, de, te = inputs(n, S)
+        xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
+        g = torch.randn((n, S, 16), generator=gen, device="cuda")
+        packed = None
+        for label, static_branch, flow, branch, need_dxyz in (
+                ("main", True, ("fw", "bw"), "static", False),
+                ("main", True, ("fw", "bw"), "transient", False),
+                ("fw warp", False, ("bw",), "transient", True)):
+            op = mtk.make_fused_nerf_train(S, use_viewdir=True, encode_a=False,
+                                           encode_t=True, output_flow=flow,
+                                           static_branch=static_branch,
+                                           need_dxyz=need_dxyz)
+            pw, kw = op.pack(fine), op.kernel_kw
+            if packed is None:
+                packed = mk.fused_nerf_eval_cuda(pw, xyz, de, None, te, **kw)
+            bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                                      "output_flow", "flow_scale", "D",
+                                      "skips")}
+            args = (branch, pw, xyz, de if static_branch else None, None, te,
+                    g)
+            got = mtk.fused_nerf_train_bwd_cuda(*args, need_dxyz=need_dxyz,
+                                                **bkw)
+            torch.cuda.synchronize()
+            want = mtk.fused_nerf_train_bwd_ref(*args, need_dxyz=need_dxyz,
+                                                **bkw)
+            pairs = [(f"{k}.{p}", got["dws"][k][p], want["dws"][k][p])
+                     for k in want["dws"] for p in ("w", "b")]
+            pairs += [(k, got[k], want[k]) for k in ("ddir", "dt", "dxyz")
+                      if k in want]
+            if not all(bool(torch.isfinite(a).all()) for _, a, _ in pairs):
+                fail(f"fused_nerf_train backward ({branch}, {label}) not "
+                     f"finite at S={S} n={n}")
+            errs = {k: rel_errs(a, b) for k, a, b in pairs}
+            g_max, k_max, g_fro, k_fro, abs_err = grad_verdict(errs,
+                                                               ["dxyz"])
+            dx = errs["dxyz"][0] if need_dxyz else 0.0
+            if not (g_max <= GRAD_MAX and g_fro <= GRAD_FRO and dx <= DX_MAX):
+                fail(f"fused_nerf_train backward ({branch}, {label}) at "
+                     f"S={S} n={n}: worst error/max {g_max:.3e} ({k_max}), "
+                     f"Frobenius {g_fro:.3e} ({k_fro}), dxyz error/max "
+                     f"{dx:.3e} (tol {GRAD_MAX}, {GRAD_FRO}, {DX_MAX})")
+            note(f"fused_nerf_train_bwd_{branch}", S, abs_err, max(g_max, dx))
+        # B6 on the main evaluation's packed output; a third of the rays
+        # opaque at their far sample
+        packed = packed.clone()
+        packed[::3, -1, 3] = 2000.0
+        ns, nt = (torch.randn((n, S), generator=gen, device="cuda")
+                  for _ in range(2))
+        cot = {k: torch.randn((n, S), generator=gen, device="cuda")
+               for k in fck.OUT_KEYS}
+        gmap = torch.randn((n, 4), generator=gen, device="cuda")
+        cargs = (packed, zs, ns, nt)
+        planes, maps = fck.fused_compositing_fwd_cuda(*cargs)
+        dp = fck.fused_compositing_bwd_cuda(*cargs, cot, gmap)
+        torch.cuda.synchronize()
+        rplanes, rmaps = fck.fused_compositing_fwd_ref(*cargs)
+        rdp = fck.fused_compositing_bwd_ref(*cargs, cot, gmap)
+        fwd_err = max(float((planes - rplanes).abs().max()),
+                      float((maps - rmaps).abs().max()))
+        bwd = [rel_errs(dp[..., c], rdp[..., c]) for c in range(8)]
+        bwd_err = max(e[0] for e in bwd)
+        if not bool(torch.isfinite(dp).all()) or bool(dp[..., 8:].any()) \
+                or fwd_err > COMP_TOL or bwd_err > COMP_TOL:
+            fail(f"fused_compositing at S={S} n={n}: forward max abs err "
+                 f"{fwd_err}, adjoint worst error/max {bwd_err} (tol "
+                 f"{COMP_TOL}), finite {bool(torch.isfinite(dp).all())}, "
+                 f"columns 8-15 zero {not bool(dp[..., 8:].any())}")
+        note("fused_compositing_fwd", S, fwd_err)
+        note("fused_compositing_bwd", S, max(e[2] for e in bwd), bwd_err)
+
+    t0 = time.perf_counter()
+    for S, only in TIMED_S.items():
+        if only is None:
+            check_b1(CHUNK, S)
+            check_b5(CHUNK, S)
+            check_b4_b6(BATCH, S)
+        check_b2_b3(BATCH, S)
+        torch.cuda.empty_cache()
+    names = sorted({k for k, _ in worst})
+    print("sample sweep: largest abs error by kernel and S (B1 and B5 at "
+          f"{CHUNK} rays, the rest at {BATCH}; every check within the S = "
+          "128 tolerances) " + json.dumps(
+              {k: {str(S): v for (n, S), v in worst.items() if n == k}
+               for k in names})
+          + "; largest error over a leaf's largest entry of the backward "
+          "calls " + json.dumps({f"{k}@{S}": v for (k, S), v in rel.items()})
+          + f" ({time.perf_counter() - t0:.1f} s) on {card}", flush=True)
+    return {S: sweep_records(torch, params, rays, S, only, worst, rel, card)
+            for S, only in TIMED_S.items()}
+
+
+def sweep_records(torch, params, rays, S, only, worst, rel, card):
+    """The kernel records at S samples (`only`: these kernels; None: all
+    eleven), timed at the main paths' shapes: B1 (both towers, the serving
+    configuration) and B5 (full) at the serving chunk, the rest at batch
+    512; each with the sweep's largest error at S, its plain version's ms
+    and its bound at the call's real samples."""
+    from nsff_pl_tpu_torch.ops import compositing_kernel as fck
+    from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
+    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
+    from nsff_pl_tpu_torch.ops.posenc import posenc
+
+    fine = params["nerf_fine"]
+    gen = torch.Generator(device="cuda").manual_seed(20 + S)
+    records = {}
+
+    def want(name):
+        return only is None or name in only
+
+    def add(name, fn, plain, flops, nbytes, peak=PEAK_BF16_FLOPS, graph=True,
+            iters=5, n=BATCH):
+        ms = cuda_ms(torch, fn, iters=iters, graph=graph)
+        plain_ms = cuda_ms(torch, plain, iters=1, warmup=0 if not graph
+                           else 1)
+        rec = _record(at_samples(name, S), *_src_of(name), worst[name, S],
+                      ms, plain_ms, flops, nbytes, peak)
+        if (name, S) in rel:
+            rec["max_rel_err"] = rel[name, S]
+        records[name] = rec
+        print(f"kernel {rec['name']} n={n}: {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}) on {card}", flush=True)
+
+    def rays_of(n):
+        o, d = rays[:n, :3].contiguous(), rays[:n, 3:].contiguous()
+        zs = torch.sort(torch.rand((n, S), generator=gen, device="cuda"),
+                        1).values.contiguous()
+        te = params["embedding_t"][torch.randint(
+            0, N_FRAMES, (n,), generator=gen, device="cuda")].contiguous()
+        return o, d, zs, posenc(d, 3.0, 4).contiguous(), te
+
+    if want("planar_eval_comp"):
+        o, d, zs, de, te = rays_of(CHUNK)
+        fn = rk.make_planar_nerf_eval_comp(S, use_viewdir=True, encode_t=True)
+        pw = fn.pack(fine)
+        args, kw = (pw, o, d, zs, None, de, None, te), fn.kernel_kw
+        add("planar_eval_comp", lambda: rk.planar_eval_comp_cuda(*args, **kw),
+            lambda: plain_by_rays(torch, rk.planar_eval_comp_ref, args, kw),
+            *eval_comp_work(fine, kw, CHUNK, S, pw), graph=False, iters=3,
+            n=CHUNK)
+    if want("fused_nerf_eval"):
+        o, d, zs, de, te = rays_of(CHUNK)
+        xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
+        fn = mk.make_fused_nerf_eval(S, use_viewdir=True, encode_a=False,
+                                     encode_t=True, output_flow=("fw", "bw"))
+        pw = fn.pack(fine)
+        args, kw = (pw, xyz, de, None, te), fn.kernel_kw
+        add("fused_nerf_eval", lambda: mk.fused_nerf_eval_cuda(*args, **kw),
+            lambda: plain_by_rays(torch, mk.fused_nerf_eval_ref, args, kw),
+            *train_fwd_work(fine, True, 2, CHUNK, S, pw, 16, False,
+                            packed=True), graph=False, iters=3, n=CHUNK)
+        del xyz
+    torch.cuda.empty_cache()
+    n = BATCH
+    o, d, zs, de, te = rays_of(n)
+    op = rk.make_planar_nerf_train(S, use_viewdir=True,
+                                   output_flow=("fw", "bw"))
+    pw, kw = op.pack(fine), op.kernel_kw
+    args = (pw, o, d, zs, None, de, None, te)
+    add("planar_nerf_train_fwd",
+        lambda: rk.planar_nerf_train_fwd_cuda(*args, **kw),
+        lambda: rk.planar_nerf_train_ref(*args, **kw),
+        *train_fwd_work(fine, True, 2, n, S, pw, len(op.out_keys), False))
+    planes = dict(zip(op.out_keys, rk.planar_nerf_train_fwd_cuda(*args,
+                                                                 **kw)))
+    cot = {k: torch.randn((n, S), generator=gen, device="cuda")
+           for k in op.out_keys}
+    bkw = {k: kw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                              "flow_scale", "D", "skips")}
+    for branch in ("static", "transient"):
+        add(f"planar_nerf_train_bwd_{branch}",
+            lambda b=branch: rk.planar_nerf_train_bwd_cuda(b, *args, cot,
+                                                           **bkw),
+            lambda b=branch: rk.planar_nerf_train_bwd_ref(b, *args, cot,
+                                                          **bkw),
+            *train_bwd_work(fine, branch, 2, n, S, pw, False))
+    if want("planar_compositor_fwd"):
+        ins = {"zs": zs, "ssig": planes["ssig"]}
+        for k in ("tsig", "tsig_w1", "tsig_w2"):
+            ins[k] = planes["tsig"]
+        for k in ("ns", "nt", "nw1", "nw2"):
+            ins[k] = torch.randn((n, S), generator=gen, device="cuda")
+        for c in "rgb":
+            ins[f"srgb_{c}"] = planes[f"srgb_{c}"]
+            for k in ("trgb", "trgb_w1", "trgb_w2"):
+                ins[f"{k}_{c}"] = planes[f"trgb_{c}"]
+        ins = {k: v.contiguous() for k, v in ins.items()}
+        ccot = {k: torch.randn((n, S), generator=gen, device="cuda")
+                for k in tck.OUT_KEYS}
+        gmap = torch.randn((n, tck.N_MAP), generator=gen, device="cuda")
+        for which, fn, ref in (
+                ("fwd", lambda: tck.planar_compositor_fwd_cuda(ins),
+                 lambda: tck.planar_compositor_fwd_ref(ins)),
+                ("bwd", lambda: tck.planar_compositor_bwd_cuda(ins, ccot,
+                                                               gmap),
+                 lambda: tck.planar_compositor_bwd_ref(ins, ccot, gmap))):
+            add(f"planar_compositor_{which}", fn, ref,
+                *comp_work(which, n, S), peak=PEAK_F32_FLOPS, iters=100)
+    if want("fused_nerf_train_bwd_static"):
+        xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
+        pop = mtk.make_fused_nerf_train(S, use_viewdir=True, encode_a=False,
+                                        encode_t=True,
+                                        output_flow=("fw", "bw"),
+                                        need_dxyz=False)
+        ppw, pkw = pop.pack(fine), pop.kernel_kw
+        pbkw = {k: pkw[k] for k in ("freqs", "use_viewdir", "encode_a",
+                                    "output_flow", "flow_scale", "D",
+                                    "skips")}
+        g = torch.randn((n, S, 16), generator=gen, device="cuda")
+        for branch in ("static", "transient"):
+            pargs = (branch, ppw, xyz, de, None, te, g)
+            add(f"fused_nerf_train_bwd_{branch}",
+                lambda a=pargs: mtk.fused_nerf_train_bwd_cuda(
+                    *a, need_dxyz=False, **pbkw),
+                lambda a=pargs: mtk.fused_nerf_train_bwd_ref(
+                    *a, need_dxyz=False, **pbkw),
+                *train_bwd_work(fine, branch, 2, n, S, ppw, False,
+                                packed=True))
+        packed = mk.fused_nerf_eval_cuda(ppw, xyz, de, None, te, **pkw)
+        ns, nt = (torch.randn((n, S), generator=gen, device="cuda")
+                  for _ in range(2))
+        fcot = {k: torch.randn((n, S), generator=gen, device="cuda")
+                for k in fck.OUT_KEYS}
+        fgmap = torch.randn((n, 4), generator=gen, device="cuda")
+        cargs = (packed, zs, ns, nt)
+        for which, fn, ref in (
+                ("fwd", lambda: fck.fused_compositing_fwd_cuda(*cargs),
+                 lambda: fck.fused_compositing_fwd_ref(*cargs)),
+                ("bwd", lambda: fck.fused_compositing_bwd_cuda(*cargs, fcot,
+                                                               fgmap),
+                 lambda: fck.fused_compositing_bwd_ref(*cargs, fcot,
+                                                       fgmap))):
+            add(f"fused_compositing_{which}", fn, ref,
+                *packed_comp_work(which, n, S), peak=PEAK_F32_FLOPS,
+                iters=100)
+    torch.cuda.empty_cache()
+    return records
+
+
+def tail_tile_line(records_128, sweep_records_, records_256, card):
+    """ROADMAP B-d's starting figure: each tower kernel's time at 96
+    samples (one tile, 96 of its 128 rows used) and at 320 (three tiles,
+    64 rows of the last used) against its time at 128 and 256 in this run,
+    beside the ratio of real samples."""
+    out = {}
+    for name, rec in sweep_records_[S96].items():
+        base = records_128.get(name)
+        big = sweep_records_[C2F2_FINE].get(name)
+        two = records_256.get(name)
+        if base is None or big is None:
+            continue
+        out[name] = {"ms@96 / ms@128": rec["ms"] / base["ms"],
+                     "ms@320 / ms@128": big["ms"] / base["ms"]}
+        if two is not None:
+            out[name]["ms@320 / ms@256"] = big["ms"] / two["ms"]
+    print("tail tiles: " + json.dumps(out) + " (samples 96 / 128 = 0.75, "
+          "320 / 128 = 2.5, 320 / 256 = 1.25; tiles 1, 3 / 1, 3 / 2) on "
+          f"{card}", flush=True)
+
+
+def samples_paths_phase(torch, np, tcfg, cfg, table, Ks, Ps, K, poses, card):
+    """The main paths at sample counts outside the old {64, 128, 192, 256}:
+    the recipe at --N_samples 96 on the planar path (TRAIN_STEPS eager
+    steps and the same steps graphed; launches PER_STEP_96; one step at
+    batch 64 against the CPU) and on the packed path with the fused
+    compositor (STATIC_STEPS steps, PER_STEP_PACKED_96); the
+    coarse-to-fine recipe --N_samples 64 --N_importance 128 on the planar
+    path (TRAIN_STEPS steps, PER_STEP_C2F2) and the packed one
+    (STATIC_STEPS steps, PER_STEP_PACKED_C2F2); each run's graphed steps
+    equal to its eager steps bit for bit; a 512x288 `render_pose`
+    frame of both towers at each recipe on B1 and, with
+    `planar_eval="off"`, on B5 (the c2f coarse pass on B2's forward at 64
+    and the bf16 plain evaluators). Returns the launches of its runs."""
+    from nsff_pl_tpu_torch.apps.serve import RenderService
+    from nsff_pl_tpu_torch.config import build_params
+
+    ran = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            ran[k] = ran.get(k, 0) + v
+
+    runs = (
+        ("S96 training", tcfg.replace(N_samples=S96), PER_STEP_96, True,
+         TRAIN_STEPS),
+        ("S96 packed training", tcfg.replace(
+            N_samples=S96, fused_train="off", fused_compositing=True),
+         PER_STEP_PACKED_96, False, STATIC_STEPS),
+        ("c2f 64+128 training", tcfg.replace(N_samples=C2F2_S,
+                                             N_importance=C2F2_NI),
+         PER_STEP_C2F2, True, TRAIN_STEPS),
+        ("c2f 64+128 packed training", tcfg.replace(
+            N_samples=C2F2_S, N_importance=C2F2_NI, fused_train="off",
+            fused_compositing=True), PER_STEP_PACKED_C2F2, False,
+         STATIC_STEPS))
+    for label, rcfg, per_step, planar, steps in runs:
+        counts, graph_counts, ms, graph_ms = training_phase(
+            torch, np, rcfg, table, Ks, Ps, card, label=label,
+            per_step=per_step, planar=planar, steps=steps, repeat=False,
+            exact=True)
+        add(counts)
+        add(graph_counts)
+        print(f"{label}: {ms:.3f} ms per step eager, {graph_ms:.3f} ms "
+              f"graphed on {card}", flush=True)
+        if label == "S96 training":
+            train_agreement(torch, rcfg, table, Ks, Ps, label)
+        torch.cuda.empty_cache()
+
+    n_chunks = -(-W_IMG * H_IMG // CHUNK)
+    for label, scfg, expected in (
+            ("S96 serving", cfg.replace(N_samples=S96),
+             {f"planar_eval_comp@{S96}": 1}),
+            ("S96 packed serving", cfg.replace(N_samples=S96,
+                                               planar_eval="off"),
+             {f"fused_nerf_eval@{S96}": 1}),
+            ("c2f 64+128 serving", cfg.replace(N_samples=C2F2_S,
+                                               N_importance=C2F2_NI),
+             {f"planar_nerf_train_fwd@{C2F2_S}": 1,
+              f"planar_eval_comp@{C2F2_FINE}": 1}),
+            ("c2f 64+128 packed serving", cfg.replace(
+                N_samples=C2F2_S, N_importance=C2F2_NI, planar_eval="off"),
+             {f"fused_nerf_eval@{C2F2_FINE}": 1})):
+        params = build_params(scfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+        svc = RenderService(params, K, poses, (W_IMG, H_IMG), scfg,
+                            chunk=CHUNK, device="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rgb, depth = svc.render_pose(3)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        add(counts)
+        print(f"{label}: one {W_IMG}x{H_IMG} frame of both towers in "
+              f"{secs:.6f} s, launches "
+              + json.dumps({k: v for k, v in counts.items() if v})
+              + f" on {card}", flush=True)
+        check_counts(counts, expected, n_chunks, label)
+        if rgb.shape != (H_IMG, W_IMG, 3) or depth.shape != (H_IMG, W_IMG) \
+                or not np.isfinite(depth).all():
+            fail(f"{label}: bad frame")
+        rgbf = svc.render_maps(3)["rgb_fine"]
+        if not bool(torch.isfinite(rgbf).all()) or float(rgbf.min()) < 0 \
+                or float(rgbf.max()) > 1:
+            fail(f"{label}: rgb_fine not finite or outside [0, 1]")
+        del svc, params
+        torch.cuda.empty_cache()
+    return ran
+
+
+def samples_eval_phase(torch, np, card):
+    """The eval CLI's test split at --N_samples 96 with
+    --output_transient on the scene training phase's checkpoint (trained
+    at 128: the weights take any S): one graph replay a frame, B1 at 96
+    once a chunk, frame 0 equal to the host loop's within GRAPH_TOL,
+    finite PSNR. Returns the launches the card ran."""
+    import os
+
+    base = eval_base()
+    here = os.getcwd()
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    os.chdir(EVAL_DIR)
+    try:
+        rep, ran, _ = eval_split(
+            torch, np, card, "test --N_samples 96",
+            base + ["--N_samples", str(S96), "--split", "test",
+                    "--output_transient", "--scene_name", "test_s96"],
+            {f"planar_eval_comp@{S96}": 1}, N_FRAMES)
+        err = graphed_equals_loop(torch, np, rep.render, rep.params,
+                                  rep.dataset, (0,), True)
+        psnr = np.nanmean(rep.psnr, 0)
+        print(f"eval test --N_samples 96: mean PSNR whole / dynamic "
+              f"{psnr.tolist()}; frame 0 graphed against the host loop's "
+              f"max abs err {err:.3e} (tol {GRAPH_TOL})", flush=True)
+        if err > GRAPH_TOL or not np.isfinite(psnr).all():
+            fail("eval --N_samples 96: the graphed frame differs from the "
+                 "host loop's or the PSNR is not finite")
+    finally:
+        os.chdir(here)
+    return ran
+
+
 def main() -> int:
     import torch
 
@@ -4822,6 +5490,20 @@ def main() -> int:
         for S in (C2F_FINE, 128 + C2F_NI)}
     torch.cuda.empty_cache()
     phase_s["c2f kernels"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # every kernel at any sample count, timed at the counts of the
+    # --N_samples 96 and 64 + 128 paths
+    sweep_recs = sample_sweep(torch, params, rays, K, poses, card)
+    tail_tile_line(
+        {"planar_eval_comp": record, **train_records, **packed_records},
+        sweep_recs,
+        {"planar_eval_comp": c2f_records[at_samples("planar_eval_comp",
+                                                    C2F_FINE)],
+         **c2f_train_records[C2F_FINE],
+         **{k.split("@")[0]: v
+            for k, v in packed_c2f_records[C2F_FINE].items()}}, card)
+    torch.cuda.empty_cache()
+    phase_s["sample sweep"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # ---------------- serving phase (a main path) ----------------
@@ -4984,7 +5666,7 @@ def main() -> int:
     ccfg = tcfg.replace(N_importance=C2F_NI)
     c2f_counts, c2f_graph_counts, c2f_ms, c2f_graph_ms = training_phase(
         torch, np, ccfg, table, Ks, Ps, card, label="c2f training",
-        per_step=PER_STEP_C2F, planar=True)
+        per_step=PER_STEP_C2F, planar=True, exact=True)
     add_c2f(c2f_counts)
     add_c2f(c2f_graph_counts)
     print(f"c2f training: {c2f_ms:.3f} ms per step eager, "
@@ -5025,6 +5707,21 @@ def main() -> int:
     for name, rec in packed_records.items():
         rec["launches"] += c2f_ran.get(name, 0)
     phase_s["packed c2f"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---------------- any sample count (main paths) ----------------
+    samples_ran = samples_paths_phase(torch, np, tcfg, cfg, table, Ks, Ps, K,
+                                      poses, card)
+    for k, v in samples_eval_phase(torch, np, card).items():
+        samples_ran[k] = samples_ran.get(k, 0) + v
+    sweep_line = []
+    for S, recs in sweep_recs.items():
+        for name, rec in recs.items():
+            rec["launches"] = samples_ran.get(f"{name}@{S}", 0)
+            if rec["launches"] == 0:
+                fail(f"{rec['name']}: no launch on the paths at {S} samples")
+            sweep_line.append(rec)
+    phase_s["any sample count"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     # each record's launches: at its sample count; the coarse passes (S =
     # 128) go to the S = 128 records
@@ -5121,7 +5818,8 @@ def main() -> int:
                       + list(packed_records.values())
                       + [r for S in (C2F_FINE, 128 + C2F_NI)
                          for r in by_s[S].values()]
-                      + packed_c2f_line + stacked_line}), flush=True)
+                      + packed_c2f_line + stacked_line + sweep_line}),
+          flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -29,10 +29,10 @@
 // epilogues that feed them) and a producer warpgroup (one thread streams
 // the weight K-slabs through TMA into a 6-stage ring, three warps stage
 // the parameters and the ray's static_dir bias, recomputed for each of
-// its tiles). A ray of S = 64, 128, 192 or 256 samples is ceil(S / 128)
-// tiles; the rows past S of a half-used last tile repeat the ray's last
-// point, are computed by both warpgroups (an idle warpgroup was measured
-// slower in B1) and are not written. The tile's points are staged in
+// its tiles). A ray of any S >= 1 samples is ceil(S / 128) tiles; the
+// rows past S of a partly used last tile (1 to 128 real rows) repeat the
+// ray's last point, are computed by both warpgroups (an idle warpgroup
+// was measured slower in B1) and are not written. The tile's points are staged in
 // shared memory for the posenc tile; each warpgroup writes its rows of
 // the (128, 16) tile, up to 4 KB contiguous, with coalesced stores, zeros
 // included. The
@@ -144,7 +144,7 @@ extern "C" int nsff_fused_eval(
     int static_branch, int encode_t, int use_viewdir, int encode_a,
     int has_fw, int has_bw, float flow_scale, int n_tau, void* stream) {
   if (n_freqs > MAXF || xyz_w + n_tau > SEG || (!static_branch && !encode_t) ||
-      xyz == nullptr || !samples_ok(n_samples))
+      xyz == nullptr || n_samples < 1)
     return int(cudaErrorInvalidValue);
   Params P;
   memset(&P, 0, sizeof(P));

@@ -26,9 +26,9 @@
 // per (ray, tile of 128 samples) (activations and cotangents through a
 // global scratch buffer), a wgmma split-K dW GEMM over the units' rows and
 // fixed-order reductions, so the gradients are the same bits on every run
-// (no atomics). A ray of S = 64, 128, 192 or 256 samples is ceil(S / 128)
-// units; the rows past S of a half-used last tile repeat the ray's last
-// point and get zero cotangent; a ray of several tiles has its d(dir),
+// (no atomics). A ray of any S >= 1 samples is ceil(S / 128) units; the
+// rows past S of a partly used last tile repeat the ray's last point and
+// get zero cotangent, so they add nothing to dW, db or a ray sum; a ray of several tiles has its d(dir),
 // d(a) and d(t) summed over its tiles in tile order by ray_reduce_kernel,
 // while dxyz stays per sample. The packed cotangent is read
 // column by column with stride 16; a transient call whose output lacks a
@@ -65,7 +65,7 @@ extern "C" int nsff_fused_train_bwd(
     int encode_a, float flow_scale, int n_tau, void* stream) {
   const bool stat = static_branch != 0;
   if (n_freqs > MAXF || xyz_w + n_tau > SEG || n_rays <= 0 || xyz == nullptr ||
-      g == nullptr || !samples_ok(n_samples))
+      g == nullptr || n_samples < 1)
     return int(cudaErrorInvalidValue);
   BwdArgs G;
   fill_common(G.c, nullptr, nullptr, nullptr, xyz, dir, a, t, nullptr, w, b,

@@ -2,7 +2,7 @@
 //
 // Replaces nsff_pl_tpu/ops/raymarch_kernel.py::make_planar_nerf_eval_comp
 // (the Pallas TPU kernel of the test-time render). For every ray: posenc of
-// xyz = o + d*z at its 64..256 samples, the static and transient 8x256 ReLU
+// xyz = o + d*z at its S samples (any S >= 1), the static and transient 8x256 ReLU
 // towers (skip at layer 4; per-ray viewdir/appearance/time conditioning), the
 // sigma/rgb/flow heads, and the volume compositing; it writes one row of
 // n_map floats per ray. The layout of the maps row is comp_map_cols in
@@ -13,10 +13,12 @@
 // it (10.2 ms per 32768-ray chunk at 989 TFLOP/s).
 //
 // Design (tower_wgmma.cuh): one CTA of three warpgroups per ray, which
-// runs the ray's tiles of 128 samples in turn (a ray of 192 or 256 samples
-// is two tiles; the rows past the last sample repeat it and are left out
-// of the composite), compositing each tile onto the transmittance prefix
-// and the map sums of the tiles before it. Two
+// runs the ray's ceil(S / 128) tiles of 128 samples in turn, a run-time
+// count (the last tile holds S - 128 (tiles - 1) real samples, 1 to 128;
+// its rows past the ray's last sample repeat it and are left out of the
+// composite), compositing each tile onto the transmittance prefix and the
+// map sums of the tiles before it, which wait in shared memory between
+// tiles. Two
 // consumer warpgroups each own 64 of a tile's 128 rows and run every
 // layer as wgmma m64n256k16 (bf16 in, f32 accumulators in registers) on the
 // ray's posenc tile and activation tile in shared memory; one producer
@@ -43,6 +45,7 @@
 // returns the cudaError_t of the launch (or of the tensor-map encoding).
 
 #include <cstring>
+#include <type_traits>
 
 #include "tower_wgmma.cuh"
 
@@ -181,10 +184,7 @@ __device__ void composite(const Args& A, const float* planes, const float* zsh,
   for (int i = n_used + lane; i < A.n_map; i += 32) orow[i] = 0.f;
 }
 
-// NT: the ray's tiles; PAD: its last tile is half used (64 or 192
-// samples). Both are compile-time, so the tile loop unrolls and a
-// 128-sample ray gets the code of a single tile
-template <bool ENCODE_T, bool FLOW, int NT, bool PAD>
+template <bool ENCODE_T, bool FLOW>
 __global__ void __launch_bounds__(wg::NTHR, 1)
 planar_eval_comp_kernel(const __grid_constant__ Params P) {
   // the dynamic shared memory starts 1024-byte aligned (the swizzle atoms
@@ -201,6 +201,7 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
   __syncthreads();
 
   const int ray = blockIdx.x;
+  const int n_tiles = tiles_of(A.n_samples);  // run-time: any S >= 1
   float* ray_b = reinterpret_cast<float*>(sm + wg::OFF_RAYB);
   const wg::Staged st = wg::staged(sm);
 
@@ -209,7 +210,7 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
     // warps stage the parameters and the ray's static_dir bias ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == wg::NCONS) {
-      wg::produce(P.maps, ring, bars, true, A.use_viewdir != 0, ENCODE_T, NT);
+      wg::produce(P.maps, ring, bars, true, A.use_viewdir != 0, ENCODE_T, n_tiles);
     } else if (tid >= wg::HELP0) {
       const int h = tid - wg::HELP0;
       wg::stage_params(st, A.W, A.B, FLOW ? 10 : 4, h);
@@ -245,11 +246,16 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
   for (int i = 0; i < 128; ++i) d[i] = 0.f;
   wg::Pipe p;
 
-#pragma unroll
-  for (int tile = 0; tile < NT; ++tile) {
+  // One tile of the ray. The first runs as its own instance, which waits
+  // for the staged parameters and the dir bias (BAR_PARAMS, BAR_DIR) where
+  // it first reads them; the others run in a loop of a run-time count
+  // without those waits: a wait under a run-time condition inside the loop
+  // made ptxas serialize every wgmma of the kernel (C7520).
+  auto run_tile = [&](int tile, auto first) {
+    constexpr bool FIRST = decltype(first)::value;
     const int s0 = tile * S;
-    const bool last = tile == NT - 1;
-    const int nv = PAD && last ? A.n_samples - s0 : S;
+    const bool last = tile == n_tiles - 1;
+    const int nv = min(S, A.n_samples - s0);  // real samples of the tile
     const size_t zr = size_t(ray) * A.n_samples + s0;
     if (tid < S) {
       const size_t r = zr + min(tid, nv - 1);  // rows past the ray repeat its last
@@ -257,7 +263,7 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
       vsh[tid] = A.vis_in ? A.vis[r] : 1.f;
     } else if (tid == S) {
       zsh[S] = last ? 0.f : A.zs[zr + S];
-    } else if (tile == 0 && tid <= S + 6) {
+    } else if (FIRST && tid <= S + 6) {
       const int c = tid - S - 1;
       od[c] = c < 3 ? A.o[ray * 3 + c] : A.d[ray * 3 + c - 3];
     }
@@ -272,7 +278,7 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
     WG_STAMP(9);
     wg::fence_async_smem();
     wg::consumers_sync();
-    if (tile == 0) wg::bar_sync(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
+    if constexpr (FIRST) wg::bar_sync(wg::BAR_PARAMS, wg::NCONS + wg::NHELP);
     WG_STAMP(1);
 
     // ---- static tower + sigma (layer 7's epilogue), final, dir, rgb ----
@@ -284,7 +290,7 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
       wg::epilogue<false, true, 0>(d, st.tower_bias(false) + 8 * WID, act, g, nullptr,
                                    nullptr, nullptr);
       wg::mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
-      if (tile == 0) wg::bar_sync(wg::BAR_DIR, wg::NCONS + wg::NHELP);
+      if constexpr (FIRST) wg::bar_sync(wg::BAR_DIR, wg::NCONS + wg::NHELP);
       wg::epilogue<true, false, 3>(d, ray_b, act, g, st.w_rgb(), st.hb + 1,
                                    planes + P_SR * S);
     } else {
@@ -325,28 +331,20 @@ planar_eval_comp_kernel(const __grid_constant__ Params P) {
 
     if (tid < 32)
       composite<ENCODE_T, FLOW>(A, planes, zsh, vsh, od, macc, carry, ray, tile, nv, last);
-    if (!last) wg::consumers_sync();  // the tile's planes and depths are read
-  }
+    wg::consumers_sync();  // the tile's planes and depths are read
+  };
+  run_tile(0, std::true_type{});
+#pragma unroll 1
+  for (int tile = 1; tile < n_tiles; ++tile) run_tile(tile, std::false_type{});
+
   WG_STAMP(4);
 }
 
-template <int NT, bool PAD>
 cudaError_t launch_variant(const Params& P, bool encode_t, bool flow, cudaStream_t s) {
   const int n = P.a.n_rays;
-  if (!encode_t) return wg::launch(planar_eval_comp_kernel<false, false, NT, PAD>, P, n, s);
-  if (flow) return wg::launch(planar_eval_comp_kernel<true, true, NT, PAD>, P, n, s);
-  return wg::launch(planar_eval_comp_kernel<true, false, NT, PAD>, P, n, s);
-}
-
-// the kernel of the ray's sample count (samples_ok: 64, 128, 192, 256)
-int launch_tiles(const Params& P, bool encode_t, bool flow, int n_samples,
-                 cudaStream_t s) {
-  switch (n_samples) {
-    case 64: return int(launch_variant<1, true>(P, encode_t, flow, s));
-    case 128: return int(launch_variant<1, false>(P, encode_t, flow, s));
-    case 192: return int(launch_variant<2, true>(P, encode_t, flow, s));
-    default: return int(launch_variant<2, false>(P, encode_t, flow, s));
-  }
+  if (!encode_t) return wg::launch(planar_eval_comp_kernel<false, false>, P, n, s);
+  if (flow) return wg::launch(planar_eval_comp_kernel<true, true>, P, n, s);
+  return wg::launch(planar_eval_comp_kernel<true, false>, P, n, s);
 }
 
 }  // namespace
@@ -359,7 +357,7 @@ extern "C" int nsff_planar_eval_comp(
     const float* freqs, int n_freqs,
     int encode_t, int flow, int use_viewdir, int encode_a, int vis_in,
     float z_far, float flow_scale, int n_tau, int n_map, void* stream) {
-  if (!samples_ok(n_samples) || n_freqs > MAXF ||
+  if (n_samples < 1 || n_freqs > MAXF ||
       n_map < (encode_t ? (flow ? 21 : 12) : 4))
     return int(cudaErrorInvalidValue);
   Params P;
@@ -387,8 +385,8 @@ extern "C" int nsff_planar_eval_comp(
   A.z_far = z_far; A.flow_scale = flow_scale;
   for (int i = 0; i < MAXF; ++i) A.freqs[i] = i < n_freqs ? freqs[i] : 0.f;
   if (!wg::encode_maps(P.maps, A.W)) return int(cudaErrorInvalidValue);
-  return launch_tiles(P, encode_t != 0, flow != 0, n_samples,
-                      static_cast<cudaStream_t>(stream));
+  return int(launch_variant(P, encode_t != 0, flow != 0,
+                            static_cast<cudaStream_t>(stream)));
 }
 
 #ifdef WG_PROFILE

@@ -135,7 +135,7 @@ extern "C" int nsff_planar_train_fwd(
     int use_viewdir, int encode_a, float flow_scale, int n_tau,
     void* stream) {
   if (n_freqs > MAXF || xyz_w + n_tau > SEG || (!static_branch && !encode_t) ||
-      !samples_ok(n_samples))
+      n_samples < 1)
     return int(cudaErrorInvalidValue);
   FwdParams P;
   memset(&P, 0, sizeof(P));
@@ -179,7 +179,7 @@ extern "C" int nsff_planar_train_bwd(
     int dir_w, int n_a, const float* freqs, int n_freqs, int use_viewdir,
     int encode_a, float flow_scale, int n_tau, void* stream) {
   const bool stat = static_branch != 0;
-  if (n_freqs > MAXF || xyz_w + n_tau > SEG || n_rays <= 0 || !samples_ok(n_samples))
+  if (n_freqs > MAXF || xyz_w + n_tau > SEG || n_rays <= 0 || n_samples < 1)
     return int(cudaErrorInvalidValue);
   BwdArgs G;
   fill_common(G.c, o, d, zs, nullptr, dir, a, t, flows, w, b, n_rays, xyz_w,

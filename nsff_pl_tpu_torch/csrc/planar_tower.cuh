@@ -107,11 +107,6 @@ __host__ __device__ __forceinline__ int tiles_of(int n_samples) {
   return (n_samples + S - 1) / S;
 }
 
-// the sample counts the planar kernels take: 64, 128, 192 and 256
-inline bool samples_ok(int n_samples) {
-  return n_samples >= 64 && n_samples <= 256 && n_samples % 64 == 0;
-}
-
 struct Common {
   const float* o; const float* d; const float* zs;  // planar layout
   const float* xyz;  // packed layout: (n_rays, S, 3) points, else null
@@ -119,9 +114,8 @@ struct Common {
   const float* flows[3];
   const bf16* W[NSLOT]; const float* B[NSLOT];
   int n_rays, xyz_w, dir_w, n_a, n_tau;
-  // samples per ray, and the ray's tiles of S rows (planar layout: a ray
-  // of 64..256 samples is ceil(n_samples / S) tiles, the last one padded;
-  // the packed layout keeps S samples, one tile)
+  // samples per ray (any count >= 1), and the ray's tiles of S rows:
+  // ceil(n_samples / S), the last one holding 1..S real samples
   int n_samples, n_tiles;
   int use_viewdir, encode_a;
   float flow_scale;

@@ -11,8 +11,9 @@
 // one, so the work is two passes through a global scratch buffer
 // (activations and bf16 cotangents, ~0.7 GB per branch call at batch 512):
 //  1. train_bwd_chain_kernel, one CTA per (ray, tile of 128 samples; a
-//     planar ray of 192 or 256 samples is two tiles, the last one padded
-//     with rows whose cotangent is zero), in the shape of
+//     ray of S samples is ceil(S / 128) tiles, the last one padded with
+//     rows that repeat the ray's last sample and whose cotangent is zero,
+//     so that they add nothing to dW, db or a ray's sums), in the shape of
 //     tower_wgmma.cuh: two consumer warpgroups (rows 0-63 and 64-127)
 //     run every product as wgmma.mma_async (bf16 in, f32 accumulators);
 //     one producer thread streams weight K-slabs by TMA into a 5-stage

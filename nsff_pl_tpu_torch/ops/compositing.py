@@ -26,11 +26,15 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def deltas_from_zs(zs: torch.Tensor):
-    """(N, S) depths -> static & transient deltas, each (N, S)."""
+    """(N, S) depths -> static & transient deltas, each (N, S): the last
+    sample takes the far deltas, also when it is the ray's only one (as
+    the JAX package's kernels and the port's give it; the JAX package's
+    plain `deltas_from_zs` sizes the far column by the differences, so
+    at S = 1 it returns no delta at all)."""
     d = zs[:, 1:] - zs[:, :-1]
-    static = torch.cat([d, torch.full_like(d[:, :1], STATIC_FAR_DELTA)], -1)
+    static = torch.cat([d, torch.full_like(zs[:, :1], STATIC_FAR_DELTA)], -1)
     transient = torch.cat(
-        [d, torch.full_like(d[:, :1], TRANSIENT_FAR_DELTA)], -1)
+        [d, torch.full_like(zs[:, :1], TRANSIENT_FAR_DELTA)], -1)
     return static, transient
 
 

@@ -25,8 +25,9 @@ and the map sums in the CUDA kernels' order (`ops/compositing.py`:
 
 `fused_compositing_fwd` / `_bwd` launch `csrc/fused_compositing.cu` for
 CUDA tensors and run the plain versions for CPU tensors. The CUDA
-kernels take S in `PLANAR_SAMPLES` (64, 128, 192, 256; S / 32 warps a
-ray) and raise for another S.
+kernels take any S >= 1: a ray in chunks of at most 8 warps of 32
+samples, the samples past S masked (the scans' identities, with which the
+plain versions pad their last warp).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ from nsff_pl_tpu_torch.ops.compositing import (block_excl_cumprod,
                                                block_rev_excl_cumsum,
                                                block_sum, deltas_from_zs,
                                                softplus)
-from nsff_pl_tpu_torch.ops.raymarch_kernel import check_planar_samples
+from nsff_pl_tpu_torch.ops.raymarch_kernel import check_cuda, check_samples
 
 N_PACKED = 16
 TINY = 1e-37
@@ -124,7 +125,8 @@ def _checked(t, name, shape, dev):
 
 def _inputs(packed, zs, noise_s, noise_t):
     n, S = zs.shape
-    check_planar_samples(S, "the packed CUDA compositor (B6)")
+    check_samples(S, "the packed CUDA compositor (B6)")
+    check_cuda(zs, "the packed CUDA compositor (B6)")
     dev = zs.device
     ptrs = [_checked(packed, "packed", (n, S, N_PACKED), dev)] + [
         _checked(t, k, (n, S), dev)
@@ -142,8 +144,9 @@ def _lib_fn(name, argtypes):
 
 
 def fused_compositing_fwd_cuda(packed, zs, noise_s, noise_t):
-    """Launch the forward kernel (S / 32 warps a ray) on the current
-    stream; adds one to `fused_compositing_fwd_cuda.launches[S]`."""
+    """Launch the forward kernel (a sample a thread, a ray in chunks of
+    at most 8 warps) on the current stream; adds one to
+    `fused_compositing_fwd_cuda.launches[S]`."""
     n, S, dev, ptrs = _inputs(packed, zs, noise_s, noise_t)
     out = torch.empty((len(OUT_KEYS), n, S), dtype=torch.float32, device=dev)
     maps = torch.empty((n, 4), dtype=torch.float32, device=dev)
@@ -166,8 +169,9 @@ fused_compositing_fwd_cuda.launches = Counter()  # by sample count
 
 
 def fused_compositing_bwd_cuda(packed, zs, noise_s, noise_t, g, gmap):
-    """Launch the adjoint kernel (S / 32 warps a ray) on the current
-    stream; adds one to `fused_compositing_bwd_cuda.launches[S]`."""
+    """Launch the adjoint kernel (a sample a thread, a ray in chunks of
+    at most 8 warps) on the current stream; adds one to
+    `fused_compositing_bwd_cuda.launches[S]`."""
     n, S, dev, ptrs = _inputs(packed, zs, noise_s, noise_t)
     dp = torch.empty((n, S, N_PACKED), dtype=torch.float32, device=dev)
     if n == 0:

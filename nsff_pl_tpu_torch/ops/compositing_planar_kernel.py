@@ -27,7 +27,7 @@ import torch
 
 from nsff_pl_tpu_torch.ops.compositing import (deltas_from_zs,
                                                exclusive_cumsum, softplus)
-from nsff_pl_tpu_torch.ops.raymarch_kernel import check_planar_samples
+from nsff_pl_tpu_torch.ops.raymarch_kernel import check_cuda, check_samples
 
 # input planes: zs + 4 raw sigmas + 4 noises + 12 rgb planes
 IN_KEYS = ("zs", "ssig", "tsig", "tsig_w1", "tsig_w2",
@@ -184,7 +184,8 @@ def _lib_fn(name, nargs_ptr_arrays):
 def _shape_of(ins):
     zs = ins["zs"]
     n, S = zs.shape
-    check_planar_samples(S, "the CUDA compositor")
+    check_samples(S, "the CUDA compositor")
+    check_cuda(zs, "the CUDA compositor")
     return n, S, zs.device
 
 

@@ -2,8 +2,10 @@
 
 Each CUDA wrapper adds one to its own count where it launches its kernel,
 by sample count (`fn.launches[S]`, or `fn.launches[branch][S]` for the
-backward branches); `counts()` names the launches at 128 samples by the
-kernel's name and those at another S as `<name>@<S>`.
+backward branches; the kernels take any S >= 1); `counts()` names the
+launches at 128 samples by the kernel's name, always present, and those
+at every other S counted since the last `reset()` as `<name>@<S>` (a
+reader takes a missing key as 0).
 A wrapper called while a CUDA graph is captured counts the launch it
 records; a replay of the graph calls no wrapper and adds nothing, so a
 graphed dispatch reads its launches as the capture's counts times its
@@ -43,12 +45,14 @@ def _by_s():
 
 
 def counts() -> Dict[str, int]:
-    """Every wrapper's launch count."""
-    rk = _modules()[0]
+    """Every wrapper's launch count: `<name>` at 128 samples, `<name>@<S>`
+    at each other S counted."""
     out = {}
     for name, by_s in _by_s():
-        for S in rk.PLANAR_SAMPLES:
-            out[name if S == 128 else f"{name}@{S}"] = by_s[S]
+        out[name] = by_s[128]
+        for S in sorted(by_s):
+            if S != 128:
+                out[f"{name}@{S}"] = by_s[S]
     return out
 
 

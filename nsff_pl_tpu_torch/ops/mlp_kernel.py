@@ -26,9 +26,9 @@ packing serves every evaluation of a step.
 
 `fused_nerf_eval` launches `csrc/fused_nerf_eval.cu` for CUDA tensors and
 runs `fused_nerf_eval_ref` for CPU tensors; nothing else chooses between
-them. The CUDA kernel takes S in `PLANAR_SAMPLES` (64, 128, 192, 256:
-one CTA per (ray, tile of 128 samples), the rows past S of a half-used
-last tile computed and not written) and raises for another S.
+them. The CUDA kernel takes any S >= 1: one CTA per (ray, tile of 128
+samples), the rows past S of a partly used last tile computed and not
+written.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
 from nsff_pl_tpu_torch.ops.raymarch_kernel import (
     _HEAD_COL, MAX_FREQS, SEG, TRAIN_HEADS, WIDTH, _bcast, _bf16,
     _check, _mm, _posenc_tables, _ptr, _sin_poly, _slot_ptrs, _t_lanes,
-    _tower_ref, branch_weight_names, check_planar_samples,
+    _tower_ref, branch_weight_names, check_cuda, check_samples,
     pack_padded_weights)
 
 N_PACKED = 16  # columns of the packed output
@@ -124,7 +124,7 @@ def packed_checks(xyz, dir_emb, a_emb, t_emb, *, freqs, use_viewdir,
     if xyz.ndim != 3 or xyz.shape[2] != 3:
         raise ValueError(f"xyz: shape {tuple(xyz.shape)} is not (N, S, 3)")
     n, S = xyz.shape[0], xyz.shape[1]
-    check_planar_samples(S, "the packed CUDA kernels (B4, B5)")
+    check_samples(S, "the packed CUDA kernels (B4, B5)")
     n_tau = t_emb.shape[-1] if encode_t and t_emb is not None else 0
     if len(freqs) > MAX_FREQS or 3 + 6 * len(freqs) + n_tau > SEG:
         raise ValueError("posenc + time latent must fit one 128-lane segment")
@@ -161,6 +161,7 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
     n, dir_w, n_a, n_tau = packed_checks(
         xyz, dir_emb, a_emb, t_emb, freqs=freqs, use_viewdir=use_viewdir,
         encode_a=encode_a, encode_t=encode_t)
+    check_cuda(xyz, "the packed CUDA kernel (B5)")
     out = torch.empty((n, xyz.shape[1], N_PACKED), dtype=torch.float32,
                       device=xyz.device)
     if n == 0:

@@ -36,7 +36,7 @@ from nsff_pl_tpu_torch.ops.mlp_kernel import (N_PACKED, fused_nerf_eval,
                                               posenc_rows_xyz)
 from nsff_pl_tpu_torch.ops.raymarch_kernel import (
     _SLOTS, MAX_FREQS, TRAIN_HEADS, _branch_bwd_rows, _check,
-    _posenc_adjoint, _ptr, _slot_ptrs, branch_weight_names,
+    _posenc_adjoint, _ptr, _slot_ptrs, branch_weight_names, check_cuda,
     pack_padded_weights, unpad_padded_grads)
 
 
@@ -101,6 +101,7 @@ def fused_nerf_train_bwd_cuda(branch: str, pw, xyz, dir_emb, a_emb, t_emb, g,
     n, dir_w, n_a, n_tau = packed_checks(
         xyz, dir_emb, a_emb, t_emb, freqs=freqs, use_viewdir=use_viewdir,
         encode_a=encode_a, encode_t=not static)
+    check_cuda(xyz, "the packed CUDA kernel (B4)")
     if n == 0:
         raise ValueError("no rays")
     S = xyz.shape[1]

@@ -43,20 +43,24 @@ from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
 
 SEG = 128  # row segment of the padded weights (the TPU's lane width)
 WIDTH = 256
-# S the tower and compositor CUDA kernels take (the planar B1, B2, B3 and
-# the packed B4, B5, B6): tiles of 128 samples, the last one possibly half
-# used (B6: S / 32 warps a ray)
-PLANAR_SAMPLES = (64, 128, 192, 256)
 MAX_FREQS = 16
 
 
-def check_planar_samples(S: int, what: str) -> None:
-    """Raise NotImplementedError for a sample count outside
-    `PLANAR_SAMPLES` (an argument check, before any launch)."""
-    if S not in PLANAR_SAMPLES:
-        raise NotImplementedError(
-            f"{what} takes S in {PLANAR_SAMPLES}, got {S} (other sample "
-            "counts: ROADMAP.md B-d)")
+def check_samples(S: int, what: str) -> None:
+    """The sample-count check of every CUDA wrapper, before any launch:
+    the tower and compositor kernels (the planar B1, B2, B3 and the packed
+    B4, B5, B6) take any S >= 1 (tiles of 128 samples, the last one partly
+    used; the compositors in chunks of a ray, the tail masked)."""
+    if S < 1:
+        raise ValueError(f"{what} needs at least one sample a ray, got {S}")
+
+
+def check_cuda(t: torch.Tensor, what: str) -> None:
+    """A CUDA wrapper's device check, after its sample check: CPU tensors
+    take the plain version through the dispatching function, never the
+    wrapper."""
+    if not t.is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors, got one on {t.device}")
 
 
 def _sin_poly(x: torch.Tensor) -> torch.Tensor:
@@ -379,7 +383,8 @@ def planar_eval_comp_cuda(pw, o, d, zs, vis, dir_emb, a_emb, t_emb, *,
     dev = o.device
     n, S = zs.shape
     xyz_w = 3 + 6 * len(freqs)
-    check_planar_samples(S, "the CUDA kernel")
+    check_samples(S, "the CUDA kernel")
+    check_cuda(o, "the CUDA kernel")
     if D != 8 or tuple(skips) != (4,):
         raise NotImplementedError("the CUDA kernel is built for D=8, skips=(4,)")
     if len(freqs) > MAX_FREQS or xyz_w + (n_tau if encode_t else 0) > SEG:
@@ -833,7 +838,8 @@ def _train_checks(o, d, zs, flows, dir_emb, a_emb, t_emb, *, freqs,
     dev = o.device
     n, S = zs.shape
     f32 = torch.float32
-    check_planar_samples(S, "the CUDA train kernels")
+    check_samples(S, "the CUDA train kernels")
+    check_cuda(o, "the CUDA train kernels")
     if len(freqs) > MAX_FREQS or 3 + 6 * len(freqs) + n_tau > SEG:
         raise ValueError("posenc + time latent must fit one 128-lane segment")
     _check(o, "o", (n, 3), f32, dev)

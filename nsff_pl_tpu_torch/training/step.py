@@ -402,7 +402,8 @@ class _MultiStep:
             raise RuntimeError(
                 f"CUDA graph capture of the train step failed: {e}") from e
         after = launches.counts()
-        self.graph_launches = {k: after[k] - before[k] for k in after}
+        self.graph_launches = {k: after[k] - before.get(k, 0)
+                               for k in after}
         self.replays = 0
         self.captures += 1
         self._graph = graph
@@ -557,7 +558,7 @@ class _ChunkGraph:
                 torch.cuda.set_sync_debug_mode(0)
         torch.cuda.current_stream(dev).wait_stream(side)
         mid = launches.counts()
-        self.warmup_launches = {k: mid[k] - before[k] for k in mid}
+        self.warmup_launches = {k: mid[k] - before.get(k, 0) for k in mid}
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph):
@@ -567,7 +568,7 @@ class _ChunkGraph:
             raise RuntimeError(
                 f"CUDA graph capture of the render chunks failed: {e}") from e
         after = launches.counts()
-        self.graph_launches = {k: after[k] - mid[k] for k in after}
+        self.graph_launches = {k: after[k] - mid.get(k, 0) for k in after}
         self.replays = 0
         self.capture_seconds = time.perf_counter() - t0
 

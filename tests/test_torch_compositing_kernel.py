@@ -149,7 +149,7 @@ def test_zero_cotangents_cpu_dispatch_and_checks():
             dict(tck.fused_compositing_bwd_cuda.launches)) == before
     with pytest.raises(ValueError, match="samples"):
         tck.make_fused_compositing(8)(*args)
-    # the CUDA wrapper's checks run before anything touches the card: S
-    # outside 64, 128, 192, 256 raises
-    with pytest.raises(NotImplementedError, match="got 16"):
+    # the CUDA wrapper's checks run before anything touches the card: S =
+    # 16 passes the sample check (any S >= 1), and the device check raises
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         tck.fused_compositing_fwd_cuda(*args)

@@ -353,18 +353,23 @@ def test_png_bytes_is_a_valid_png():
                                   rgb)
 
 
-@pytest.mark.parametrize("s", [32, 96, 160, 320])
+@pytest.mark.parametrize("s", [0, 32, 96, 160, 320])
 def test_planar_kernel_wrappers_check_the_sample_count(s):
-    """The CUDA wrappers of the planar kernels (B1, B2's forward and
-    backward, B3's forward and adjoint) refuse a sample count outside
-    `PLANAR_SAMPLES` (64, 128, 192, 256) in their argument checks, before
-    any launch and without a card, naming ROADMAP B-d; the counts in it
-    pass the check."""
+    """Every CUDA wrapper (the planar B1, B2's forward and backward, B3's
+    forward and adjoint; the packed B5, B4 and B6's forward and adjoint)
+    takes any sample count S >= 1: at S = 32, 96, 160 and 320 each passes
+    its sample check and, without a card, raises its next check's error,
+    that the tensors are not on a CUDA device, before any launch. S = 0
+    raises the sample check's ValueError."""
+    from nsff_pl_tpu_torch.ops import compositing_kernel as fck
     from nsff_pl_tpu_torch.ops import compositing_planar_kernel as cpk
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
     from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
 
     n = 2
     o, zs = torch.zeros(n, 3), torch.zeros(n, s)
+    xyz, packed = torch.zeros(n, s, 3), torch.zeros(n, s, 16)
     kw = dict(freqs=(1.0,) * 10, use_viewdir=False, encode_a=False,
               flow_scale=0.2)
     calls = {
@@ -378,10 +383,18 @@ def test_planar_kernel_wrappers_check_the_sample_count(s):
             "static", None, o, o, zs, None, None, None, None, {}, **kw),
         "comp_fwd": lambda: cpk.planar_compositor_fwd_cuda({"zs": zs}),
         "comp_bwd": lambda: cpk.planar_compositor_bwd_cuda({"zs": zs}, {},
-                                                           None)}
+                                                           None),
+        "packed_eval": lambda: mk.fused_nerf_eval_cuda(
+            None, xyz, None, None, None, static_branch=True, encode_t=False,
+            output_flow=(), **kw),
+        "packed_bwd": lambda: mtk.fused_nerf_train_bwd_cuda(
+            "static", None, xyz, None, None, None, packed, output_flow=(),
+            need_dxyz=False, **kw),
+        "packed_comp_fwd": lambda: fck.fused_compositing_fwd_cuda(
+            packed, zs, zs, zs),
+        "packed_comp_bwd": lambda: fck.fused_compositing_bwd_cuda(
+            packed, zs, zs, zs, {}, None)}
+    want = "at least one sample" if s == 0 else "takes CUDA tensors"
     for name, call in calls.items():
-        with pytest.raises(NotImplementedError, match="B-d"):
+        with pytest.raises(ValueError, match=want):
             call()
-    assert rk.PLANAR_SAMPLES == (64, 128, 192, 256)
-    for ok in rk.PLANAR_SAMPLES:
-        rk.check_planar_samples(ok, "the CUDA kernels")

@@ -67,3 +67,53 @@ def test_train_fwd_work_counts_the_flagship_shapes(call):
     assert nbytes == inputs + weights + outputs
     # operations, not bytes, bound both calls on the H100
     assert cs.bound(flops, nbytes)[1] == "operations"
+
+
+WORK_KINDS = ("train_fwd", "train_fwd_packed", "train_bwd_static",
+              "train_bwd_transient", "train_bwd_packed", "comp_fwd",
+              "comp_bwd", "packed_comp_fwd", "packed_comp_bwd", "eval_comp")
+
+
+@pytest.mark.parametrize("s", [96, 320])
+@pytest.mark.parametrize("kind", WORK_KINDS)
+def test_work_counts_the_real_samples(kind, s):
+    """Every work count behind a bound counts a ray's real samples, not
+    the rows of its padded tiles (a ray of 96 samples runs one tile of
+    128 rows, one of 320 three): (flops, bytes) at S is the count at one
+    sample plus S - 1 times the count of one more sample, and the train
+    forward's main call is the flagship count above at S."""
+    cs = _chip_smoke()
+    params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
+                                 use_viewdir=True, encode_transient=True,
+                                 output_flow=True, device="cpu")
+    pw = trk.make_planar_nerf_train(S, use_viewdir=True,
+                                    output_flow=("fw", "bw")).pack(params)
+    ev = trk.make_planar_nerf_eval_comp(S, use_viewdir=True, encode_t=True,
+                                        output_flow=("fw", "bw"), vis_in=True)
+    work = {
+        "train_fwd": lambda n, k: cs.train_fwd_work(params, True, 2, n, k,
+                                                    pw, 14, False),
+        "train_fwd_packed": lambda n, k: cs.train_fwd_work(
+            params, True, 2, n, k, pw, 16, False, packed=True),
+        "train_bwd_static": lambda n, k: cs.train_bwd_work(
+            params, "static", 2, n, k, pw, False),
+        "train_bwd_transient": lambda n, k: cs.train_bwd_work(
+            params, "transient", 1, n, k, pw, True),
+        "train_bwd_packed": lambda n, k: cs.train_bwd_work(
+            params, "transient", 1, n, k, pw, False, packed=True,
+            need_dxyz=True),
+        "comp_fwd": lambda n, k: cs.comp_work("fwd", n, k),
+        "comp_bwd": lambda n, k: cs.comp_work("bwd", n, k),
+        "packed_comp_fwd": lambda n, k: cs.packed_comp_work("fwd", n, k),
+        "packed_comp_bwd": lambda n, k: cs.packed_comp_work("bwd", n, k),
+        "eval_comp": lambda n, k: cs.eval_comp_work(
+            params, ev.kernel_kw, n, k, ev.pack(params))}[kind]
+    one, two, at_s = work(N, 1), work(N, 2), work(N, s)
+    for i in range(2):
+        assert at_s[i] == one[i] + (s - 1) * (two[i] - one[i]), (kind, i)
+    # below the count of the whole tiles' rows (128 for 96, 384 for 320)
+    assert at_s[0] < work(N, -(-s // 128) * 128)[0]
+    if kind == "train_fwd":
+        per_sample = (_tower_macs(XYZ) + W * W + W * 1 + W * 3
+                      + _tower_macs(XYZ + TAU) + W * 10)
+        assert at_s[0] == 2 * (per_sample * N * s + DIR * W * N)

@@ -127,11 +127,12 @@ def test_wrapper_checks():
         fn(tp, xyz[:, :8], dirs, None, t)
     with pytest.raises(ValueError, match="n_tau"):
         fn(tp, xyz, dirs, None, t[:, :8])
-    # the CUDA wrapper's checks run before anything touches the card: S
-    # outside 64, 128, 192, 256 raises
-    with pytest.raises(NotImplementedError, match="got 16"):
-        tmk.packed_checks(xyz, dirs, None, t, freqs=fn.kernel_kw["freqs"],
-                          use_viewdir=True, encode_a=False, encode_t=True)
+    # the CUDA wrapper's checks run before anything touches the card: S =
+    # 16 passes the sample check (any S >= 1), the shapes are read
+    assert tmk.packed_checks(xyz, dirs, None, t, freqs=fn.kernel_kw["freqs"],
+                             use_viewdir=True, encode_a=False,
+                             encode_t=True) == (2, dirs.shape[1], 0,
+                                                t.shape[1])
     with pytest.raises(ValueError, match="neither branch"):
         tmk.fused_nerf_eval_cuda(fn.pack(tp), xyz, None, None, None, **{
             **fn.kernel_kw, "static_branch": False, "encode_t": False})
