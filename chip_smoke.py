@@ -240,6 +240,24 @@ once), then:
    96, one graph replay a frame, frame 0 equal to the host loop), each with
    its launch counts by sample count (PER_STEP_96, PER_STEP_PACKED_96,
    PER_STEP_C2F2, PER_STEP_PACKED_C2F2).
+16. input widths (ROADMAP A18 and the 16-frequency cap of C; after the
+   any-S phase): the packed evaluator's wide instance (two 128-lane input
+   segments) at `--N_tau 80` and at `--N_emb_xyz 22` against its plain
+   version at the serving chunk (full, static only, transient only, 37
+   rays; PACKED_TOL / PACKED_SHARE), timed with its bound, the
+   one-segment B5 timed before and after; at `--N_emb_xyz 17 --N_tau 8`
+   (17 frequencies) B1 at the serving chunk, B2, B3, B4, B5 and B6 as in
+   the kernel phase, with its tolerances (B2's flow-plane cotangents by
+   the unrounded-model rule), each timed; then the paths: at each wide
+   width a 512x288 `render_pose` frame with `planar_eval="off"` in
+   bfloat16 (5 launches of the wide instance) against the float32 frame
+   of the plain evaluators (F32_TOL), and WIDE_STEPS steps of
+   `--train_backend xla` (the plain evaluators, no launch; the JAX
+   package's gradient kernels refuse these widths); at 17 frequencies
+   the planar recipe (WIDE_STEPS eager steps and the same graphed, equal
+   bit for bit, PER_STEP) and the packed one (the same, PER_STEP_PACKED), and a
+   served frame on B1 against the one on B5 (FRAME_TOL). The records are
+   named with their widths, e.g. `fused_nerf_eval[N_emb_xyz 10, N_tau 80]`.
 
 The training phases end with a torch.profiler trace of 5 more steps
 (device time by kernel, the device's busy share and the backward's
@@ -429,6 +447,13 @@ def _mac(params, name):
     return w.shape[0] * w.shape[1]
 
 
+def _in_widths(params):
+    """(xyz_w, n_tau) of a model's tower inputs: posenc lanes, time latent."""
+    xyz_w = params["static_xyz_0"]["w"].shape[0]
+    t0 = params.get("transient_xyz_0")
+    return xyz_w, (t0["w"].shape[0] - xyz_w) if t0 is not None else 0
+
+
 def train_fwd_work(params, static_branch: bool, n_flow_out: int, n: int,
                    S: int, pw, n_out: int, flow_in: bool,
                    encode_t: bool = True, packed: bool = False):
@@ -457,7 +482,7 @@ def train_fwd_work(params, static_branch: bool, n_flow_out: int, n: int,
         nbytes = n * S * 3 * 4
     else:
         nbytes = n * (3 + 3 + S) * 4 + (3 * n * S * 4 if flow_in else 0)
-    nbytes += n * 48 * 4 if encode_t else 0
+    nbytes += n * _in_widths(params)[1] * 4 if encode_t else 0
     nbytes += n * 27 * 4 if static_branch else 0
     nbytes += sum(t.numel() * t.element_size() for k in names
                   for t in pw[k].values())
@@ -474,13 +499,14 @@ def train_bwd_work(params, branch: str, n_flow_out: int, n: int, S: int,
     read once, every gradient written once. `packed`: (n, S, 3) points in,
     16-column cotangent rows in, (n, S, 3) xyz cotangent out with
     `need_dxyz`."""
+    xyz_w, n_tau = _in_widths(params)
     if branch == "static":
         names = [f"static_xyz_{i}" for i in range(8)] + [
             "static_xyz_final", "static_sigma", "static_rgb"]
         per_sample = 3 * sum(_mac(params, k) for k in names)
         if not need_dxyz:
             # no data gradient into the encoding: layer 0 and the skip input
-            per_sample -= 2 * 63 * 256
+            per_sample -= 2 * xyz_w * 256
         w = params["static_dir"]["w"]
         per_sample += 3 * 256 * w.shape[1]
         per_ray = 2 * (w.shape[0] - 256) * w.shape[1]
@@ -495,9 +521,9 @@ def train_bwd_work(params, branch: str, n_flow_out: int, n: int, S: int,
                           + 256 * (4 + 3 * n_flow_out))
         per_ray = 0
         n_g = 4 + 3 * n_flow_out
-        extra_in = n * 48 * 4 + (3 * n * S * 4 if flow_in else 0)
+        extra_in = n * n_tau * 4 + (3 * n * S * 4 if flow_in else 0)
         out = sum(_mac(params, k) + params[k]["b"].numel() for k in names)
-        out_bytes = (out + 257 * (4 + 3 * n_flow_out)) * 4 + n * 48 * 4 + (
+        out_bytes = (out + 257 * (4 + 3 * n_flow_out)) * 4 + n * n_tau * 4 + (
             3 * n * S * 4 if flow_in else 0)
         names.append("transient_heads")
     flops = 2.0 * (per_sample * n * S + per_ray * n)
@@ -558,13 +584,22 @@ def at_samples(name, S):
     return name if S == 128 else f"{name}@{S}"
 
 
-def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
+def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128,
+                       widths=None):
     """The four training kernels against their plain versions at batch
     512 on the main variant and both warps, at S samples a ray; returns
     their kernel records (launches filled in by the training phases). At
-    S = 128 it also times the weight packing and each backward's phases."""
+    S = 128 it also times the weight packing and each backward's phases.
+    `widths`: the model's input widths (n_emb_xyz, n_tau) where they are
+    not the flagship's, its records' names tagged with them (`wtag`)."""
     from nsff_pl_tpu_torch.ops.posenc import posenc
     from nsff_pl_tpu_torch.ops.sampling import stratified_zs
+
+    wkw = widths or {}
+    extras = S == 128 and widths is None
+
+    def nm(base):
+        return at_samples(base, S) + wtag(widths)
 
     n = BATCH
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -577,9 +612,9 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
         0, N_FRAMES, (n,), generator=gen, device="cuda")].contiguous()
     fine = params["nerf_fine"]
     main_op = rk.make_planar_nerf_train(S, use_viewdir=True,
-                                        output_flow=("fw", "bw"))
+                                        output_flow=("fw", "bw"), **wkw)
     pw = main_op.pack(fine)
-    if S == 128:
+    if extras:
         # the weight packing runs once per step, for the three evaluations
         pack_ms = cuda_ms(torch, lambda: main_op.pack(fine), iters=10)
         print(f"weight packing (once per training step): {pack_ms:.3f} ms "
@@ -592,7 +627,7 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
             ("bw warp", False, True, ("fw",))):
         op = rk.make_planar_nerf_train(S, static_branch=static_branch,
                                        flow_in=flow_in, use_viewdir=True,
-                                       output_flow=flow)
+                                       output_flow=flow, **wkw)
         flows = tuple((0.05 * torch.randn((n, S), generator=gen,
                                           device="cuda")).contiguous()
                       for _ in range(3)) if flow_in else None
@@ -607,7 +642,7 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
         err = (got - want).abs()
         worst = err.amax((1, 2)).cpu().numpy()
         share = float((err > 1e-5).float().mean())
-        print(f"kernel planar_nerf_train_fwd [{label}] n={n} S={S}: max abs "
+        print(f"kernel {nm('planar_nerf_train_fwd')} [{label}] n={n} S={S}: max abs "
               f"err per plane {np.array2string(worst, precision=2)}, share "
               f"> 1e-5 {share:.3f} (tol {PLANE_TOL}, {PLANE_SHARE})",
               flush=True)
@@ -621,7 +656,7 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
         flops, nbytes = train_fwd_work(fine, static_branch, len(flow), n, S,
                                        pw, len(op.out_keys), flow_in)
         bms, bby = bound(flops, nbytes)
-        fwd_name = at_samples("planar_nerf_train_fwd", S)
+        fwd_name = nm("planar_nerf_train_fwd")
         if label == "main":
             plain_ms = cuda_ms(torch, lambda: rk.planar_nerf_train_ref(
                 *args, **kw), iters=3)
@@ -674,8 +709,12 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
             # plane stands no farther from the unrounded model than the
             # plain version does (EXACT_MEAN on average, EXACT_MAX at its
             # largest), within GRAD_FRO in Frobenius norm, and at 128
-            # samples also within GRAD_MAX as the summed leaves
-            per_sample = [k for k in errs if S != 128 and
+            # samples also within GRAD_MAX as the summed leaves (at the
+            # flagship's widths, where that was measured; at other widths
+            # the per-sample rule, as off 128: at 17 frequencies one
+            # sample's dflow0 parts by 0.135 of its largest entry, both
+            # sides equally far from the unrounded model)
+            per_sample = [k for k in errs if (S != 128 or widths) and
                           k.startswith("dflow")]
             summed = [k for k in errs if k not in per_sample]
             w_max = max(summed, key=lambda k: errs[k][0])
@@ -691,7 +730,7 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
                                               exact[c], (0, 1))
                     r_mean, r_max = max(r_mean, rm), max(r_max, rx)
                     p_far = max(p_far, rel_errs(want_c, exact[c])[0])
-            print(f"kernel {at_samples('planar_nerf_train_bwd_' + branch, S)} "
+            print(f"kernel {nm('planar_nerf_train_bwd_' + branch)} "
                   f"[{label}]: "
                   f"{len(errs)} outputs, worst error/max {errs[w_max][0]:.2e} "
                   f"({w_max}), worst Frobenius {errs[w_fro][1]:.2e} "
@@ -717,17 +756,17 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
                                                False)
                 bms, bby = bound(flops, nbytes)
                 records[name] = {
-                    "name": at_samples(name, S), "route": "cuda",
+                    "name": nm(name), "route": "cuda",
                     "source": src,
                     "replaces": "nsff_pl_tpu/ops/raymarch_kernel.py:64",
                     "launches": None, "max_abs_err": abs_err,
                     "max_rel_err": errs[w_max][0], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
                     "library_ms": None}
-                print(f"kernel {at_samples(name, S)} [main] n={n}: {ms:.3f} "
+                print(f"kernel {nm(name)} [main] n={n}: {ms:.3f} "
                       f"ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
                       f"({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
-                if S == 128:
+                if extras:
                     bwd_phases(torch, records[name],
                                lambda: rk.planar_nerf_train_bwd_cuda(
                                    branch, *args, cot, **bkw),
@@ -761,7 +800,7 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
     bwd_errs = [rel_errs(dg[i], rdg[i]) for i in range(len(dg))]
     bwd_err = max(e[0] for e in bwd_errs)
     bwd_abs = max(e[2] for e in bwd_errs)
-    print(f"kernel {at_samples('planar_compositor', S)}: forward max abs err "
+    print(f"kernel {nm('planar_compositor')}: forward max abs err "
           f"{fwd_err:.2e}, "
           f"adjoint worst error/max {bwd_err:.2e} (tol {COMP_TOL})",
           flush=True)
@@ -779,17 +818,25 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128):
         bms, bby = bound(ops, nbytes, PEAK_F32_FLOPS)
         name = f"planar_compositor_{which}"
         records[name] = {
-            "name": at_samples(name, S), "route": "cuda", "source": csrc,
+            "name": nm(name), "route": "cuda", "source": csrc,
             "replaces": "nsff_pl_tpu/ops/compositing_planar_kernel.py:110",
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
             "library_ms": None}
         if which == "bwd":
             records[name]["max_rel_err"] = bwd_err
-        print(f"kernel {at_samples(name, S)} n={n}: {ms:.4f} ms, plain "
+        print(f"kernel {nm(name)} n={n}: {ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({nbytes / 1e6:.2f} "
               f"MB) on {card}", flush=True)
     return records
+
+
+def wtag(widths):
+    """The suffix of a kernel record's name at input widths other than the
+    flagship's: "[N_emb_xyz 17, N_tau 8]", or "" for None."""
+    if widths is None:
+        return ""
+    return f"[N_emb_xyz {widths['n_emb_xyz']}, N_tau {widths['n_tau']}]"
 
 
 def _fold_errs(record, abs_err, rel_err):
@@ -832,7 +879,7 @@ def packed_plain_eval(torch, mk, args, kw, S):
 
 
 def packed_kernel_phase(torch, np, params, rays, card, S=128,
-                        main_case="full"):
+                        main_case="full", widths=None):
     """The packed-boundary kernels against their plain versions at S
     samples a ray: the evaluator at the serving chunk (full, static only,
     transient only) and at a ragged count, its backward at batch 512
@@ -843,7 +890,11 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
     and S - 128 random ones, sorted. The evaluator's record is timed on
     `main_case`, the variant the main paths run at S (its error covers
     every variant). Returns the kernel records, named by `at_samples`
-    (launches filled in by the packed phases)."""
+    (launches filled in by the packed phases). `widths`: the model's
+    input widths (n_emb_xyz, n_tau) where they are not the flagship's, the
+    records' names tagged with them (`wtag`); past one input segment
+    (B5's wide instance) only the evaluator runs (B4 takes one segment,
+    B6 no width)."""
     from nsff_pl_tpu_torch.ops import compositing_kernel as fck
     from nsff_pl_tpu_torch.ops import mlp_kernel as mk
     from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
@@ -851,6 +902,9 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
     from nsff_pl_tpu_torch.ops.sampling import stratified_zs
 
     fine = params["nerf_fine"]
+    wkw = widths or {}
+    extras = S == 128 and widths is None
+    wide = sum(_in_widths(fine)) > 128
     gen = torch.Generator(device="cuda").manual_seed(4 + S)
 
     def inputs(n):
@@ -868,7 +922,7 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
         return xyz, zs, posenc(d, 3.0, 4).contiguous(), t_emb
 
     records = {}
-    ename = at_samples("fused_nerf_eval", S)
+    ename = at_samples("fused_nerf_eval", S) + wtag(widths)
     eval_err = 0.0
     # ---- the evaluator at the serving chunk
     n = CHUNK
@@ -881,7 +935,7 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
             ("full, ragged", True, True, ("fw", "bw"), RAGGED)):
         fn = mk.make_fused_nerf_eval(S, use_viewdir=True, encode_a=False,
                                      encode_t=encode_t, output_flow=flow,
-                                     static_branch=static_branch)
+                                     static_branch=static_branch, **wkw)
         pw = fn.pack(fine)
         args = (pw, xyz[:n], de[:n] if static_branch else None, None,
                 te[:n] if encode_t else None)
@@ -928,6 +982,8 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
               f"({flops / 1e12:.2f} TFLOP) on {card}", flush=True)
     records[ename]["max_abs_err"] = eval_err
     del xyz, de, te
+    if wide:
+        return records
 
     # ---- the backward at the training batch
     n = BATCH
@@ -944,7 +1000,7 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
         op = mtk.make_fused_nerf_train(S, use_viewdir=True, encode_a=False,
                                        encode_t=True, output_flow=flow,
                                        static_branch=static_branch,
-                                       need_dxyz=need_dxyz)
+                                       need_dxyz=need_dxyz, **wkw)
         pw = op.pack(fine)
         kw = op.kernel_kw
         if packed_main is None:
@@ -967,8 +1023,8 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
             errs[name] = rel_errs(a, b)
         w_max = max(errs, key=lambda k: errs[k][0])
         w_fro = max(errs, key=lambda k: errs[k][1])
-        line = (f"kernel {at_samples(f'fused_nerf_train_bwd_{branch}', S)} "
-                f"[{label}]: "
+        line = (f"kernel {at_samples(f'fused_nerf_train_bwd_{branch}', S)}"
+                f"{wtag(widths)} [{label}]: "
                 f"{len(errs)} outputs, worst error/max {errs[w_max][0]:.2e} "
                 f"({w_max}), worst Frobenius {errs[w_fro][1]:.2e} ({w_fro}) "
                 f"(tol {GRAD_MAX}, {GRAD_FRO})")
@@ -991,7 +1047,7 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
         flops, nbytes = train_bwd_work(fine, branch, len(flow), n, S, pw,
                                        False, packed=True,
                                        need_dxyz=need_dxyz)
-        name = at_samples(f"fused_nerf_train_bwd_{branch}", S)
+        name = at_samples(f"fused_nerf_train_bwd_{branch}", S) + wtag(widths)
         if label == "main":
             plain_ms = cuda_ms(torch, lambda: mtk.fused_nerf_train_bwd_ref(
                 *args, need_dxyz=need_dxyz, **bkw), iters=2)
@@ -1002,7 +1058,7 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
             print(f"kernel {name} [main] n={n}: {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms, bound {bound(flops, nbytes)[0]:.3f} "
                   f"ms ({flops / 1e12:.3f} TFLOP) on {card}", flush=True)
-            if S == 128:
+            if extras:
                 bwd_phases(torch, records[name],
                            lambda: mtk.fused_nerf_train_bwd_cuda(
                                *args, need_dxyz=need_dxyz, **bkw),
@@ -1029,7 +1085,8 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
     bwd_errs = [rel_errs(dp[..., c], rdp[..., c]) for c in range(8)]
     bwd_err = max(e[0] for e in bwd_errs)
     bwd_abs = max(e[2] for e in bwd_errs)
-    print(f"kernel {at_samples('fused_compositing', S)}: forward max abs "
+    print(f"kernel {at_samples('fused_compositing', S)}{wtag(widths)}: "
+          f"forward max abs "
           f"err {fwd_err:.2e}, adjoint worst error/max per column "
           f"{bwd_err:.2e} (tol {COMP_TOL})", flush=True)
     if not bool(torch.isfinite(dp).all()) or bool(dp[..., 8:].any()):
@@ -1047,7 +1104,7 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
         ms = cuda_ms(torch, fn, iters=100, graph=True)
         plain_ms = cuda_ms(torch, ref, iters=10, graph=True)
         ops, nbytes = packed_comp_work(which, n, S)
-        name = at_samples(f"fused_compositing_{which}", S)
+        name = at_samples(f"fused_compositing_{which}", S) + wtag(widths)
         records[name] = _record(
             name, csrc, "nsff_pl_tpu/ops/compositing_kernel.py:100", err, ms,
             plain_ms, ops, nbytes, PEAK_F32_FLOPS)
@@ -1056,7 +1113,7 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
         print(f"kernel {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
               f"bound {records[name]['bound_ms']:.4f} ms "
               f"({nbytes / 1e6:.2f} MB) on {card}", flush=True)
-    if S == 128:
+    if extras:
         packed_comp_large(torch, fck, records, card)
     return records
 
@@ -5361,6 +5418,268 @@ def samples_eval_phase(torch, np, card):
     return ran
 
 
+# ---------------- input widths past the flagship's (main paths) ----------------
+
+# the packed evaluator past one 128-lane input segment (B5's wide
+# instance): the time latent at 80 (143 lanes) and 22 posenc frequencies
+# (135 lanes); and 17 frequencies (113 lanes with N_tau 8) on every tower
+# kernel, once refused by a 16-frequency cap
+WIDE = ({"N_tau": 80}, {"N_emb_xyz": 22})
+FREQ17 = {"N_emb_xyz": 17, "N_tau": 8}
+WIDE_STEPS = 3
+
+
+def widths_of(cfg):
+    return {"n_emb_xyz": cfg.N_emb_xyz, "n_tau": cfg.N_tau}
+
+
+def b1_at_widths(torch, np, rk, params, rays, widths, card):
+    """B1 at the serving chunk on a model of the given input widths against
+    its plain version (TOL), timed; its kernel record."""
+    from nsff_pl_tpu_torch.ops.posenc import posenc
+
+    n, S = CHUNK, 128
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    o, d = rays[:n, :3].contiguous(), rays[:n, 3:].contiguous()
+    zs = torch.linspace(0, 1, S, device="cuda").expand(n, S).contiguous()
+    de = posenc(d, 3.0, 4).contiguous()
+    te = params["embedding_t"][torch.randint(
+        0, N_FRAMES, (n,), generator=gen, device="cuda")].contiguous()
+    fn = rk.make_planar_nerf_eval_comp(S, use_viewdir=True, encode_t=True,
+                                       **widths)
+    pw = fn.pack(params["nerf_fine"])
+    args = (pw, o, d, zs, None, de, None, te)
+    got = rk.planar_eval_comp_cuda(*args, **fn.kernel_kw)
+    torch.cuda.synchronize()
+    want = rk.planar_eval_comp_ref(*args, **fn.kernel_kw)
+    name = "planar_eval_comp" + wtag(widths)
+    err = float((got - want).abs().max())
+    print(f"kernel {name} n={n} S={S}: max abs err {err:.2e} (tol {TOL})",
+          flush=True)
+    if not bool(torch.isfinite(got).all()) or err > TOL:
+        fail(f"{name} disagrees with its plain version")
+    del got, want
+    ms = cuda_ms(torch, lambda: rk.planar_eval_comp_cuda(
+        *args, **fn.kernel_kw), iters=5)
+    plain_ms = cuda_ms(torch, lambda: rk.planar_eval_comp_ref(
+        *args, **fn.kernel_kw), iters=2)
+    flops, nbytes = eval_comp_work(params["nerf_fine"], fn.kernel_kw, n, S,
+                                   pw)
+    rec = _record(name, "nsff_pl_tpu_torch/csrc/planar_eval_comp.cu",
+                  "nsff_pl_tpu/ops/raymarch_kernel.py:728", err, ms, plain_ms,
+                  flops, nbytes)
+    print(f"kernel {name} n={n}: {ms:.3f} ms "
+          f"({rate_line(flops, ms, rec['bound_ms'])}), plain {plain_ms:.3f} "
+          f"ms, bound {rec['bound_ms']:.3f} ms on {card}", flush=True)
+    return rec
+
+
+def narrow_b5_ms(torch, params, rays):
+    """B5's one-segment instance at the serving chunk (full), device ms."""
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+    from nsff_pl_tpu_torch.ops.posenc import posenc
+
+    n = CHUNK
+    o, d = rays[:n, :3], rays[:n, 3:]
+    z = torch.linspace(0, 1, 128, device="cuda")
+    xyz = (o[:, None] + d[:, None] * z[:, None]).contiguous()
+    fn = mk.make_fused_nerf_eval(128, use_viewdir=True, encode_a=False,
+                                 encode_t=True, output_flow=("fw", "bw"))
+    te = params["embedding_t"][torch.arange(n, device="cuda") % N_FRAMES]
+    args = (fn.pack(params["nerf_fine"]), xyz, posenc(d, 3.0, 4).contiguous(),
+            None, te.contiguous())
+    return cuda_ms(torch, lambda: mk.fused_nerf_eval_cuda(
+        *args, **fn.kernel_kw), iters=5)
+
+
+def wide_kernel_phase(torch, np, cfg, params, rays, card):
+    """The kernels at the slice's widths against their plain versions: B5's
+    wide instance at the serving chunk at both WIDE widths (full, static
+    only, transient only, a ragged count; `packed_kernel_phase`); at
+    FREQ17, B1 at the serving chunk, B2's forward and backward and B3 at
+    batch 512 (`train_kernel_phase`), B5 at the serving chunk, B4 and B6 at
+    batch 512 (`packed_kernel_phase`), with the flagship's tolerances,
+    each timed beside its plain version and its bound. The one-segment B5
+    (the flagship `params`) is timed before and after. Returns the records
+    by name (launches filled in by `wide_paths_phase`)."""
+    from nsff_pl_tpu_torch.config import build_params
+    from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
+    from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
+
+    before = narrow_b5_ms(torch, params, rays)
+    records = []
+    for over in WIDE:
+        wcfg = cfg.replace(**over)
+        wp = build_params(wcfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+        records += packed_kernel_phase(torch, np, wp, rays, card,
+                                       widths=widths_of(wcfg)).values()
+        del wp
+        torch.cuda.empty_cache()
+    after = narrow_b5_ms(torch, params, rays)
+    print(f"kernel fused_nerf_eval (one segment) n={CHUNK}: {before:.3f} ms "
+          f"before the wide instance's runs, {after:.3f} ms after, on "
+          f"{card}", flush=True)
+    fcfg = cfg.replace(**FREQ17)
+    fp = build_params(fcfg, torch.Generator().manual_seed(0), device="cuda")
+    w = widths_of(fcfg)
+    records.append(b1_at_widths(torch, np, rk, fp, rays, w, card))
+    records += train_kernel_phase(torch, np, rk, tck, fp, rays, card,
+                                  widths=w).values()
+    records += packed_kernel_phase(torch, np, fp, rays, card,
+                                   widths=w).values()
+    torch.cuda.empty_cache()
+    return {r["name"]: r for r in records}
+
+
+def plain_steps(torch, np, cfg, table, Ks, Ps, card, label,
+                steps=WIDE_STEPS):
+    """`steps` eager steps of the recipe `cfg` on the plain evaluators
+    (`train_backend='xla'`, as the JAX package trains widths its kernels'
+    gradients refuse): no kernel launch, finite loss terms, the params
+    changed; returns the device ms a step."""
+    from nsff_pl_tpu_torch.config import build_params
+    from nsff_pl_tpu_torch.data.pipeline import FrameScheduler, RayBatcher
+    from nsff_pl_tpu_torch.training.optim import param_leaves
+
+    params = build_params(cfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+    state, step = train_setup(torch, cfg, params, "cuda", BATCH)
+    if step.use_planar:
+        fail(f"{label}: took the planar path")
+    batcher = RayBatcher(table, BATCH, device="cuda")
+    sched = FrameScheduler(N_FRAMES, seed=cfg.seed)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    before = [p.detach().clone() for p in param_leaves(state.params)]
+    args = (batcher.table, batcher.weights, Ks, Ps, gen)
+    state, m, _ = step(state, *args, sched.next())  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    rows = []
+    ev0.record()
+    for _ in range(steps):
+        state, m, _ = step(state, *args, sched.next())
+        rows.append({k: float(v) for k, v in m.items()})
+    ev1.record()
+    torch.cuda.synchronize()
+    ms = ev0.elapsed_time(ev1) / steps
+    check_counts(launch_counts(), {}, steps, label)
+    print(f"{label}: {steps} eager steps at batch {BATCH} on the plain "
+          f"evaluators, {ms:.3f} ms per step (CUDA events), loss "
+          + json.dumps([round(r["loss"], 6) for r in rows])
+          + f", no kernel launch, on {card}", flush=True)
+    if not all(np.isfinite(v) for r in rows for v in r.values()):
+        fail(f"{label}: loss terms not finite")
+    if all(bool(torch.equal(a, b)) for a, b in
+           zip(before, param_leaves(state.params))):
+        fail(f"{label}: params did not change")
+    return ms
+
+
+def served_frame(torch, np, params, K, poses, cfg, expected, card, label):
+    """One 512x288 `render_pose` frame at chunk CHUNK with the launch counts
+    read around it (`expected` per frame); returns its float maps."""
+    from nsff_pl_tpu_torch.apps.serve import RenderService
+
+    svc = RenderService(params, K, poses, (W_IMG, H_IMG), cfg, chunk=CHUNK,
+                        device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rgb, depth = svc.render_pose(0)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"{label}: one {W_IMG}x{H_IMG} frame in {secs:.6f} s, launches "
+          + json.dumps({k: v for k, v in counts.items() if v})
+          + f" on {card}", flush=True)
+    check_counts(counts, expected, 1, label)
+    if rgb.shape != (H_IMG, W_IMG, 3) or depth.shape != (H_IMG, W_IMG) \
+            or not np.isfinite(depth).all():
+        fail(f"{label}: bad frame")
+    maps = svc.render_maps(0)
+    rgbf = maps["rgb_fine"]
+    if not bool(torch.isfinite(rgbf).all()) or float(rgbf.min()) < 0 \
+            or float(rgbf.max()) > 1:
+        fail(f"{label}: rgb_fine not finite or outside [0, 1]")
+    return maps
+
+
+def _frame_err(a, b):
+    return max(float((a[k].float() - b[k].float()).abs().max())
+               for k in ("rgb_fine", "depth_fine"))
+
+
+def wide_paths_phase(torch, np, tcfg, cfg, table, Ks, Ps, K, poses, card):
+    """The slice's main paths. At each WIDE width: a 512x288 frame served
+    with `planar_eval="off"` in bfloat16 (B5's wide instance once a chunk)
+    against the float32 frame of the plain evaluators (F32_TOL), and
+    WIDE_STEPS steps of `--train_backend xla` (`plain_steps`). At FREQ17:
+    the planar recipe (WIDE_STEPS eager steps, the same graphed, equal bit
+    for bit; PER_STEP) and the packed one (PER_STEP_PACKED; the same), and a served frame on B1 against the one on B5
+    (FRAME_TOL). Returns the launches of each record of
+    `wide_kernel_phase` on these paths."""
+    from nsff_pl_tpu_torch.config import build_params
+
+    n_chunks = -(-W_IMG * H_IMG // CHUNK)
+    ran = {}
+    for over in WIDE:
+        scfg = cfg.replace(**over)
+        tag = wtag(widths_of(scfg))
+        params = build_params(scfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+        bf = served_frame(torch, np, params, K, poses,
+                          scfg.replace(planar_eval="off"),
+                          {"fused_nerf_eval": n_chunks}, card,
+                          f"wide serving{tag} [bfloat16, B5]")
+        ran["fused_nerf_eval" + tag] = n_chunks
+        f32 = served_frame(torch, np, params, K, poses,
+                           scfg.replace(planar_eval="off", dtype="float32"),
+                           {}, card, f"wide serving{tag} [float32]")
+        err = _frame_err(bf, f32)
+        print(f"wide serving{tag}: the bfloat16 frame against the float32 "
+              f"one, max abs err {err:.3e} (tol {F32_TOL})", flush=True)
+        if not err <= F32_TOL:
+            fail(f"wide serving{tag}: B5's frame disagrees with float32")
+        del params, bf, f32
+        plain_steps(torch, np, tcfg.replace(train_backend="xla", **over),
+                    table, Ks, Ps, card, f"wide training{tag} [xla]")
+        torch.cuda.empty_cache()
+
+    fcfg = tcfg.replace(**FREQ17)
+    tag = wtag(widths_of(fcfg))
+    for pcfg, per_step, planar in (
+            (fcfg, PER_STEP, True),
+            (fcfg.replace(fused_train="off", fused_compositing=True),
+             PER_STEP_PACKED, False)):
+        counts, gcounts, ms, gms = training_phase(
+            torch, np, pcfg, table, Ks, Ps, card,
+            label=f"training{tag} [{'planar' if planar else 'packed'}]",
+            per_step=per_step, planar=planar, steps=WIDE_STEPS, repeat=False,
+            exact=True)
+        for name in per_step:
+            ran[name + tag] = ran.get(name + tag, 0) + counts[name] + \
+                gcounts[name]
+    scfg = cfg.replace(**FREQ17)
+    params = build_params(scfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+    frames = {}
+    for pe, name in (("auto", "planar_eval_comp"), ("off", "fused_nerf_eval")):
+        frames[name] = served_frame(torch, np, params, K, poses,
+                                    scfg.replace(planar_eval=pe),
+                                    {name: n_chunks}, card,
+                                    f"serving{tag} [{name}]")
+        ran[name + tag] = ran.get(name + tag, 0) + n_chunks
+    err = _frame_err(frames["planar_eval_comp"], frames["fused_nerf_eval"])
+    print(f"serving{tag}: B1's frame against B5's, max abs err {err:.3e} "
+          f"(tol {FRAME_TOL})", flush=True)
+    if not err <= FRAME_TOL:
+        fail(f"serving{tag}: B1's frame disagrees with B5's")
+    torch.cuda.empty_cache()
+    return ran
+
+
 def main() -> int:
     import torch
 
@@ -5723,6 +6042,19 @@ def main() -> int:
             sweep_line.append(rec)
     phase_s["any sample count"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
+
+    # ---------------- input widths past the flagship's (main paths) -------
+    wide_recs = wide_kernel_phase(torch, np, cfg, params, rays, card)
+    wide_ran = wide_paths_phase(torch, np, tcfg, cfg, table, Ks, Ps, K,
+                                poses, card)
+    wide_line = []
+    for name, rec in wide_recs.items():
+        rec["launches"] = wide_ran.get(name, 0)
+        if rec["launches"] == 0:
+            fail(f"{name}: no launch on the paths at its widths")
+        wide_line.append(rec)
+    phase_s["input widths"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     # each record's launches: at its sample count; the coarse passes (S =
     # 128) go to the S = 128 records
     by_s = {128 + C2F_NI: {}, C2F_FINE: {}}
@@ -5818,7 +6150,8 @@ def main() -> int:
                       + list(packed_records.values())
                       + [r for S in (C2F_FINE, 128 + C2F_NI)
                          for r in by_s[S].values()]
-                      + packed_c2f_line + stacked_line + sweep_line}),
+                      + packed_c2f_line + stacked_line + sweep_line
+                      + wide_line}),
           flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,13 @@
 // has_bw choose the columns written.
 // What bounds it now: as planar_eval_comp.cu, the epilogues that the
 // products wait for and slabs still in flight from L2.
+// Input wider than one segment (xyz_w [+ n_tau] in (128, 256], e.g. N_tau
+// 80 or 22 posenc frequencies, which the JAX kernel runs in its unpadded
+// layout): the wide instance (NSEG = 2) reads a two-segment posenc tile and
+// the two-segment packing of ops/raymarch_kernel.py::pack_padded_weights
+// (layer 0 (256, 256), the skip layer (512, 256)), with a 4-stage ring to
+// make room for the tile's second segment (tower_wgmma.cuh::Geo); the
+// products and the rounding points are the one-segment instance's.
 //
 // Plain C interface (loaded with ctypes); launches on the given stream and
 // returns the cudaError_t of the launch (or of the tensor-map encoding).
@@ -65,9 +72,12 @@ struct Params {
   EvalArgs f;
 };
 
-template <bool STATIC, bool TRANS>
+static_assert(sizeof(Params) <= 4096, "kernel parameters fit 4 KB");
+
+template <bool STATIC, bool TRANS, int NSEG>
 __global__ void __launch_bounds__(wg::NTHR, 1)
 fused_eval_kernel(const __grid_constant__ Params P) {
+  using G = wg::Geo<NSEG>;
   // the dynamic shared memory starts 1024-byte aligned (the swizzle atoms
   // and TMA boxes need it); pointers derived from it stay in the shared
   // space, so the compiler emits shared loads and stores
@@ -76,7 +86,7 @@ fused_eval_kernel(const __grid_constant__ Params P) {
   const EvalArgs& F = P.f;
   const Common& A = F.c;
   const int tid = threadIdx.x;
-  if (tid == 0) wg::init_ring(wg::saddr(sm + wg::OFF_BAR));
+  if (tid == 0) wg::init_ring<G::STAGES>(wg::saddr(sm + G::OFF_BAR));
   __syncthreads();
 
   // one CTA per (ray, tile): rows s0.. of the ray, nv of them real
@@ -86,26 +96,26 @@ fused_eval_kernel(const __grid_constant__ Params P) {
   const bool dir = STATIC && A.use_viewdir;
   if (tid >= wg::NCONS) {
     // producer warpgroup: the weight slabs, the parameters, the dir bias
-    wg::producer_wg(P.maps, A, sm, ray, STATIC, dir, TRANS);
+    wg::producer_wg<NSEG>(P.maps, A, sm, ray, STATIC, dir, TRANS);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   // head results as planes of S floats (wg::PL_*)
-  const float* pl = reinterpret_cast<const float*>(sm + wg::OFF_PLANES);
+  const float* pl = reinterpret_cast<const float*>(sm + G::OFF_PLANES);
   const float* s_rgb = pl + wg::PL_SRGB * S;
   const float* s_sig = pl + wg::PL_SSIG * S;
-  float* pts = reinterpret_cast<float*>(sm + wg::OFF_EXTRA);  // (S, 3)
+  float* pts = reinterpret_cast<float*>(sm + G::OFF_EXTRA);  // (S, 3)
 
   for (int e = tid; e < 3 * S; e += wg::NCONS)
     pts[e] = A.xyz[(row0 + min(e / 3, nv - 1)) * 3 + e % 3];
   wg::consumers_sync();
   // posenc tile (+ the time latent for the transient tower)
-  wg::posenc_tile<wg::PE_PTS>(sm + wg::OFF_PE, A.freqs, A.xyz_w,
+  wg::posenc_tile<wg::PE_PTS, NSEG>(sm + G::OFF_PE, A.freqs, A.xyz_w,
                               TRANS ? A.t + size_t(ray) * A.n_tau : nullptr, A.n_tau,
                               pts, nullptr, nullptr);
   wg::fence_async_smem();
   wg::consumers_sync();
-  wg::run_towers<STATIC, TRANS>(sm, dir);
+  wg::run_towers<STATIC, TRANS, NSEG>(sm, dir);
   const int g = tid >> 7;
 
   // ---- this warpgroup's real rows (of its 64) of the packed tile ----
@@ -135,16 +145,27 @@ fused_eval_kernel(const __grid_constant__ Params P) {
   }
 }
 
+template <int NSEG>
+cudaError_t launch_variant(const Params& P, bool static_branch, bool encode_t, int n_ctas,
+                           cudaStream_t s) {
+  if (static_branch && encode_t)
+    return wg::launch<NSEG>(fused_eval_kernel<true, true, NSEG>, P, n_ctas, s);
+  if (static_branch) return wg::launch<NSEG>(fused_eval_kernel<true, false, NSEG>, P, n_ctas, s);
+  return wg::launch<NSEG>(fused_eval_kernel<false, true, NSEG>, P, n_ctas, s);
+}
+
 }  // namespace
 
+// n_segs: the input segments of SEG lanes of the packed weights (1, or 2
+// where xyz_w [+ n_tau] exceeds one segment)
 extern "C" int nsff_fused_eval(
     const void* xyz, const void* dir, const void* a, const void* t,
     const void* const* w, const void* const* b, void* out, int n_rays,
     int n_samples, int xyz_w, int dir_w, int n_a, const float* freqs, int n_freqs,
     int static_branch, int encode_t, int use_viewdir, int encode_a,
-    int has_fw, int has_bw, float flow_scale, int n_tau, void* stream) {
-  if (n_freqs > MAXF || xyz_w + n_tau > SEG || (!static_branch && !encode_t) ||
-      xyz == nullptr || n_samples < 1)
+    int has_fw, int has_bw, float flow_scale, int n_tau, int n_segs, void* stream) {
+  if (n_freqs > MAXF || n_segs < 1 || n_segs > 2 || xyz_w + n_tau > n_segs * SEG ||
+      (!static_branch && !encode_t) || xyz == nullptr || n_samples < 1)
     return int(cudaErrorInvalidValue);
   Params P;
   memset(&P, 0, sizeof(P));
@@ -164,10 +185,9 @@ extern "C" int nsff_fused_eval(
   F.out = static_cast<float*>(out);
   F.has_fw = has_fw;
   F.has_bw = has_bw;
-  if (!wg::encode_maps(P.maps, F.c.W)) return int(cudaErrorInvalidValue);
+  if (!wg::encode_maps(P.maps, F.c.W, n_segs)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (static_branch && encode_t)
-    return int(wg::launch(fused_eval_kernel<true, true>, P, n_ctas, s));
-  if (static_branch) return int(wg::launch(fused_eval_kernel<true, false>, P, n_ctas, s));
-  return int(wg::launch(fused_eval_kernel<false, true>, P, n_ctas, s));
+  return int(n_segs == 1
+                 ? launch_variant<1>(P, static_branch != 0, encode_t != 0, n_ctas, s)
+                 : launch_variant<2>(P, static_branch != 0, encode_t != 0, n_ctas, s));
 }

@@ -75,6 +75,7 @@ struct Params {
   wg::Maps maps;
   Args a;
 };
+static_assert(sizeof(Params) <= 4096, "kernel parameters fit 4 KB");
 
 constexpr int NM = 21;  // map columns a composite can fill
 

@@ -52,6 +52,7 @@ struct FwdParams {
   Common c;
   float* out[NPL];  // (n_rays, S) planes; null: not written
 };
+static_assert(sizeof(FwdParams) <= 4096, "kernel parameters fit 4 KB");
 
 template <bool STATIC, bool TRANS>
 __global__ void __launch_bounds__(wg::NTHR, 1)

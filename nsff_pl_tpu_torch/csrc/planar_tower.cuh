@@ -22,7 +22,13 @@ constexpr int SEG = 128;      // padded posenc segment
 constexpr int WID = 256;      // tower width
 constexpr int DEPTH = 8;
 constexpr int SKIP = 4;
-constexpr int MAXF = 16;
+// posenc frequencies a kernel takes, at most: ops/raymarch_kernel.py's
+// MAX_FREQS (as many as fit the packed evaluator's two input segments),
+// which ops/cuda_build.py passes to nvcc, so one constant bounds both sides
+#ifndef NSFF_MAX_FREQS
+#error "build with -DNSFF_MAX_FREQS=<ops/raymarch_kernel.py MAX_FREQS> (ops/cuda_build.py does)"
+#endif
+constexpr int MAXF = NSFF_MAX_FREQS;
 constexpr int NSLOT = 22;
 constexpr int NHEAD = 10;     // packed transient heads [sigma, rgb, fw, bw]
 

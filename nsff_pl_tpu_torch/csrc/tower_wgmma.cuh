@@ -7,15 +7,17 @@
 // wgmma.mma_async m64n256k16 (bf16 in, f32 accumulators in registers). In
 // the third (producer) warpgroup one thread streams the weight K-slabs of
 // every layer, in the fixed order of the towers, through TMA into a 6-stage
-// mbarrier ring in shared memory, and three warps stage the biases and head
+// mbarrier ring in shared memory (4 stages beside a two-segment posenc
+// tile), and three warps stage the biases and head
 // weights in shared memory (cp.async) and compute the ray's static_dir
 // bias; setmaxnreg moves the producer warpgroup's registers to the
 // consumers. The posenc tile is filled by posenc_tile, which the backward's
 // recompute (tower_bwd_wgmma.cuh) calls too.
 //
 // Layouts in shared memory (all 128-byte swizzled, the TMA/wgmma "128B"
-// mode, every region 1024-byte aligned):
-// - activation tile (128, 256) bf16 and posenc tile (128, 128) bf16, K-major:
+// mode, every region 1024-byte aligned; Geo carves them):
+// - activation tile (128, 256) bf16 and posenc tile (128, 128) bf16 (two
+//   segments, (128, 256), in the wide packed evaluator), K-major:
 //   one (128 rows, 64 cols) block per 64 columns, 128 bytes a row, the 16-byte
 //   chunk j of row r stored at chunk j ^ (r % 8). A layer's output is written
 //   from the accumulators into the activation tile in place (stmatrix):
@@ -46,7 +48,6 @@ constexpr int NCONS = 256;          // two consumer warpgroups
 constexpr int NTHR = NCONS + 128;   // + the producer warpgroup
 constexpr int HELP0 = NCONS + 32;   // first of the producer warpgroup's helper threads
 constexpr int NHELP = NTHR - HELP0;  // 96 helpers: parameters and the dir bias
-constexpr int STAGES = 6;
 constexpr int SLAB_K = 32;                                // K-rows of a slab
 constexpr uint32_t BOX_BYTES = SLAB_K * 64 * 2;           // one TMA box
 constexpr uint32_t SLAB_BYTES = 4 * BOX_BYTES;            // (32, 256) bf16
@@ -54,27 +55,49 @@ constexpr uint32_t BLK_BYTES = S * 128;                   // (128 rows, 64 cols)
 constexpr uint32_t WG_ROWS_BYTES = 64 * 128;              // a warpgroup's rows in a block
 constexpr int NBIAS = 18;  // tower biases kept: static 0..7 + final, transient 0..7 + final
 constexpr int NHW = WID * (1 + 3 + 10);                   // head weights (bf16)
-
-// shared-memory carve-up (offsets from a 1024-aligned base)
-constexpr uint32_t OFF_RING = 0;
-constexpr uint32_t OFF_ACT = OFF_RING + STAGES * SLAB_BYTES;
-constexpr uint32_t OFF_PE = OFF_ACT + 4 * BLK_BYTES;
-constexpr uint32_t OFF_BAR = OFF_PE + 2 * BLK_BYTES;
-constexpr uint32_t OFF_RAYB = OFF_BAR + 128;
-constexpr uint32_t OFF_BIAS = OFF_RAYB + WID * 4;
-constexpr uint32_t OFF_HW = OFF_BIAS + NBIAS * WID * 4;
-constexpr uint32_t OFF_HB = OFF_HW + NHW * 2;
-constexpr uint32_t OFF_PLANES = OFF_HB + 16 * 4;
 constexpr int NPL = 14;                                // per-sample f32 planes
 // head planes in OFF_PLANES: transient heads [sigma, rgb(3), fw(3), bw(3)],
 // static rgb, static sigma
 constexpr int PL_TH = 0, PL_SRGB = planar::NHEAD, PL_SSIG = planar::NHEAD + 3;
 static_assert(PL_SSIG < NPL, "head planes fit the carve-up");
-constexpr uint32_t OFF_EXTRA = OFF_PLANES + NPL * S * 4;
 constexpr uint32_t EXTRA_BYTES = 3 * S * 4 + 64;       // per-ray inputs
-constexpr size_t SMEM_BYTES = OFF_EXTRA + EXTRA_BYTES;
-static_assert(SMEM_BYTES <= 232448, "fits one SM's shared memory");
-static_assert(2 * STAGES <= 16, "ring barriers fit their 128 bytes");
+
+// Shared-memory carve-up (offsets from a 1024-aligned base) of a CTA whose
+// tower input, the posenc tile (+ the time latent), spans NSEG segments of
+// SEG lanes: (128, NSEG * SEG) bf16. One segment keeps the 6-stage ring;
+// two segments (the packed evaluator past one segment) give up two of its
+// stages for the second segment's 32 KB, the one region of that size the
+// carve-up can spare: every other one is read at every layer.
+template <int NSEG>
+struct Geo {
+  static_assert(NSEG == 1 || NSEG == 2, "one or two input segments");
+  static constexpr int STAGES = NSEG == 1 ? 6 : 4;
+  static constexpr int K_IN = NSEG * SEG;  // K-rows of the input at layers 0 and SKIP
+  static constexpr uint32_t OFF_RING = 0;
+  static constexpr uint32_t OFF_ACT = OFF_RING + STAGES * SLAB_BYTES;
+  static constexpr uint32_t OFF_PE = OFF_ACT + 4 * BLK_BYTES;
+  static constexpr uint32_t OFF_BAR = OFF_PE + 2 * NSEG * BLK_BYTES;
+  static constexpr uint32_t OFF_RAYB = OFF_BAR + 128;
+  static constexpr uint32_t OFF_BIAS = OFF_RAYB + WID * 4;
+  static constexpr uint32_t OFF_HW = OFF_BIAS + NBIAS * WID * 4;
+  static constexpr uint32_t OFF_HB = OFF_HW + NHW * 2;
+  static constexpr uint32_t OFF_PLANES = OFF_HB + 16 * 4;
+  static constexpr uint32_t OFF_EXTRA = OFF_PLANES + NPL * S * 4;
+  static constexpr size_t SMEM_BYTES = OFF_EXTRA + EXTRA_BYTES;
+  static_assert(SMEM_BYTES <= 232448, "fits one SM's shared memory");
+  static_assert(2 * STAGES <= 16, "ring barriers fit their 128 bytes");
+};
+
+// the one-segment carve-up's offsets that the kernels read, which every
+// tower kernel but the wide packed evaluator runs
+constexpr int STAGES = Geo<1>::STAGES;
+constexpr uint32_t OFF_RING = Geo<1>::OFF_RING;
+constexpr uint32_t OFF_ACT = Geo<1>::OFF_ACT;
+constexpr uint32_t OFF_PE = Geo<1>::OFF_PE;
+constexpr uint32_t OFF_BAR = Geo<1>::OFF_BAR;
+constexpr uint32_t OFF_RAYB = Geo<1>::OFF_RAYB;
+constexpr uint32_t OFF_PLANES = Geo<1>::OFF_PLANES;
+constexpr uint32_t OFF_EXTRA = Geo<1>::OFF_EXTRA;
 
 // tensor maps, in the producer's order of layers
 enum { M_S0 = 0, M_SFIN = 8, M_SDIR = 9, M_T0 = 10, M_TFIN = 18, NMAPS = 19 };
@@ -305,19 +328,18 @@ __device__ __forceinline__ float lane_val(const Lanes8& L, int u, float xs) {
 // or as the ray o + d z (planar layout), optionally plus a flow (S, 3).
 enum { PE_PTS = 0, PE_RAY = 1, PE_RAY_FLOW = 2 };
 
-// The ray's posenc tile (+ the time latent t in lanes [xyz_w, xyz_w +
-// n_tau) when t is given), written by the NCONS consumer threads: thread
-// tid fills chunk tid % 16 (8 lanes, fixed for the ray) of rows tid / 16 +
-// 16 k. Pre-activations without fused multiply-adds: x_c f (PE_PTS, x the
-// points pts), else o_c f + (d_c f) z [+ flow_c f] (od = (o, d), zsh the
-// depths, pts the flows). Every kernel that builds a tile calls this, so a
-// forward and the backward's recompute put the same bf16 bits in it.
+// Chunk c (8 lanes, fixed for the ray) of the ray's posenc tile (+ the
+// time latent t in lanes [xyz_w, xyz_w + n_tau) when t is given) in the
+// rows tid / 16 + 16 k of the NCONS consumer threads. Pre-activations
+// without fused multiply-adds: x_c f (PE_PTS, x the points pts), else
+// o_c f + (d_c f) z [+ flow_c f] (od = (o, d), zsh the depths, pts the
+// flows).
 template <int MODE>
-__device__ __forceinline__ void posenc_tile(unsigned char* pe, const float* freqs,
-                                            int xyz_w, const float* t, int n_tau,
-                                            const float* pts, const float* od,
-                                            const float* zsh) {
-  const int tid = threadIdx.x, c = tid & 15;
+__device__ __forceinline__ void posenc_chunk(unsigned char* pe, const float* freqs,
+                                             int xyz_w, const float* t, int n_tau,
+                                             const float* pts, const float* od,
+                                             const float* zsh, int c) {
+  const int tid = threadIdx.x;
   Lanes8 L;
   lanes8(L, freqs, xyz_w, c, t, n_tau);
   float lo[8], ld[8];
@@ -348,43 +370,64 @@ __device__ __forceinline__ void posenc_tile(unsigned char* pe, const float* freq
   }
 }
 
+// The ray's posenc tile of NSEG segments of SEG lanes, written by the
+// NCONS consumer threads: thread tid fills chunk tid % 16 of each segment
+// (posenc_chunk). Every kernel that builds a tile calls this, so a forward
+// and the backward's recompute put the same bf16 bits in it.
+template <int MODE, int NSEG = 1>
+__device__ __forceinline__ void posenc_tile(unsigned char* pe, const float* freqs,
+                                            int xyz_w, const float* t, int n_tau,
+                                            const float* pts, const float* od,
+                                            const float* zsh) {
+#pragma unroll 1
+  for (int seg = 0; seg < NSEG; ++seg)
+    posenc_chunk<MODE>(pe, freqs, xyz_w, t, n_tau, pts, od, zsh,
+                       (threadIdx.x & 15) + 16 * seg);
+}
+
 // ---------------------------------------------------------------- pipeline
 
-struct Pipe {
+// a position in a ring of NST stages
+template <int NST = STAGES>
+struct PipeN {
   int stage = 0;
   uint32_t phase = 0;
   __device__ __forceinline__ void advance() {
-    if (++stage == STAGES) {
+    if (++stage == NST) {
       stage = 0;
       phase ^= 1u;
     }
   }
 };
+using Pipe = PipeN<>;
 
 __device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s) { return bars + 8u * s; }
+template <int NST = STAGES>
 __device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s) {
-  return bars + 8u * (STAGES + s);
+  return bars + 8u * (NST + s);
 }
 
-// one thread: the barriers of the ring, before a __syncthreads
+// one thread: the barriers of a ring of NST stages, before a __syncthreads
+template <int NST = STAGES>
 __device__ __forceinline__ void init_ring(uint32_t bars) {
-  for (int s = 0; s < STAGES; ++s) {
+  for (int s = 0; s < NST; ++s) {
     mbar_init(full_bar(bars, s), 1);
-    mbar_init(empty_bar(bars, s), 2);  // the consumer warpgroups
+    mbar_init(empty_bar<NST>(bars, s), 2);  // the consumer warpgroups
   }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // The producer thread: the nslab K-slabs of weight map m into the ring,
 // four TMA boxes a slot.
+template <int NST>
 __device__ __forceinline__ void stream_layer(const CUtensorMap* map, int nslab,
-                                             Pipe& p, uint32_t ring,
+                                             PipeN<NST>& p, uint32_t ring,
                                              uint32_t bars) {
   for (int k = 0; k < nslab; ++k) {
 #ifdef WG_PROFILE
     const long long t0 = clock64();
 #endif
-    mbar_wait(empty_bar(bars, p.stage), p.phase ^ 1u);
+    mbar_wait(empty_bar<NST>(bars, p.stage), p.phase ^ 1u);
     WG_ADD(6, clock64() - t0);
     const uint32_t fb = full_bar(bars, p.stage);
     mbar_expect_tx(fb, SLAB_BYTES);
@@ -399,13 +442,15 @@ __device__ __forceinline__ void stream_layer(const CUtensorMap* map, int nslab,
 // Every K-slab of every layer, in the consumers' order: static tower,
 // static_xyz_final, static_dir rows 0..255; transient tower,
 // transient_xyz_final; all of it `reps` times (a CTA that runs a ray's
-// tiles one after another).
+// tiles one after another). Layers 0 and SKIP read NSEG input segments.
+template <int NSEG = 1>
 __device__ void produce(const Maps& maps, uint32_t ring, uint32_t bars,
                         bool stat, bool dir, bool trans, int reps = 1) {
-  Pipe p;
+  constexpr int K_IN = Geo<NSEG>::K_IN;
+  PipeN<Geo<NSEG>::STAGES> p;
   auto tower = [&](int m0) {
     for (int i = 0; i < planar::DEPTH; ++i)
-      stream_layer(&maps.m[m0 + i], (i == 0 ? SEG : (i == planar::SKIP ? SEG + WID : WID)) / SLAB_K,
+      stream_layer(&maps.m[m0 + i], (i == 0 ? K_IN : (i == planar::SKIP ? K_IN + WID : WID)) / SLAB_K,
                        p, ring, bars);
   };
   for (int r = 0; r < reps; ++r) {
@@ -426,13 +471,14 @@ __device__ void produce(const Maps& maps, uint32_t ring, uint32_t bars,
 // the activation tile, one SLAB_K-row slab of W at a time from the ring as
 // the producer delivers it. A slab goes back to the producer as soon as
 // the products that read it are done.
-__device__ __forceinline__ void mma_layer(float (&d)[128], Pipe& p, uint32_t ring,
+template <int NST>
+__device__ __forceinline__ void mma_layer(float (&d)[128], PipeN<NST>& p, uint32_t ring,
                                           uint32_t bars, uint32_t pe_g, int k_pe,
                                           uint32_t act_g, int k_act) {
   const int n_pe = k_pe / SLAB_K;
   const bool leader = (threadIdx.x & 127) == 0;
   auto release = [&](int stage) {
-    if (leader) mbar_arrive(empty_bar(bars, stage));
+    if (leader) mbar_arrive(empty_bar<NST>(bars, stage));
   };
   wgmma_fence();
   int prev = -1;
@@ -571,18 +617,19 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], const float* bia
   if (threadIdx.x == 0) WG_ADD(7, clock64() - t_epi);
 }
 
-// The 8-layer ReLU tower of warpgroup g on the posenc tile (biases
-// bias[i * WID ..], skip input at layer 4); the last activation stays in
-// the activation tile, and with SIG its 1-wide head (the static sigma) goes
-// to planes.
-template <bool SIG>
-__device__ __forceinline__ void tower(float (&d)[128], Pipe& p, uint32_t ring,
+// The 8-layer ReLU tower of warpgroup g on the posenc tile of NSEG
+// segments (biases bias[i * WID ..], skip input at layer 4); the last
+// activation stays in the activation tile, and with SIG its 1-wide head
+// (the static sigma) goes to planes.
+template <bool SIG, int NSEG = 1>
+__device__ __forceinline__ void tower(float (&d)[128], PipeN<Geo<NSEG>::STAGES>& p,
+                                      uint32_t ring,
                                       uint32_t bars, uint32_t pe_g, uint32_t act_g,
                                       unsigned char* act, int g, const float* bias,
                                       const bf16* wsig, const float* bsig,
                                       float* sig_plane) {
   for (int i = 0; i < planar::DEPTH; ++i) {
-    mma_layer(d, p, ring, bars, pe_g, (i == 0 || i == planar::SKIP) ? SEG : 0,
+    mma_layer(d, p, ring, bars, pe_g, (i == 0 || i == planar::SKIP) ? Geo<NSEG>::K_IN : 0,
                   act_g, i == 0 ? 0 : WID);
     if (SIG && i == planar::DEPTH - 1)
       epilogue<true, true, 1>(d, bias + i * WID, act, g, wsig, bsig, sig_plane);
@@ -609,9 +656,11 @@ struct Staged {
   __device__ __forceinline__ const bf16* w_th() const { return hw + 4 * WID; }
 };
 
+template <int NSEG = 1>
 __device__ __forceinline__ Staged staged(unsigned char* sm) {
-  return {reinterpret_cast<float*>(sm + OFF_BIAS), reinterpret_cast<bf16*>(sm + OFF_HW),
-          reinterpret_cast<float*>(sm + OFF_HB)};
+  using G = Geo<NSEG>;
+  return {reinterpret_cast<float*>(sm + G::OFF_BIAS), reinterpret_cast<bf16*>(sm + G::OFF_HW),
+          reinterpret_cast<float*>(sm + G::OFF_HB)};
 }
 
 __device__ __forceinline__ void copy16(void* dst, const void* src, int bytes, int h) {
@@ -672,22 +721,24 @@ __device__ void dir_bias(const bf16* Wd, const float* bd, const float* dir,
 // forward of planar_nerf_train.cu): thread NCONS streams the weight slabs
 // of the evaluated branches; the helpers stage the parameters and, with
 // dir, the ray's static_dir bias, arriving at BAR_PARAMS / BAR_DIR.
+template <int NSEG = 1>
 __device__ __forceinline__ void producer_wg(const Maps& maps, const planar::Common& A,
                                             unsigned char* sm, int ray, bool stat,
                                             bool dir, bool trans) {
   using namespace planar;
+  using G = Geo<NSEG>;
   asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
   const int tid = threadIdx.x;
   if (tid == NCONS) {
-    produce(maps, saddr(sm + OFF_RING), saddr(sm + OFF_BAR), stat, dir, trans);
+    produce<NSEG>(maps, saddr(sm + G::OFF_RING), saddr(sm + G::OFF_BAR), stat, dir, trans);
   } else if (tid >= HELP0) {
     const int h = tid - HELP0;
-    stage_params(staged(sm), A.W, A.B, NHEAD, h);
+    stage_params(staged<NSEG>(sm), A.W, A.B, NHEAD, h);
     bar_arrive(BAR_PARAMS, NCONS + NHELP);
     if (dir) {
       dir_bias(A.W[W_SDIR], A.B[W_SDIR], A.dir + size_t(ray) * A.dir_w, A.dir_w,
                A.encode_a ? A.a + size_t(ray) * A.n_a : nullptr, A.n_a,
-               reinterpret_cast<float*>(sm + OFF_RAYB), h);
+               reinterpret_cast<float*>(sm + G::OFF_RAYB), h);
       bar_arrive(BAR_DIR, NCONS + NHELP);
     }
   }
@@ -700,25 +751,26 @@ __device__ __forceinline__ void producer_wg(const Maps& maps, const planar::Comm
 // with TRANS, the transient tower, its final layer and the NHEAD packed
 // heads. The head outputs, before their activations, go to the planes of
 // OFF_PLANES (PL_TH, PL_SRGB, PL_SSIG); each warpgroup writes its own rows
-// and ends at its own barrier.
-template <bool STAT, bool TRANS>
+// and ends at its own barrier. NSEG: the input segments (Geo).
+template <bool STAT, bool TRANS, int NSEG = 1>
 __device__ __forceinline__ void run_towers(unsigned char* sm, bool dir) {
   using planar::NHEAD;
+  using G = Geo<NSEG>;
   bar_sync(BAR_PARAMS, NCONS + NHELP);
   const int g = threadIdx.x >> 7;
-  const uint32_t ring = saddr(sm + OFF_RING), bars = saddr(sm + OFF_BAR);
-  unsigned char* act = sm + OFF_ACT;
-  const uint32_t pe_g = saddr(sm + OFF_PE) + g * WG_ROWS_BYTES;
+  const uint32_t ring = saddr(sm + G::OFF_RING), bars = saddr(sm + G::OFF_BAR);
+  unsigned char* act = sm + G::OFF_ACT;
+  const uint32_t pe_g = saddr(sm + G::OFF_PE) + g * WG_ROWS_BYTES;
   const uint32_t act_g = saddr(act) + g * WG_ROWS_BYTES;
-  const Staged st = staged(sm);
-  float* pl = reinterpret_cast<float*>(sm + OFF_PLANES);
-  const float* ray_b = reinterpret_cast<const float*>(sm + OFF_RAYB);
+  const Staged st = staged<NSEG>(sm);
+  float* pl = reinterpret_cast<float*>(sm + G::OFF_PLANES);
+  const float* ray_b = reinterpret_cast<const float*>(sm + G::OFF_RAYB);
   float d[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) d[i] = 0.f;
-  Pipe p;
+  PipeN<G::STAGES> p;
   if (STAT) {
-    tower<true>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(false), st.w_sig(),
+    tower<true, NSEG>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(false), st.w_sig(),
                 st.hb, pl + PL_SSIG * S);
     mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
     if (dir) {
@@ -734,8 +786,8 @@ __device__ __forceinline__ void run_towers(unsigned char* sm, bool dir) {
     }
   }
   if (TRANS) {
-    tower<false>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(true), nullptr,
-                 nullptr, nullptr);
+    tower<false, NSEG>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(true), nullptr,
+                       nullptr, nullptr);
     mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
     epilogue<false, false, NHEAD>(d, st.tower_bias(true) + 8 * WID, act, g, st.w_th(),
                                   st.hb + 4, pl + PL_TH * S);
@@ -762,27 +814,29 @@ inline bool encode_map(CUtensorMap* m, const void* w, int rows) {
 }
 
 // The maps of the slab stream from the weight slots (planar::W_*); a null
-// slot (a branch that is not evaluated) leaves its map unset.
-inline bool encode_maps(Maps& maps, const bf16* const* W) {
+// slot (a branch that is not evaluated) leaves its map unset. Layers 0 and
+// SKIP read nseg input segments.
+inline bool encode_maps(Maps& maps, const bf16* const* W, int nseg = 1) {
   const int slot[NMAPS] = {0, 1, 2, 3, 4, 5, 6, 7, planar::W_SFIN, planar::W_SDIR,
                            12, 13, 14, 15, 16, 17, 18, 19, planar::W_TFIN};
   for (int i = 0; i < NMAPS; ++i) {
     if (W[slot[i]] == nullptr) continue;
     const int li = i < M_SFIN ? i : (i >= M_T0 && i < M_TFIN ? i - M_T0 : -1);
-    const int rows = li == 0 ? SEG : (li == planar::SKIP ? SEG + WID : WID);
+    const int rows = li == 0 ? nseg * SEG : (li == planar::SKIP ? nseg * SEG + WID : WID);
     if (!encode_map(&maps.m[i], W[slot[i]], rows)) return false;
   }
   return true;
 }
 
-// Launch kern<<<n_rays, NTHR, SMEM_BYTES>>>, one CTA per ray.
-template <typename P>
+// Launch kern<<<n_rays, NTHR, Geo<NSEG>::SMEM_BYTES>>>, one CTA per ray.
+template <int NSEG = 1, typename P>
 inline cudaError_t launch(void (*kern)(const P), const P& params, int n_rays,
                           cudaStream_t stream) {
+  constexpr size_t smem = Geo<NSEG>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kern<<<n_rays, NTHR, SMEM_BYTES, stream>>>(params);
+  kern<<<n_rays, NTHR, smem, stream>>>(params);
   return cudaGetLastError();
 }
 

@@ -3,7 +3,7 @@
 Each `csrc/<name>.cu` exposes a plain C interface and compiles with
 `nvcc` alone (no PyTorch headers, so a build takes seconds) into
 `nsff_pl_tpu_torch/_build/lib<name>_<hash>.so`, keyed by the content hash
-of the source and the shared headers (`csrc/*.cuh`). `build()` starts one `nvcc` per source, all at once. A
+of the source, the shared headers (`csrc/*.cuh`) and the flags. `build()` starts one `nvcc` per source, all at once. A
 build failure raises; nothing falls back to a plain version.
 """
 from __future__ import annotations
@@ -16,14 +16,17 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+from nsff_pl_tpu_torch.ops.raymarch_kernel import MAX_FREQS
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 # -lcuda: the evaluators encode their TMA tensor maps with the driver API
-# (cuTensorMapEncodeTiled)
+# (cuTensorMapEncodeTiled); NSFF_MAX_FREQS: the posenc frequencies the
+# kernels take (csrc/planar_tower.cuh's MAXF), the wrappers' own bound
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lcuda"]
+              "-lcuda", f"-DNSFF_MAX_FREQS={MAX_FREQS}"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -40,6 +43,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -28,7 +28,12 @@ packing serves every evaluation of a step.
 runs `fused_nerf_eval_ref` for CPU tensors; nothing else chooses between
 them. The CUDA kernel takes any S >= 1: one CTA per (ray, tile of 128
 samples), the rows past S of a partly used last tile computed and not
-written.
+written. It takes a tower input (posenc [+ time latent]) of up to two
+128-lane segments (e.g. `N_tau` 80, or 22 posenc frequencies), where the
+JAX kernel drops to its unpadded layout: the packing then has two input
+segments (`pack_padded_weights`), the rounding points stay (bf16 of
+pe + t, the per-ray direction bias), and the kernel's wide instance runs.
+Wider inputs raise (`input_segs`).
 """
 from __future__ import annotations
 
@@ -42,8 +47,8 @@ from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
 from nsff_pl_tpu_torch.ops.raymarch_kernel import (
     _HEAD_COL, MAX_FREQS, SEG, TRAIN_HEADS, WIDTH, _bcast, _bf16,
     _check, _mm, _posenc_tables, _ptr, _sin_poly, _slot_ptrs, _t_lanes,
-    _tower_ref, branch_weight_names, check_cuda, check_samples,
-    pack_padded_weights)
+    _tower_ref, branch_weight_names, check_cuda, check_one_segment,
+    check_samples, input_segs, pack_padded_weights, packed_in_rows)
 
 N_PACKED = 16  # columns of the packed output
 
@@ -63,12 +68,12 @@ def unpack_fused(out: torch.Tensor, *, encode_t: bool,
     return res
 
 
-def posenc_rows_xyz(xyz: torch.Tensor, freqs):
+def posenc_rows_xyz(xyz: torch.Tensor, freqs, width: int = SEG):
     """Posenc pre-activation `xs` and encoding `pe` of given points as
-    (N*S, SEG) f32 rows in the kernels' lane layout: xs_j = x_c * f_j."""
+    (N*S, width) f32 rows in the kernels' lane layout: xs_j = x_c * f_j."""
     chan, freq, is_id, phase, valid = (
         torch.as_tensor(a, device=xyz.device)
-        for a in _posenc_tables(freqs, SEG))
+        for a in _posenc_tables(freqs, width))
     xs = xyz.reshape(-1, 3)[:, chan] * freq
     pe = torch.where(is_id > 0, xs, _sin_poly(xs + phase)) * valid
     return xs, pe
@@ -79,10 +84,12 @@ def fused_nerf_eval_ref(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
                         encode_a: bool, encode_t: bool, output_flow,
                         flow_scale: float, D: int = 8,
                         skips=(4,)) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: (N, S, 16) f32."""
+    """The kernel's function in plain PyTorch: (N, S, 16) f32, on the
+    input segments of the packing `pw`."""
     n, S = xyz.shape[0], xyz.shape[1]
     xyz_w = 3 + 6 * len(freqs)
-    _, pe = posenc_rows_xyz(xyz, freqs)
+    kin = packed_in_rows(pw)
+    _, pe = posenc_rows_xyz(xyz, freqs, kin)
     out = xyz.new_zeros((n * S, N_PACKED))
     if static_branch:
         h = _tower_ref(pw, "static_xyz", _bf16(pe), D, skips)
@@ -100,7 +107,7 @@ def fused_nerf_eval_ref(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
         out[:, 0:3] = torch.sigmoid(_mm(feat, pw["static_rgb"]["w"],
                                         pw["static_rgb"]["b"]))
     if encode_t:
-        tx = _bf16(pe + _t_lanes(t_emb, xyz_w, S))
+        tx = _bf16(pe + _t_lanes(t_emb, xyz_w, S, kin))
         h = _tower_ref(pw, "transient_xyz", tx, D, skips)
         featb = _bf16(_mm(h, pw["transient_xyz_final"]["w"],
                           pw["transient_xyz_final"]["b"]))
@@ -116,18 +123,34 @@ def fused_nerf_eval_ref(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
     return out.reshape(n, S, N_PACKED)
 
 
+def check_train_width(xyz_w: int, n_tau: int) -> None:
+    """The packed backward's (B4's) width check: posenc (+ time latent) in
+    one segment, where the gradient of the JAX `make_fused_nerf_train`
+    works too."""
+    check_one_segment(xyz_w, n_tau, "the packed backward (B4)",
+                      "make_fused_nerf_train (its gradient)")
+
+
 def packed_checks(xyz, dir_emb, a_emb, t_emb, *, freqs, use_viewdir,
-                  encode_a, encode_t):
-    """Argument checks shared by the packed kernels' wrappers; returns
-    (n, dir_w, n_a, n_tau)."""
+                  encode_a, encode_t, pw=None, backward=False):
+    """Argument checks shared by the packed kernels' wrappers: the
+    evaluator (B5) takes up to two input segments, as many as its packed
+    weights `pw` have; the backward (B4, `backward`) one. Returns (n,
+    dir_w, n_a, n_tau)."""
     dev, f32 = xyz.device, torch.float32
     if xyz.ndim != 3 or xyz.shape[2] != 3:
         raise ValueError(f"xyz: shape {tuple(xyz.shape)} is not (N, S, 3)")
     n, S = xyz.shape[0], xyz.shape[1]
     check_samples(S, "the packed CUDA kernels (B4, B5)")
     n_tau = t_emb.shape[-1] if encode_t and t_emb is not None else 0
-    if len(freqs) > MAX_FREQS or 3 + 6 * len(freqs) + n_tau > SEG:
-        raise ValueError("posenc + time latent must fit one 128-lane segment")
+    xyz_w = 3 + 6 * len(freqs)
+    if backward:
+        check_train_width(xyz_w, n_tau)
+    else:
+        kin = packed_in_rows(pw) if pw is not None else SEG
+        if input_segs(xyz_w + n_tau) * SEG > kin:
+            raise ValueError(f"posenc + time latent of {xyz_w + n_tau} "
+                             f"lanes, packed weights of {kin} input rows")
     _check(xyz, "xyz", (n, S, 3), f32, dev)
     dir_w = n_a = 0
     if use_viewdir:
@@ -148,8 +171,9 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
                          encode_a: bool, encode_t: bool, output_flow,
                          flow_scale: float, D: int = 8,
                          skips=(4,)) -> torch.Tensor:
-    """Launch `csrc/fused_nerf_eval.cu` (one CTA per (ray, tile)) on the
-    current stream; adds one to `fused_nerf_eval_cuda.launches[S]`."""
+    """Launch `csrc/fused_nerf_eval.cu` (one CTA per (ray, tile); its wide
+    instance for packed weights of two input segments) on the current
+    stream; adds one to `fused_nerf_eval_cuda.launches[S]`."""
     from nsff_pl_tpu_torch.ops import cuda_build
 
     if D != 8 or tuple(skips) != (4,):
@@ -160,8 +184,9 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
     encode_a = encode_a and use_viewdir
     n, dir_w, n_a, n_tau = packed_checks(
         xyz, dir_emb, a_emb, t_emb, freqs=freqs, use_viewdir=use_viewdir,
-        encode_a=encode_a, encode_t=encode_t)
+        encode_a=encode_a, encode_t=encode_t, pw=pw)
     check_cuda(xyz, "the packed CUDA kernel (B5)")
+    kin = packed_in_rows(pw)
     out = torch.empty((n, xyz.shape[1], N_PACKED), dtype=torch.float32,
                       device=xyz.device)
     if n == 0:
@@ -170,12 +195,12 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
         D=D, skips=skips, use_viewdir=use_viewdir,
         static_branch=static_branch, encode_t=encode_t)
     wp, bp = _slot_ptrs(pw, static_names + transient_names, xyz.device,
-                        len(TRAIN_HEADS) * 3 + 4, encode_a)
+                        len(TRAIN_HEADS) * 3 + 4, encode_a, kin)
     fn = cuda_build.load("fused_nerf_eval").nsff_fused_eval
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([P] * 4 + [ctypes.POINTER(P)] * 2 + [P] + [I] * 5
                    + [ctypes.POINTER(ctypes.c_float), I] + [I] * 6
-                   + [ctypes.c_float, I, P])
+                   + [ctypes.c_float, I, I, P])
     fn.restype = I
     cfreqs = (ctypes.c_float * MAX_FREQS)(*[float(f) for f in freqs])
     rc = fn(_ptr(xyz), _ptr(dir_emb) if use_viewdir else None,
@@ -186,7 +211,7 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
             int(static_branch), int(encode_t), int(use_viewdir),
             int(encode_a), int(encode_t and "fw" in output_flow),
             int(encode_t and "bw" in output_flow), float(flow_scale), n_tau,
-            torch.cuda.current_stream(xyz.device).cuda_stream)
+            kin // SEG, torch.cuda.current_stream(xyz.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_nerf_eval kernel launch failed: "
                            f"cudaError {rc}")
@@ -255,7 +280,9 @@ def make_fused_nerf_eval(
     """Build fn(params, xyz, dir_emb=None, a_emb=None, t_emb=None, pw=None)
     -> (N, S, 16), the JAX function's contract: xyz (N, S, 3), per-ray
     (N, C) conditioning embeddings. No gradient (`ops/mlp_train_kernel.py`
-    is the trainable form). `pw` takes weights already packed by `fn.pack`."""
+    is the trainable form). `pw` takes weights already packed by `fn.pack`.
+    The posenc [+ time latent] may take up to two input segments."""
+    input_segs(3 + 6 * n_emb_xyz + (n_tau if encode_t else 0))
     weight_names, pack_kw, kernel_kw = packed_op_config(
         use_viewdir=use_viewdir, encode_a=encode_a, encode_t=encode_t,
         output_flow=output_flow, n_emb_xyz=n_emb_xyz, s_emb_xyz=s_emb_xyz,

@@ -20,6 +20,12 @@ outputs one flow (or none) leaves exact zeros in the other's gradient.
 
 `fused_nerf_train_bwd` launches `csrc/fused_nerf_train.cu` for CUDA
 tensors and runs `fused_nerf_train_bwd_ref` for CPU tensors.
+
+The backward takes a tower input (posenc [+ time latent]) of one 128-lane
+segment. Past it the JAX `make_fused_nerf_train`'s gradient raises (its
+weight packing is padded only), and so do the builder here and the
+backward on either device (`check_train_width`); train such a model with
+`train_backend='xla'`, the plain evaluators.
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from nsff_pl_tpu_torch.ops.mlp_kernel import (N_PACKED, fused_nerf_eval,
-                                              packed_checks,
+from nsff_pl_tpu_torch.ops.mlp_kernel import (N_PACKED, check_train_width,
+                                              fused_nerf_eval, packed_checks,
                                               packed_op_config,
                                               posenc_rows_xyz)
 from nsff_pl_tpu_torch.ops.raymarch_kernel import (
@@ -100,7 +106,7 @@ def fused_nerf_train_bwd_cuda(branch: str, pw, xyz, dir_emb, a_emb, t_emb, g,
     encode_a = encode_a and use_viewdir
     n, dir_w, n_a, n_tau = packed_checks(
         xyz, dir_emb, a_emb, t_emb, freqs=freqs, use_viewdir=use_viewdir,
-        encode_a=encode_a, encode_t=not static)
+        encode_a=encode_a, encode_t=not static, backward=True)
     check_cuda(xyz, "the packed CUDA kernel (B4)")
     if n == 0:
         raise ValueError("no rays")
@@ -167,7 +173,10 @@ fused_nerf_train_bwd_cuda.launches = {"static": Counter(),
 
 
 def fused_nerf_train_bwd(branch, pw, xyz, dir_emb, a_emb, t_emb, g, **kw):
-    """CUDA tensors launch the kernels; CPU tensors take the plain version."""
+    """CUDA tensors launch the kernels; CPU tensors take the plain version.
+    Either raises past one input segment."""
+    check_train_width(3 + 6 * len(kw["freqs"]),
+                      t_emb.shape[-1] if branch == "transient" else 0)
     if xyz.is_cuda:
         return fused_nerf_train_bwd_cuda(branch, pw, xyz, dir_emb, a_emb,
                                          t_emb, g, **kw)
@@ -237,7 +246,9 @@ def make_fused_nerf_train(
     parameters, as at the main evaluation's ray-derived points. The
     warped evaluations (xyz + flow(params)) keep the default. `pw` takes
     weights already packed by `fn.pack` (once per step for every call
-    that shares them); by default each call packs its own."""
+    that shares them); by default each call packs its own. Raises past one
+    input segment, where the JAX function's gradient raises."""
+    check_train_width(3 + 6 * n_emb_xyz, n_tau if encode_t else 0)
     weight_names, pack_kw, kernel_kw = packed_op_config(
         use_viewdir=use_viewdir, encode_a=encode_a, encode_t=encode_t,
         output_flow=output_flow, n_emb_xyz=n_emb_xyz, s_emb_xyz=s_emb_xyz,

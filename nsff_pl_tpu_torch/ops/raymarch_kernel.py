@@ -21,7 +21,12 @@ matrices in bf16, with every input segment re-laid at a 128-row boundary
 rows [0, 128) and [128, 384); `static_dir` holds the feature at rows
 [0, 256), the direction embedding at [256, 256+27) and the appearance at
 [384, 384+48); the transient sigma/rgb/flow heads are one (256, 4|10)
-matrix. The CUDA kernel reads this same layout.
+matrix. The CUDA kernel reads this same layout. A tower input (posenc [+
+time latent]) wider than one segment takes two (`input_segs`): layer 0 is
+then (256, 256) and the skip layer (512, 256), h at rows [256, 512); only
+the packed evaluator (B5, `ops/mlp_kernel.py`) reads that layout. The
+planar kernels (B1, B2) and the packed backward (B4) take one segment, as
+the JAX kernels (their gradients) do (`check_one_segment`).
 
 `planar_eval_comp` launches `csrc/planar_eval_comp.cu` for CUDA tensors
 and runs `planar_eval_comp_ref` for CPU tensors; nothing else chooses
@@ -43,7 +48,42 @@ from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
 
 SEG = 128  # row segment of the padded weights (the TPU's lane width)
 WIDTH = 256
-MAX_FREQS = 16
+# input segments a tower kernel reads: the packed evaluator (B5) up to
+# two, the planar kernels (B1, B2) and the packed backward (B4) one
+MAX_SEGS = 2
+# posenc frequencies the kernels take, as many as fit B5's two segments
+# (3 + 6 n lanes); `ops/cuda_build.py` passes it to nvcc as the C side's
+# MAXF (`csrc/planar_tower.cuh`), so one constant bounds both
+MAX_FREQS = (MAX_SEGS * SEG - 3) // 6
+
+
+def input_segs(width: int) -> int:
+    """The SEG-lane segments a tower input of `width` lanes (posenc [+ time
+    latent]) takes in the padded layout: 1 or 2. Wider inputs raise (the
+    JAX packed evaluator runs them in its unpadded layout)."""
+    n = max(1, -(-width // SEG))
+    if n > MAX_SEGS:
+        raise ValueError(
+            f"posenc + time latent of {width} lanes: the port's tower "
+            f"kernels take at most {MAX_SEGS} input segments of {SEG} lanes "
+            f"({MAX_SEGS * SEG}) [ROADMAP A19: the packed evaluator above "
+            f"two input segments]")
+    return n
+
+
+def check_one_segment(xyz_w: int, n_tau: int, what: str, jax_fn: str) -> None:
+    """The width check of the planar kernels (B1, B2) and the packed
+    backward (B4): posenc (+ time latent) within one SEG-lane segment. The
+    JAX function `jax_fn` refuses wider inputs too (its planar kernels, the
+    gradient of its `make_fused_nerf_train`)."""
+    if xyz_w + n_tau > SEG:
+        raise ValueError(
+            f"{what} takes posenc + time latent within one {SEG}-lane "
+            f"segment, got {xyz_w} + {n_tau} = {xyz_w + n_tau} lanes; the "
+            f"JAX {jax_fn} refuses these widths too (ROADMAP C): train with "
+            f"train_backend='xla' (the plain evaluators), serve and evaluate "
+            f"with planar_eval='off' (the packed evaluator, B5, takes up to "
+            f"{MAX_SEGS * SEG} lanes)")
 
 
 def check_samples(S: int, what: str) -> None:
@@ -117,7 +157,11 @@ def _pad_rows(w: torch.Tensor, layout, total: int) -> torch.Tensor:
 def pack_padded_weights(params, weight_names, *, output_flow, skips, xyz_w,
                         n_tau, dir_w, n_a, encode_a):
     """Params dict -> {name: {"w": bf16 (K_padded, out), "b": f32 (out,)}}
-    in the segment-padded layout described in the module docstring."""
+    in the segment-padded layout described in the module docstring; the
+    towers' input takes the segments of posenc [+ time latent, with the
+    transient tower] (`input_segs`)."""
+    kin = SEG * input_segs(
+        xyz_w + (n_tau if "transient_xyz_0" in weight_names else 0))
     packed = dict(params)
     if "transient_heads" in weight_names:
         names = ["transient_sigma", "transient_rgb"] + [
@@ -134,15 +178,15 @@ def pack_padded_weights(params, weight_names, *, output_flow, skips, xyz_w,
         w = packed[name]["w"]
         k = w.shape[0]
         if name == "static_xyz_0":
-            w = _pad_rows(w, [((0, xyz_w), 0)], SEG)
+            w = _pad_rows(w, [((0, xyz_w), 0)], kin)
         elif name in [f"static_xyz_{i}" for i in skips]:
-            w = _pad_rows(w, [((0, xyz_w), 0), ((xyz_w, k), SEG)],
-                          SEG + WIDTH)
+            w = _pad_rows(w, [((0, xyz_w), 0), ((xyz_w, k), kin)],
+                          kin + WIDTH)
         elif name == "transient_xyz_0":
-            w = _pad_rows(w, [((0, k), 0)], SEG)
+            w = _pad_rows(w, [((0, k), 0)], kin)
         elif name in [f"transient_xyz_{i}" for i in skips]:
             inw = xyz_w + n_tau
-            w = _pad_rows(w, [((0, inw), 0), ((inw, k), SEG)], SEG + WIDTH)
+            w = _pad_rows(w, [((0, inw), 0), ((inw, k), kin)], kin + WIDTH)
         elif name == "static_dir":
             layout = [((0, WIDTH), 0), ((WIDTH, WIDTH + dir_w), WIDTH)]
             total = WIDTH + SEG
@@ -211,14 +255,16 @@ def _bcast(v: torch.Tensor, S: int) -> torch.Tensor:
 
 
 def _tower_ref(pw, prefix, inp, D, skips, keep=False):
-    """The ReLU tower on bf16-valued rows; with `keep`, the list
-    [inp, h_1, ..., h_D] of every layer's input and output."""
+    """The ReLU tower on bf16-valued rows (their width the packing's input
+    segments); with `keep`, the list [inp, h_1, ..., h_D] of every layer's
+    input and output."""
     acts = [inp]
     h = inp
+    kin = inp.shape[1]
     for i in range(D):
         w, b = pw[f"{prefix}_{i}"]["w"], pw[f"{prefix}_{i}"]["b"]
         if i in skips:
-            z = _mm(inp, w[:SEG]) + _mm(h, w[SEG:SEG + WIDTH]) + b
+            z = _mm(inp, w[:kin]) + _mm(h, w[kin:kin + WIDTH]) + b
         else:
             z = _mm(h, w, b)
         h = _bf16(torch.relu(z))
@@ -226,10 +272,10 @@ def _tower_ref(pw, prefix, inp, D, skips, keep=False):
     return acts if keep else h
 
 
-def _t_lanes(t_emb, xyz_w, S):
-    """The time latent in lanes [xyz_w, xyz_w + n_tau) of a SEG-wide
-    per-sample row (the transient tower's input segment)."""
-    t_part = t_emb.new_zeros((t_emb.shape[0], SEG))
+def _t_lanes(t_emb, xyz_w, S, width=SEG):
+    """The time latent in lanes [xyz_w, xyz_w + n_tau) of a `width`-wide
+    per-sample row (the transient tower's input segments)."""
+    t_part = t_emb.new_zeros((t_emb.shape[0], width))
     t_part[:, xyz_w:xyz_w + t_emb.shape[1]] = t_emb
     return _bcast(t_part, S)
 
@@ -344,13 +390,19 @@ def _check(t: Optional[torch.Tensor], name: str, shape, dtype, dev):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
 
 
-def _slot_ptrs(pw, names, dev, heads: int, encode_a: bool):
+def packed_in_rows(pw) -> int:
+    """The input rows of packed weights: SEG times their input segments."""
+    return next(pw[k]["w"].shape[0] for k in ("static_xyz_0",
+                                              "transient_xyz_0") if k in pw)
+
+
+def _slot_ptrs(pw, names, dev, heads: int, encode_a: bool, kin: int = SEG):
     """Checked (w, b) pointer arrays over `_SLOTS` for the packed weights
-    `names` of `pw`."""
+    `names` of `pw`, whose towers read `kin` input rows."""
     f32 = torch.float32
-    wshape = {"static_xyz_0": (SEG, WIDTH), "static_xyz_4": (SEG + WIDTH, WIDTH),
-              "transient_xyz_0": (SEG, WIDTH),
-              "transient_xyz_4": (SEG + WIDTH, WIDTH),
+    wshape = {"static_xyz_0": (kin, WIDTH), "static_xyz_4": (kin + WIDTH, WIDTH),
+              "transient_xyz_0": (kin, WIDTH),
+              "transient_xyz_4": (kin + WIDTH, WIDTH),
               "static_dir": (WIDTH + SEG * (2 if encode_a else 1), WIDTH),
               "static_sigma": (WIDTH, 1), "static_rgb": (WIDTH, 3),
               "transient_heads": (WIDTH, heads)}
@@ -384,11 +436,12 @@ def planar_eval_comp_cuda(pw, o, d, zs, vis, dir_emb, a_emb, t_emb, *,
     n, S = zs.shape
     xyz_w = 3 + 6 * len(freqs)
     check_samples(S, "the CUDA kernel")
+    check_one_segment(xyz_w, n_tau if encode_t else 0,
+                      "the planar serving kernel (B1)",
+                      "make_planar_nerf_eval_comp")
     check_cuda(o, "the CUDA kernel")
     if D != 8 or tuple(skips) != (4,):
         raise NotImplementedError("the CUDA kernel is built for D=8, skips=(4,)")
-    if len(freqs) > MAX_FREQS or xyz_w + (n_tau if encode_t else 0) > SEG:
-        raise ValueError("posenc + time latent must fit one 128-lane segment")
     f32 = torch.float32
     _check(o, "o", (n, 3), f32, dev)
     _check(d, "d", (n, 3), f32, dev)
@@ -496,6 +549,9 @@ def make_planar_nerf_eval_comp(
     freqs = tuple(float(f) for f in posenc_freqs(s_emb_xyz, n_emb_xyz))
     xyz_w = 3 + 6 * n_emb_xyz
     dir_w = 3 + 6 * n_emb_dir
+    check_one_segment(xyz_w, n_tau if encode_t else 0,
+                      "the planar serving kernel (B1)",
+                      "make_planar_nerf_eval_comp")
     flow = tuple(f for f in output_flow if f in ("fw", "bw")) \
         if encode_t else ()
     flow_maps = bool(flow)
@@ -582,16 +638,18 @@ def planar_out_keys(*, static_branch: bool, encode_t: bool,
 def unpad_padded_grads(dws, weight_names, *, output_flow, skips, xyz_w,
                        n_tau, dir_w, n_a, encode_a):
     """Padded/packed dW, db ({name: {"w", "b"}}) -> gradients keyed like
-    the params dict (port of `ops/mlp_train_kernel.py::unpad_padded_grads`)."""
+    the params dict (port of `ops/mlp_train_kernel.py::unpad_padded_grads`),
+    the inverse of `pack_padded_weights` in one or two input segments."""
     def unpad(name, w):
+        kin = w.shape[0] - WIDTH  # a skip layer's input rows
         if name == "static_xyz_0":
             return w[:xyz_w]
         if name in [f"static_xyz_{i}" for i in skips]:
-            return torch.cat([w[:xyz_w], w[SEG:SEG + WIDTH]], 0)
+            return torch.cat([w[:xyz_w], w[kin:kin + WIDTH]], 0)
         if name == "transient_xyz_0":
             return w[:xyz_w + n_tau]
         if name in [f"transient_xyz_{i}" for i in skips]:
-            return torch.cat([w[:xyz_w + n_tau], w[SEG:SEG + WIDTH]], 0)
+            return torch.cat([w[:xyz_w + n_tau], w[kin:kin + WIDTH]], 0)
         if name == "static_dir":
             parts = [w[:WIDTH], w[WIDTH:WIDTH + dir_w]]
             if encode_a:
@@ -839,9 +897,9 @@ def _train_checks(o, d, zs, flows, dir_emb, a_emb, t_emb, *, freqs,
     n, S = zs.shape
     f32 = torch.float32
     check_samples(S, "the CUDA train kernels")
+    check_one_segment(3 + 6 * len(freqs), n_tau,
+                      "the planar train kernel (B2)", "make_planar_nerf_train")
     check_cuda(o, "the CUDA train kernels")
-    if len(freqs) > MAX_FREQS or 3 + 6 * len(freqs) + n_tau > SEG:
-        raise ValueError("posenc + time latent must fit one 128-lane segment")
     _check(o, "o", (n, 3), f32, dev)
     _check(d, "d", (n, 3), f32, dev)
     _check(zs, "zs", (n, S), f32, dev)
@@ -1119,6 +1177,8 @@ def make_planar_nerf_train(
     freqs = tuple(float(f) for f in posenc_freqs(s_emb_xyz, n_emb_xyz))
     xyz_w = 3 + 6 * n_emb_xyz
     dir_w = 3 + 6 * n_emb_dir
+    check_one_segment(xyz_w, n_tau if encode_t else 0,
+                      "the planar train kernel (B2)", "make_planar_nerf_train")
     use_viewdir = use_viewdir and static_branch
     encode_a = encode_a and static_branch
     static_names, transient_names = branch_weight_names(

@@ -715,7 +715,7 @@ def _check_compositor(n, s):
         assert _rel_err(d[i], rd[i]) <= 1e-4, k
 
 
-def _packed_inputs(n, seed=0, s=128):
+def _packed_inputs(n, seed=0, s=128, n_tau=48):
     g = torch.Generator().manual_seed(seed)
     o = torch.rand(n, 3, generator=g) * 2 - 1
     o[:, 2] = -1
@@ -725,7 +725,7 @@ def _packed_inputs(n, seed=0, s=128):
     xyz = o[:, None] + d[:, None] * zs[..., None]
     dirs = torch.rand(n, 27, generator=g) * 2 - 1
     a = torch.randn(n, 48, generator=g)
-    t = torch.randn(n, 48, generator=g)
+    t = torch.randn(n, n_tau, generator=g)
     return tuple(x.cuda().contiguous() for x in (xyz, zs, dirs, a, t)) + (g,)
 
 
@@ -757,6 +757,30 @@ def test_packed_kernels_match_plain(variant, n, s):
     as in chip_smoke.py; at every S the same bounds (a multi-tile ray's
     d(dir), d(a), d(t) are sums over its tiles), with the rule of few
     rows (`_few_rows`, `_flips_explain`) where a leaf sums few rows."""
+    _check_packed(variant, n, s)
+
+
+# input widths past the flagship's: 17 posenc frequencies (113 lanes with
+# N_tau 8, one segment), and past one 128-lane segment (B5's wide
+# instance): N_tau 80 (143 lanes), 22 frequencies (135 lanes)
+PACKED_WIDTHS = {"n_emb_xyz_17": (17, 8), "n_tau_80": (10, 80),
+                 "n_emb_xyz_22": (22, 48)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 33, 128, 320])
+@pytest.mark.parametrize("n", [1, 37, 4096])
+@pytest.mark.parametrize("variant", sorted(PACKED_VARIANTS))
+@pytest.mark.parametrize("widths", sorted(PACKED_WIDTHS))
+def test_packed_kernels_match_plain_at_widths(widths, variant, n, s):
+    """`test_packed_kernels_match_plain` at the PACKED_WIDTHS, with its
+    bounds: B5 (its wide instance past one segment) and, at 17
+    frequencies, both backward branches of B4; past one segment B4's
+    wrapper raises (the JAX gradient does too)."""
+    _check_packed(variant, n, s, *PACKED_WIDTHS[widths])
+
+
+def _check_packed(variant, n, s, n_emb=10, n_tau=48):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from nsff_pl_tpu_torch.models import nerf as tn
@@ -765,14 +789,19 @@ def test_packed_kernels_match_plain(variant, n, s):
 
     static_branch, encode_t, encode_a, flow = PACKED_VARIANTS[variant]
     params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
+                                 in_channels_xyz=3 + 6 * n_emb,
                                  use_viewdir=True, encode_appearance=encode_a,
-                                 encode_transient=True, output_flow=True,
-                                 device="cuda")
-    xyz, _, dirs, a, t, g = _packed_inputs(n, s=s)
-    op = mtk.make_fused_nerf_train(s, use_viewdir=True, encode_a=encode_a,
-                                   encode_t=encode_t, output_flow=flow,
-                                   static_branch=static_branch)
+                                 encode_transient=True, in_channels_t=n_tau,
+                                 output_flow=True, device="cuda")
+    xyz, _, dirs, a, t, g = _packed_inputs(n, s=s, n_tau=n_tau)
+    wide = 3 + 6 * n_emb + (n_tau if encode_t else 0) > trk.SEG
+    wkw = dict(use_viewdir=True, encode_a=encode_a, encode_t=encode_t,
+               output_flow=flow, static_branch=static_branch,
+               n_emb_xyz=n_emb, n_tau=n_tau)
+    op = (mk.make_fused_nerf_eval if wide else mtk.make_fused_nerf_train)(
+        s, **wkw)
     pw, kw = op.pack(params), op.kernel_kw
+    assert trk.packed_in_rows(pw) == (2 if wide else 1) * trk.SEG
     args = (pw, xyz, dirs if static_branch else None,
             a if encode_a else None, t if encode_t else None)
     before = mk.fused_nerf_eval_cuda.launches[s]
@@ -786,6 +815,10 @@ def test_packed_kernels_match_plain(variant, n, s):
     unused = ([] if static_branch else [0, 1, 2, 3]) + list(
         range(8 + 3 * len(flow) if encode_t else 4, 16))
     assert not bool(got[..., unused].any())
+    if wide:
+        with pytest.raises(ValueError, match="one 128-lane segment"):
+            mtk.make_fused_nerf_train(s, **wkw)
+        return
     if n > 37:  # the backward at one ray and the odd count
         return
 
