@@ -240,20 +240,25 @@ once), then:
    96, one graph replay a frame, frame 0 equal to the host loop), each with
    its launch counts by sample count (PER_STEP_96, PER_STEP_PACKED_96,
    PER_STEP_C2F2, PER_STEP_PACKED_C2F2).
-16. input widths (ROADMAP A18 and the 16-frequency cap of C; after the
-   any-S phase): the packed evaluator's wide instance (two 128-lane input
-   segments) at `--N_tau 80` and at `--N_emb_xyz 22` against its plain
-   version at the serving chunk (full, static only, transient only, 37
-   rays; PACKED_TOL / PACKED_SHARE), timed with its bound, the
+16. input widths (ROADMAP A18, A19 and the 16-frequency cap of C; after
+   the any-S phase): the packed evaluator's wide instance (two 128-lane
+   input segments) at `--N_tau 80` and at `--N_emb_xyz 22`, and its
+   streamed instance (three and more) at `--N_tau 200`, `--N_emb_xyz 43`,
+   both (four segments) and `--N_tau 321`, and the wide direction and
+   appearance embeddings (`--N_tau 80 --N_emb_dir 22 --encode_a --N_a
+   160`; static only refused, its tower input one segment) against its
+   plain version at the serving chunk (full, static only, transient only,
+   37 rays; PACKED_TOL / PACKED_SHARE), timed with its bound, the
    one-segment B5 timed before and after; at `--N_emb_xyz 17 --N_tau 8`
    (17 frequencies) B1 at the serving chunk, B2, B3, B4, B5 and B6 as in
    the kernel phase, with its tolerances (B2's flow-plane cotangents by
    the unrounded-model rule), each timed; then the paths: at each wide
    width a 512x288 `render_pose` frame with `planar_eval="off"` in
-   bfloat16 (5 launches of the wide instance) against the float32 frame
-   of the plain evaluators (F32_TOL), and WIDE_STEPS steps of
-   `--train_backend xla` (the plain evaluators, no launch; the JAX
-   package's gradient kernels refuse these widths); at 17 frequencies
+   bfloat16 (5 launches of B5) against the float32 frame of the plain
+   evaluators (F32_TOL), and at `--N_tau 80`, `--N_emb_xyz 22` and
+   `--N_tau 200` WIDE_STEPS steps of `--train_backend xla` (the plain
+   evaluators, no launch; the JAX package's gradient kernels refuse these
+   widths); at 17 frequencies
    the planar recipe (WIDE_STEPS eager steps and the same graphed, equal
    bit for bit, PER_STEP) and the packed one (the same, PER_STEP_PACKED), and a
    served frame on B1 against the one on B5 (FRAME_TOL). The records are
@@ -483,7 +488,9 @@ def train_fwd_work(params, static_branch: bool, n_flow_out: int, n: int,
     else:
         nbytes = n * (3 + 3 + S) * 4 + (3 * n * S * 4 if flow_in else 0)
     nbytes += n * _in_widths(params)[1] * 4 if encode_t else 0
-    nbytes += n * 27 * 4 if static_branch else 0
+    # the direction [and appearance] embeddings, once a ray
+    nbytes += n * (params["static_dir"]["w"].shape[0] - 256) * 4 \
+        if static_branch else 0
     nbytes += sum(t.numel() * t.element_size() for k in names
                   for t in pw[k].values())
     return flops, nbytes + n_out * n * S * 4
@@ -833,10 +840,13 @@ def train_kernel_phase(torch, np, rk, tck, params, rays, card, S=128,
 
 def wtag(widths):
     """The suffix of a kernel record's name at input widths other than the
-    flagship's: "[N_emb_xyz 17, N_tau 8]", or "" for None."""
+    flagship's: "[N_emb_xyz 17, N_tau 8]" (with the direction and
+    appearance embeddings' where `widths` has them), or "" for None."""
     if widths is None:
         return ""
-    return f"[N_emb_xyz {widths['n_emb_xyz']}, N_tau {widths['n_tau']}]"
+    extra = "".join(f", {k} {widths[w]}" for w, k in (
+        ("n_emb_dir", "N_emb_dir"), ("n_a", "N_a")) if w in widths)
+    return f"[N_emb_xyz {widths['n_emb_xyz']}, N_tau {widths['n_tau']}{extra}]"
 
 
 def _fold_errs(record, abs_err, rel_err):
@@ -872,8 +882,9 @@ def plain_by_rays(torch, fn, args, kw, rays=4096):
 
 
 def packed_plain_eval(torch, mk, args, kw, S):
-    """B5's plain version, off 128 samples by `plain_by_rays`."""
-    if S == 128:
+    """B5's plain version, off 128 samples or past two input segments by
+    `plain_by_rays`."""
+    if S == 128 and mk.packed_in_rows(args[0]) <= 256:
         return mk.fused_nerf_eval_ref(*args, **kw)
     return plain_by_rays(torch, mk.fused_nerf_eval_ref, args, kw)
 
@@ -893,8 +904,11 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
     (launches filled in by the packed phases). `widths`: the model's
     input widths (n_emb_xyz, n_tau) where they are not the flagship's, the
     records' names tagged with them (`wtag`); past one input segment
-    (B5's wide instance) only the evaluator runs (B4 takes one segment,
-    B6 no width)."""
+    (B5's wide and streamed instances) only the evaluator runs (B4 takes
+    one segment, B6 no width). `widths` may hold the direction and
+    appearance embeddings' (n_emb_dir, n_a: with appearance); where the
+    variant's tower input fits one segment, B5 must refuse them wider than
+    one segment (as JAX's padded layout raises or is wrong there)."""
     from nsff_pl_tpu_torch.ops import compositing_kernel as fck
     from nsff_pl_tpu_torch.ops import mlp_kernel as mk
     from nsff_pl_tpu_torch.ops import mlp_train_kernel as mtk
@@ -903,6 +917,8 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
 
     fine = params["nerf_fine"]
     wkw = widths or {}
+    n_dir = wkw.get("n_emb_dir", 4)
+    encode_a = "n_a" in wkw
     extras = S == 128 and widths is None
     wide = sum(_in_widths(fine)) > 128
     gen = torch.Generator(device="cuda").manual_seed(4 + S)
@@ -917,27 +933,40 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
                 (n, S - 128), generator=gen, device="cuda")], 1), 1).values
         zs = zs.contiguous()
         xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
-        t_emb = params["embedding_t"][torch.randint(
-            0, N_FRAMES, (n,), generator=gen, device="cuda")].contiguous()
-        return xyz, zs, posenc(d, 3.0, 4).contiguous(), t_emb
+        ts = torch.randint(0, N_FRAMES, (n,), generator=gen, device="cuda")
+        t_emb = params["embedding_t"][ts].contiguous()
+        a_emb = params["embedding_a"][ts].contiguous() if encode_a else None
+        return xyz, zs, posenc(d, 3.0, n_dir).contiguous(), t_emb, a_emb
 
     records = {}
     ename = at_samples("fused_nerf_eval", S) + wtag(widths)
     eval_err = 0.0
     # ---- the evaluator at the serving chunk
     n = CHUNK
-    xyz, _, de, te = inputs(n)
+    xyz, _, de, te, ae = inputs(n)
     src = "nsff_pl_tpu_torch/csrc/fused_nerf_eval.cu"
     for label, static_branch, encode_t, flow, n in (
             ("full", True, True, ("fw", "bw"), CHUNK),
             ("static only", True, False, (), CHUNK),
             ("transient only", False, True, ("bw",), CHUNK),
             ("full, ragged", True, True, ("fw", "bw"), RAGGED)):
-        fn = mk.make_fused_nerf_eval(S, use_viewdir=True, encode_a=False,
-                                     encode_t=encode_t, output_flow=flow,
-                                     static_branch=static_branch, **wkw)
+        ekw = dict(use_viewdir=True, encode_a=encode_a, encode_t=encode_t,
+                   output_flow=flow, static_branch=static_branch, **wkw)
+        lanes = _in_widths(fine)[0] + (_in_widths(fine)[1] if encode_t else 0)
+        if static_branch and lanes <= 128 and (3 + 6 * n_dir > 128 or
+                                               wkw.get("n_a", 0) > 128):
+            try:
+                mk.make_fused_nerf_eval(S, **ekw)
+            except ValueError as e:
+                print(f"kernel {ename} [{label}]: {lanes} tower input lanes "
+                      f"(one segment) with the wide embeddings refused: "
+                      f"{str(e)[:80]}...", flush=True)
+                continue
+            fail(f"{ename} took wide embeddings at one segment ({label})")
+        fn = mk.make_fused_nerf_eval(S, **ekw)
         pw = fn.pack(fine)
-        args = (pw, xyz[:n], de[:n] if static_branch else None, None,
+        args = (pw, xyz[:n], de[:n] if static_branch else None,
+                ae[:n] if static_branch and encode_a else None,
                 te[:n] if encode_t else None)
         kw = fn.kernel_kw
         got = mk.fused_nerf_eval_cuda(*args, **kw)
@@ -981,13 +1010,13 @@ def packed_kernel_phase(torch, np, params, rays, card, S=128,
               f"{plain_ms:.3f} ms, bound {bms:.3f} ms "
               f"({flops / 1e12:.2f} TFLOP) on {card}", flush=True)
     records[ename]["max_abs_err"] = eval_err
-    del xyz, de, te
+    del xyz, de, te, ae
     if wide:
         return records
 
     # ---- the backward at the training batch
     n = BATCH
-    xyz, zs, de, te = inputs(n)
+    xyz, zs, de, te, _ = inputs(n)
     src = "nsff_pl_tpu_torch/csrc/fused_nerf_train.cu"
     g = torch.randn((n, S, 16), generator=gen, device="cuda")
     packed_main = None
@@ -5420,17 +5449,34 @@ def samples_eval_phase(torch, np, card):
 
 # ---------------- input widths past the flagship's (main paths) ----------------
 
-# the packed evaluator past one 128-lane input segment (B5's wide
-# instance): the time latent at 80 (143 lanes) and 22 posenc frequencies
-# (135 lanes); and 17 frequencies (113 lanes with N_tau 8) on every tower
-# kernel, once refused by a 16-frequency cap
+# the packed evaluator past one 128-lane input segment: two resident
+# segments (B5's wide instance), the time latent at 80 (143 lanes) and 22
+# posenc frequencies (135 lanes); three and more (its streamed instance),
+# the time latent at 200 (263 lanes), 43 frequencies (309), both (461,
+# four segments), the time latent at 321 (384, three segments exactly);
+# the direction and appearance embeddings past one segment at 143 lanes;
+# and 17 frequencies (113 lanes with N_tau 8) on every tower kernel, once
+# refused by a 16-frequency cap
 WIDE = ({"N_tau": 80}, {"N_emb_xyz": 22})
+WIDER = ({"N_tau": 200}, {"N_emb_xyz": 43}, {"N_emb_xyz": 43, "N_tau": 200},
+         {"N_tau": 321},
+         {"N_tau": 80, "N_emb_dir": 22, "encode_a": True, "N_a": 160})
+# the widths also trained on the plain evaluators (`plain_steps`)
+XLA_WIDTHS = WIDE + ({"N_tau": 200},)
 FREQ17 = {"N_emb_xyz": 17, "N_tau": 8}
 WIDE_STEPS = 3
 
 
 def widths_of(cfg):
-    return {"n_emb_xyz": cfg.N_emb_xyz, "n_tau": cfg.N_tau}
+    """The model's input widths as the kernel builders' keywords; the
+    direction and appearance embeddings' where they are not the
+    flagship's."""
+    w = {"n_emb_xyz": cfg.N_emb_xyz, "n_tau": cfg.N_tau}
+    if cfg.N_emb_dir != 4 or cfg.encode_a:
+        w["n_emb_dir"] = cfg.N_emb_dir
+    if cfg.encode_a:
+        w["n_a"] = cfg.N_a
+    return w
 
 
 def b1_at_widths(torch, np, rk, params, rays, widths, card):
@@ -5494,21 +5540,24 @@ def narrow_b5_ms(torch, params, rays):
 
 def wide_kernel_phase(torch, np, cfg, params, rays, card):
     """The kernels at the slice's widths against their plain versions: B5's
-    wide instance at the serving chunk at both WIDE widths (full, static
-    only, transient only, a ragged count; `packed_kernel_phase`); at
-    FREQ17, B1 at the serving chunk, B2's forward and backward and B3 at
-    batch 512 (`train_kernel_phase`), B5 at the serving chunk, B4 and B6 at
-    batch 512 (`packed_kernel_phase`), with the flagship's tolerances,
-    each timed beside its plain version and its bound. The one-segment B5
-    (the flagship `params`) is timed before and after. Returns the records
-    by name (launches filled in by `wide_paths_phase`)."""
+    wide instance at both WIDE widths and its streamed instance at the
+    WIDER ones (the wide embeddings on the wide instance), at the serving
+    chunk (full, static only, transient only, a ragged count;
+    `packed_kernel_phase`); at FREQ17, B1 at the serving chunk, B2's
+    forward and backward and B3 at batch 512 (`train_kernel_phase`), B5 at
+    the serving chunk, B4 and B6 at batch 512 (`packed_kernel_phase`),
+    with the flagship's tolerances, each timed beside its plain version
+    and its bound. The one-segment B5 (the flagship `params`) is timed
+    before and after, and the two-segment instance in the same call.
+    Returns the records by name (launches filled in by
+    `wide_paths_phase`)."""
     from nsff_pl_tpu_torch.config import build_params
     from nsff_pl_tpu_torch.ops import compositing_planar_kernel as tck
     from nsff_pl_tpu_torch.ops import raymarch_kernel as rk
 
     before = narrow_b5_ms(torch, params, rays)
     records = []
-    for over in WIDE:
+    for over in WIDE + WIDER:
         wcfg = cfg.replace(**over)
         wp = build_params(wcfg, torch.Generator().manual_seed(0),
                           device="cuda")
@@ -5612,10 +5661,11 @@ def _frame_err(a, b):
 
 
 def wide_paths_phase(torch, np, tcfg, cfg, table, Ks, Ps, K, poses, card):
-    """The slice's main paths. At each WIDE width: a 512x288 frame served
-    with `planar_eval="off"` in bfloat16 (B5's wide instance once a chunk)
-    against the float32 frame of the plain evaluators (F32_TOL), and
-    WIDE_STEPS steps of `--train_backend xla` (`plain_steps`). At FREQ17:
+    """The slice's main paths. At each WIDE and WIDER width: a 512x288
+    frame served with `planar_eval="off"` in bfloat16 (B5's wide or
+    streamed instance once a chunk) against the float32 frame of the
+    plain evaluators (F32_TOL); at the XLA_WIDTHS, WIDE_STEPS steps of
+    `--train_backend xla` (`plain_steps`). At FREQ17:
     the planar recipe (WIDE_STEPS eager steps, the same graphed, equal bit
     for bit; PER_STEP) and the packed one (PER_STEP_PACKED; the same), and a served frame on B1 against the one on B5
     (FRAME_TOL). Returns the launches of each record of
@@ -5624,7 +5674,7 @@ def wide_paths_phase(torch, np, tcfg, cfg, table, Ks, Ps, K, poses, card):
 
     n_chunks = -(-W_IMG * H_IMG // CHUNK)
     ran = {}
-    for over in WIDE:
+    for over in WIDE + WIDER:
         scfg = cfg.replace(**over)
         tag = wtag(widths_of(scfg))
         params = build_params(scfg, torch.Generator().manual_seed(0),
@@ -5643,8 +5693,9 @@ def wide_paths_phase(torch, np, tcfg, cfg, table, Ks, Ps, K, poses, card):
         if not err <= F32_TOL:
             fail(f"wide serving{tag}: B5's frame disagrees with float32")
         del params, bf, f32
-        plain_steps(torch, np, tcfg.replace(train_backend="xla", **over),
-                    table, Ks, Ps, card, f"wide training{tag} [xla]")
+        if over in XLA_WIDTHS:
+            plain_steps(torch, np, tcfg.replace(train_backend="xla", **over),
+                        table, Ks, Ps, card, f"wide training{tag} [xla]")
         torch.cuda.empty_cache()
 
     fcfg = tcfg.replace(**FREQ17)

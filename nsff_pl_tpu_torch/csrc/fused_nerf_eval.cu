@@ -40,13 +40,22 @@
 // has_bw choose the columns written.
 // What bounds it now: as planar_eval_comp.cu, the epilogues that the
 // products wait for and slabs still in flight from L2.
-// Input wider than one segment (xyz_w [+ n_tau] in (128, 256], e.g. N_tau
-// 80 or 22 posenc frequencies, which the JAX kernel runs in its unpadded
-// layout): the wide instance (NSEG = 2) reads a two-segment posenc tile and
-// the two-segment packing of ops/raymarch_kernel.py::pack_padded_weights
-// (layer 0 (256, 256), the skip layer (512, 256)), with a 4-stage ring to
-// make room for the tile's second segment (tower_wgmma.cuh::Geo); the
-// products and the rounding points are the one-segment instance's.
+// Input wider than one segment (xyz_w [+ n_tau] > 128, e.g. N_tau 80 or
+// 22 posenc frequencies, which the JAX kernel runs in its unpadded
+// layout): the packing of ops/raymarch_kernel.py::pack_padded_weights has
+// n = ceil((xyz_w + n_tau) / 128) input segments (layer 0 (128 n, 256),
+// the skip layer (128 n + 256, 256)). At n = 2 the wide instance (NSEG =
+// 2) reads a resident two-segment posenc tile, with a 4-stage ring to make
+// room for its second segment (tower_wgmma.cuh::Geo). Past two segments no
+// third 32 KB region is left, so the streamed instance (NSEG = STREAM)
+// keeps two one-segment buffers in the same carve-up: at layer 0 and the
+// skip layer of each tower each consumer warpgroup fills its rows of
+// segment s into buffer s % 2 while the products of segment s - 1 run
+// (tower_wgmma.cuh::mma_layer_stream), and the producer streams the slabs
+// in the same K order. Every instance has the same products, order and
+// rounding points. The posenc frequencies, any count, come from a device
+// table (freqs); the direction and appearance embeddings may take several
+// segments each (dir_bias).
 //
 // Plain C interface (loaded with ctypes); launches on the given stream and
 // returns the cudaError_t of the launch (or of the tensor-map encoding).
@@ -62,9 +71,11 @@ namespace {
 constexpr int NCOL = 16;  // packed output columns
 
 struct EvalArgs {
-  Common c;
-  float* out;  // (n_rays, S, NCOL)
-  int has_fw, has_bw;
+  Common c;            // its freqs unused: B5 reads the device table below
+  const float* freqs;  // (n_freqs,) posenc frequencies on the device
+  float* out;          // (n_rays, S, NCOL)
+  int has_fw, has_bw, n_segs;
+  int n_segs_stat;  // the segments holding posenc lanes: the static tower's
 };
 
 struct Params {
@@ -96,7 +107,7 @@ fused_eval_kernel(const __grid_constant__ Params P) {
   const bool dir = STATIC && A.use_viewdir;
   if (tid >= wg::NCONS) {
     // producer warpgroup: the weight slabs, the parameters, the dir bias
-    wg::producer_wg<NSEG>(P.maps, A, sm, ray, STATIC, dir, TRANS);
+    wg::producer_wg<NSEG>(P.maps, A, sm, ray, STATIC, dir, TRANS, F.n_segs, F.n_segs_stat);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -109,13 +120,20 @@ fused_eval_kernel(const __grid_constant__ Params P) {
   for (int e = tid; e < 3 * S; e += wg::NCONS)
     pts[e] = A.xyz[(row0 + min(e / 3, nv - 1)) * 3 + e % 3];
   wg::consumers_sync();
-  // posenc tile (+ the time latent for the transient tower)
-  wg::posenc_tile<wg::PE_PTS, NSEG>(sm + G::OFF_PE, A.freqs, A.xyz_w,
-                              TRANS ? A.t + size_t(ray) * A.n_tau : nullptr, A.n_tau,
-                              pts, nullptr, nullptr);
-  wg::fence_async_smem();
-  wg::consumers_sync();
-  wg::run_towers<STATIC, TRANS, NSEG>(sm, dir);
+  const float* t_ray = TRANS ? A.t + size_t(ray) * A.n_tau : nullptr;
+  if constexpr (NSEG == wg::STREAM) {
+    // the towers fill the input segments as they go
+    const wg::PeSrc src{sm + G::OFF_PE, F.freqs, t_ray, pts,
+                        A.xyz_w, A.n_tau, F.n_segs, F.n_segs_stat};
+    wg::run_towers<STATIC, TRANS, NSEG>(sm, dir, &src);
+  } else {
+    // posenc tile (+ the time latent for the transient tower)
+    wg::posenc_tile<wg::PE_PTS, NSEG>(sm + G::OFF_PE, F.freqs, A.xyz_w, t_ray, A.n_tau,
+                                      pts, nullptr, nullptr);
+    wg::fence_async_smem();
+    wg::consumers_sync();
+    wg::run_towers<STATIC, TRANS, NSEG>(sm, dir);
+  }
   const int g = tid >> 7;
 
   // ---- this warpgroup's real rows (of its 64) of the packed tile ----
@@ -156,23 +174,31 @@ cudaError_t launch_variant(const Params& P, bool static_branch, bool encode_t, i
 
 }  // namespace
 
-// n_segs: the input segments of SEG lanes of the packed weights (1, or 2
-// where xyz_w [+ n_tau] exceeds one segment)
+// n_segs: the input segments of SEG lanes of the packed weights (any count
+// >= 1: ceil((xyz_w [+ n_tau]) / SEG)); freqs: the n_freqs posenc
+// frequencies, a device pointer; stream_from: the least n_segs that runs
+// the streamed instance (3; less only to hold it against the resident
+// ones)
 extern "C" int nsff_fused_eval(
     const void* xyz, const void* dir, const void* a, const void* t,
     const void* const* w, const void* const* b, void* out, int n_rays,
     int n_samples, int xyz_w, int dir_w, int n_a, const float* freqs, int n_freqs,
     int static_branch, int encode_t, int use_viewdir, int encode_a,
-    int has_fw, int has_bw, float flow_scale, int n_tau, int n_segs, void* stream) {
-  if (n_freqs > MAXF || n_segs < 1 || n_segs > 2 || xyz_w + n_tau > n_segs * SEG ||
+    int has_fw, int has_bw, float flow_scale, int n_tau, int n_segs, int stream_from,
+    void* stream) {
+  if (n_freqs < 0 || (freqs == nullptr && n_freqs > 0) || xyz_w != 3 + 6 * n_freqs ||
+      n_segs < 1 || xyz_w + n_tau > n_segs * SEG || stream_from < 1 ||
       (!static_branch && !encode_t) || xyz == nullptr || n_samples < 1)
     return int(cudaErrorInvalidValue);
   Params P;
   memset(&P, 0, sizeof(P));
   EvalArgs& F = P.f;
   fill_common(F.c, nullptr, nullptr, nullptr, xyz, dir, a, t, nullptr, w, b,
-              n_rays, xyz_w, dir_w, n_a, freqs, n_freqs, use_viewdir, encode_a,
+              n_rays, xyz_w, dir_w, n_a, nullptr, 0, use_viewdir, encode_a,
               flow_scale, n_tau);
+  F.freqs = freqs;
+  F.n_segs = n_segs;
+  F.n_segs_stat = (xyz_w + SEG - 1) / SEG;
   F.c.n_samples = n_samples;
   F.c.n_tiles = tiles_of(n_samples);
   const int n_ctas = n_rays * F.c.n_tiles;
@@ -187,7 +213,9 @@ extern "C" int nsff_fused_eval(
   F.has_bw = has_bw;
   if (!wg::encode_maps(P.maps, F.c.W, n_segs)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(n_segs == 1
-                 ? launch_variant<1>(P, static_branch != 0, encode_t != 0, n_ctas, s)
-                 : launch_variant<2>(P, static_branch != 0, encode_t != 0, n_ctas, s));
+  const bool sb = static_branch != 0, et = encode_t != 0;
+  if (n_segs > 2 || n_segs >= stream_from)
+    return int(launch_variant<wg::STREAM>(P, sb, et, n_ctas, s));
+  return int(n_segs == 1 ? launch_variant<1>(P, sb, et, n_ctas, s)
+                         : launch_variant<2>(P, sb, et, n_ctas, s));
 }

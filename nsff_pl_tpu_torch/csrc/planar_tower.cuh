@@ -22,9 +22,11 @@ constexpr int SEG = 128;      // padded posenc segment
 constexpr int WID = 256;      // tower width
 constexpr int DEPTH = 8;
 constexpr int SKIP = 4;
-// posenc frequencies a kernel takes, at most: ops/raymarch_kernel.py's
-// MAX_FREQS (as many as fit the packed evaluator's two input segments),
-// which ops/cuda_build.py passes to nvcc, so one constant bounds both sides
+// posenc frequencies a one-segment kernel (B1, B2, B4) takes, at most:
+// ops/raymarch_kernel.py's MAX_FREQS (as many as fit one input segment),
+// which ops/cuda_build.py passes to nvcc, so one constant bounds both
+// sides; the packed evaluator (fused_nerf_eval.cu) reads any count from a
+// device table instead
 #ifndef NSFF_MAX_FREQS
 #error "build with -DNSFF_MAX_FREQS=<ops/raymarch_kernel.py MAX_FREQS> (ops/cuda_build.py does)"
 #endif

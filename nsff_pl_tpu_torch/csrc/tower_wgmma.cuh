@@ -8,7 +8,8 @@
 // the third (producer) warpgroup one thread streams the weight K-slabs of
 // every layer, in the fixed order of the towers, through TMA into a 6-stage
 // mbarrier ring in shared memory (4 stages beside a two-segment posenc
-// tile), and three warps stage the biases and head
+// tile, or beside the two buffers through which the streamed instance
+// runs any number of segments), and three warps stage the biases and head
 // weights in shared memory (cp.async) and compute the ray's static_dir
 // bias; setmaxnreg moves the producer warpgroup's registers to the
 // consumers. The posenc tile is filled by posenc_tile, which the backward's
@@ -17,7 +18,8 @@
 // Layouts in shared memory (all 128-byte swizzled, the TMA/wgmma "128B"
 // mode, every region 1024-byte aligned; Geo carves them):
 // - activation tile (128, 256) bf16 and posenc tile (128, 128) bf16 (two
-//   segments, (128, 256), in the wide packed evaluator), K-major:
+//   segments, (128, 256), in the wide packed evaluator; two one-segment
+//   buffers in its streamed instance), K-major:
 //   one (128 rows, 64 cols) block per 64 columns, 128 bytes a row, the 16-byte
 //   chunk j of row r stored at chunk j ^ (r % 8). A layer's output is written
 //   from the accumulators into the activation tile in place (stmatrix):
@@ -62,21 +64,33 @@ constexpr int PL_TH = 0, PL_SRGB = planar::NHEAD, PL_SSIG = planar::NHEAD + 3;
 static_assert(PL_SSIG < NPL, "head planes fit the carve-up");
 constexpr uint32_t EXTRA_BYTES = 3 * S * 4 + 64;       // per-ray inputs
 
+// The instance whose tower input takes any number of segments (the packed
+// evaluator past two): NSEG = STREAM. Its segments are not resident: at
+// layer 0 and at the skip layer each consumer warpgroup fills its 64 rows
+// of segment s into buffer s % 2 while the products of segment s - 1 run
+// (mma_layer_stream), and the producer streams the weight slabs in the
+// same K order.
+constexpr int STREAM = 0;
+
 // Shared-memory carve-up (offsets from a 1024-aligned base) of a CTA whose
 // tower input, the posenc tile (+ the time latent), spans NSEG segments of
 // SEG lanes: (128, NSEG * SEG) bf16. One segment keeps the 6-stage ring;
 // two segments (the packed evaluator past one segment) give up two of its
 // stages for the second segment's 32 KB, the one region of that size the
-// carve-up can spare: every other one is read at every layer.
+// carve-up can spare: every other one is read at every layer. The
+// streamed instance (STREAM) keeps the two-segment carve-up, its two
+// segment regions the buffers that the segments pass through.
 template <int NSEG>
 struct Geo {
-  static_assert(NSEG == 1 || NSEG == 2, "one or two input segments");
+  static_assert(NSEG == STREAM || NSEG == 1 || NSEG == 2,
+                "one or two resident input segments, or the streamed instance");
   static constexpr int STAGES = NSEG == 1 ? 6 : 4;
-  static constexpr int K_IN = NSEG * SEG;  // K-rows of the input at layers 0 and SKIP
+  static constexpr int PE_SEGS = NSEG == STREAM ? 2 : NSEG;  // resident segments or buffers
+  static constexpr int K_IN = NSEG * SEG;  // K-rows of the input at layers 0 and SKIP (resident)
   static constexpr uint32_t OFF_RING = 0;
   static constexpr uint32_t OFF_ACT = OFF_RING + STAGES * SLAB_BYTES;
   static constexpr uint32_t OFF_PE = OFF_ACT + 4 * BLK_BYTES;
-  static constexpr uint32_t OFF_BAR = OFF_PE + 2 * NSEG * BLK_BYTES;
+  static constexpr uint32_t OFF_BAR = OFF_PE + 2 * PE_SEGS * BLK_BYTES;
   static constexpr uint32_t OFF_RAYB = OFF_BAR + 128;
   static constexpr uint32_t OFF_BIAS = OFF_RAYB + WID * 4;
   static constexpr uint32_t OFF_HW = OFF_BIAS + NBIAS * WID * 4;
@@ -385,6 +399,54 @@ __device__ __forceinline__ void posenc_tile(unsigned char* pe, const float* freq
                        (threadIdx.x & 15) + 16 * seg);
 }
 
+// The streamed instance's tower input (Geo<STREAM>): the two one-segment
+// buffers, and what a segment is made from (the points, the posenc
+// frequencies, the time latent in lanes [xyz_w, xyz_w + n_tau) or null),
+// in nseg segments; the static tower reads the first nseg_stat of them,
+// those that hold posenc lanes (its weight rows for the time latent's
+// lanes are zero, so the products it skips add exact zeros).
+struct PeSrc {
+  unsigned char* pe;
+  const float* freqs;
+  const float* t;
+  const float* pts;
+  int xyz_w, n_tau, nseg, nseg_stat;
+};
+
+// Segment seg of the tower input (PE_PTS) in the 64 rows of warpgroup g of
+// the one-segment buffer buf, written by the warpgroup's 128 threads:
+// thread t fills chunk t % 16 of rows 64 g + t / 16 + 8 k. Its lanes and
+// their arithmetic are posenc_chunk's, so it writes posenc_tile's bits.
+__device__ __forceinline__ void posenc_rows_wg(unsigned char* buf, const PeSrc& src,
+                                               int seg, int g) {
+  const int t = threadIdx.x & 127, c = t & 15;
+  Lanes8 L;
+  lanes8(L, src.freqs, src.xyz_w, c + 16 * seg, src.t, src.n_tau);
+  bool pos = false;  // a lane of the point's posenc (else time latent or zero)
+#pragma unroll
+  for (int u = 0; u < 8; ++u) pos |= L.kind[u] == 1 || L.kind[u] == 2;
+  if (!pos) {
+    // lane_val's per-ray constants: the same bits in every row
+    const uint4 q = make_uint4(pack_bf16(L.cst[0], L.cst[1]), pack_bf16(L.cst[2], L.cst[3]),
+                               pack_bf16(L.cst[4], L.cst[5]), pack_bf16(L.cst[6], L.cst[7]));
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      *reinterpret_cast<uint4*>(buf + tile_off(64 * g + (t >> 4) + 8 * k, c)) = q;
+    return;
+  }
+#pragma unroll 2
+  for (int k = 0; k < 8; ++k) {
+    const int s = 64 * g + (t >> 4) + 8 * k;
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      v[u] = lane_val(L, u, __fmul_rn(src.pts[3 * s + L.ch[u]], L.f[u]));
+    *reinterpret_cast<uint4*>(buf + tile_off(s, c)) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
+
 // ---------------------------------------------------------------- pipeline
 
 // a position in a ring of NST stages
@@ -422,7 +484,7 @@ __device__ __forceinline__ void init_ring(uint32_t bars) {
 template <int NST>
 __device__ __forceinline__ void stream_layer(const CUtensorMap* map, int nslab,
                                              PipeN<NST>& p, uint32_t ring,
-                                             uint32_t bars) {
+                                             uint32_t bars, int k0 = 0) {
   for (int k = 0; k < nslab; ++k) {
 #ifdef WG_PROFILE
     const long long t0 = clock64();
@@ -434,7 +496,7 @@ __device__ __forceinline__ void stream_layer(const CUtensorMap* map, int nslab,
     const uint32_t dst = ring + p.stage * SLAB_BYTES;
 #pragma unroll
     for (int b = 0; b < 4; ++b)
-      tma_load(dst + b * BOX_BYTES, map, fb, 64 * b, SLAB_K * k);
+      tma_load(dst + b * BOX_BYTES, map, fb, 64 * b, SLAB_K * (k0 + k));
     p.advance();
   }
 }
@@ -463,6 +525,33 @@ __device__ void produce(const Maps& maps, uint32_t ring, uint32_t bars,
       tower(M_T0);
       stream_layer(&maps.m[M_TFIN], WID / SLAB_K, p, ring, bars);
     }
+  }
+}
+
+// produce for the streamed instance (Geo<STREAM>), one tile: layers 0 and
+// SKIP read nseg input segments, the static tower's the first nseg_stat
+// of them (PeSrc), its skip layer's activation rows then from row
+// 128 nseg.
+__device__ void produce_stream(const Maps& maps, uint32_t ring, uint32_t bars,
+                               bool stat, bool dir, bool trans, int nseg,
+                               int nseg_stat) {
+  PipeN<Geo<STREAM>::STAGES> p;
+  auto tower = [&](int m0, int k_in) {
+    for (int i = 0; i < planar::DEPTH; ++i) {
+      const bool in = i == 0 || i == planar::SKIP;
+      stream_layer(&maps.m[m0 + i], (in ? k_in : WID) / SLAB_K, p, ring, bars);
+      if (i == planar::SKIP)
+        stream_layer(&maps.m[m0 + i], WID / SLAB_K, p, ring, bars, nseg * SEG / SLAB_K);
+    }
+  };
+  if (stat) {
+    tower(M_S0, nseg_stat * SEG);
+    stream_layer(&maps.m[M_SFIN], WID / SLAB_K, p, ring, bars);
+    if (dir) stream_layer(&maps.m[M_SDIR], WID / SLAB_K, p, ring, bars);
+  }
+  if (trans) {
+    tower(M_T0, nseg * SEG);
+    stream_layer(&maps.m[M_TFIN], WID / SLAB_K, p, ring, bars);
   }
 }
 
@@ -507,6 +596,63 @@ __device__ __forceinline__ void mma_layer(float (&d)[128], PipeN<NST>& p, uint32
       wgmma_wait<1>();
       release(prev);
     }
+    prev = p.stage;
+    p.advance();
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+  release(prev);
+}
+
+// mma_layer in the streamed instance, at layer 0 (k_act = 0) and the skip
+// layer (k_act = WID): the first nseg * SEG K-columns come from the
+// tower input's segments, segment s filled into this warpgroup's rows of
+// buffer s % 2 (posenc_rows_wg) while the products of segment s - 1 run,
+// then multiplied slab by slab; then k_act K-columns of the activation
+// tile. The products and their order are mma_layer's on a resident tile.
+// Buffer s % 2 was last read by segment s - 2, whose products are done:
+// after each commit only the newest group stays in flight.
+template <int NST>
+__device__ __forceinline__ void mma_layer_stream(float (&d)[128], PipeN<NST>& p,
+                                                 uint32_t ring, uint32_t bars,
+                                                 const PeSrc& src, int nseg, int g,
+                                                 uint32_t act_g, int k_act) {
+  const bool leader = (threadIdx.x & 127) == 0;
+  auto release = [&](int stage) {
+    if (leader) mbar_arrive(empty_bar<NST>(bars, stage));
+  };
+  auto slab = [&](uint32_t a_blk, int jj, bool first) {
+    mbar_wait(full_bar(bars, p.stage), p.phase);
+    const uint32_t a = a_blk + (jj >> 1) * BLK_BYTES + (jj & 1) * 64;
+    const uint32_t b = ring + p.stage * SLAB_BYTES;
+#pragma unroll
+    for (int kq = 0; kq < SLAB_K / 16; ++kq)
+      wgmma_m64n256k16(d, sw128_desc(a + 32 * kq, 16, 1024),
+                       sw128_desc(b + 2048 * kq, BOX_BYTES, 1024), !(first && kq == 0));
+    wgmma_commit();
+  };
+  int prev = -1;
+  for (int s = 0; s < nseg; ++s) {
+    unsigned char* buf = src.pe + (s & 1) * 2 * BLK_BYTES;
+    wg_sync(g);  // every warp has waited out the products that read buf
+    posenc_rows_wg(buf, src, s, g);
+    fence_async_smem();  // generic-proxy stores before the wgmma reads
+    wg_sync(g);
+    wgmma_fence();
+    for (int j = 0; j < SEG / SLAB_K; ++j) {
+      slab(saddr(buf) + g * WG_ROWS_BYTES, j, s == 0 && j == 0);
+      if (prev >= 0) {
+        wgmma_wait<1>();
+        release(prev);
+      }
+      prev = p.stage;
+      p.advance();
+    }
+  }
+  for (int j = 0; j < k_act / SLAB_K; ++j) {
+    slab(act_g, j, false);
+    wgmma_wait<1>();
+    release(prev);
     prev = p.stage;
     p.advance();
   }
@@ -620,17 +766,27 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], const float* bia
 // The 8-layer ReLU tower of warpgroup g on the posenc tile of NSEG
 // segments (biases bias[i * WID ..], skip input at layer 4); the last
 // activation stays in the activation tile, and with SIG its 1-wide head
-// (the static sigma) goes to planes.
+// (the static sigma) goes to planes. The streamed instance (NSEG =
+// STREAM) fills its input segments from src at layers 0 and SKIP, the
+// static tower (SIG) the first src->nseg_stat of them.
 template <bool SIG, int NSEG = 1>
 __device__ __forceinline__ void tower(float (&d)[128], PipeN<Geo<NSEG>::STAGES>& p,
                                       uint32_t ring,
                                       uint32_t bars, uint32_t pe_g, uint32_t act_g,
                                       unsigned char* act, int g, const float* bias,
                                       const bf16* wsig, const float* bsig,
-                                      float* sig_plane) {
+                                      float* sig_plane, const PeSrc* src = nullptr) {
   for (int i = 0; i < planar::DEPTH; ++i) {
-    mma_layer(d, p, ring, bars, pe_g, (i == 0 || i == planar::SKIP) ? Geo<NSEG>::K_IN : 0,
-                  act_g, i == 0 ? 0 : WID);
+    if constexpr (NSEG == STREAM) {
+      if (i == 0 || i == planar::SKIP)
+        mma_layer_stream(d, p, ring, bars, *src, SIG ? src->nseg_stat : src->nseg, g, act_g,
+                         i == 0 ? 0 : WID);
+      else
+        mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
+    } else {
+      mma_layer(d, p, ring, bars, pe_g, (i == 0 || i == planar::SKIP) ? Geo<NSEG>::K_IN : 0,
+                act_g, i == 0 ? 0 : WID);
+    }
     if (SIG && i == planar::DEPTH - 1)
       epilogue<true, true, 1>(d, bias + i * WID, act, g, wsig, bsig, sig_plane);
     else
@@ -694,10 +850,12 @@ __device__ void stage_params(const Staged& st, const bf16* const* W,
 
 // The per-ray part of the static_dir layer on the helper threads, thread
 // per output column: bf16(dir) @ Wd[WID:WID+dir_w] + b [+ bf16(a) @
-// Wd[WID+SEG:WID+SEG+n_a]].
+// Wd[a0:a0+n_a]], the appearance rows a0 after the direction's segments
+// (WID + SEG where dir_w fits one; ops/raymarch_kernel.py::static_dir_rows).
 __device__ void dir_bias(const bf16* Wd, const float* bd, const float* dir,
                          int dir_w, const float* a, int n_a, float* ray_b, int h) {
   using planar::bfr;
+  const int a0 = WID + SEG * max(1, (dir_w + SEG - 1) / SEG);
   for (int n = h; n < WID; n += NHELP) {
     float z = 0.f;
 #pragma unroll 4
@@ -708,7 +866,7 @@ __device__ void dir_bias(const bf16* Wd, const float* bd, const float* dir,
       float za = 0.f;
 #pragma unroll 4
       for (int k = 0; k < n_a; ++k)
-        za += bfr(a[k]) * __bfloat162float(Wd[(WID + SEG + k) * WID + n]);
+        za += bfr(a[k]) * __bfloat162float(Wd[(a0 + k) * WID + n]);
       z += za;
     }
     ray_b[n] = z;
@@ -720,17 +878,24 @@ __device__ void dir_bias(const bf16* Wd, const float* bd, const float* dir,
 // The producer warpgroup of a trainable evaluator (fused_nerf_eval.cu, the
 // forward of planar_nerf_train.cu): thread NCONS streams the weight slabs
 // of the evaluated branches; the helpers stage the parameters and, with
-// dir, the ray's static_dir bias, arriving at BAR_PARAMS / BAR_DIR.
+// dir, the ray's static_dir bias, arriving at BAR_PARAMS / BAR_DIR. The
+// streamed instance's nseg input segments, the static tower's first
+// nseg_stat of them: produce_stream.
 template <int NSEG = 1>
 __device__ __forceinline__ void producer_wg(const Maps& maps, const planar::Common& A,
                                             unsigned char* sm, int ray, bool stat,
-                                            bool dir, bool trans) {
+                                            bool dir, bool trans, int nseg = NSEG,
+                                            int nseg_stat = NSEG) {
   using namespace planar;
   using G = Geo<NSEG>;
   asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
   const int tid = threadIdx.x;
   if (tid == NCONS) {
-    produce<NSEG>(maps, saddr(sm + G::OFF_RING), saddr(sm + G::OFF_BAR), stat, dir, trans);
+    if constexpr (NSEG == STREAM)
+      produce_stream(maps, saddr(sm + G::OFF_RING), saddr(sm + G::OFF_BAR), stat, dir, trans,
+                     nseg, nseg_stat);
+    else
+      produce<NSEG>(maps, saddr(sm + G::OFF_RING), saddr(sm + G::OFF_BAR), stat, dir, trans);
   } else if (tid >= HELP0) {
     const int h = tid - HELP0;
     stage_params(staged<NSEG>(sm), A.W, A.B, NHEAD, h);
@@ -751,9 +916,11 @@ __device__ __forceinline__ void producer_wg(const Maps& maps, const planar::Comm
 // with TRANS, the transient tower, its final layer and the NHEAD packed
 // heads. The head outputs, before their activations, go to the planes of
 // OFF_PLANES (PL_TH, PL_SRGB, PL_SSIG); each warpgroup writes its own rows
-// and ends at its own barrier. NSEG: the input segments (Geo).
+// and ends at its own barrier. NSEG: the input segments (Geo); the
+// streamed instance fills them from src (tower).
 template <bool STAT, bool TRANS, int NSEG = 1>
-__device__ __forceinline__ void run_towers(unsigned char* sm, bool dir) {
+__device__ __forceinline__ void run_towers(unsigned char* sm, bool dir,
+                                           const PeSrc* src = nullptr) {
   using planar::NHEAD;
   using G = Geo<NSEG>;
   bar_sync(BAR_PARAMS, NCONS + NHELP);
@@ -771,7 +938,7 @@ __device__ __forceinline__ void run_towers(unsigned char* sm, bool dir) {
   PipeN<G::STAGES> p;
   if (STAT) {
     tower<true, NSEG>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(false), st.w_sig(),
-                st.hb, pl + PL_SSIG * S);
+                st.hb, pl + PL_SSIG * S, src);
     mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
     if (dir) {
       // static_xyz_final (linear), bf16-rounded, in place
@@ -787,7 +954,7 @@ __device__ __forceinline__ void run_towers(unsigned char* sm, bool dir) {
   }
   if (TRANS) {
     tower<false, NSEG>(d, p, ring, bars, pe_g, act_g, act, g, st.tower_bias(true), nullptr,
-                       nullptr, nullptr);
+                       nullptr, nullptr, src);
     mma_layer(d, p, ring, bars, pe_g, 0, act_g, WID);
     epilogue<false, false, NHEAD>(d, st.tower_bias(true) + 8 * WID, act, g, st.w_th(),
                                   st.hb + 4, pl + PL_TH * S);

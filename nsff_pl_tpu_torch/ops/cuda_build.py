@@ -23,7 +23,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 # -lcuda: the evaluators encode their TMA tensor maps with the driver API
 # (cuTensorMapEncodeTiled); NSFF_MAX_FREQS: the posenc frequencies the
-# kernels take (csrc/planar_tower.cuh's MAXF), the wrappers' own bound
+# one-segment kernels take (csrc/planar_tower.cuh's MAXF), their wrappers'
+# own bound
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lcuda", f"-DNSFF_MAX_FREQS={MAX_FREQS}"]

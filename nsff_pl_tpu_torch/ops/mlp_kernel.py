@@ -28,16 +28,22 @@ packing serves every evaluation of a step.
 runs `fused_nerf_eval_ref` for CPU tensors; nothing else chooses between
 them. The CUDA kernel takes any S >= 1: one CTA per (ray, tile of 128
 samples), the rows past S of a partly used last tile computed and not
-written. It takes a tower input (posenc [+ time latent]) of up to two
-128-lane segments (e.g. `N_tau` 80, or 22 posenc frequencies), where the
-JAX kernel drops to its unpadded layout: the packing then has two input
-segments (`pack_padded_weights`), the rounding points stay (bf16 of
-pe + t, the per-ray direction bias), and the kernel's wide instance runs.
-Wider inputs raise (`input_segs`).
+written. It takes a tower input (posenc [+ time latent]) of any width,
+as the JAX kernel does in its unpadded layout past one segment: the
+packing then has n = ceil(width / 128) input segments
+(`pack_padded_weights`), the rounding points stay (bf16 of pe + t, the
+per-ray direction bias), and the kernel runs its instance for one, two,
+or more segments (the last streams them through two resident buffers).
+It reads any count of posenc frequencies from a device table
+(`freq_table`). Past one input segment it also takes direction and
+appearance embeddings wider than one segment, as JAX's unpadded layout
+does; within one segment it refuses them, as JAX raises or is wrong there
+(`check_embedding_widths`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 from typing import Dict, Tuple
 
@@ -45,12 +51,16 @@ import torch
 
 from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
 from nsff_pl_tpu_torch.ops.raymarch_kernel import (
-    _HEAD_COL, MAX_FREQS, SEG, TRAIN_HEADS, WIDTH, _bcast, _bf16,
-    _check, _mm, _posenc_tables, _ptr, _sin_poly, _slot_ptrs, _t_lanes,
-    _tower_ref, branch_weight_names, check_cuda, check_one_segment,
-    check_samples, input_segs, pack_padded_weights, packed_in_rows)
+    _HEAD_COL, SEG, TRAIN_HEADS, WIDTH, _bcast, _bf16, _check, _mm,
+    _posenc_tables, _ptr, _sin_poly, _slot_ptrs, _t_lanes, _tower_ref,
+    branch_weight_names, check_cuda, check_one_segment, check_samples,
+    input_segs, pack_padded_weights, packed_in_rows, static_dir_rows)
 
 N_PACKED = 16  # columns of the packed output
+# the least input segments that the kernel's streamed instance runs (below
+# it, the segments stay resident); the card's tests lower it to hold the
+# streamed instance against the resident ones, bit for bit
+STREAM_FROM = 3
 
 
 def unpack_fused(out: torch.Tensor, *, encode_t: bool,
@@ -97,10 +107,11 @@ def fused_nerf_eval_ref(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
         feat0 = _mm(h, pw["static_xyz_final"]["w"], pw["static_xyz_final"]["b"])
         if use_viewdir:
             w, b = pw["static_dir"]["w"], pw["static_dir"]["b"]
-            ray_z = _mm(dir_emb, w[WIDTH:WIDTH + dir_emb.shape[1]]) + b
+            dir_w = dir_emb.shape[1]
+            ray_z = _mm(dir_emb, w[WIDTH:WIDTH + dir_w]) + b
             if encode_a:
-                ray_z = ray_z + _mm(
-                    a_emb, w[WIDTH + SEG:WIDTH + SEG + a_emb.shape[1]])
+                a0 = static_dir_rows(dir_w, a_emb.shape[1], True)[0]
+                ray_z = ray_z + _mm(a_emb, w[a0:a0 + a_emb.shape[1]])
             feat = _bf16(torch.relu(_mm(feat0, w[:WIDTH]) + _bcast(ray_z, S)))
         else:
             feat = _bf16(feat0)
@@ -131,12 +142,30 @@ def check_train_width(xyz_w: int, n_tau: int) -> None:
                       "make_fused_nerf_train (its gradient)")
 
 
+def check_embedding_widths(lanes: int, dir_w: int, n_a: int) -> None:
+    """Direction (`dir_w`) and appearance (`n_a`) embeddings wider than one
+    segment are taken where the tower input (`lanes`: posenc [+ time
+    latent]) is wider than one too. The JAX kernel then runs its unpadded
+    layout, which takes them; within one segment it runs its padded
+    layout, which raises at them or, with both, overlaps their rows."""
+    if lanes <= SEG and (dir_w > SEG or n_a > SEG):
+        raise ValueError(
+            f"a direction ({dir_w} lanes) or appearance ({n_a}) embedding "
+            f"wider than one {SEG}-lane segment, with a tower input of "
+            f"{lanes} lanes (one segment): the JAX packed evaluator raises "
+            f"at these widths or, with both, is wrong (its padded layout "
+            f"overlaps their rows; ROADMAP C). It runs them with a tower "
+            f"input wider than {SEG} lanes (its unpadded layout), and so does "
+            f"the port; else render with the plain evaluators "
+            f"(mlp_backend='xla')")
+
+
 def packed_checks(xyz, dir_emb, a_emb, t_emb, *, freqs, use_viewdir,
                   encode_a, encode_t, pw=None, backward=False):
     """Argument checks shared by the packed kernels' wrappers: the
-    evaluator (B5) takes up to two input segments, as many as its packed
-    weights `pw` have; the backward (B4, `backward`) one. Returns (n,
-    dir_w, n_a, n_tau)."""
+    evaluator (B5) takes as many input segments as its packed weights
+    `pw` have; the backward (B4, `backward`) one. Returns (n, dir_w, n_a,
+    n_tau)."""
     dev, f32 = xyz.device, torch.float32
     if xyz.ndim != 3 or xyz.shape[2] != 3:
         raise ValueError(f"xyz: shape {tuple(xyz.shape)} is not (N, S, 3)")
@@ -159,11 +188,22 @@ def packed_checks(xyz, dir_emb, a_emb, t_emb, *, freqs, use_viewdir,
         if encode_a:
             n_a = a_emb.shape[-1] if a_emb is not None else 0
             _check(a_emb, "a_emb", (n, n_a), f32, dev)
-        if dir_w > SEG or n_a > SEG:
-            raise ValueError("dir/appearance embedding wider than a segment")
+        check_embedding_widths(xyz_w + n_tau, dir_w, n_a)
     if encode_t:
         _check(t_emb, "t_emb", (n, n_tau), f32, dev)
     return n, dir_w, n_a, n_tau
+
+
+@functools.lru_cache(maxsize=None)
+def freq_table(freqs: Tuple[float, ...], device) -> torch.Tensor:
+    """The posenc frequencies as an f32 device tensor, which B5 reads
+    (any count). Made once per frequency tuple and device, by fills on
+    the device (a copy from the host would wait on it, which a captured
+    CUDA graph cannot hold), outside inference mode, as `ops/posenc.py`
+    keeps its own."""
+    with torch.inference_mode(False):
+        return torch.stack([torch.full((), f, dtype=torch.float32,
+                                       device=device) for f in freqs])
 
 
 def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
@@ -171,8 +211,8 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
                          encode_a: bool, encode_t: bool, output_flow,
                          flow_scale: float, D: int = 8,
                          skips=(4,)) -> torch.Tensor:
-    """Launch `csrc/fused_nerf_eval.cu` (one CTA per (ray, tile); its wide
-    instance for packed weights of two input segments) on the current
+    """Launch `csrc/fused_nerf_eval.cu` (one CTA per (ray, tile); its
+    instance for the input segments of the packed weights) on the current
     stream; adds one to `fused_nerf_eval_cuda.launches[S]`."""
     from nsff_pl_tpu_torch.ops import cuda_build
 
@@ -195,23 +235,23 @@ def fused_nerf_eval_cuda(pw, xyz, dir_emb, a_emb, t_emb, *, freqs,
         D=D, skips=skips, use_viewdir=use_viewdir,
         static_branch=static_branch, encode_t=encode_t)
     wp, bp = _slot_ptrs(pw, static_names + transient_names, xyz.device,
-                        len(TRAIN_HEADS) * 3 + 4, encode_a, kin)
+                        len(TRAIN_HEADS) * 3 + 4, encode_a, kin, dir_w, n_a)
     fn = cuda_build.load("fused_nerf_eval").nsff_fused_eval
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([P] * 4 + [ctypes.POINTER(P)] * 2 + [P] + [I] * 5
-                   + [ctypes.POINTER(ctypes.c_float), I] + [I] * 6
-                   + [ctypes.c_float, I, I, P])
+                   + [P, I] + [I] * 6 + [ctypes.c_float, I, I, I, P])
     fn.restype = I
-    cfreqs = (ctypes.c_float * MAX_FREQS)(*[float(f) for f in freqs])
+    ftab = freq_table(tuple(float(f) for f in freqs), xyz.device)
     rc = fn(_ptr(xyz), _ptr(dir_emb) if use_viewdir else None,
             _ptr(a_emb) if encode_a else None,
             _ptr(t_emb) if encode_t else None, wp, bp, out.data_ptr(),
-            n, xyz.shape[1], 3 + 6 * len(freqs), dir_w, n_a, cfreqs,
-            len(freqs),
+            n, xyz.shape[1], 3 + 6 * len(freqs), dir_w, n_a,
+            ftab.data_ptr(), len(freqs),
             int(static_branch), int(encode_t), int(use_viewdir),
             int(encode_a), int(encode_t and "fw" in output_flow),
             int(encode_t and "bw" in output_flow), float(flow_scale), n_tau,
-            kin // SEG, torch.cuda.current_stream(xyz.device).cuda_stream)
+            kin // SEG, STREAM_FROM,
+            torch.cuda.current_stream(xyz.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_nerf_eval kernel launch failed: "
                            f"cudaError {rc}")
@@ -281,8 +321,14 @@ def make_fused_nerf_eval(
     -> (N, S, 16), the JAX function's contract: xyz (N, S, 3), per-ray
     (N, C) conditioning embeddings. No gradient (`ops/mlp_train_kernel.py`
     is the trainable form). `pw` takes weights already packed by `fn.pack`.
-    The posenc [+ time latent] may take up to two input segments."""
-    input_segs(3 + 6 * n_emb_xyz + (n_tau if encode_t else 0))
+    The posenc [+ time latent] may take any number of input segments;
+    direction and appearance embeddings wider than one segment only where
+    it takes more than one (`check_embedding_widths`)."""
+    use_dir = use_viewdir and static_branch
+    check_embedding_widths(
+        3 + 6 * n_emb_xyz + (n_tau if encode_t else 0),
+        3 + 6 * n_emb_dir if use_dir else 0,
+        n_a if use_dir and encode_a else 0)
     weight_names, pack_kw, kernel_kw = packed_op_config(
         use_viewdir=use_viewdir, encode_a=encode_a, encode_t=encode_t,
         output_flow=output_flow, n_emb_xyz=n_emb_xyz, s_emb_xyz=s_emb_xyz,

@@ -22,9 +22,13 @@ rows [0, 128) and [128, 384); `static_dir` holds the feature at rows
 [0, 256), the direction embedding at [256, 256+27) and the appearance at
 [384, 384+48); the transient sigma/rgb/flow heads are one (256, 4|10)
 matrix. The CUDA kernel reads this same layout. A tower input (posenc [+
-time latent]) wider than one segment takes two (`input_segs`): layer 0 is
-then (256, 256) and the skip layer (512, 256), h at rows [256, 512); only
-the packed evaluator (B5, `ops/mlp_kernel.py`) reads that layout. The
+time latent]) wider than one segment takes n = ceil(width / 128)
+(`input_segs`): layer 0 is then (128 n, 256) and the skip layer (128 n +
+256, 256), h at rows [128 n, 128 n + 256); a direction or appearance
+embedding wider than one segment takes as many as it needs, the
+appearance after the direction's (`static_dir_rows`). Only the packed
+evaluator (B5, `ops/mlp_kernel.py`) reads those layouts, as the JAX
+package runs them only in its packed evaluator's unpadded layout. The
 planar kernels (B1, B2) and the packed backward (B4) take one segment, as
 the JAX kernels (their gradients) do (`check_one_segment`).
 
@@ -48,27 +52,27 @@ from nsff_pl_tpu_torch.ops.posenc import posenc_freqs
 
 SEG = 128  # row segment of the padded weights (the TPU's lane width)
 WIDTH = 256
-# input segments a tower kernel reads: the packed evaluator (B5) up to
-# two, the planar kernels (B1, B2) and the packed backward (B4) one
-MAX_SEGS = 2
-# posenc frequencies the kernels take, as many as fit B5's two segments
-# (3 + 6 n lanes); `ops/cuda_build.py` passes it to nvcc as the C side's
-# MAXF (`csrc/planar_tower.cuh`), so one constant bounds both
-MAX_FREQS = (MAX_SEGS * SEG - 3) // 6
+# posenc frequencies the one-segment tower kernels (B1, B2, B4) take, as
+# many as one segment holds (3 + 6 n lanes); `ops/cuda_build.py` passes it
+# to nvcc as the C side's MAXF (`csrc/planar_tower.cuh`), so one constant
+# bounds both. The packed evaluator (B5) takes any count, from a device
+# table (`ops/mlp_kernel.py::freq_table`).
+MAX_FREQS = (SEG - 3) // 6
 
 
 def input_segs(width: int) -> int:
-    """The SEG-lane segments a tower input of `width` lanes (posenc [+ time
-    latent]) takes in the padded layout: 1 or 2. Wider inputs raise (the
-    JAX packed evaluator runs them in its unpadded layout)."""
-    n = max(1, -(-width // SEG))
-    if n > MAX_SEGS:
-        raise ValueError(
-            f"posenc + time latent of {width} lanes: the port's tower "
-            f"kernels take at most {MAX_SEGS} input segments of {SEG} lanes "
-            f"({MAX_SEGS * SEG}) [ROADMAP A19: the packed evaluator above "
-            f"two input segments]")
-    return n
+    """The SEG-lane segments a tower input (posenc [+ time latent]) or a
+    per-ray embedding of `width` lanes takes in the padded layout:
+    ceil(width / SEG), at least one."""
+    return max(1, -(-width // SEG))
+
+
+def static_dir_rows(dir_w: int, n_a: int, encode_a: bool):
+    """(first appearance row, rows) of the packed `static_dir`: the feature
+    in rows [0, 256), the direction embedding in its segments from row
+    256, the appearance (with `encode_a`) in its segments after them."""
+    a0 = WIDTH + SEG * input_segs(dir_w)
+    return a0, a0 + (SEG * input_segs(n_a) if encode_a else 0)
 
 
 def check_one_segment(xyz_w: int, n_tau: int, what: str, jax_fn: str) -> None:
@@ -82,8 +86,8 @@ def check_one_segment(xyz_w: int, n_tau: int, what: str, jax_fn: str) -> None:
             f"segment, got {xyz_w} + {n_tau} = {xyz_w + n_tau} lanes; the "
             f"JAX {jax_fn} refuses these widths too (ROADMAP C): train with "
             f"train_backend='xla' (the plain evaluators), serve and evaluate "
-            f"with planar_eval='off' (the packed evaluator, B5, takes up to "
-            f"{MAX_SEGS * SEG} lanes)")
+            f"with planar_eval='off' (the packed evaluator, B5, takes any "
+            f"width)")
 
 
 def check_samples(S: int, what: str) -> None:
@@ -159,7 +163,8 @@ def pack_padded_weights(params, weight_names, *, output_flow, skips, xyz_w,
     """Params dict -> {name: {"w": bf16 (K_padded, out), "b": f32 (out,)}}
     in the segment-padded layout described in the module docstring; the
     towers' input takes the segments of posenc [+ time latent, with the
-    transient tower] (`input_segs`)."""
+    transient tower], the direction and appearance embeddings theirs
+    (`input_segs`, `static_dir_rows`)."""
     kin = SEG * input_segs(
         xyz_w + (n_tau if "transient_xyz_0" in weight_names else 0))
     packed = dict(params)
@@ -188,12 +193,10 @@ def pack_padded_weights(params, weight_names, *, output_flow, skips, xyz_w,
             inw = xyz_w + n_tau
             w = _pad_rows(w, [((0, inw), 0), ((inw, k), kin)], kin + WIDTH)
         elif name == "static_dir":
+            a0, total = static_dir_rows(dir_w, n_a, encode_a)
             layout = [((0, WIDTH), 0), ((WIDTH, WIDTH + dir_w), WIDTH)]
-            total = WIDTH + SEG
             if encode_a:
-                layout.append(((WIDTH + dir_w, WIDTH + dir_w + n_a),
-                               WIDTH + SEG))
-                total += SEG
+                layout.append(((WIDTH + dir_w, WIDTH + dir_w + n_a), a0))
             w = _pad_rows(w, layout, total)
         out[name] = {"w": w.to(torch.bfloat16).contiguous(),
                      "b": packed[name]["b"].float().contiguous()}
@@ -396,14 +399,16 @@ def packed_in_rows(pw) -> int:
                                               "transient_xyz_0") if k in pw)
 
 
-def _slot_ptrs(pw, names, dev, heads: int, encode_a: bool, kin: int = SEG):
+def _slot_ptrs(pw, names, dev, heads: int, encode_a: bool, kin: int = SEG,
+               dir_w: int = SEG, n_a: int = SEG):
     """Checked (w, b) pointer arrays over `_SLOTS` for the packed weights
-    `names` of `pw`, whose towers read `kin` input rows."""
+    `names` of `pw`, whose towers read `kin` input rows and whose
+    `static_dir` holds `dir_w` direction and `n_a` appearance lanes."""
     f32 = torch.float32
     wshape = {"static_xyz_0": (kin, WIDTH), "static_xyz_4": (kin + WIDTH, WIDTH),
               "transient_xyz_0": (kin, WIDTH),
               "transient_xyz_4": (kin + WIDTH, WIDTH),
-              "static_dir": (WIDTH + SEG * (2 if encode_a else 1), WIDTH),
+              "static_dir": (static_dir_rows(dir_w, n_a, encode_a)[1], WIDTH),
               "static_sigma": (WIDTH, 1), "static_rgb": (WIDTH, 3),
               "transient_heads": (WIDTH, heads)}
     wp = (ctypes.c_void_p * len(_SLOTS))()
@@ -639,7 +644,7 @@ def unpad_padded_grads(dws, weight_names, *, output_flow, skips, xyz_w,
                        n_tau, dir_w, n_a, encode_a):
     """Padded/packed dW, db ({name: {"w", "b"}}) -> gradients keyed like
     the params dict (port of `ops/mlp_train_kernel.py::unpad_padded_grads`),
-    the inverse of `pack_padded_weights` in one or two input segments."""
+    the inverse of `pack_padded_weights` in any number of input segments."""
     def unpad(name, w):
         kin = w.shape[0] - WIDTH  # a skip layer's input rows
         if name == "static_xyz_0":
@@ -653,7 +658,8 @@ def unpad_padded_grads(dws, weight_names, *, output_flow, skips, xyz_w,
         if name == "static_dir":
             parts = [w[:WIDTH], w[WIDTH:WIDTH + dir_w]]
             if encode_a:
-                parts.append(w[WIDTH + SEG:WIDTH + SEG + n_a])
+                a0 = static_dir_rows(dir_w, n_a, encode_a)[0]
+                parts.append(w[a0:a0 + n_a])
             return torch.cat(parts, 0)
         return w
 

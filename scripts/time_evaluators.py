@@ -3,7 +3,7 @@
 of two versions of the kernels in one call.
 
     PYTHONPATH=<tree> python3 scripts/time_evaluators.py [--label L]
-        [--samples S] [--static] [--save PATH]
+        [--samples S] [--static] [--n_tau T] [--save PATH]
 
 Imports `nsff_pl_tpu_torch` from `<tree>` (the script's own directory
 holds no package, so PYTHONPATH decides), builds that tree's kernels and
@@ -11,8 +11,11 @@ times, with CUDA events, `planar_eval_comp_cuda` (serving variant:
 encode_t, viewdir, no flow maps; `--static`: the static tower alone) and,
 at 128 samples, `fused_nerf_eval_cuda` (full variant) at the serving
 chunk, 32768 rays x S samples (sorted random depths), on seeded random
-weights and rays. `--save` writes B1's output there (`torch.save`), so
-that two trees' bits can be compared. The results are checked by
+weights and rays. `--n_tau` sets the time latent's width (80 or 200: B5
+on two or three input segments; B1 then runs only where the tower input
+fits one segment). `--save` writes the kernels' outputs there
+(`torch.save`, {kernel: tensor}), so that two trees' bits can be
+compared. The results are checked by
 `chip_smoke.py`, not here. Prints one JSON line per kernel. Needs one
 CUDA card.
 """
@@ -33,6 +36,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--samples", type=int, default=128)
     ap.add_argument("--static", action="store_true")
+    ap.add_argument("--n_tau", type=int, default=48)
     ap.add_argument("--save", default="")
     args = ap.parse_args()
 
@@ -51,32 +55,35 @@ def main() -> int:
     g = torch.Generator().manual_seed(0)
     params = tn.init_nerf_params(g, "fine", use_viewdir=True,
                                  encode_transient=True, output_flow=True,
-                                 device="cuda")
+                                 in_channels_t=args.n_tau, device="cuda")
     o = torch.rand(n, 3, generator=g) * 2 - 1
     o[:, 2] = -1
     d = (torch.rand(n, 3, generator=g) - 0.5) * 0.4
     d[:, 2] = 2
     zs = torch.sort(torch.rand(n, s, generator=g), 1).values
     dirs = torch.rand(n, 27, generator=g) * 2 - 1
-    t = torch.randn(n, 48, generator=g)
+    t = torch.randn(n, args.n_tau, generator=g)
     o, d, zs, dirs, t = (x.cuda().contiguous() for x in (o, d, zs, dirs, t))
     xyz = (o[:, None] + d[:, None] * zs[..., None]).contiguous()
 
-    fb = rk.make_planar_nerf_eval_comp(s, use_viewdir=True,
-                                       encode_t=not args.static)
-    b1_args = (fb.pack(params), o, d, zs, None, dirs, None,
-               None if args.static else t)
-    kernels = {
-        "planar_eval_comp": lambda: rk.planar_eval_comp_cuda(
-            *b1_args, **fb.kernel_kw)}
+    kernels = {}
+    if 63 + (0 if args.static else args.n_tau) <= rk.SEG:
+        fb = rk.make_planar_nerf_eval_comp(s, use_viewdir=True,
+                                           encode_t=not args.static,
+                                           n_tau=args.n_tau)
+        b1_args = (fb.pack(params), o, d, zs, None, dirs, None,
+                   None if args.static else t)
+        kernels["planar_eval_comp"] = lambda: rk.planar_eval_comp_cuda(
+            *b1_args, **fb.kernel_kw)
     if s == 128:
         fp = mk.make_fused_nerf_eval(s, use_viewdir=True, encode_a=False,
-                                     encode_t=True, output_flow=("fw", "bw"))
+                                     encode_t=True, output_flow=("fw", "bw"),
+                                     n_tau=args.n_tau)
         b5_args = (fp.pack(params), xyz, dirs, None, t)
         kernels["fused_nerf_eval"] = lambda: mk.fused_nerf_eval_cuda(
             *b5_args, **fp.kernel_kw)
     if args.save:
-        torch.save(kernels["planar_eval_comp"]().cpu(), args.save)
+        torch.save({k: fn().cpu() for k, fn in kernels.items()}, args.save)
     for name, fn in kernels.items():
         fn()
         torch.cuda.synchronize()
@@ -89,6 +96,7 @@ def main() -> int:
         torch.cuda.synchronize()
         print(json.dumps({"label": args.label, "kernel": name, "n_rays": n,
                           "samples": s, "static": args.static,
+                          "n_tau": args.n_tau,
                           "ms": start.elapsed_time(end) / args.iters,
                           "card": card}), flush=True)
     return 0

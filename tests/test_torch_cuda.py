@@ -715,7 +715,7 @@ def _check_compositor(n, s):
         assert _rel_err(d[i], rd[i]) <= 1e-4, k
 
 
-def _packed_inputs(n, seed=0, s=128, n_tau=48):
+def _packed_inputs(n, seed=0, s=128, n_tau=48, dir_w=27, n_a=48):
     g = torch.Generator().manual_seed(seed)
     o = torch.rand(n, 3, generator=g) * 2 - 1
     o[:, 2] = -1
@@ -723,8 +723,8 @@ def _packed_inputs(n, seed=0, s=128, n_tau=48):
     d[:, 2] = 2
     zs = torch.sort(torch.rand(n, s, generator=g), 1).values
     xyz = o[:, None] + d[:, None] * zs[..., None]
-    dirs = torch.rand(n, 27, generator=g) * 2 - 1
-    a = torch.randn(n, 48, generator=g)
+    dirs = torch.rand(n, dir_w, generator=g) * 2 - 1
+    a = torch.randn(n, n_a, generator=g)
     t = torch.randn(n, n_tau, generator=g)
     return tuple(x.cuda().contiguous() for x in (xyz, zs, dirs, a, t)) + (g,)
 
@@ -761,26 +761,79 @@ def test_packed_kernels_match_plain(variant, n, s):
 
 
 # input widths past the flagship's: 17 posenc frequencies (113 lanes with
-# N_tau 8, one segment), and past one 128-lane segment (B5's wide
-# instance): N_tau 80 (143 lanes), 22 frequencies (135 lanes)
+# N_tau 8, one segment), two 128-lane segments (B5's wide instance): N_tau
+# 80 (143 lanes), 22 frequencies (135 lanes); three and more (B5's
+# streamed instance): N_tau 200 (263 lanes, three), 43 frequencies with
+# N_tau 200 (461 lanes, four), N_tau 900 (963 lanes, eight); and the
+# direction and appearance embeddings past one segment (N_emb_dir 22, N_a
+# 160) at N_tau 80. (N_emb_xyz, N_tau[, N_emb_dir, N_a])
 PACKED_WIDTHS = {"n_emb_xyz_17": (17, 8), "n_tau_80": (10, 80),
-                 "n_emb_xyz_22": (22, 48)}
+                 "n_emb_xyz_22": (22, 48), "n_tau_200": (10, 200),
+                 "n_emb_xyz_43_n_tau_200": (43, 200), "n_tau_900": (10, 900),
+                 "dir_22_a_160": (10, 80, 22, 160)}
+# (widths, rays, samples): the two-segment and 17-frequency grid; three
+# segments at S = 1, 100, 128 and 320; four at 128; eight at 256 rays;
+# the wide embeddings at 128
+WIDTH_CASES = (
+    [(w, n, s) for w in ("n_emb_xyz_17", "n_tau_80", "n_emb_xyz_22")
+     for n in (1, 37, 4096) for s in (1, 33, 128, 320)]
+    + [("n_tau_200", n, s) for n in (1, 37, 4096) for s in (1, 100, 128, 320)]
+    + [("n_emb_xyz_43_n_tau_200", n, 128) for n in (1, 37, 4096)]
+    + [("n_tau_900", 256, s) for s in (100, 128)]
+    + [("dir_22_a_160", n, 128) for n in (1, 37, 4096)])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [1, 33, 128, 320])
-@pytest.mark.parametrize("n", [1, 37, 4096])
 @pytest.mark.parametrize("variant", sorted(PACKED_VARIANTS))
-@pytest.mark.parametrize("widths", sorted(PACKED_WIDTHS))
-def test_packed_kernels_match_plain_at_widths(widths, variant, n, s):
+@pytest.mark.parametrize("widths,n,s", WIDTH_CASES)
+def test_packed_kernels_match_plain_at_widths(widths, n, s, variant):
     """`test_packed_kernels_match_plain` at the PACKED_WIDTHS, with its
-    bounds: B5 (its wide instance past one segment) and, at 17
-    frequencies, both backward branches of B4; past one segment B4's
-    wrapper raises (the JAX gradient does too)."""
+    bounds: B5 (its wide instance at two segments, its streamed instance
+    past two) and, at 17 frequencies, both backward branches of B4; past
+    one segment B4's wrapper raises (the JAX gradient does too). With the
+    wide direction and appearance embeddings the static-only variant's
+    tower input (63 lanes) fits one segment, where B5 refuses them."""
     _check_packed(variant, n, s, *PACKED_WIDTHS[widths])
 
 
-def _check_packed(variant, n, s, n_emb=10, n_tau=48):
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [100, 128, 320])
+@pytest.mark.parametrize("variant", ["full", "static_only", "fw_warp"])
+@pytest.mark.parametrize("widths", ["flagship", "n_tau_80"])
+def test_streamed_instance_equals_resident_bits(widths, variant, s):
+    """B5's streamed instance (the input segments filled at layer 0 and
+    the skip layer while the products run) against the resident one- and
+    two-segment instances on the same inputs, launched with the streamed
+    instance from one segment on (`mlp_kernel.STREAM_FROM`): the same
+    products in the same order, so the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nsff_pl_tpu_torch.models import nerf as tn
+    from nsff_pl_tpu_torch.ops import mlp_kernel as mk
+
+    n_emb, n_tau = {"flagship": (10, 48), "n_tau_80": (10, 80)}[widths]
+    static_branch, encode_t, encode_a, flow = PACKED_VARIANTS[variant]
+    params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
+                                 in_channels_xyz=3 + 6 * n_emb,
+                                 use_viewdir=True, encode_transient=True,
+                                 in_channels_t=n_tau, output_flow=True,
+                                 device="cuda")
+    xyz, _, dirs, a, t, _ = _packed_inputs(37, s=s, n_tau=n_tau)
+    op = mk.make_fused_nerf_eval(s, use_viewdir=True, encode_a=encode_a,
+                                 encode_t=encode_t, output_flow=flow,
+                                 static_branch=static_branch,
+                                 n_emb_xyz=n_emb, n_tau=n_tau)
+    args = (op.pack(params), xyz, dirs if static_branch else None, None,
+            t if encode_t else None)
+    resident = mk.fused_nerf_eval_cuda(*args, **op.kernel_kw)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(mk, "STREAM_FROM", 1)
+        streamed = mk.fused_nerf_eval_cuda(*args, **op.kernel_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(streamed, resident)
+
+
+def _check_packed(variant, n, s, n_emb=10, n_tau=48, n_dir=4, n_a=48):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from nsff_pl_tpu_torch.models import nerf as tn
@@ -790,18 +843,29 @@ def _check_packed(variant, n, s, n_emb=10, n_tau=48):
     static_branch, encode_t, encode_a, flow = PACKED_VARIANTS[variant]
     params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
                                  in_channels_xyz=3 + 6 * n_emb,
-                                 use_viewdir=True, encode_appearance=encode_a,
+                                 use_viewdir=True,
+                                 in_channels_dir=3 + 6 * n_dir,
+                                 encode_appearance=encode_a,
+                                 in_channels_a=n_a,
                                  encode_transient=True, in_channels_t=n_tau,
                                  output_flow=True, device="cuda")
-    xyz, _, dirs, a, t, g = _packed_inputs(n, s=s, n_tau=n_tau)
-    wide = 3 + 6 * n_emb + (n_tau if encode_t else 0) > trk.SEG
+    xyz, _, dirs, a, t, g = _packed_inputs(n, s=s, n_tau=n_tau,
+                                           dir_w=3 + 6 * n_dir, n_a=n_a)
+    lanes = 3 + 6 * n_emb + (n_tau if encode_t else 0)
+    wide = lanes > trk.SEG
     wkw = dict(use_viewdir=True, encode_a=encode_a, encode_t=encode_t,
                output_flow=flow, static_branch=static_branch,
-               n_emb_xyz=n_emb, n_tau=n_tau)
+               n_emb_xyz=n_emb, n_tau=n_tau, n_emb_dir=n_dir, n_a=n_a)
+    if not wide and (n_dir, n_a) != (4, 48):
+        # wide embeddings within one segment: refused, as JAX's padded
+        # layout raises or is wrong there
+        with pytest.raises(ValueError, match="ROADMAP C"):
+            mk.make_fused_nerf_eval(s, **wkw)
+        return
     op = (mk.make_fused_nerf_eval if wide else mtk.make_fused_nerf_train)(
         s, **wkw)
     pw, kw = op.pack(params), op.kernel_kw
-    assert trk.packed_in_rows(pw) == (2 if wide else 1) * trk.SEG
+    assert trk.packed_in_rows(pw) == trk.input_segs(lanes) * trk.SEG
     args = (pw, xyz, dirs if static_branch else None,
             a if encode_a else None, t if encode_t else None)
     before = mk.fused_nerf_eval_cuda.launches[s]

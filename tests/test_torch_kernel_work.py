@@ -117,3 +117,55 @@ def test_work_counts_the_real_samples(kind, s):
         per_sample = (_tower_macs(XYZ) + W * W + W * 1 + W * 3
                       + _tower_macs(XYZ + TAU) + W * 10)
         assert at_s[0] == 2 * (per_sample * N * s + DIR * W * N)
+
+
+# (N_emb_xyz, N_tau, N_emb_dir, N_a or None): the packed evaluator's
+# widths past one input segment (three and four segments, the wide
+# direction and appearance embeddings), beside the flagship
+B5_WIDTHS = {"flagship": (10, 48, 4, None), "n_tau_200": (10, 200, 4, None),
+             "n_emb_xyz_43": (43, 48, 4, None),
+             "n_emb_xyz_43_n_tau_200": (43, 200, 4, None),
+             "n_tau_321": (10, 321, 4, None),
+             "dir_22_a_160": (10, 80, 22, 160)}
+
+
+@pytest.mark.parametrize("width", sorted(B5_WIDTHS))
+def test_packed_work_counts_the_unpadded_widths(width):
+    """B5's bound at any input width: `train_fwd_work(packed=True)` counts
+    model MACs at the unpadded widths (the towers' posenc [+ time latent]
+    lanes, the direction and appearance rows of `static_dir` once a ray),
+    the inputs read once (points, time latent, direction and appearance
+    embeddings), the weights as packed in ceil(lanes / 128) input
+    segments, and the (N, S, 16) rows written once."""
+    from nsff_pl_tpu_torch.ops import mlp_kernel as tmk
+
+    n_emb, n_tau, n_dir, n_a = B5_WIDTHS[width]
+    cs = _chip_smoke()
+    params = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
+                                 in_channels_xyz=3 + 6 * n_emb,
+                                 use_viewdir=True,
+                                 in_channels_dir=3 + 6 * n_dir,
+                                 encode_appearance=n_a is not None,
+                                 in_channels_a=n_a or 48,
+                                 encode_transient=True, in_channels_t=n_tau,
+                                 output_flow=True, device="cpu")
+    fn = tmk.make_fused_nerf_eval(S, use_viewdir=True,
+                                  encode_a=n_a is not None, encode_t=True,
+                                  output_flow=("fw", "bw"), n_emb_xyz=n_emb,
+                                  n_tau=n_tau, n_emb_dir=n_dir, n_a=n_a or 48)
+    pw = fn.pack(params)
+    flops, nbytes = cs.train_fwd_work(params, True, 2, N, S, pw, 16, False,
+                                      packed=True)
+    xyz_w, dir_w, a_w = 3 + 6 * n_emb, 3 + 6 * n_dir, n_a or 0
+    per_sample = (_tower_macs(xyz_w) + W * W + W * 1 + W * 3
+                  + _tower_macs(xyz_w + n_tau) + W * 10)
+    per_ray = (dir_w + a_w) * W
+    assert flops == 2 * (per_sample * N * S + per_ray * N)
+    segs = -(-(xyz_w + n_tau) // 128)
+    rows = trk.static_dir_rows(dir_w, a_w, n_a is not None)[1]
+    tower = 2 * W * (128 * segs + 6 * W + (128 * segs + W) + W)
+    weights = (2 * tower + 2 * rows * W + 2 * W * (1 + 3) + 2 * W * 10
+               + 4 * (10 * W + 4) + 4 * (9 * W + 10))
+    inputs = N * S * 3 * 4 + N * (n_tau + dir_w + a_w) * 4
+    assert nbytes == inputs + weights + 16 * N * S * 4
+    assert cs.bound(flops, nbytes)[1] == "operations"

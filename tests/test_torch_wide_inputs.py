@@ -2,27 +2,37 @@
 than the flagship's, against the JAX package, whose Pallas kernels run
 here in interpret mode as the JAX package's own tests run them.
 
-Two things are held here:
+Three things are held here:
 - **17-20 posenc frequencies** (3 + 6 N_emb_xyz = 105-123 lanes), which
   fit one 128-lane segment: the JAX kernels run there, and every wrapper
-  of the port takes them (the frequency bound is
+  of the port takes them (the one-segment kernels' frequency bound is
   `ops/raymarch_kernel.py::MAX_FREQS`, which `ops/cuda_build.py` hands to
-  nvcc as the kernels' MAXF). The plain B2 forward and gradients and B4's
+  nvcc as their MAXF). The plain B2 forward and gradients and B4's
   gradients at N_emb_xyz 17, N_tau 8 against JAX.
-- **The packed evaluator (B5) past one segment**: N_tau 80 (143 lanes)
-  and N_emb_xyz 22 (135 lanes), where the JAX kernel drops to its
-  unpadded layout and the port packs two input segments. The plain B5
-  against JAX, the packing's round trip, the test-time `render_rays` on
-  the kernel backend, and the export op. There the JAX gradient of
+- **The packed evaluator (B5) at any input width**: two segments (N_tau
+  80, 143 lanes; N_emb_xyz 22, 135; N_emb_xyz 20 with N_tau 8, 131),
+  three and more (N_tau 200, 263 lanes; N_emb_xyz 43, 309; both, 461;
+  N_tau 321, 384), where the JAX kernel drops to its unpadded layout and
+  the port packs ceil(lanes / 128) input segments. The plain B5 against
+  JAX, the packing's round trip, the test-time `render_rays` on the kernel
+  backend, and the export op. There the JAX gradient of
   `make_fused_nerf_train` and the JAX planar kernels raise, and so do the
   port's B4 and planar builders and wrappers.
+- **Direction and appearance embeddings past one segment** (N_emb_dir
+  22, N_a 160): taken where the tower input passes one segment, as JAX's
+  unpadded layout takes them, and refused within one, where JAX raises or
+  is wrong (ROADMAP C).
 
 Tolerances are the existing files' (tests/test_torch_mlp_kernel.py,
 tests/test_torch_train_kernel.py, tests/test_torch_mlp_train_kernel.py,
 tests/test_torch_packed_render.py), for the same reasons: both sides
-round at the same points, the f32 sums run in another order. Inputs are
-dyadic, so x * f is exact in f32 on both sides. S = 16; torch runs on one
-thread, each JAX reference under one `jax.jit`.
+round at the same points, the f32 sums run in another order. At 131
+and 309 lanes (20 and 43 posenc frequencies) one raw transient sigma
+reads past the forward's 1e-4: there the test requires that at most two
+bf16 rounding ties of its row, each within its f32 reordering bound,
+taken the other way bring it within 1e-6 of JAX's (`_ties_explain`). Inputs are dyadic, so x * f is exact in f32 on
+both sides at dyadic frequencies. S = 16; torch runs on one thread, each
+JAX reference under one `jax.jit`.
 
 The CUDA kernels run only on the card: tests/test_torch_cuda.py holds
 them there at these widths."""
@@ -53,8 +63,20 @@ from tests.test_torch_mlp_kernel import check_packed
 
 S = 16
 N = 8
-# (N_emb_xyz, N_tau) past one segment, and the repaired frequency counts
-WIDE = {"n_tau_80": (10, 80), "n_emb_xyz_22": (22, 48)}
+# (N_emb_xyz, N_tau[, N_emb_dir, N_a]) past one segment: two segments (143,
+# 135 and 131 lanes), three and more (263, 309, 461, 384 lanes), and the
+# wide direction and appearance embeddings (143 lanes); the repaired
+# frequency counts
+WIDE = {"n_tau_80": (10, 80), "n_emb_xyz_22": (22, 48),
+        "n_emb_xyz_20": (20, 8), "n_tau_200": (10, 200),
+        "n_emb_xyz_43": (43, 48), "n_emb_xyz_43_n_tau_200": (43, 200),
+        "n_tau_321": (10, 321), "dir_22_a_160": (10, 80, 22, 160)}
+# the widths where a miss of the forward's 1e-4 must be explained by
+# rounding ties (`_ties_explain`): 131 and 309 lanes (20 and 43
+# frequencies), ROADMAP C; the pairs of ties tried, nearest first
+TIE_WIDTHS = ("n_emb_xyz_20", "n_emb_xyz_43")
+TIE_MAX = 2
+TIE_PAIRS = 512
 REPAIR = (17, 8)
 FWD_TOL, FWD_EXACT, FWD_EXACT_SHARE = 1e-4, 1e-6, 0.1
 GRAD_MAX, GRAD_FRO = 0.1, 5e-2
@@ -71,15 +93,18 @@ def one_torch_thread():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_params(n_emb, n_tau):
+def jax_params(n_emb, n_tau, n_dir=4, n_a=None):
+    """JAX-initialised fine-model params; `n_a` None: no appearance."""
     return jn.init_nerf_params(
         jax.random.PRNGKey(1), "fine", use_viewdir=True,
         encode_transient=True, in_channels_xyz=3 + 6 * n_emb,
-        in_channels_t=n_tau, output_flow=True)
+        in_channels_dir=3 + 6 * n_dir, encode_appearance=n_a is not None,
+        in_channels_a=n_a or 48, in_channels_t=n_tau, output_flow=True)
 
 
-def port_params(n_emb, n_tau, grad=False):
-    p = params_from_jax(jax.tree.map(np.asarray, jax_params(n_emb, n_tau)),
+def port_params(n_emb, n_tau, grad=False, n_dir=4, n_a=None):
+    p = params_from_jax(jax.tree.map(np.asarray,
+                                     jax_params(n_emb, n_tau, n_dir, n_a)),
                         "cpu")
     if grad:
         for leaf in (x for layer in p.values() for x in layer.values()):
@@ -95,6 +120,15 @@ def points(n, n_tau, seed=0):
     dirs = (rng.rand(n, 27) * 2 - 1).astype(np.float32)
     t = rng.randn(n, n_tau).astype(np.float32)
     return xyz, dirs, t
+
+
+def embeddings(n, n_dir, n_a, seed=5):
+    """Direction embeddings (n, 3 + 6 n_dir) and appearance embeddings
+    (n, n_a), or None without appearance."""
+    rng = np.random.RandomState(seed)
+    dirs = (rng.rand(n, 3 + 6 * n_dir) * 2 - 1).astype(np.float32)
+    a = rng.randn(n, n_a).astype(np.float32) if n_a else None
+    return dirs, a
 
 
 def rays(n, n_tau, seed=0):
@@ -117,54 +151,173 @@ B5_VARIANTS = {"full": (True, True, ("fw", "bw")),
                "transient_only": (False, True, ("bw",))}
 
 
-def _b5_kw(n_emb, n_tau, variant):
+def _widths(width):
+    """(n_emb, n_tau, n_dir, n_a) of a WIDE entry; n_a None: no
+    appearance."""
+    n_emb, n_tau, n_dir, n_a = (WIDE[width] + (4, None))[:4]
+    return n_emb, n_tau, n_dir, n_a
+
+
+def _b5_kw(n_emb, n_tau, variant, n_dir=4, n_a=None):
     static_branch, encode_t, flow = B5_VARIANTS[variant]
-    return dict(use_viewdir=True, encode_a=False, encode_t=encode_t,
-                output_flow=flow, n_emb_xyz=n_emb, n_tau=n_tau,
+    return dict(use_viewdir=True, encode_a=n_a is not None,
+                encode_t=encode_t, output_flow=flow, n_emb_xyz=n_emb,
+                n_tau=n_tau, n_emb_dir=n_dir, n_a=n_a or 48,
                 static_branch=static_branch)
+
+
+def _b5_against_jax(n_emb, n_tau, variant, n_dir=4, n_a=None):
+    """(port's plain B5, JAX's interpreted kernel, the packed weights, the
+    port's inputs) at S = 16 on N rays."""
+    kw = _b5_kw(n_emb, n_tau, variant, n_dir, n_a)
+    static_branch, encode_t, _ = B5_VARIANTS[variant]
+    xyz, dirs, t = points(N, n_tau)
+    a = None
+    if (n_dir, n_a) != (4, None):
+        dirs, a = embeddings(N, n_dir, n_a)
+    encode_a = a is not None and static_branch
+    jfn = jax.jit(jmk.make_fused_nerf_eval(S, block_rows=8 * S, **kw))
+    want = np.asarray(jfn(
+        jax_params(n_emb, n_tau, n_dir, n_a), jnp.asarray(xyz),
+        dir_emb=jnp.asarray(dirs) if static_branch else None,
+        a_emb=jnp.asarray(a) if encode_a else None,
+        t_emb=jnp.asarray(t) if encode_t else None))
+    fn = tmk.make_fused_nerf_eval(S, **kw)
+    tp = port_params(n_emb, n_tau, n_dir=n_dir, n_a=n_a)
+    pw = fn.pack(tp)
+    T = torch.from_numpy
+    args = (T(xyz), T(dirs), T(a) if encode_a else None, T(t))
+    got = fn(tp, *args, pw=pw).numpy()
+    return got, want, fn, pw, args
+
+
+def _ties_explain(fn, pw, args, ray, s, col, want):
+    """At most TIE_MAX bf16 rounding ties of row (ray, s) in the tower that
+    feeds column `col` (`tests/test_torch_cuda.py::_row_ties`: each within
+    its f32 reordering bound of a rounding midpoint, or a ReLU decision
+    within its bound of zero), taken the other way in the plain version's
+    own f32 forward, bring the column within FWD_EXACT of JAX's `want`.
+    Returns the ties and the value they give; asserts they exist."""
+    from tests.test_torch_cuda import _row_ties
+
+    prefix = "static_xyz" if col < 4 else "transient_xyz"
+    ray_args = tuple(x[ray:ray + 1] if x is not None else None for x in args)
+
+    def run(chosen):
+        seen = {}
+
+        def tower(pw_, pre, inp, D, skips, keep=False):
+            acts = [inp]
+            h, kin = inp, inp.shape[1]
+            for i in range(D):
+                w, b = pw_[f"{pre}_{i}"]["w"], pw_[f"{pre}_{i}"]["b"]
+                z = (trk._mm(inp, w[:kin]) + trk._mm(h, w[kin:kin + trk.WIDTH])
+                     + b) if i in skips else trk._mm(h, w, b)
+                h = trk._bf16(torch.relu(z))
+                for j, v, *_, other in chosen:
+                    if pre == prefix and j == i:
+                        h = h.clone()
+                        h[s, v] = other
+                acts.append(h)
+            seen[pre] = acts
+            return acts if keep else h
+
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(tmk, "_tower_ref", tower)
+            out = fn(None, *ray_args, pw=pw)
+        return float(out[0, s, col]), seen
+
+    base, seen = run(())
+    ties = _row_ties(pw, prefix, seen[prefix], s, 8)
+    moved = [(run((t,))[0], t) for t in ties]
+    for v, t in moved:
+        if abs(v - want) <= FWD_EXACT:
+            return [t], v
+    # pairs, nearest first by the sum of their single moves
+    gap = want - base
+    pairs = sorted(
+        ((abs((v1 - base) + (v2 - base) - gap), t1, t2)
+         for i, (v1, t1) in enumerate(moved) for v2, t2 in moved[i + 1:]),
+        key=lambda x: x[0])
+    for _, t1, t2 in pairs[:TIE_PAIRS]:
+        v = run((t1, t2))[0]
+        if abs(v - want) <= FWD_EXACT:
+            return [t1, t2], v
+    raise AssertionError(
+        f"row ({ray}, {s}) column {col}: {base} against JAX's {want}, no "
+        f"{TIE_MAX} of its {len(ties)} rounding ties bring it within "
+        f"{FWD_EXACT}")
 
 
 @pytest.mark.parametrize("variant", sorted(B5_VARIANTS))
 @pytest.mark.parametrize("width", sorted(WIDE))
 def test_packed_evaluator_matches_jax_past_one_segment(width, variant):
-    n_emb, n_tau = WIDE[width]
-    kw = _b5_kw(n_emb, n_tau, variant)
+    """The plain B5 against JAX's interpreted `make_fused_nerf_eval` at
+    every WIDE width, in ceil(lanes / 128) input segments, under
+    `check_packed`'s bounds. At the TIE_WIDTHS (131 and 309 lanes) an
+    entry past 1e-4 must be explained by at most TIE_MAX rounding ties of
+    its row (`_ties_explain`). The wide direction and appearance embeddings are
+    taken past one segment; static only (63 lanes, one segment) both
+    packages refuse them, the port with its labelled message."""
+    n_emb, n_tau, n_dir, n_a = _widths(width)
     static_branch, encode_t, flow = B5_VARIANTS[variant]
-    xyz, dirs, t = points(N, n_tau)
-    jfn = jax.jit(jmk.make_fused_nerf_eval(S, block_rows=8 * S, **kw))
-    want = np.asarray(jfn(
-        jax_params(n_emb, n_tau), jnp.asarray(xyz),
-        dir_emb=jnp.asarray(dirs) if static_branch else None,
-        t_emb=jnp.asarray(t) if encode_t else None))
-    fn = tmk.make_fused_nerf_eval(S, **kw)
-    tp = port_params(n_emb, n_tau)
-    pw = fn.pack(tp)
     lanes = 3 + 6 * n_emb + (n_tau if encode_t else 0)
-    assert trk.packed_in_rows(pw) == (2 if lanes > trk.SEG else 1) * trk.SEG
-    got = fn(tp, torch.from_numpy(xyz), torch.from_numpy(dirs), None,
-             torch.from_numpy(t)).numpy()
+    if n_a is not None and lanes <= trk.SEG:
+        kw = _b5_kw(n_emb, n_tau, variant, n_dir, n_a)
+        xyz, _, _ = points(N, n_tau)
+        dirs, a = embeddings(N, n_dir, n_a)
+        with pytest.raises(JAX_REFUSES):
+            jmk.make_fused_nerf_eval(S, block_rows=8 * S, **kw)(
+                jax_params(n_emb, n_tau, n_dir, n_a), jnp.asarray(xyz),
+                dir_emb=jnp.asarray(dirs), a_emb=jnp.asarray(a))
+        with pytest.raises(ValueError, match="ROADMAP C"):
+            tmk.make_fused_nerf_eval(S, **kw)
+        return
+    got, want, fn, pw, args = _b5_against_jax(n_emb, n_tau, variant, n_dir,
+                                              n_a)
+    assert trk.packed_in_rows(pw) == trk.input_segs(lanes) * trk.SEG
     assert got.shape == want.shape == (N, S, 16)
-    check_packed(got, want)
+    err = np.abs(got - want)
+    assert (err.max(-1) > FWD_EXACT).mean() <= FWD_EXACT_SHARE
+    if width in TIE_WIDTHS:
+        for ray, s, col in np.argwhere(err > FWD_TOL):
+            ties, v = _ties_explain(fn, pw, args, ray, s, col,
+                                    float(want[ray, s, col]))
+            print(f"{width} {variant}: row ({ray}, {s}) column {col} "
+                  f"{got[ray, s, col]} against JAX's {want[ray, s, col]}; "
+                  f"{v} with the ties (layer, unit, distance to the "
+                  f"midpoint, f32 bound, other rounding) {ties}")
+    else:
+        check_packed(got, want)
     assert not got[..., (8 + 3 * len(flow)) if encode_t else 4:].any()
 
 
-@pytest.mark.parametrize("width", sorted(WIDE))
+@pytest.mark.parametrize("width", ["n_tau_80", "n_emb_xyz_22"])
 def test_two_segment_packing_round_trips(width):
     """`pack_padded_weights` in two segments (layer 0 (256, 256), the skip
     layer (512, 256), h at rows [256, 512)) and `unpad_padded_grads` give
     back the bf16 weights, as the JAX package's unpadded layout holds
     them."""
-    n_emb, n_tau = WIDE[width]
-    fn = tmk.make_fused_nerf_eval(S, **_b5_kw(n_emb, n_tau, "full"))
-    tp = port_params(n_emb, n_tau)
+    _check_round_trip(*WIDE[width], 2)
+
+
+def _check_round_trip(n_emb, n_tau, n_segs, n_dir=4, n_a=None):
+    fn = tmk.make_fused_nerf_eval(S, **_b5_kw(n_emb, n_tau, "full", n_dir,
+                                              n_a))
+    tp = port_params(n_emb, n_tau, n_dir=n_dir, n_a=n_a)
     pw = fn.pack(tp)
+    kin = n_segs * trk.SEG
     for p in ("static", "transient"):
-        assert pw[f"{p}_xyz_0"]["w"].shape == (2 * trk.SEG, trk.WIDTH)
-        assert pw[f"{p}_xyz_4"]["w"].shape == (2 * trk.SEG + trk.WIDTH,
-                                               trk.WIDTH)
+        assert pw[f"{p}_xyz_0"]["w"].shape == (kin, trk.WIDTH)
+        assert pw[f"{p}_xyz_4"]["w"].shape == (kin + trk.WIDTH, trk.WIDTH)
         assert not pw[f"{p}_xyz_4"]["w"][
-            3 + 6 * n_emb + (n_tau if p == "transient" else 0):
-            2 * trk.SEG].any()
+            3 + 6 * n_emb + (n_tau if p == "transient" else 0):kin].any()
+    dir_w = 3 + 6 * n_dir
+    a0, rows = trk.static_dir_rows(dir_w, n_a or 0, n_a is not None)
+    sd = pw["static_dir"]["w"]
+    assert sd.shape == (rows, trk.WIDTH)
+    assert not sd[trk.WIDTH + dir_w:a0].any()
+    assert not sd[a0 + (n_a or 0):].any()
     back = trk.unpad_padded_grads(pw, fn.weight_names, **fn.pack_kw)
     for name in fn.weight_names:
         if name == "transient_heads":
@@ -173,6 +326,51 @@ def test_two_segment_packing_round_trips(width):
         assert torch.equal(back[name]["w"], want.float()), name
     assert torch.equal(back["transient_rgb"]["w"],
                        tp["transient_rgb"]["w"].to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("n_emb,n_tau,n_segs,n_dir,n_a", [
+    (10, 200, 3, 4, None), (43, 48, 3, 4, None), (43, 200, 4, 4, None),
+    (10, 321, 3, 4, None), (43, 700, 8, 4, None), (10, 80, 2, 22, 160),
+    (10, 200, 3, 22, 48)])
+def test_packing_round_trips_at_any_segment_count(n_emb, n_tau, n_segs,
+                                                  n_dir, n_a):
+    """The N-segment packing: layer 0 (128 n, 256), the skip layer (128 n
+    + 256, 256) with h at row 128 n, the direction embedding in its
+    segments from row 256 and the appearance after them; zero rows
+    between; `unpad_padded_grads` gives back the bf16 weights."""
+    _check_round_trip(n_emb, n_tau, n_segs, n_dir, n_a)
+
+
+@pytest.mark.parametrize("n_tau,n_dir,n_a", [
+    (80, 22, None), (200, 22, None), (200, 4, 160), (200, 22, 48),
+    (48, 22, 48)])
+def test_wide_embeddings_match_jax(n_tau, n_dir, n_a):
+    """Direction (N_emb_dir 22, 135 lanes) and appearance (N_a 160)
+    embeddings past one segment, full evaluation, against JAX's unpadded
+    layout at 143 and 263 lanes under `check_packed`. At 111 lanes (one
+    segment) JAX runs its padded layout, whose direction rows overlap the
+    appearance's (ROADMAP C): there the port's builder and wrapper refuse
+    with the labelled message."""
+    n_emb = 10
+    if 3 + 6 * n_emb + n_tau <= trk.SEG:
+        kw = _b5_kw(n_emb, n_tau, "full", n_dir, n_a)
+        with pytest.raises(ValueError, match="ROADMAP C.*mlp_backend='xla'"):
+            tmk.make_fused_nerf_eval(S, **kw)
+        fn = tmk.make_fused_nerf_eval(
+            S, **_b5_kw(n_emb, n_tau, "full"))  # the narrow build, for its packing
+        xyz, _, t = points(2, n_tau)
+        dirs, a = embeddings(2, n_dir, n_a)
+        T = torch.from_numpy
+        tp = port_params(n_emb, n_tau, n_dir=n_dir, n_a=n_a)
+        with pytest.raises(ValueError, match="ROADMAP C"):
+            tmk.fused_nerf_eval_cuda(
+                fn.pack(tp), T(xyz), T(dirs), T(a), T(t),
+                **dict(fn.kernel_kw, encode_a=True))
+        return
+    got, want, _, pw, _ = _b5_against_jax(n_emb, n_tau, "full", n_dir, n_a)
+    assert pw["static_dir"]["w"].shape[0] == trk.static_dir_rows(
+        3 + 6 * n_dir, n_a or 0, n_a is not None)[1]
+    check_packed(got, want)
 
 
 # ------------------------------------------- the 16-frequency cap, repaired
@@ -372,10 +570,11 @@ def test_packed_train_at_17_frequencies_matches_jax(variant):
     _hold_or_explain(plain_bwd, leaves, want, f"B4 {variant} at 17 freqs")
 
 
-def _wrapper_calls(n_emb, n_tau, static_only=False):
+def _wrapper_calls(n_emb, n_tau, static_only=False, plain=False):
     """{name: thunk} calling each CUDA wrapper on CPU tensors of the given
     widths: each must pass its width checks and stop at its device
-    check."""
+    check; with `plain`, also "B5 plain": the dispatching function, which
+    runs B5's plain version on them."""
     n = 2
     tp = tn.init_nerf_params(torch.Generator().manual_seed(0), "fine",
                              in_channels_xyz=3 + 6 * n_emb,
@@ -395,6 +594,8 @@ def _wrapper_calls(n_emb, n_tau, static_only=False):
         n_tau=n_tau)
     calls["B5"] = lambda: tmk.fused_nerf_eval_cuda(
         b5.pack(tp), xyz, dirs, None, te, **b5.kernel_kw)
+    if plain:
+        calls["B5 plain"] = lambda: b5(tp, xyz, dirs, None, te)
     if 3 + 6 * n_emb + (n_tau if encode_t else 0) > trk.SEG:
         return calls
     b1 = trk.make_planar_nerf_eval_comp(S, use_viewdir=True,
@@ -439,30 +640,44 @@ def test_every_wrapper_takes_up_to_20_frequencies(n_emb):
 
 
 @pytest.mark.parametrize("n_emb,n_tau,static_only", [
-    (10, 80, False), (22, 48, False), (20, 8, False), (42, 48, True)])
+    (10, 200, False), (43, 48, True), (43, 200, False), (43, 700, False)])
 def test_packed_evaluator_wrapper_takes_two_segments(n_emb, n_tau,
                                                      static_only):
-    """B5 past one segment (up to 42 frequencies, 255 lanes, without the
-    time latent) passes its width checks and stops at the device check;
-    past two segments every builder raises with its ROADMAP label."""
-    for call in _wrapper_calls(n_emb, n_tau, static_only).values():
-        with pytest.raises(ValueError, match="takes CUDA tensors"):
-            call()
-    with pytest.raises(ValueError, match="ROADMAP A19"):
-        tmk.make_fused_nerf_eval(S, use_viewdir=True, encode_a=False,
-                                 encode_t=True, output_flow=(),
-                                 n_emb_xyz=n_emb, n_tau=256)
+    """B5 past two segments (3, 4 and 8 input segments here, 43
+    frequencies, with and without the time latent): its builder takes the
+    widths, its wrapper passes its width checks and stops at the device
+    check, and its plain version runs them."""
+    calls = _wrapper_calls(n_emb, n_tau, static_only, plain=True)
+    lanes = 3 + 6 * n_emb + (0 if static_only else n_tau)
+    assert trk.input_segs(lanes) == {261: 3, 263: 3, 461: 4, 961: 8}[lanes]
+    out = calls.pop("B5 plain")()
+    assert out.shape == (2, S, 16) and bool(torch.isfinite(out).all())
+    assert set(calls) == {"B5"}
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        calls["B5"]()
 
 
 def test_one_frequency_bound_feeds_both_sides():
-    """The wrappers size their frequency arrays by MAX_FREQS, the most
-    frequencies two segments hold, and the build hands the same number to
-    the kernels as MAXF."""
-    assert trk.MAX_FREQS == 42 == (trk.MAX_SEGS * trk.SEG - 3) // 6
+    """The one-segment kernels' wrappers (B1, B2, B4) size their frequency
+    arrays by MAX_FREQS, the most frequencies one segment holds, and the
+    build hands the same number to the kernels as MAXF; one frequency
+    more is past one segment, which their builders refuse. B5 reads its
+    frequencies, any count, from a device table, and no MAXF."""
+    assert trk.MAX_FREQS == 20 == (trk.SEG - 3) // 6
     assert f"-DNSFF_MAX_FREQS={trk.MAX_FREQS}" in cuda_build.NVCC_FLAGS
     header = (Path(cuda_build.CSRC_DIR) / "planar_tower.cuh").read_text()
     assert "constexpr int MAXF = NSFF_MAX_FREQS;" in header
     assert "MAXF = 16" not in header
+    kw = dict(use_viewdir=True, output_flow=("fw", "bw"),
+              n_emb_xyz=trk.MAX_FREQS + 1, n_tau=0)
+    for build in (lambda: trk.make_planar_nerf_train(S, **kw),
+                  lambda: trk.make_planar_nerf_eval_comp(S, **kw),
+                  lambda: tmt.make_fused_nerf_train(S, encode_a=False,
+                                                    encode_t=True, **kw)):
+        with pytest.raises(ValueError, match="one 128-lane segment"):
+            build()
+    b5 = (Path(cuda_build.CSRC_DIR) / "fused_nerf_eval.cu").read_text()
+    assert "MAXF" not in b5 and not hasattr(tmk, "MAX_FREQS")
 
 
 # ----------------------------------------- the widths that JAX refuses too
@@ -474,7 +689,7 @@ def test_backward_and_planar_kernels_refuse_past_one_segment(width):
     (traced with `jax.eval_shape`: the errors are the tracer's); the port's
     B4 and planar builders and wrappers raise there too, with the way
     round in the message."""
-    n_emb, n_tau = WIDE[width]
+    n_emb, n_tau = WIDE[width][:2]
     jp = jax_params(n_emb, n_tau)
     xyz, dirs, t = points(2, n_tau)
     J = jnp.asarray
@@ -556,7 +771,17 @@ def test_test_time_render_at_n_tau_80_matches_jax():
     planar_eval='off' (the serving and eval path's packed route: here B5's
     plain version at two segments) against the JAX renderer on its
     interpreted kernel, key for key."""
-    n_tau, frames, n = 80, 4, 12
+    _check_test_time_render(80)
+
+
+def test_test_time_render_at_n_tau_200_matches_jax():
+    """`test_test_time_render_at_n_tau_80_matches_jax` at N_tau 200 (263
+    lanes, three input segments)."""
+    _check_test_time_render(200)
+
+
+def _check_test_time_render(n_tau):
+    frames, n = 4, 12
     cfg = dict(N_samples=S, N_importance=0, perturb=1.0, noise_std=1.0,
                use_viewdir=True, encode_t=True, N_tau=n_tau,
                max_t=frames - 1, compute_dtype="bfloat16",
@@ -600,14 +825,24 @@ def test_export_op_takes_two_segments(tmp_path):
     two-segment packing: `torch.library.opcheck`, and
     `tools/export_render.py`'s program on the packed route at N_tau 80
     exported with B5 in its graph, reloaded equal to the live render."""
-    n_tau, frames, n = 80, 4, 16
+    _check_export_op(tmp_path, 80)
+
+
+def test_export_op_takes_three_segments(tmp_path):
+    """`test_export_op_takes_two_segments` at N_tau 200 (three input
+    segments)."""
+    _check_export_op(tmp_path, 200)
+
+
+def _check_export_op(tmp_path, n_tau):
+    frames, n = 4, 16
     tp = params_from_jax(jax.tree.map(np.asarray, _render_params(n_tau)),
                          "cpu")
     fn = tmk.make_fused_nerf_eval(S, use_viewdir=True, encode_a=False,
                                   encode_t=True, output_flow=("fw",),
                                   n_tau=n_tau)
     pw = fn.pack(tp["nerf_fine"])
-    assert trk.packed_in_rows(pw) == 2 * trk.SEG
+    assert trk.packed_in_rows(pw) == trk.input_segs(63 + n_tau) * trk.SEG
     xyz, dirs, t = (torch.from_numpy(v) for v in points(3, n_tau))
     w, b, slots = library.slot_lists(pw)
     kk = fn.kernel_kw
